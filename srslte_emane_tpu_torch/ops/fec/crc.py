@@ -1,0 +1,62 @@
+"""LTE CRC attach/check as batched GF(2) products.
+
+Twin of the reference's `ops/fec/crc.py`.  With zero initial state the CRC
+is linear over GF(2): crc(m) = XOR_{i : m_i = 1} (x^(L-1-i+order) mod g), so
+a batch of length-L messages is one float32 product (B, L) @ (L, order)
+followed by mod 2.  The popcount sums are at most L <= 49,496 < 2^24, so the
+float32 accumulation is exact in any order.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+# polynomial bitmasks include the leading x^order term
+LTE_CRC24A = (0x1864CFB, 24)
+LTE_CRC24B = (0x1800063, 24)
+LTE_CRC16 = (0x11021, 16)
+LTE_CRC8 = (0x19B, 8)
+
+
+@functools.lru_cache(maxsize=None)
+def _remainder_matrix(poly: int, order: int, length: int) -> np.ndarray:
+    """R[i, :] = bits (MSB-first) of x^(length-1-i+order) mod g."""
+    rem = np.zeros((length, order), dtype=np.int8)
+    # state = x^order mod g  (polynomial bits, index j == coeff of x^j)
+    state = poly & ((1 << order) - 1)
+    for d in range(length):
+        rem[length - 1 - d, :] = [(state >> (order - 1 - b)) & 1 for b in range(order)]
+        # multiply by x: shift, reduce
+        state <<= 1
+        if state >> order & 1:
+            state ^= poly
+        state &= (1 << order) - 1
+    return rem
+
+
+@functools.lru_cache(maxsize=32)
+def _device_matrix(poly: int, order: int, length: int, device: torch.device):
+    return torch.from_numpy(
+        _remainder_matrix(poly, order, length).astype(np.float32)).to(device)
+
+
+def crc_bits(bits: torch.Tensor, crc=LTE_CRC24A) -> torch.Tensor:
+    """CRC of batched bit messages: (..., L) 0/1 -> (..., order) int8 bits,
+    MSB-first (`srslte_crc_attach` bit order)."""
+    poly, order = crc
+    r = _device_matrix(poly, order, bits.shape[-1], bits.device)
+    acc = bits.to(torch.float32) @ r
+    return torch.remainder(acc, 2.0).to(torch.int8)
+
+
+def crc_attach(bits: torch.Tensor, crc=LTE_CRC24A) -> torch.Tensor:
+    """Append CRC bits: (..., L) -> (..., L + order)."""
+    return torch.cat([bits, crc_bits(bits, crc).to(bits.dtype)], dim=-1)
+
+
+def crc_ok(bits_with_crc: torch.Tensor, crc=LTE_CRC24A) -> torch.Tensor:
+    """True where crc(m || crc(m)) == 0, over (..., L+order)."""
+    return (crc_bits(bits_with_crc, crc) == 0).all(dim=-1)
