@@ -5,20 +5,36 @@ Run from the repository root:  python3 chip_smoke.py
 
 Phases (any failure raises; the exit code is then non-zero):
   1. device: needs torch.cuda; prints the card's name and power limit;
-  2. build: compiles the MAP kernel (srslte_emane_tpu_torch/csrc/turbo_map.cu)
-     into build/ unless this source was built before;
+  2. build: compiles both MAP kernels (srslte_emane_tpu_torch/csrc/
+     turbo_map.cu and turbo_map_v1.cu), one nvcc each, started together,
+     into build/ unless these sources were built before;
   3. kernel vs plain: the CUDA MAP kernel against map_decode_ref on the card,
      at the two 20 MHz bench shapes (768 x K=5504, 384 x K=5568), f32 and
      bf16-storage modes;
-  4. main path: the 20 MHz SISO 64QAM PDSCH link at batch 128 (tx_subframe,
-     AWGN, rx_subframe with the kernel) must decode the payload bit-exactly
-     with every CRC passing, through the kernel; then decode and encode
-     throughput, median of 3 runs.
+  4. downlink path: the 20 MHz SISO 64QAM PDSCH link at batch 128
+     (tx_subframe, AWGN, rx_subframe with the kernel) must decode the payload
+     bit-exactly with every CRC passing, through the kernel; then decode and
+     encode throughput, median of 3 runs;
+  5. v1 kernel vs plain (map_decode_v1_ref) at 768 x K=5504 (W=32, L=172)
+     and 768 x K=1040 (W=16, L=65, an odd window); then the odd-window path:
+     turbo_decode with the window count patched to give L=33 must launch v1
+     (and not the radix-2 kernel) and decode every code block;
+  6. uplink path: the 20 MHz PUSCH cell of scripts/bench_extra.py (100 PRB,
+     16QAM rate 0.5, 14 dB, llr_bits=16) at batch 128 through
+     models/ue_ul (build_subframe, AWGN, enb_receive with the kernel) must
+     decode bit-exactly with every CRC passing; decode and encode
+     throughput; then a full-width PUSCH + PUCCH 1a composite and the
+     reference test's 25 PRB composites (PUSCH + PUCCH 1a + SRS; PUCCH 2);
+  7. cascade: turbo_decode on 128 code blocks of K=5504, a quarter of them
+     at low SNR, gives the same bits, CRC flags and n_iter with the
+     compaction cascade on and off, on fewer MAP rows with it on.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
 """
 
+import concurrent.futures
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -49,6 +65,31 @@ def cuda_ms(fn, n):
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def rate(fn, check=lambda out: True):
+    """Calls per second times BATCH: one warm-up call, then the median of
+    N_RUNS runs of ITERS calls (host clock, synchronised), with the spread
+    (max - min) / median in percent and the rates themselves."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    rates = []
+    for _ in range(N_RUNS):
+        t0 = time.perf_counter()
+        for _ in range(ITERS):
+            out = fn()
+        torch.cuda.synchronize()
+        rates.append(BATCH * ITERS / (time.perf_counter() - t0))
+        assert check(out), "a timed run produced a wrong result"
+    med = statistics.median(rates)
+    return med, 100.0 * (max(rates) - min(rates)) / med, rates
+
+
+def fmt_rate(name, med, spread, rates):
+    return (f"{name} {med:.1f} sf/s median of {N_RUNS} (spread {spread:.2f}%: "
+            f"{[round(r, 1) for r in rates]})")
 
 
 def map_inputs(k, batch, dev):
@@ -139,33 +180,236 @@ def phase_main_path(dev):
     assert rel < 1e-5, f"card vs CPU TX waveform: relative RMS {rel}"
     log(f"card vs CPU tx_subframe relative RMS {rel:.3e}")
 
-    def rate(fn, check=lambda out: True):
-        fn()
-        torch.cuda.synchronize()
-        rates = []
-        for _ in range(N_RUNS):
-            t0 = time.perf_counter()
-            for _ in range(ITERS):
-                out = fn()
-            torch.cuda.synchronize()
-            rates.append(BATCH * ITERS / (time.perf_counter() - t0))
-            assert check(out), "a timed run produced a wrong result"
-        med = statistics.median(rates)
-        return med, 100.0 * (max(rates) - min(rates)) / med, rates
-
     tdc.launches = 0
     dec, dec_spread, dec_rates = rate(
         lambda: pdsch_link.rx_subframe(rx, cfg, use_kernel=True)[1],
         check=lambda ok_: bool(ok_.all()))
     passes = tdc.launches / ((N_RUNS * ITERS + 1) * len({k for k in segm.cb_sizes}))
     enc, enc_spread, enc_rates = rate(lambda: pdsch_link.tx_subframe(payload, cfg))
-    log(f"decode {dec:.1f} sf/s median of {N_RUNS} (spread {dec_spread:.2f}%: "
-        f"{[round(r, 1) for r in dec_rates]}), {dec * cfg.tbs / 1e6:.1f} Mb/s payload, "
-        f"MAP half-iterations per code-block size h = {passes:.2f} "
+    log(f"{fmt_rate('decode', dec, dec_spread, dec_rates)}, {dec * cfg.tbs / 1e6:.1f} Mb/s "
+        f"payload, MAP half-iterations per code-block size h = {passes:.2f} "
         f"(n_iter = (h+1)//2 = {(passes + 1) // 2:.0f} when all sizes take the same h); "
-        f"encode {enc:.1f} sf/s (spread {enc_spread:.2f}%: "
-        f"{[round(r, 1) for r in enc_rates]}); batch {BATCH}, tbs {cfg.tbs}")
+        f"{fmt_rate('encode', enc, enc_spread, enc_rates)}; batch {BATCH}, tbs {cfg.tbs}")
     return main_launches
+
+
+def random_llrs(k, batch, dev, seed):
+    """LLRs of random code bits, any K (the MAP does not interleave, so K
+    need not be a turbo code-block size), on the card."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    bits = rng.integers(0, 2, (2, batch, k))
+    f = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev).contiguous()
+    return (f((1 - 2.0 * bits[0]) * 4 + rng.normal(0, 1, (batch, k))),
+            f((1 - 2.0 * bits[1]) * 4 + rng.normal(0, 1, (batch, k))),
+            f(rng.normal(0, 4, (batch, 3))), f(rng.normal(0, 4, (batch, 3))))
+
+
+def code_block_llrs(k, batch, dev, seed, scale):
+    """(bits (B, K), d0, d1, d2): CRC24B-terminated code blocks through the
+    turbo encoder, as LLRs (1 - 2d) * scale + unit noise; scale may be (B, 1)."""
+    import torch
+
+    from srslte_emane_tpu_torch.ops.fec import crc, turbo
+
+    rng = np.random.default_rng(seed)
+    payload = torch.from_numpy(rng.integers(0, 2, (batch, k - 24), dtype=np.int8)).to(dev)
+    bits = crc.crc_attach(payload, crc.LTE_CRC24B)
+    noise = lambda d: torch.from_numpy(rng.normal(0, 1, tuple(d.shape)).astype(np.float32)).to(dev)
+    return (bits, *((1 - 2.0 * d.float()) * scale + noise(d) for d in turbo.turbo_encode(bits)))
+
+
+def phase_v1(dev):
+    """The v1 kernel against its plain version, then the odd-window path
+    through the decoder.  Returns (cases, launches of the path)."""
+    import torch
+
+    from srslte_emane_tpu_torch.ops.fec import crc, turbodecoder, turbodecoder_cuda as tdc
+
+    cases = []
+    for k, batch, w in ((5504, 768, 32), (1040, 768, 16)):
+        args = random_llrs(k, batch, dev, k)
+        got = tdc.map_decode_v1_cuda(*args, w)
+        ref = tdc.map_decode_v1_ref(*args, w)
+        err = (got - ref).abs()
+        strong = ref.abs() > 0.5
+        assert bool(got.isfinite().all()), "v1 kernel output not finite"
+        assert bool((err <= ATOL + RTOL * ref.abs()).all()), \
+            f"v1 K={k} W={w}: max err {err.max().item()} exceeds atol/rtol"
+        assert bool((got[strong].sign() == ref[strong].sign()).all()), \
+            f"v1 K={k} W={w}: sign differs where |LLR| > 0.5"
+        prepared = tdc._v1_inputs(*args, w)
+        ms = cuda_ms(lambda: tdc.launch_v1(*prepared), 10)
+        wrapper_ms = cuda_ms(lambda: tdc.map_decode_v1_cuda(*args, w), 10)
+        plain_ms = cuda_ms(lambda: tdc.map_decode_v1_ref(*args, w), 3)
+        case = dict(K=k, B=batch, W=w, L=k // w, max_abs_err=err.max().item(),
+                    ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms)
+        log(f"v1 kernel vs plain {json.dumps(case)}")
+        cases.append(case)
+
+    # the odd-window path: the decoder's entry point with a window count
+    # that gives L = 1056 / 32 = 33 (no code-block size does by itself)
+    k = 1056
+    bits, d0, d1, d2 = code_block_llrs(k, BATCH, dev, 1, 1.5)
+    valid = torch.ones(BATCH, dtype=torch.bool, device=dev)
+    pick = tdc._pick_windows
+    tdc._pick_windows = lambda _: 32
+    try:
+        tdc.launches = tdc.launches_v1 = 0
+        out, ok, n_iter = turbodecoder.turbo_decode(d0, d1, d2, valid, k, 8, crc.LTE_CRC24B,
+                                                    use_kernel=True, llr_bits=16)
+        torch.cuda.synchronize()
+        launches = tdc.launches_v1
+        assert launches > 0 and tdc.launches == 0, \
+            f"odd window: {launches} v1 and {tdc.launches} radix-2 launches"
+    finally:
+        tdc._pick_windows = pick
+    assert bool(ok.all()) and torch.equal(out, bits), "odd-window decode failed"
+    log(f"odd-window path: {BATCH} code blocks of K={k} at L=33 decoded through v1, "
+        f"{launches} v1 launches, n_iter {n_iter}")
+    return cases, launches
+
+
+def ul_bench_config():
+    """The 20 MHz PUSCH cell of scripts/bench_extra.py:84-101."""
+    from srslte_emane_tpu_torch.models import ue_ul
+    from srslte_emane_tpu_torch.phch import grid
+
+    l_prb, qm = 96, 4
+    G = 12 * l_prb * 12 * qm
+    tbs = (int(G * 0.5) - 24) // 8 * 8
+    return ue_ul.UlSubframeConfig(cell=grid.CellConfig(n_prb=100, cell_id=1), sf_idx=2,
+                                  rnti=0x5A, rb_start=0, l_prb=l_prb, qm=qm, tbs=tbs)
+
+
+def phase_uplink(dev):
+    """The uplink path and its composites.  Returns the MAP kernel launches
+    of the PUSCH cell's first decode."""
+    import dataclasses
+
+    import torch
+
+    from srslte_emane_tpu_torch.models import ue_ul
+    from srslte_emane_tpu_torch.ops import channel
+    from srslte_emane_tpu_torch.ops.fec import turbodecoder_cuda as tdc
+    from srslte_emane_tpu_torch.phch import grid
+
+    cfg = ul_bench_config()
+    segm = cfg.sch_cfg.segm
+    assert (cfg.tbs, cfg.sch_cfg.G, segm.C, segm.F) == (27624, 55296, 5, 8), (cfg.tbs, segm)
+    payload = torch.from_numpy(
+        np.random.default_rng(2).integers(0, 2, (BATCH, cfg.tbs), dtype=np.int8)).to(dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    snr_db, llr_bits = 14.0, 16
+
+    tdc.launches = 0
+    t0 = time.perf_counter()
+    tx = ue_ul.build_subframe(cfg, tb_bits=payload)
+    rx = channel.awgn(gen, tx, snr_db)
+    out = ue_ul.enb_receive(rx, cfg, use_kernel=True, llr_bits=llr_bits)
+    got, ok = out["pusch"]
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = tdc.launches
+    assert tuple(tx.shape) == (BATCH, 30720, 2) and bool(tx.isfinite().all())
+    assert bool(ok.all()), f"UL CRC failed on {int((~ok).sum())} of {BATCH} subframes"
+    assert torch.equal(got, payload), "decoded UL payload differs"
+    assert launches > 0, "the uplink path did not launch the MAP kernel"
+    log(f"uplink path: {BATCH} subframes of {cfg.tbs} bits ({segm.C} code blocks: "
+        f"{segm.cb_sizes}) decoded bit-exact at {snr_db} dB, all CRCs pass, {launches} MAP "
+        f"kernel launches, first call {first_s:.2f} s (host tables included)")
+
+    tdc.launches = 0
+    dec = rate(lambda: ue_ul.enb_receive(rx, cfg, use_kernel=True, llr_bits=llr_bits)["pusch"][1],
+               check=lambda ok_: bool(ok_.all()))
+    sizes = sorted(set(segm.cb_sizes))
+    passes = tdc.launches / ((N_RUNS * ITERS + 1) * len(sizes))
+    enc = rate(lambda: ue_ul.build_subframe(cfg, tb_bits=payload))
+    log(f"UL {fmt_rate('decode', *dec)}, {dec[0] * cfg.tbs / 1e6:.1f} Mb/s payload, "
+        f"MAP passes per code-block size {passes:.2f} (sizes {sizes}); "
+        f"UL {fmt_rate('encode', *enc)}; batch {BATCH}, tbs {cfg.tbs}")
+
+    # full width: PUSCH beside PUCCH 1a on the edge PRBs 0 / 99
+    full = dataclasses.replace(cfg, rb_start=2, n_pucch_1=0)
+    ack = torch.tensor([[1.0, 0.0], [-1.0, 0.0]], device=dev).repeat(BATCH // 2, 1)
+    rx = channel.awgn(gen, ue_ul.build_subframe(full, tb_bits=payload, ack_bits=ack), snr_db)
+    out = ue_ul.enb_receive(rx, full, use_kernel=True, llr_bits=llr_bits)
+    got, ok = out["pusch"]
+    corr = out["pucch_ack"]
+    assert bool(ok.all()) and torch.equal(got, payload), "full-width composite: PUSCH failed"
+    assert bool((corr[:, 0].sign() == ack[:, 0]).all()), "full-width composite: ACK/NACK sign"
+    log(f"full-width composite (PUSCH PRB 2-97 + PUCCH 1a on PRB 0/99): payload exact, "
+        f"ACK/NACK signs right, |corr| min {corr[:, 0].abs().min().item():.3f}")
+
+    # tests/test_ue_ul_model.py's composites at batch BATCH
+    cell = grid.CellConfig(n_prb=25, cell_id=3)
+    l_prb, qm = 8, 4
+    tbs = (12 * l_prb * 12 * qm // 2 - 24) // 8 * 8
+    c1 = ue_ul.UlSubframeConfig(cell=cell, sf_idx=2, rnti=0x5A, rb_start=10, l_prb=l_prb,
+                                qm=qm, tbs=tbs, n_pucch_1=3, srs_rb_start=4, srs_l_prb=4)
+    tb = torch.from_numpy(
+        np.random.default_rng(0).integers(0, 2, (BATCH, tbs), dtype=np.int8)).to(dev)
+    rx = channel.awgn(gen, ue_ul.build_subframe(c1, tb_bits=tb, ack_bits=ack), 18.0)
+    out = ue_ul.enb_receive(rx, c1, use_kernel=True)
+    got, ok = out["pusch"]
+    h, snr = out["srs_ce"]
+    assert bool(ok.all()) and torch.equal(got, tb), "25 PRB composite: PUSCH failed"
+    assert bool((out["pucch_ack"][:, 0] * ack[:, 0] > 0.3).all()), "25 PRB composite: ACK"
+    assert bool(h.isfinite().all()) and bool(snr.isfinite().all()), "SRS estimate not finite"
+    c2 = ue_ul.UlSubframeConfig(cell=cell, sf_idx=4, n_pucch_2=1)
+    cqi = torch.from_numpy(
+        np.random.default_rng(1).integers(0, 2, (BATCH, 6), dtype=np.int8)).to(dev)
+    rx = channel.awgn(gen, ue_ul.build_subframe(c2, cqi_bits=cqi), 12.0)
+    assert torch.equal(ue_ul.enb_receive(rx, c2, n_cqi_bits=6)["pucch_cqi"], cqi), \
+        "25 PRB composite: PUCCH 2 CQI bits differ"
+    log(f"25 PRB composites: PUSCH + PUCCH 1a + SRS (payload exact, ACK signs right, SRS "
+        f"SNR {snr.mean().item():.1f} dB) and PUCCH 2 (CQI bits exact)")
+    return launches
+
+
+def phase_cascade(dev):
+    """The compaction cascade changes the MAP work, not the results."""
+    import torch
+
+    from srslte_emane_tpu_torch.ops.fec import crc, turbodecoder
+
+    k = 5504
+    scale = torch.where(torch.arange(BATCH, device=dev) % 4 == 0, 0.45, 1.0)[:, None]
+    bits, d0, d1, d2 = code_block_llrs(k, BATCH, dev, 3, scale)
+    valid = torch.ones(BATCH, dtype=torch.bool, device=dev)
+    runs, rows, secs = {}, {}, {"1": [], "0": []}
+    decode = lambda: turbodecoder.turbo_decode(d0, d1, d2, valid, k, 8, crc.LTE_CRC24B,
+                                               use_kernel=True, llr_bits=16)
+    saved = os.environ.get("SRSLTE_TPU_CASCADE")
+    try:
+        for cascade in ("1", "0", "0", "1", "1", "0", "0", "1"):  # first pair: check + warm-up
+            os.environ["SRSLTE_TPU_CASCADE"] = cascade
+            turbodecoder.map_rows = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = decode()
+            torch.cuda.synchronize()
+            if cascade not in runs:
+                runs[cascade], rows[cascade] = out, turbodecoder.map_rows
+            else:
+                secs[cascade].append(time.perf_counter() - t0)
+    finally:
+        if saved is None:
+            os.environ.pop("SRSLTE_TPU_CASCADE", None)
+        else:
+            os.environ["SRSLTE_TPU_CASCADE"] = saved
+    (b1, ok1, it1), (b0, ok0, it0) = runs["1"], runs["0"]
+    assert torch.equal(b1, b0) and torch.equal(ok1, ok0) and it1 == it0, \
+        "cascade on and off disagree"
+    assert rows["1"] < rows["0"], f"cascade processed {rows['1']} MAP rows, off {rows['0']}"
+    n_ok = int(ok1.sum())
+    assert n_ok >= 3 * BATCH // 4 and torch.equal(b1[ok1], bits[ok1]), "cascade batch decode"
+    log(f"cascade: {BATCH} code blocks of K={k} (a quarter at low SNR): {n_ok} pass, n_iter "
+        f"{it1}; MAP rows {rows['1']} with the cascade, {rows['0']} without; "
+        f"{statistics.median(secs['1']) * 1e3:.2f} ms vs {statistics.median(secs['0']) * 1e3:.2f} "
+        f"ms per decode (median of 3 calls each, alternating, host clock)")
 
 
 def main():
@@ -183,24 +427,41 @@ def main():
 
     from srslte_emane_tpu_torch.ops.fec import turbodecoder_cuda as tdc
 
-    b = tdc.build()
-    log(f"build: {b.seconds:.1f} s -> {b.path}")
-    for line in b.log.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"ptxas: {line.strip()}")
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:  # one nvcc per source, together
+        builds = list(pool.map(tdc.build, (tdc.SOURCE, tdc.SOURCE_V1)))
+    log(f"build: {time.perf_counter() - t0:.1f} s wall for both")
+    for b in builds:
+        log(f"build: {b.seconds:.1f} s -> {b.path}")
+        for line in b.log.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"ptxas: {line.strip()}")
 
     cases = phase_kernel(dev)
-    main_launches = phase_main_path(dev)
+    dl_launches = phase_main_path(dev)
+    v1_cases, v1_launches = phase_v1(dev)
+    ul_launches = phase_uplink(dev)
+    phase_cascade(dev)
     bench = next(c for c in cases if c["K"] == 5504 and c["narrow"])
+    odd = next(c for c in v1_cases if c["L"] % 2)
     print(json.dumps({"kernels": [{
         "name": "turbo_map",
         "route": "cuda",
         "source": "srslte_emane_tpu_torch/csrc/turbo_map.cu",
         "replaces": "srslte_emane_tpu/ops/fec/turbodecoder_pallas2.py:70",
-        "launches": main_launches,
+        "launches": dl_launches + ul_launches,  # downlink path + uplink path
         "max_abs_err": max(c["max_abs_err"] for c in cases),
         "ms": bench["ms"],
         "plain_ms": bench["plain_ms"],
+    }, {
+        "name": "turbo_map_v1",
+        "route": "cuda",
+        "source": "srslte_emane_tpu_torch/csrc/turbo_map_v1.cu",
+        "replaces": "srslte_emane_tpu/ops/fec/turbodecoder_pallas.py:53",
+        "launches": v1_launches,  # the odd-window path
+        "max_abs_err": max(c["max_abs_err"] for c in v1_cases),
+        "ms": odd["ms"],
+        "plain_ms": odd["plain_ms"],
     }]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

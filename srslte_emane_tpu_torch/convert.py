@@ -1,10 +1,11 @@
 """State carried across from the reference package.
 
-The link has no weights: its state is the HARQ soft buffers (the per-CB
-w-buffer lists of `sch.init_softbuffer` / `sch.decode_tb`) and the link
-configuration.  These helpers rebuild both from plain data, without
-importing jax: soft buffers arrive as numpy arrays, the configuration as
-the reference dataclass's fields (`dataclasses.asdict`).
+The links have no weights: their state is the HARQ soft buffers (the
+per-CB w-buffer lists of `sch.init_softbuffer` / `sch.decode_tb`, for PDSCH
+and PUSCH alike) and the link or uplink-subframe configuration.  These
+helpers rebuild both from plain data, without importing jax: soft buffers
+arrive as numpy arrays, the configuration as the reference dataclass's
+fields (`dataclasses.asdict`).
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import numpy as np
 import torch
 
 from .models.pdsch_link import LinkConfig
+from .models.ue_ul import UlSubframeConfig
 from .phch.grid import CellConfig
 
 
@@ -26,15 +28,25 @@ def softbuffer_from_numpy(arrays, device=None, dtype=torch.float32) -> list:
             for a in arrays]
 
 
-def link_config_from_fields(**fields) -> LinkConfig:
-    """Port LinkConfig from the reference LinkConfig's fields; `cell` may be
-    a dict (as `dataclasses.asdict` gives it) or any object with the
-    CellConfig fields."""
+def _with_cell(fields: dict) -> dict:
+    """`cell` as a port CellConfig; it may come as a dict (as
+    `dataclasses.asdict` gives it) or any object with the CellConfig fields."""
     cell = fields.pop("cell", None)
     if cell is not None and not isinstance(cell, dict):
         cell = {f.name: getattr(cell, f.name) for f in dataclasses.fields(CellConfig)}
     if cell is not None:
         fields["cell"] = CellConfig(**cell)
+    return fields
+
+
+def link_config_from_fields(**fields) -> LinkConfig:
+    """Port LinkConfig from the reference LinkConfig's fields."""
+    fields = _with_cell(fields)
     if fields.get("prb_mask") is not None:
         fields["prb_mask"] = tuple(fields["prb_mask"])
     return LinkConfig(**fields)
+
+
+def ul_config_from_fields(**fields) -> UlSubframeConfig:
+    """Port UlSubframeConfig from the reference UlSubframeConfig's fields."""
+    return UlSubframeConfig(**_with_cell(fields))

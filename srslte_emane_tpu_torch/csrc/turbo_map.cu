@@ -33,37 +33,18 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "trellis.cuh"
+
 namespace {
 
-constexpr float kNeg = -1e30f;
-constexpr int kBlock = 64;
+using namespace trellis;
 
-// 8-state RSC trellis, state s = r0*4 + r1*2 + r2 (turbodecoder._trellis).
-__host__ __device__ constexpr int next_state(int s, int u) {
-  return ((u ^ ((s >> 1) & 1) ^ (s & 1)) << 2) | (((s >> 2) & 1) << 1) | ((s >> 1) & 1);
-}
-__host__ __device__ constexpr int parity(int s, int u) {
-  return u ^ ((s >> 2) & 1) ^ ((s >> 1) & 1);
-}
-// branch-metric combo of the transition (s, u): u*2 + z
-__host__ __device__ constexpr int combo(int s, int u) { return u * 2 + parity(s, u); }
-// the two predecessors (k = 0, 1) of state sp and their inputs
-__host__ __device__ constexpr int prev_state(int sp, int k) {
-  return (((sp >> 1) & 1) << 2) | ((sp & 1) << 1) | k;
-}
-__host__ __device__ constexpr int prev_u(int sp, int k) { return (sp >> 2) ^ (sp & 1) ^ k; }
+constexpr int kBlock = 64;
 
 __device__ __forceinline__ float load(const float* p) { return *p; }
 __device__ __forceinline__ float load(const __nv_bfloat16* p) { return __bfloat162float(*p); }
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
-
-template <bool LOGMAP>
-__device__ __forceinline__ float max_star(float a, float b) {
-  float m = fmaxf(a, b);
-  if (LOGMAP) m += 0.5f * log1pf(expf(-2.0f * fabsf(a - b)));
-  return m;
-}
 
 template <typename T>
 __device__ __forceinline__ void branch(const T* ls, const T* lp, size_t i, float (&g)[4]) {
@@ -72,36 +53,6 @@ __device__ __forceinline__ void branch(const T* ls, const T* lp, size_t i, float
   g[1] = x - y;
   g[2] = -g[1];
   g[3] = -g[0];
-}
-
-template <bool LOGMAP>
-__device__ __forceinline__ void bwd_step(float (&beta)[8], const float (&g)[4]) {
-  float nb[8];
-#pragma unroll
-  for (int s = 0; s < 8; ++s)
-    nb[s] = max_star<LOGMAP>(beta[next_state(s, 0)] + g[combo(s, 0)],
-                             beta[next_state(s, 1)] + g[combo(s, 1)]);
-#pragma unroll
-  for (int s = 0; s < 8; ++s) beta[s] = nb[s];
-}
-
-template <bool LOGMAP>
-__device__ __forceinline__ void fwd_step(float (&alpha)[8], const float (&g)[4]) {
-  float na[8];
-#pragma unroll
-  for (int s = 0; s < 8; ++s)
-    na[s] = max_star<LOGMAP>(alpha[prev_state(s, 0)] + g[combo(prev_state(s, 0), prev_u(s, 0))],
-                             alpha[prev_state(s, 1)] + g[combo(prev_state(s, 1), prev_u(s, 1))]);
-#pragma unroll
-  for (int s = 0; s < 8; ++s) alpha[s] = na[s];
-}
-
-__device__ __forceinline__ void normalise(float (&x)[8]) {
-  float m = x[0];
-#pragma unroll
-  for (int s = 1; s < 8; ++s) m = fmaxf(m, x[s]);
-#pragma unroll
-  for (int s = 0; s < 8; ++s) x[s] -= m;
 }
 
 // ls, lp: (L + 2H, n_cols) pre-halved LLRs, time-major, zero outside [0, K);

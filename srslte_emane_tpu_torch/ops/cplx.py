@@ -27,6 +27,17 @@ def make(re, im) -> torch.Tensor:
     return torch.stack([re, im], dim=-1)
 
 
+def zeros(shape, dtype=torch.float32, device=None) -> torch.Tensor:
+    return torch.zeros(tuple(shape) + (2,), dtype=dtype, device=device)
+
+
+def mul(a, b):
+    """Elementwise complex multiply of cf tensors (broadcasting)."""
+    ar, ai = a[..., 0], a[..., 1]
+    br, bi = b[..., 0], b[..., 1]
+    return make(ar * br - ai * bi, ar * bi + ai * br)
+
+
 def mul_conj(a, b):
     """a * conj(b)."""
     ar, ai = a[..., 0], a[..., 1]

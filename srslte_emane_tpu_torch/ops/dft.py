@@ -4,6 +4,14 @@ Twin of the reference's `ops/dft.py`, which runs the transform as bf16-input
 matrix products shaped for the TPU's matrix unit.  The port transforms in
 float32 with an FFT, so its time samples agree with the reference's to the
 reference's bf16 rounding (a relative-RMS bound), not bit for bit.
+
+The same holds for the SC-FDMA transform precoding of the uplink (sizes
+12 * l_prb, 1152 in the 20 MHz PUSCH cell): the reference runs those sizes
+as one dense bf16-input matrix product (`ops/dft.py:117-131`; 1152 is not a
+multiple of 128, so it takes no Cooley-Tukey split), and torch.fft covers
+them here.  Transform-precoded samples and the LLRs after the inverse
+transform are therefore held to a relative-RMS bound against the
+reference, not to equality.
 """
 
 from __future__ import annotations

@@ -11,8 +11,12 @@ half-iteration through the hand-written CUDA kernel of
 half-iteration (one MAP pass), a block's bits freeze when its CRC first
 passes, n_iter = (h + 1) // 2.  The reference keeps its stop test on the
 device (lax.while_loop); here the test is a host sync after each
-half-iteration.  The reference's batch-compaction cascade changes only the
-cost, never the results (each row's MAP is independent), and is not ported.
+half-iteration.  It also keeps the reference's batch-compaction cascade
+(`SRSLTE_TPU_CASCADE`, on unless "0"): once at most B/2 code blocks are
+unfinished, the stragglers are gathered into a B/2 batch and then a B/4
+one, so finished blocks stop costing MAP work.  Each row's MAP is
+independent of the others and the half-iteration counter carries across
+the stages, so the cascade changes the cost and never the results.
 
 LLR convention: positive LLR <=> bit 0 (bipolar sign s_b = 1 - 2b).
 """
@@ -35,6 +39,10 @@ HALO = 40  # window overlap, matches turbodecoder_win.h:36-87
 # alpha/beta recursions, read as the reference reads it; max-log is default.
 LOGMAP = os.environ.get("SRSLTE_TPU_LOGMAP", "0") != "0"
 EXT_SCALE = 0.75  # extrinsic damping (kept in both modes)
+
+# Code-block rows that MAP passes have processed (a plain count of the
+# batch rows of every pass; callers reset it): what the cascade saves.
+map_rows = 0
 
 
 def max_star(a, b):
@@ -254,31 +262,62 @@ def turbo_decode(d0: torch.Tensor, d1: torch.Tensor, d2: torch.Tensor,
                                    narrow=llr_bits <= 16)
     else:
         map_fn = _map_decode
+    arrs = (ls, lp1, lp2, tail_x1, tail_z1, tail_x2, tail_z2)
 
-    ext = torch.zeros_like(ls)  # latest extrinsic, natural order
-    done = ~valid
-    bits_out = torch.zeros((B, k), dtype=torch.int8, device=d0.device)
-    pass_out = torch.zeros((B,), dtype=torch.bool, device=d0.device)
-    h = 0
-    # the loop counter is HALF-iterations: CRC after every MAP pass
-    while h < 2 * max_iter and bool((~done).any()):
-        if h % 2 == 0:
-            ls_in = ls + ext
-            post = map_fn(ls_in, lp1, tail_x1, tail_z1)
-            ext = (post - ls_in) * EXT_SCALE
-            bits = (post < 0).to(torch.int8)
-        else:
-            ls_in = ls2 + ext[:, perm]
-            post = map_fn(ls_in, lp2, tail_x2, tail_z2)
-            ext = ((post - ls_in) * EXT_SCALE)[:, inv_perm]
-            bits = (post[:, inv_perm] < 0).to(torch.int8)
-        if crc is None:
-            ok = torch.zeros_like(done)
-        else:
-            ok = crc_mod.crc_ok(bits, crc)
-        # latest hard decisions for unfinished CBs; freeze once passed
-        bits_out = torch.where(done[:, None], bits_out, bits)
-        pass_out = pass_out | (ok & ~done)
-        done = done | ok
-        h += 1
+    def run(arrs, state, stop_count):
+        """Half-iterations over one (possibly compacted) batch until at most
+        stop_count of its rows are unfinished or the budget is spent."""
+        global map_rows
+        ls, lp1, lp2, tx1, tz1, tx2, tz2 = arrs
+        h, ext, done, bits_out, pass_out = state
+        ls2 = ls[:, perm]
+        # the loop counter is HALF-iterations: CRC after every MAP pass
+        while h < 2 * max_iter and int((~done).sum()) > stop_count:
+            if h % 2 == 0:
+                ls_in = ls + ext
+                post = map_fn(ls_in, lp1, tx1, tz1)
+                ext = (post - ls_in) * EXT_SCALE
+                bits = (post < 0).to(torch.int8)
+            else:
+                ls_in = ls2 + ext[:, perm]
+                post = map_fn(ls_in, lp2, tx2, tz2)
+                ext = ((post - ls_in) * EXT_SCALE)[:, inv_perm]
+                bits = (post[:, inv_perm] < 0).to(torch.int8)
+            map_rows += ls.shape[0]
+            ok = torch.zeros_like(done) if crc is None else crc_mod.crc_ok(bits, crc)
+            # latest hard decisions for unfinished CBs; freeze once passed
+            bits_out = torch.where(done[:, None], bits_out, bits)
+            pass_out = pass_out | (ok & ~done)
+            done = done | ok
+            h += 1
+        return h, ext, done, bits_out, pass_out
+
+    def stage(state, size, stop_count):
+        """Gather the unfinished rows first (stable) into a `size` batch, run
+        it until at most stop_count remain, scatter the results back."""
+        h, ext, done, bits_out, pass_out = state
+        idx = torch.argsort(done.to(torch.uint8), stable=True)[:size]
+        h, *sub = run(tuple(a[idx] for a in arrs),
+                      (h, ext[idx], done[idx], bits_out[idx], pass_out[idx]), stop_count)
+        return (h, *(full.index_copy(0, idx, part)
+                     for full, part in zip((ext, done, bits_out, pass_out), sub)))
+
+    state = (0, torch.zeros_like(ls), ~valid,
+             torch.zeros((B, k), dtype=torch.int8, device=d0.device),
+             torch.zeros((B,), dtype=torch.bool, device=d0.device))
+    cascade_on = os.environ.get("SRSLTE_TPU_CASCADE", "1") != "0"
+    if crc is None or B < 8 or not cascade_on:
+        state = run(arrs, state, 0)
+    else:
+        # the reference's two stages (turbodecoder.py:453-455); enter at the
+        # narrowest one that fits the stragglers, then fall through
+        sizes = (B // 2, B // 4)
+        state = run(arrs, state, sizes[0])
+        n_left = int((~state[2]).sum())
+        i = 0 if n_left > sizes[1] else 1
+        while n_left and i < len(sizes):
+            state = stage(state, sizes[i], sizes[i + 1] if i + 1 < len(sizes) else 0)
+            n_left = int((~state[2]).sum())
+            i += 1
+    h, _, _, bits_out, pass_out = state
     return bits_out, pass_out & valid, (h + 1) // 2

@@ -1,4 +1,4 @@
-"""Hopper max-log-MAP kernel: wrapper, build, and plain PyTorch version.
+"""Hopper max-log-MAP kernels: wrappers, build, and plain PyTorch versions.
 
 `map_decode` is the port's twin of the reference's
 `turbodecoder_pallas2.map_decode_pallas2`: one MAP half-iteration of one
@@ -7,6 +7,16 @@ constituent decoder over a batch of code blocks, windowed into
 `csrc/turbo_map.cu` (`map_decode_cuda`: the time-major windowing in torch,
 then `launch`) or raises; on a CPU tensor it runs `map_decode_ref`, the
 plain PyTorch version of the same function.
+
+That kernel steps two trellis stages at a time, so it needs an even window
+length L.  For an odd L, `map_decode` takes the second kernel, as the
+reference falls back to its v1 TPU kernel (`turbodecoder_pallas2.py:241-245`,
+`turbodecoder_pallas.map_decode_pallas`): `csrc/turbo_map_v1.cu`
+(`map_decode_v1_cuda`, float32 only, any L), whose wrapper computes the
+branch metrics and the window-edge states in torch; its plain version is
+`map_decode_v1_ref`.  No LTE code-block size gives an odd L with
+`_pick_windows`, so the decoder reaches v1 only when a caller picks the
+window count.
 
 The window count is the reference decoder's `_pick_windows(K)` (W=32 at
 both 20 MHz bench sizes: L=172 at K=5504, L=174 at K=5568), not the TPU
@@ -17,8 +27,8 @@ Rounding points follow the TPU kernel: the inputs are halved in float32,
 then (narrow mode) cast to bf16; beta is rounded to the scratch type when
 stored; m0 - m1 is float32.
 
-The library is compiled from the repository's source with nvcc at first
-use, into build/turbo_map-<hash of source and flags>/, and reused after.
+Each kernel library is compiled from the repository's source with nvcc at
+first use, into build/<kernel>-<hash of sources and flags>/, and reused after.
 """
 
 from __future__ import annotations
@@ -36,15 +46,26 @@ import typing
 import numpy as np
 import torch
 
-from .turbodecoder import HALO, LOGMAP, NEG, _pick_windows, _trellis, beta_tail, max_star
+from .turbodecoder import (HALO, LOGMAP, NEG, _gammas, _pick_windows, _trellis, beta_tail,
+                           max_star)
 
-SOURCE = pathlib.Path(__file__).resolve().parents[2] / "csrc" / "turbo_map.cu"
+CSRC = pathlib.Path(__file__).resolve().parents[2] / "csrc"
+SOURCE = CSRC / "turbo_map.cu"
+SOURCE_V1 = CSRC / "turbo_map_v1.cu"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# Kernel launches made by `launch` (a plain count; callers reset it).
+# Kernel launches made by `launch` and by `launch_v1` (plain counts;
+# callers reset them).
 launches = 0
+launches_v1 = 0
+
+# argument types of each library's C entry point `<source stem>_launch`
+_ARGTYPES = {
+    "turbo_map": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+    "turbo_map_v1": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+}
 
 
 class Build(typing.NamedTuple):
@@ -55,11 +76,13 @@ class Build(typing.NamedTuple):
 
 
 @functools.lru_cache(maxsize=None)
-def build() -> Build:
-    """Compile csrc/turbo_map.cu unless this source was built before, then
-    load the library."""
-    tag = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    path = BUILD_DIR / f"turbo_map-{tag.hexdigest()[:16]}" / "libturbo_map.so"
+def build(source: pathlib.Path) -> Build:
+    """Compile one kernel source of csrc/ (with the csrc headers it may
+    include) unless these sources were built before, then load the library."""
+    name = source.stem
+    tag = hashlib.sha256(b"".join(p.read_bytes() for p in [source, *sorted(CSRC.glob("*.cuh"))])
+                         + " ".join(NVCC_FLAGS).encode())
+    path = BUILD_DIR / f"{name}-{tag.hexdigest()[:16]}" / f"lib{name}.so"
     seconds, log = 0.0, ""
     if not path.exists():
         nvcc = shutil.which("nvcc") or os.path.join(
@@ -67,16 +90,17 @@ def build() -> Build:
         path.parent.mkdir(parents=True, exist_ok=True)
         tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
         t0 = time.perf_counter()
-        res = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
+        res = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(source)],
                              capture_output=True, text=True, check=False)
         seconds = time.perf_counter() - t0
         log = res.stdout + res.stderr
         if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed with code {res.returncode}:\n{log}")
+            raise RuntimeError(f"nvcc failed on {source.name} with code {res.returncode}:\n{log}")
         os.replace(tmp, path)  # atomic: a concurrent build never sees half a file
     lib = ctypes.CDLL(str(path))
-    lib.turbo_map_launch.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    lib.turbo_map_launch.restype = ctypes.c_int
+    entry = getattr(lib, f"{name}_launch")
+    entry.argtypes = _ARGTYPES[name]
+    entry.restype = ctypes.c_int
     return Build(lib, path, seconds, log)
 
 
@@ -127,7 +151,7 @@ def launch(ls_t: torch.Tensor, lp_t: torch.Tensor, beta_k: torch.Tensor,
     _require("beta_k", beta_k, dev, (torch.float32,), (n_cols // n_windows, 8))
     llr = torch.empty((L, n_cols), dtype=torch.float32, device=dev)
     scratch = torch.empty((L, 8, n_cols), dtype=ls_t.dtype, device=dev)
-    err = build().lib.turbo_map_launch(
+    err = build(SOURCE).lib.turbo_map_launch(
         ls_t.data_ptr(), lp_t.data_ptr(), beta_k.data_ptr(), llr.data_ptr(),
         scratch.data_ptr(), n_cols, n_windows, L, H, int(ls_t.dtype == torch.bfloat16),
         int(LOGMAP), torch.cuda.current_stream(dev).cuda_stream)
@@ -153,6 +177,20 @@ def map_decode_cuda(ls: torch.Tensor, lp: torch.Tensor, tail_x: torch.Tensor,
     return llr.view(L, B, n_windows).permute(1, 2, 0).reshape(B, K)
 
 
+@functools.lru_cache(maxsize=8)
+def _index_tables(dev: torch.device):
+    """The trellis as index tensors on `dev`: next states ns0/ns1 and the
+    combos cb0/cb1 (u*2 + z) of the transitions (s, u=0/1); predecessors
+    ps0/ps1 of each state, their inputs pu0/pu1 and combos cf0/cf1."""
+    T = _trellis()
+    idx = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    ns, pz, ps, pu = T["next_state"], T["parity"], T["prev_state"], T["prev_u"]
+    combo = np.arange(2)[None, :] * 2 + pz  # (8, 2): u*2 + z of (s, u)
+    return (idx(ns[:, 0]), idx(ns[:, 1]), idx(combo[:, 0]), idx(combo[:, 1]),
+            idx(ps[:, 0]), idx(ps[:, 1]), idx(pu[:, 0]), idx(pu[:, 1]),
+            idx(combo[ps[:, 0], pu[:, 0]]), idx(combo[ps[:, 1], pu[:, 1]]))
+
+
 def map_decode_ref(ls: torch.Tensor, lp: torch.Tensor, tail_x: torch.Tensor,
                    tail_z: torch.Tensor, n_windows: int,
                    narrow: bool = False) -> torch.Tensor:
@@ -162,14 +200,7 @@ def map_decode_ref(ls: torch.Tensor, lp: torch.Tensor, tail_x: torch.Tensor,
     L, H = _windows(K, n_windows)
     n_cols = B * n_windows
     dev = ls.device
-    T = _trellis()
-    idx = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-    ns, pz, ps, pu = T["next_state"], T["parity"], T["prev_state"], T["prev_u"]
-    combo = np.arange(2)[None, :] * 2 + pz  # (8, 2): u*2 + z of (s, u)
-    ns0, ns1 = idx(ns[:, 0]), idx(ns[:, 1])
-    cb0, cb1 = idx(combo[:, 0]), idx(combo[:, 1])
-    ps0, ps1, pu0, pu1 = idx(ps[:, 0]), idx(ps[:, 1]), idx(pu[:, 0]), idx(pu[:, 1])
-    cf0, cf1 = idx(combo[ps[:, 0], pu[:, 0]]), idx(combo[ps[:, 1], pu[:, 1]])
+    ns0, ns1, cb0, cb1, ps0, ps1, pu0, pu1, cf0, cf1 = _index_tables(dev)
 
     ls_t = time_major(ls, n_windows, narrow).to(torch.float32)
     lp_t = time_major(lp, n_windows, narrow).to(torch.float32)
@@ -220,11 +251,127 @@ def map_decode_ref(ls: torch.Tensor, lp: torch.Tensor, tail_x: torch.Tensor,
     return llr.view(L, B, n_windows).permute(1, 2, 0).reshape(B, K)
 
 
+def _v1_steps(dev: torch.device):
+    """v1's trellis steps on (8, n_cols) states with (4, n_cols) branch
+    metrics, each followed by subtracting the max over the states, and its
+    posterior m0 - m1 from alpha, the metrics and beta at the next node."""
+    ns0, ns1, cb0, cb1, ps0, ps1, _, _, cf0, cf1 = _index_tables(dev)
+    normalise = lambda x: x - x.max(dim=0).values
+
+    def beta_step(beta, g):
+        return normalise(max_star(beta[ns0] + g[cb0], beta[ns1] + g[cb1]))
+
+    def alpha_step(alpha, g):
+        return normalise(max_star(alpha[ps0] + g[cf0], alpha[ps1] + g[cf1]))
+
+    def posterior(alpha, g, bn):
+        return ((alpha + g[cb0] + bn[ns0]).max(dim=0).values
+                - (alpha + g[cb1] + bn[ns1]).max(dim=0).values)
+
+    return beta_step, alpha_step, posterior
+
+
+def _v1_inputs(ls: torch.Tensor, lp: torch.Tensor, tail_x: torch.Tensor,
+               tail_z: torch.Tensor, n_windows: int):
+    """What the v1 kernel is given, as `map_decode_pallas` computes it
+    outside its kernel: branch metrics (L, 4, n_cols) time-major, alpha at
+    node 0 and beta at node L of every window (8, n_cols); column
+    b*W + w.  The halo pre-scans start from uniform metrics and subtract
+    the max at every step; window 0 takes the exact alpha_0, window W-1 the
+    tail-derived beta_K less its max."""
+    B, K = ls.shape
+    if n_windows <= 0 or K % n_windows:
+        raise ValueError(f"K={K} does not split into {n_windows} windows")
+    L = K // n_windows
+    H = min(HALO, L)
+    n_cols = B * n_windows
+    dev = ls.device
+    beta_step, alpha_step, _ = _v1_steps(dev)
+    g = torch.nn.functional.pad(_gammas(ls.to(torch.float32), lp.to(torch.float32)),
+                                (0, 0, H, H))  # (B, K + 2H, 4), zero outside [0, K)
+    spans = g.as_strided((B, n_windows, L + 2 * H, 4), ((K + 2 * H) * 4, L * 4, 4, 1))
+    gw = spans.permute(2, 3, 0, 1).reshape(L + 2 * H, 4, n_cols)
+    a0 = gw.new_zeros((8, n_cols))
+    b0 = gw.new_zeros((8, n_cols))
+    for i in range(H):
+        a0 = alpha_step(a0, gw[i])
+        b0 = beta_step(b0, gw[2 * H + L - 1 - i])
+    w = torch.arange(n_cols, device=dev) % n_windows
+    exact0 = torch.full((8, 1), NEG, dtype=torch.float32, device=dev)
+    exact0[0] = 0.0
+    a0 = torch.where(w == 0, exact0, a0)
+    bt = beta_tail(tail_x, tail_z)
+    bt = (bt - bt.max(dim=-1, keepdim=True).values).repeat_interleave(n_windows, dim=0).T
+    b0 = torch.where(w == n_windows - 1, bt, b0)
+    return gw[H:H + L].contiguous(), a0.contiguous(), b0.contiguous()
+
+
+def launch_v1(g: torch.Tensor, a0: torch.Tensor, b0: torch.Tensor) -> torch.Tensor:
+    """The v1 kernel alone, on PyTorch's current stream.  g: (L, 4, n_cols)
+    branch metrics; a0, b0: (8, n_cols) alpha at node 0 and beta at node L
+    (`_v1_inputs`); all float32, contiguous, on one CUDA device.  Returns the
+    posterior LLRs (L, n_cols)."""
+    global launches_v1
+    if g.ndim != 3 or g.shape[0] <= 0 or g.shape[2] <= 0:
+        raise ValueError(f"branch metrics of shape {tuple(g.shape)}: need (L, 4, n_cols)")
+    L, _, n_cols = g.shape
+    dev = g.device
+    _require("g", g, dev, (torch.float32,), (L, 4, n_cols))
+    _require("a0", a0, dev, (torch.float32,), (8, n_cols))
+    _require("b0", b0, dev, (torch.float32,), (8, n_cols))
+    llr = torch.empty((L, n_cols), dtype=torch.float32, device=dev)
+    scratch = torch.empty((L, 8, n_cols), dtype=torch.float32, device=dev)
+    err = build(SOURCE_V1).lib.turbo_map_v1_launch(
+        g.data_ptr(), a0.data_ptr(), b0.data_ptr(), llr.data_ptr(), scratch.data_ptr(),
+        n_cols, L, int(LOGMAP), torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"turbo_map_v1 kernel launch failed: cudaError_t {err}")
+    launches_v1 += 1
+    return llr
+
+
+def map_decode_v1_cuda(ls: torch.Tensor, lp: torch.Tensor, tail_x: torch.Tensor,
+                       tail_z: torch.Tensor, n_windows: int) -> torch.Tensor:
+    """One MAP half-iteration through the v1 kernel, any window length.
+    ls/lp: (B, K) float32, tail_x/tail_z: (B, 3) float32, all contiguous on
+    one CUDA device.  Returns the posterior LLRs (B, K) float32."""
+    B, K = ls.shape
+    for name, t, shape in (("ls", ls, (B, K)), ("lp", lp, (B, K)),
+                           ("tail_x", tail_x, (B, 3)), ("tail_z", tail_z, (B, 3))):
+        _require(name, t, ls.device, (torch.float32,), shape)
+    llr = launch_v1(*_v1_inputs(ls, lp, tail_x, tail_z, n_windows))
+    return llr.view(K // n_windows, B, n_windows).permute(1, 2, 0).reshape(B, K)
+
+
+def map_decode_v1_ref(ls: torch.Tensor, lp: torch.Tensor, tail_x: torch.Tensor,
+                      tail_z: torch.Tensor, n_windows: int) -> torch.Tensor:
+    """Plain PyTorch version of the v1 kernel's function (same inputs, same
+    normalisation points), states as (8, n_cols) tensors."""
+    B, K = ls.shape
+    g, alpha, beta = _v1_inputs(ls, lp, tail_x, tail_z, n_windows)
+    L, _, n_cols = g.shape
+    beta_step, alpha_step, posterior = _v1_steps(ls.device)
+    scratch = g.new_empty((L, 8, n_cols))
+    for t in range(L - 1, -1, -1):
+        scratch[t] = beta
+        beta = beta_step(beta, g[t])
+    llr = g.new_empty((L, n_cols))
+    for t in range(L):
+        llr[t] = posterior(alpha, g[t], scratch[t])
+        alpha = alpha_step(alpha, g[t])
+    return llr.view(L, B, n_windows).permute(1, 2, 0).reshape(B, K)
+
+
 def map_decode(ls: torch.Tensor, lp: torch.Tensor, tail_x: torch.Tensor,
                tail_z: torch.Tensor, narrow: bool = False) -> torch.Tensor:
     """One MAP half-iteration with W = _pick_windows(K): the kernel for CUDA
-    tensors, the plain version for CPU tensors."""
+    tensors, the plain version for CPU tensors.  An odd window length goes
+    to v1 in float32 (`narrow` does not apply), as in the reference."""
     n_windows = _pick_windows(ls.shape[1])
-    if ls.device.type == "cpu":
+    cpu = ls.device.type == "cpu"
+    if (ls.shape[1] // n_windows) % 2:
+        v1 = map_decode_v1_ref if cpu else map_decode_v1_cuda
+        return v1(ls, lp, tail_x, tail_z, n_windows)
+    if cpu:
         return map_decode_ref(ls, lp, tail_x, tail_z, n_windows, narrow)
     return map_decode_cuda(ls, lp, tail_x, tail_z, n_windows, narrow)

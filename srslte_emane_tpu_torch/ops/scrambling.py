@@ -18,6 +18,10 @@ def pdsch_cinit(rnti, q, sf_idx, cell_id):
     return (rnti << 14) + (q << 13) + (sf_idx << 9) + cell_id
 
 
+def pusch_cinit(rnti, sf_idx, cell_id):
+    return (rnti << 14) + (sf_idx << 9) + cell_id
+
+
 @functools.lru_cache(maxsize=64)
 def _cached_sequence(c_init: int, n: int, device: torch.device) -> torch.Tensor:
     return sequence.gold_sequence(c_init, n, device)

@@ -27,6 +27,8 @@ from srslte_emane_tpu_torch.ops.fec import turbo as p_turbo
 from srslte_emane_tpu_torch.phch import grid as p_grid
 from srslte_emane_tpu_torch.utils import gf2 as p_gf2
 
+torch.set_num_threads(1)  # one intra-op thread per pytest-xdist worker
+
 
 def _np(x):
     return x.numpy() if isinstance(x, torch.Tensor) else np.asarray(x)

@@ -22,7 +22,11 @@ from srslte_emane_tpu_torch.models import pdsch_link as p_link
 from srslte_emane_tpu_torch.phch import grid as p_grid
 from srslte_emane_tpu_torch.phch import sch as p_sch
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# Under pytest-xdist several workers share the cores: one intra-op thread
+# each, or torch's spinning thread pools slow every worker many-fold.
+torch.set_num_threads(1)
+
+REPO =os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 SLICES = [  # (cell, qm, code_rate, snr_db)
     (dict(n_prb=6, cell_id=1, cfi=2), 2, 0.5, 10.0),
@@ -76,7 +80,9 @@ def test_port_never_imports_jax():
     """The port (and so chip_smoke.py) loads neither jax nor the JAX package."""
     code = ("import sys; assert 'jax' not in sys.modules, 'jax preloaded'; "
             "import srslte_emane_tpu_torch.models.pdsch_link, srslte_emane_tpu_torch.convert, "
-            "srslte_emane_tpu_torch.ops.fec.turbodecoder_cuda; "
+            "srslte_emane_tpu_torch.ops.fec.turbodecoder_cuda, srslte_emane_tpu_torch.models.ue_ul, "
+            "srslte_emane_tpu_torch.phch.pusch_uci, srslte_emane_tpu_torch.phch.uci, "
+            "srslte_emane_tpu_torch.ops.fec.viterbi; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', "
             "'srslte_emane_tpu')]; assert not bad, bad")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,

@@ -22,6 +22,8 @@ from srslte_emane_tpu_torch.phch import grid as p_grid
 from srslte_emane_tpu_torch.phch import pdsch as p_pdsch
 from srslte_emane_tpu_torch.phch import sch as p_sch
 
+torch.set_num_threads(1)  # one intra-op thread per pytest-xdist worker
+
 
 def _rel_rms(got, ref):
     got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)

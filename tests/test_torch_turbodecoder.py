@@ -5,7 +5,12 @@
 * `map_decode_ref`, the plain version of the CUDA kernel, against the TPU
   kernel `map_decode_pallas2` in interpret mode, both storage modes, at the
   same window count, atol 1e-3, rtol 1e-4 and equal signs where |LLR| > 0.5;
-* `turbo_decode` and `decode_tb`: bits, CRC flags and n_iter exactly equal.
+* `map_decode_v1_ref`, the plain version of the v1 CUDA kernel (the
+  odd-window fallback), against the TPU kernel `map_decode_pallas` in
+  interpret mode and against `_map_decode` at an odd window length, atol
+  1e-3, rtol 1e-4;
+* `turbo_decode` (with and without the compaction cascade) and
+  `decode_tb`: bits, CRC flags and n_iter exactly equal.
 """
 
 import os
@@ -20,6 +25,7 @@ import torch
 from srslte_emane_tpu.ops.fec import crc as j_crc
 from srslte_emane_tpu.ops.fec import turbo as j_turbo
 from srslte_emane_tpu.ops.fec import turbodecoder as j_td
+from srslte_emane_tpu.ops.fec import turbodecoder_pallas as j_pallas
 from srslte_emane_tpu.ops.fec import turbodecoder_pallas2 as j_pallas2
 from srslte_emane_tpu.phch import sch as j_sch
 from srslte_emane_tpu_torch.ops.fec import cbsegm as p_cbsegm
@@ -27,6 +33,8 @@ from srslte_emane_tpu_torch.ops.fec import crc as p_crc
 from srslte_emane_tpu_torch.ops.fec import turbodecoder as p_td
 from srslte_emane_tpu_torch.ops.fec import turbodecoder_cuda as p_tdc
 from srslte_emane_tpu_torch.phch import sch as p_sch
+
+torch.set_num_threads(1)  # one intra-op thread per pytest-xdist worker
 
 ATOL, RTOL = 1e-3, 1e-4
 
@@ -95,6 +103,52 @@ def test_map_decode_ref_matches_pallas2(k, narrow):
     assert (np.sign(got[strong]) == np.sign(ref[strong])).all()
 
 
+def _random_llrs(k, B, seed):
+    """LLRs of random code bits: any K, also one that is not a turbo
+    code-block size (the MAP does not interleave)."""
+    rng = np.random.default_rng(seed)
+    bits = rng.integers(0, 2, (2, B, k))
+    return (((1 - 2.0 * bits[0]) * 4 + rng.normal(0, 1, (B, k))).astype(np.float32),
+            ((1 - 2.0 * bits[1]) * 4 + rng.normal(0, 1, (B, k))).astype(np.float32),
+            rng.normal(0, 4, (B, 3)).astype(np.float32), rng.normal(0, 4, (B, 3)).astype(np.float32))
+
+
+def test_map_decode_v1_ref_matches_pallas_v1():
+    """The shape tests/test_turbodecoder_pallas.py already compiles for v1."""
+    ls, lp, tail_x, tail_z = _map_inputs(512, 4)
+    ref = np.asarray(j_pallas.map_decode_pallas(ls, lp, tail_x, tail_z, interpret=True))
+    got = p_tdc.map_decode_v1_ref(*_t(ls, lp, tail_x, tail_z), p_td._pick_windows(512)).numpy()
+    np.testing.assert_allclose(got, ref, atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("k,B,w", [(1040, 3, 16), (45, 2, 1)])
+def test_map_decode_v1_odd_window_matches_map_decode(monkeypatch, k, B, w):
+    """At an odd window length (L=65, L=45) v1 computes the same posterior
+    as the plain twin of the reference's XLA MAP; the normalisation points
+    differ, the LLRs do not."""
+    args = _t(*_random_llrs(k, B, k))
+    got = p_tdc.map_decode_v1_ref(*args, w)
+    monkeypatch.setattr(p_td, "_pick_windows", lambda _: w)
+    torch.testing.assert_close(got, p_td._map_decode(*args), atol=ATOL, rtol=RTOL)
+
+
+def test_map_decode_odd_window_goes_to_v1_on_cpu(monkeypatch):
+    """map_decode sends an odd window length to v1 (its plain version on
+    CPU tensors, f32 whatever `narrow` says) instead of raising; the
+    radix-2 kernel's own entry points keep refusing it."""
+    args = _t(*_random_llrs(1040, 2, 7))
+    monkeypatch.setattr(p_tdc, "_pick_windows", lambda _: 16)
+    before = (p_tdc.launches, p_tdc.launches_v1)
+    for narrow in (False, True):
+        assert torch.equal(p_tdc.map_decode(*args, narrow=narrow),
+                           p_tdc.map_decode_v1_ref(*args, 16))
+    assert (p_tdc.launches, p_tdc.launches_v1) == before
+    with pytest.raises(ValueError):
+        p_tdc.map_decode_ref(*args, 16)
+    with pytest.raises(ValueError):
+        p_tdc.map_decode_v1_cuda(*args, 16)  # CPU tensors: no launch
+
+
 def test_map_decode_dispatch_on_cpu():
     """On CPU tensors the kernel entry point runs its plain version with the
     decoder's window count, and launches nothing."""
@@ -132,8 +186,8 @@ def _code_block_llrs(k, B, snr_scale, seed):
     (40, 4, 1.0, 32), (40, 8, 1.0, 16), (512, 3, 1.0, 32), (512, 3, 1.0, 16),
     (1056, 2, 1.0, 8)])
 def test_turbo_decode_matches_jax(k, B, scale, llr_bits):
-    """The XLA-MAP paths of both packages.  B=8 runs the reference's
-    compaction cascade, which the port does not have: results must agree."""
+    """The XLA-MAP paths of both packages.  B=8 runs both packages'
+    compaction cascades (at high SNR, where it has no stragglers left)."""
     bits, (d0, d1, d2) = _code_block_llrs(k, B, scale, k + B)
     valid = np.ones(B, bool)
     valid[-1] = B < 4
@@ -145,6 +199,47 @@ def test_turbo_decode_matches_jax(k, B, scale, llr_bits):
     np.testing.assert_array_equal(p_ok.numpy(), np.asarray(j_ok))
     assert p_it == int(j_it)
     assert int(j_it) > 1 and np.asarray(j_ok).any()  # the case exercises several passes
+
+
+def _straggler_batch(k, B, seed):
+    """B code blocks, every fourth at low SNR: the rest converge within a
+    few passes, the stragglers run out the budget or converge late."""
+    rng = np.random.default_rng(seed)
+    payload = rng.integers(0, 2, (B, k - 24), dtype=np.int8)
+    bits = np.asarray(j_crc.crc_attach(payload, j_crc.LTE_CRC24B))
+    scale = np.where(np.arange(B) % 4 == 0, 0.45, 1.2)[:, None]
+    llr = [((1 - 2.0 * np.asarray(d, np.float32)) * scale + rng.normal(0, 1, d.shape))
+           .astype(np.float32) for d in j_turbo.turbo_encode(bits)]
+    return bits, llr
+
+
+@pytest.mark.parametrize("use_kernel", [False, True])
+def test_turbo_decode_cascade_matches_jax(monkeypatch, use_kernel):
+    """B=16 with stragglers: with the cascade on, the port gives the same
+    bits, CRC flags and n_iter as with it off, on fewer MAP rows; on the
+    XLA-MAP path both equal the reference's (cascade on).  use_kernel=True
+    is the kernel path (its plain version on CPU tensors), whose rounding
+    differs from the XLA MAP's in the blocks that never converge."""
+    k, B = 512, 16
+    bits, (d0, d1, d2) = _straggler_batch(k, B, 7)
+    valid = np.ones(B, bool)
+    j_bits, j_ok, j_it = j_td.turbo_decode(d0, d1, d2, valid, k, 8, j_crc.LTE_CRC24B,
+                                           False, 32)
+    assert 0 < int(np.asarray(j_ok).sum()) < B and int(j_it) == 8
+    rows, runs = {}, {}
+    for cascade in ("1", "0"):
+        monkeypatch.setenv("SRSLTE_TPU_CASCADE", cascade)
+        monkeypatch.setattr(p_td, "map_rows", 0)
+        runs[cascade] = p_td.turbo_decode(*_t(d0, d1, d2, valid), k, 8, p_crc.LTE_CRC24B,
+                                          use_kernel=use_kernel)
+        rows[cascade] = p_td.map_rows
+    for a, b in zip(runs["1"][:2], runs["0"][:2]):
+        assert torch.equal(a, b)
+    assert runs["1"][2] == runs["0"][2] == int(j_it)
+    assert rows["1"] < rows["0"] == B * 2 * 8
+    if not use_kernel:
+        np.testing.assert_array_equal(runs["1"][0].numpy(), np.asarray(j_bits))
+        np.testing.assert_array_equal(runs["1"][1].numpy(), np.asarray(j_ok))
 
 
 @pytest.mark.parametrize("llr_bits", [32, 16])
