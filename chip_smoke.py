@@ -9,14 +9,16 @@ Phases (any failure raises; the exit code is then non-zero):
      turbo_map.cu and turbo_map_v1.cu), one nvcc each, started together,
      into build/ unless these sources were built before;
   3. kernel vs plain: the CUDA MAP kernel against map_decode_ref on the card,
-     at the two 20 MHz bench shapes (768 x K=5504, 384 x K=5568), f32 and
-     bf16-storage modes;
+     at the downlink cell's shapes (768 x K=5504, 384 x K=5568), f32 and
+     bf16-storage modes, and the uplink cell's (128 x K=5504, 512 x K=5568),
+     bf16-storage mode;
   4. downlink path: the 20 MHz SISO 64QAM PDSCH link at batch 128
      (tx_subframe, AWGN, rx_subframe with the kernel) must decode the payload
      bit-exactly with every CRC passing, through the kernel; then decode and
      encode throughput, median of 3 runs;
-  5. v1 kernel vs plain (map_decode_v1_ref) at 768 x K=5504 (W=32, L=172)
-     and 768 x K=1040 (W=16, L=65, an odd window); then the odd-window path:
+  5. v1 kernel vs plain (map_decode_v1_ref) at 768 x K=5504 (W=32, L=172),
+     768 x K=1040 (W=16, L=65, an odd window) and the odd-window path's
+     128 x K=1056 (W=32, L=33); then the odd-window path:
      turbo_decode with the window count patched to give L=33 must launch v1
      (and not the radix-2 kernel) and decode every code block;
   6. uplink path: the 20 MHz PUSCH cell of scripts/bench_extra.py (100 PRB,
@@ -110,31 +112,44 @@ def map_inputs(k, batch, dev):
     return ls.contiguous(), lp.contiguous(), tail_x.contiguous(), tail_z.contiguous()
 
 
+def check_close(got, ref, what):
+    """Kernel output against its plain version: finite, within atol/rtol,
+    equal signs where |LLR| > 0.5.  Returns the max abs error."""
+    err = (got - ref).abs()
+    strong = ref.abs() > 0.5
+    assert bool(got.isfinite().all()), f"{what}: kernel output not finite"
+    assert bool((err <= ATOL + RTOL * ref.abs()).all()), \
+        f"{what}: max err {err.max().item()} exceeds atol/rtol"
+    assert bool((got[strong].sign() == ref[strong].sign()).all()), \
+        f"{what}: sign differs where |LLR| > 0.5"
+    return err.max().item()
+
+
+# (K, rows, modes): the downlink cell's MAP shapes (6 and 3 code blocks of
+# batch 128) in both modes, then the uplink cell's (1 and 4 code blocks of
+# batch 128) in the narrow mode that llr_bits=16 selects
+MAP_SHAPES = ((5504, 768, (False, True)), (5568, 384, (False, True)),
+              (5504, 128, (True,)), (5568, 512, (True,)))
+
+
 def phase_kernel(dev):
     from srslte_emane_tpu_torch.ops.fec import turbodecoder, turbodecoder_cuda as tdc
 
     cases = []
-    for k, batch in ((5504, 768), (5568, 384)):
+    for k, batch, modes in MAP_SHAPES:
         args = map_inputs(k, batch, dev)
         w = turbodecoder._pick_windows(k)
-        for narrow in (False, True):
+        for narrow in modes:
             got = tdc.map_decode_cuda(*args, w, narrow)
             ref = tdc.map_decode_ref(*args, w, narrow)
-            err = (got - ref).abs()
-            bound = ATOL + RTOL * ref.abs()
-            strong = ref.abs() > 0.5
-            assert bool(got.isfinite().all()), "kernel output not finite"
-            assert bool((err <= bound).all()), \
-                f"K={k} narrow={narrow}: max err {err.max().item()} exceeds atol/rtol"
-            assert bool((got[strong].sign() == ref[strong].sign()).all()), \
-                f"K={k} narrow={narrow}: sign differs where |LLR| > 0.5"
+            err = check_close(got, ref, f"K={k} B={batch} narrow={narrow}")
             # the kernel alone on prepared inputs, the whole wrapper, the plain version
             ls_t, lp_t = (tdc.time_major(a, w, narrow) for a in args[:2])
             beta_k = turbodecoder.beta_tail(*args[2:]).contiguous()
             ms = cuda_ms(lambda: tdc.launch(ls_t, lp_t, beta_k, w, k // w), 10)
             wrapper_ms = cuda_ms(lambda: tdc.map_decode_cuda(*args, w, narrow), 10)
             plain_ms = cuda_ms(lambda: tdc.map_decode_ref(*args, w, narrow), 3)
-            case = dict(K=k, B=batch, W=w, narrow=narrow, max_abs_err=err.max().item(),
+            case = dict(K=k, B=batch, W=w, narrow=narrow, max_abs_err=err,
                         ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms)
             log(f"kernel vs plain {json.dumps(case)}")
             cases.append(case)
@@ -228,22 +243,18 @@ def phase_v1(dev):
     from srslte_emane_tpu_torch.ops.fec import crc, turbodecoder, turbodecoder_cuda as tdc
 
     cases = []
-    for k, batch, w in ((5504, 768, 32), (1040, 768, 16)):
+    # the downlink bench shape (L=172), an odd window (L=65), and the
+    # odd-window path's own shape below (L=33, halo H=33)
+    for k, batch, w in ((5504, 768, 32), (1040, 768, 16), (1056, BATCH, 32)):
         args = random_llrs(k, batch, dev, k)
         got = tdc.map_decode_v1_cuda(*args, w)
         ref = tdc.map_decode_v1_ref(*args, w)
-        err = (got - ref).abs()
-        strong = ref.abs() > 0.5
-        assert bool(got.isfinite().all()), "v1 kernel output not finite"
-        assert bool((err <= ATOL + RTOL * ref.abs()).all()), \
-            f"v1 K={k} W={w}: max err {err.max().item()} exceeds atol/rtol"
-        assert bool((got[strong].sign() == ref[strong].sign()).all()), \
-            f"v1 K={k} W={w}: sign differs where |LLR| > 0.5"
+        err = check_close(got, ref, f"v1 K={k} B={batch} W={w}")
         prepared = tdc._v1_inputs(*args, w)
         ms = cuda_ms(lambda: tdc.launch_v1(*prepared), 10)
         wrapper_ms = cuda_ms(lambda: tdc.map_decode_v1_cuda(*args, w), 10)
         plain_ms = cuda_ms(lambda: tdc.map_decode_v1_ref(*args, w), 3)
-        case = dict(K=k, B=batch, W=w, L=k // w, max_abs_err=err.max().item(),
+        case = dict(K=k, B=batch, W=w, L=k // w, max_abs_err=err,
                     ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms)
         log(f"v1 kernel vs plain {json.dumps(case)}")
         cases.append(case)
@@ -442,8 +453,8 @@ def main():
     v1_cases, v1_launches = phase_v1(dev)
     ul_launches = phase_uplink(dev)
     phase_cascade(dev)
-    bench = next(c for c in cases if c["K"] == 5504 and c["narrow"])
-    odd = next(c for c in v1_cases if c["L"] % 2)
+    bench = next(c for c in cases if (c["K"], c["B"], c["narrow"]) == (5504, 768, True))
+    odd = next(c for c in v1_cases if c["L"] == 65)
     print(json.dumps({"kernels": [{
         "name": "turbo_map",
         "route": "cuda",

@@ -16,7 +16,11 @@ half-iteration.  It also keeps the reference's batch-compaction cascade
 unfinished, the stragglers are gathered into a B/2 batch and then a B/4
 one, so finished blocks stop costing MAP work.  Each row's MAP is
 independent of the others and the half-iteration counter carries across
-the stages, so the cascade changes the cost and never the results.
+the stages, so the cascade changes the cost and never the results.  On an
+H100 it halves the MAP rows of a straggler batch yet costs time (about
+0.5-2.2 ms more per decode of 128 x K=5504, `PERF.md`): the MAP kernel is
+latency-bound at these widths, so a narrower pass takes about as long as a
+full one, and each stage adds a gather, a scatter and a host sync.
 
 LLR convention: positive LLR <=> bit 0 (bipolar sign s_b = 1 - 2b).
 """

@@ -26,7 +26,7 @@ from srslte_emane_tpu_torch.phch import sch as p_sch
 # each, or torch's spinning thread pools slow every worker many-fold.
 torch.set_num_threads(1)
 
-REPO =os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 SLICES = [  # (cell, qm, code_rate, snr_db)
     (dict(n_prb=6, cell_id=1, cfi=2), 2, 0.5, 10.0),

@@ -47,7 +47,7 @@ from srslte_emane_tpu_torch.phch import uci as p_uci
 
 torch.set_num_threads(1)  # one intra-op thread per pytest-xdist worker
 
-REL =1e-2  # relative RMS across the reference's bf16 DFT
+REL = 1e-2  # relative RMS across the reference's bf16 DFT
 RTOL, ATOL = 1e-4, 1e-5  # same grid in, float32 rounding only
 
 
