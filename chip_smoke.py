@@ -9,9 +9,11 @@ Phases (any failure raises; the exit code is then non-zero):
      turbo_map.cu and turbo_map_v1.cu), one nvcc each, started together,
      into build/ unless these sources were built before;
   3. kernel vs plain: the CUDA MAP kernel against map_decode_ref on the card,
-     at the downlink cell's shapes (768 x K=5504, 384 x K=5568), f32 and
-     bf16-storage modes, and the uplink cell's (128 x K=5504, 512 x K=5568),
-     bf16-storage mode;
+     bit for bit, at the downlink cell's shapes (768 x K=5504, 384 x
+     K=5568), f32 and bf16-storage modes, and the uplink cell's (128 x
+     K=5504, 512 x K=5568), bf16-storage mode; at each, the kernel's time
+     warm and with L2 flushed between launches, its bound and share of it,
+     the wrapper's time, its block and occupancy;
   4. downlink path: the 20 MHz SISO 64QAM PDSCH link at batch 128
      (tx_subframe, AWGN, rx_subframe with the kernel) must decode the payload
      bit-exactly with every CRC passing, through the kernel; then decode and
@@ -48,25 +50,67 @@ ATOL, RTOL = 1e-3, 1e-4  # kernel vs plain, both modes (same rounding points)
 BATCH = 128
 N_RUNS = 3
 ITERS = 10
+# H100 SXM peaks (NVIDIA's data sheet, 700 W): HBM3 bytes/s, and f32
+# add/max operations/s outside the tensor cores (67 TFLOP/s counts an FMA
+# as two; the MAP kernels do no FMA)
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 33.5e12
+FLUSH_BYTES = 64 << 20  # a write this large evicts the 50 MB L2
 
 
 def log(msg):
     print(f"# {msg}", flush=True)
 
 
-def cuda_ms(fn, n):
-    """Median milliseconds of n calls of fn, each bracketed by CUDA events."""
+def cuda_ms(fn, n, flush=None):
+    """Median milliseconds of n calls of fn, each bracketed by CUDA events.
+    The stream first spins for about 10 ms on the card, so that the calls
+    are all queued before the first one runs and the host's time between
+    calls is not counted; with `flush`, each call follows a write of that
+    tensor (L2 cold)."""
     import torch
 
-    times = []
+    torch.cuda._sleep(20_000_000)  # cycles: ~10 ms at the H100's 1.98 GHz
+    events = []
     for _ in range(n):
+        if flush is not None:
+            flush.zero_()
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         fn()
         end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+        events.append((start, end))
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in events)
+
+
+def bound(n_bytes, n_ops):
+    """(ms, "bytes" or "operations"): the least time the card could take."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / F32_OPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def map_bound(k, batch, w, narrow):
+    """turbo_map's bound for one half-iteration of `batch` code blocks: read
+    ls, lp (B, K) f32 and beta_K (B, 8), write the LLRs (B, K) f32; per
+    (code block, window) column 26 f32 add/max per halo or backward step
+    (2 for the branch metrics, 8 x (2 adds + 1 max)), 57 per forward step
+    (2 + 16 adds into alpha, 16 adds of beta, 2 x 7 max, 1 subtraction, 8
+    max for alpha), 15 per normalisation (7 max + 8 subtractions) after
+    each halo and, in narrow mode, after each backward pair."""
+    L = k // w
+    H = min(40, L)
+    per_col = 2 * H * 26 + L * (26 + 57) + 2 * 15 + (L // 2) * 15 * narrow
+    return bound(4 * batch * (3 * k + 8), batch * w * per_col)
+
+
+def v1_bound(k, batch, w):
+    """turbo_map_v1's bound: read the branch metrics (L, 4, n_cols) and the
+    window-edge states 2 x (8, n_cols), write the LLRs (L, n_cols), all f32;
+    per column and step 125 f32 add/max: beta and alpha steps 24 each, their
+    normalisations 15 each, the posterior 47 (32 adds, 14 max, 1 sub)."""
+    L, n_cols = k // w, batch * w
+    return bound(4 * n_cols * (4 * L + 16 + L), n_cols * L * 125)
 
 
 def rate(fn, check=lambda out: True):
@@ -133,24 +177,33 @@ MAP_SHAPES = ((5504, 768, (False, True)), (5568, 384, (False, True)),
 
 
 def phase_kernel(dev):
+    import torch
+
     from srslte_emane_tpu_torch.ops.fec import turbodecoder, turbodecoder_cuda as tdc
 
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
     cases = []
     for k, batch, modes in MAP_SHAPES:
         args = map_inputs(k, batch, dev)
         w = turbodecoder._pick_windows(k)
+        beta_k = turbodecoder.beta_tail(*args[2:]).contiguous()
         for narrow in modes:
             got = tdc.map_decode_cuda(*args, w, narrow)
             ref = tdc.map_decode_ref(*args, w, narrow)
-            err = check_close(got, ref, f"K={k} B={batch} narrow={narrow}")
-            # the kernel alone on prepared inputs, the whole wrapper, the plain version
-            ls_t, lp_t = (tdc.time_major(a, w, narrow) for a in args[:2])
-            beta_k = turbodecoder.beta_tail(*args[2:]).contiguous()
-            ms = cuda_ms(lambda: tdc.launch(ls_t, lp_t, beta_k, w, k // w), 10)
-            wrapper_ms = cuda_ms(lambda: tdc.map_decode_cuda(*args, w, narrow), 10)
+            assert torch.equal(got, ref), f"K={k} B={batch} narrow={narrow}: not bit-exact"
+            err = (got - ref).abs().max().item()
+            # the kernel alone (warm, and L2 flushed), the whole wrapper, the plain version
+            kernel = lambda: tdc.launch(args[0], args[1], beta_k, w, narrow)
+            ms = cuda_ms(kernel, 20)
+            flushed_ms = cuda_ms(kernel, 20, flush)
+            wrapper_ms = cuda_ms(lambda: tdc.map_decode_cuda(*args, w, narrow), 20)
             plain_ms = cuda_ms(lambda: tdc.map_decode_ref(*args, w, narrow), 3)
-            case = dict(K=k, B=batch, W=w, narrow=narrow, max_abs_err=err,
-                        ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms)
+            bound_ms, bound_by = map_bound(k, batch, w, narrow)
+            cols, blocks = tdc.occupancy(k, w, narrow)
+            case = dict(K=k, B=batch, W=w, narrow=narrow, max_abs_err=err, ms=ms,
+                        flushed_ms=flushed_ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
+                        bound_ms=bound_ms, bound_by=bound_by, share=bound_ms / ms,
+                        cols_per_block=cols, blocks_per_sm=blocks)
             log(f"kernel vs plain {json.dumps(case)}")
             cases.append(case)
     return cases
@@ -455,6 +508,7 @@ def main():
     phase_cascade(dev)
     bench = next(c for c in cases if (c["K"], c["B"], c["narrow"]) == (5504, 768, True))
     odd = next(c for c in v1_cases if c["L"] == 65)
+    v1_bound_ms, v1_bound_by = v1_bound(odd["K"], odd["B"], odd["W"])
     print(json.dumps({"kernels": [{
         "name": "turbo_map",
         "route": "cuda",
@@ -464,6 +518,10 @@ def main():
         "max_abs_err": max(c["max_abs_err"] for c in cases),
         "ms": bench["ms"],
         "plain_ms": bench["plain_ms"],
+        "bound_ms": bench["bound_ms"],
+        "bound_by": bench["bound_by"],
+        "share": bench["share"],
+        "library_ms": None,  # no single PyTorch call computes a MAP half-iteration
     }, {
         "name": "turbo_map_v1",
         "route": "cuda",
@@ -473,6 +531,9 @@ def main():
         "max_abs_err": max(c["max_abs_err"] for c in v1_cases),
         "ms": odd["ms"],
         "plain_ms": odd["plain_ms"],
+        "bound_ms": v1_bound_ms,
+        "bound_by": v1_bound_by,
+        "library_ms": None,
     }]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

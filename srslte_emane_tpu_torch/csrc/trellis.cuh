@@ -54,10 +54,15 @@ __device__ __forceinline__ void fwd_step(float (&alpha)[8], const float (&g)[4])
   for (int s = 0; s < 8; ++s) alpha[s] = na[s];
 }
 
+// max over 8 values as a tree (3 dependent steps; every max is exact, so
+// the order moves no bit)
+__device__ __forceinline__ float max8(const float (&x)[8]) {
+  return fmaxf(fmaxf(fmaxf(x[0], x[1]), fmaxf(x[2], x[3])),
+               fmaxf(fmaxf(x[4], x[5]), fmaxf(x[6], x[7])));
+}
+
 __device__ __forceinline__ void normalise(float (&x)[8]) {
-  float m = x[0];
-#pragma unroll
-  for (int s = 1; s < 8; ++s) m = fmaxf(m, x[s]);
+  const float m = max8(x);
 #pragma unroll
   for (int s = 0; s < 8; ++s) x[s] -= m;
 }

@@ -4,7 +4,8 @@ Twin of the reference's `models/pdsch_link.py` (the pdsch_test /
 phy_dl_test harnesses, `lib/src/phy/phch/test/pdsch_test.c:325`): a batch
 axis of B subframes replaces the reference's sf_worker thread pipeline.
 `use_kernel=True` runs the turbo decoder's MAP passes through the CUDA
-kernel (the reference's `use_pallas=True`).
+kernel (the reference's `use_pallas=True`); the default (None) does so
+when the samples lie on a CUDA device.
 """
 
 from __future__ import annotations
@@ -62,7 +63,7 @@ def tx_subframe(payload: torch.Tensor, cfg: LinkConfig) -> torch.Tensor:
 
 
 def rx_subframe(samples: torch.Tensor, cfg: LinkConfig, softbuf=None,
-                use_kernel: bool = False):
+                use_kernel: bool | None = None):
     """(B, SF_LEN, 2) -> (payload (B, tbs), ok (B,), softbuf, chest)."""
     g = ofdm.demodulate(samples, cfg.cell.n_prb)
     return pdsch.decode(
@@ -73,7 +74,7 @@ def rx_subframe(samples: torch.Tensor, cfg: LinkConfig, softbuf=None,
 
 
 def link_step(payload: torch.Tensor, gen: torch.Generator, cfg: LinkConfig,
-              use_kernel: bool = False):
+              use_kernel: bool | None = None):
     """Full eNB -> channel -> UE step; `gen` draws the channel noise."""
     tx = tx_subframe(payload, cfg)
     rx = channel.awgn(gen, tx, cfg.snr_db)
@@ -81,6 +82,6 @@ def link_step(payload: torch.Tensor, gen: torch.Generator, cfg: LinkConfig,
     return out, ok, ch.snr_db
 
 
-def make_link_step(cfg: LinkConfig, use_kernel: bool = False):
+def make_link_step(cfg: LinkConfig, use_kernel: bool | None = None):
     """link_step bound to cfg: step(payload, gen) -> (out, ok, snr_db)."""
     return functools.partial(link_step, cfg=cfg, use_kernel=use_kernel)

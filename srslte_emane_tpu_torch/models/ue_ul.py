@@ -4,7 +4,8 @@ Twin of the reference's `models/ue_ul.py` (`lib/src/phy/ue/ue_ul.c`:
 PUSCH/PUCCH/SRS encode into one SC-FDMA subframe; `lib/src/phy/enb/
 enb_ul.c`: FFT + chest_ul + get_pucch/get_pusch), batched over B subframes.
 `use_kernel=True` runs the PUSCH turbo decoder's MAP passes through the
-CUDA kernels (the reference's `use_pallas=True`); `llr_bits` is the
+CUDA kernels (the reference's `use_pallas=True`; the default, None, does
+so when the samples lie on a CUDA device); `llr_bits` is the
 decoder's storage width, as in models/pdsch_link.
 """
 
@@ -65,7 +66,7 @@ def build_subframe(cfg: UlSubframeConfig, tb_bits=None, ack_bits=None,
 
 
 def enb_receive(samples: torch.Tensor, cfg: UlSubframeConfig, softbuf=None,
-                n_cqi_bits: int = 0, use_kernel: bool = False, llr_bits: int = 32) -> dict:
+                n_cqi_bits: int = 0, use_kernel: bool | None = None, llr_bits: int = 32) -> dict:
     """eNB-side composite UL receive: OFDM demod then per-channel decode.
 
     Returns dict with pusch (payload, ok), pucch_ack (corr), pucch_cqi,

@@ -5,7 +5,9 @@ sub-block windows with a 40-step halo; sch.c:350-383: CRC early stop).
 Code blocks x windows form one batch axis; `_map_decode` is the plain
 PyTorch twin of the reference's XLA MAP, and `use_kernel=True` runs every
 half-iteration through the hand-written CUDA kernel of
-`turbodecoder_cuda.py` (its plain version on CPU tensors).
+`turbodecoder_cuda.py` (its plain version on CPU tensors).  Left at its
+default (None), `use_kernel` follows the LLRs' device: the kernel for CUDA
+tensors, `_map_decode` for CPU tensors.
 
 `turbo_decode` keeps the reference's semantics: a CRC check after every
 half-iteration (one MAP pass), a block's bits freeze when its CRC first
@@ -17,10 +19,10 @@ unfinished, the stragglers are gathered into a B/2 batch and then a B/4
 one, so finished blocks stop costing MAP work.  Each row's MAP is
 independent of the others and the half-iteration counter carries across
 the stages, so the cascade changes the cost and never the results.  On an
-H100 it halves the MAP rows of a straggler batch yet costs time (about
-0.5-2.2 ms more per decode of 128 x K=5504, `PERF.md`): the MAP kernel is
-latency-bound at these widths, so a narrower pass takes about as long as a
-full one, and each stage adds a gather, a scatter and a host sync.
+H100 it halves the MAP rows of a straggler batch yet costs time (0.5-2.2
+ms more per decode of 128 x K=5504, `PERF.md`): each stage adds a gather,
+a scatter and a host sync, which cost more than the narrower MAP passes
+save.
 
 LLR convention: positive LLR <=> bit 0 (bipolar sign s_b = 1 - 2b).
 """
@@ -123,9 +125,16 @@ def _gammas(ls: torch.Tensor, lp: torch.Tensor) -> torch.Tensor:
     return 0.5 * (su + sz)
 
 
+@functools.lru_cache(maxsize=16)
+def _tail_signs(device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(_trellis()["tail_signs"]).to(device)
+
+
 def beta_tail(tail_x: torch.Tensor, tail_z: torch.Tensor) -> torch.Tensor:
-    """Exact termination beta_K (B, 8) from the tail-bit path metrics."""
-    signs = torch.from_numpy(_trellis()["tail_signs"]).to(tail_x.device)
+    """Exact termination beta_K (B, 8) from the tail-bit path metrics (the
+    sign table is copied to each device once: a copy per call would hold
+    the host until the card caught up)."""
+    signs = _tail_signs(tail_x.device)
     tails = torch.stack([tail_x[:, 0], tail_z[:, 0], tail_x[:, 1], tail_z[:, 1],
                          tail_x[:, 2], tail_z[:, 2]], dim=-1)
     return 0.5 * (tails.to(torch.float32) @ signs.T)
@@ -231,7 +240,7 @@ def _device_perms(k: int, device: torch.device):
 
 def turbo_decode(d0: torch.Tensor, d1: torch.Tensor, d2: torch.Tensor,
                  valid: torch.Tensor, k: int, max_iter: int = 8,
-                 crc: tuple = crc_mod.LTE_CRC24B, use_kernel: bool = False,
+                 crc: tuple = crc_mod.LTE_CRC24B, use_kernel: bool | None = None,
                  llr_bits: int = 32):
     """Decode a batch of code blocks with CRC-gated early stop.
 
@@ -240,7 +249,9 @@ def turbo_decode(d0: torch.Tensor, d1: torch.Tensor, d2: torch.Tensor,
            ignored and treated as done from the start).
     crc: polynomial for the per-CB early stop, or None to run all iterations.
     use_kernel: run each MAP pass through turbodecoder_cuda.map_decode
-           (llr_bits <= 16 selects its bf16-storage mode).
+           (llr_bits <= 16 selects its bf16-storage mode); False runs the
+           plain `_map_decode`; None (default) means "the LLRs lie on a
+           CUDA device".
     Returns (bits (B, K) int8 hard decisions, crc_pass (B,) bool, n_iter int).
     """
     if llr_bits == 8:
@@ -259,6 +270,8 @@ def turbo_decode(d0: torch.Tensor, d1: torch.Tensor, d2: torch.Tensor,
     tail_x2 = torch.stack([d0[:, k + 2], d2[:, k + 2], d1[:, k + 3]], dim=-1)
     tail_z2 = torch.stack([d1[:, k + 2], d0[:, k + 3], d2[:, k + 3]], dim=-1)
 
+    if use_kernel is None:
+        use_kernel = d0.device.type == "cuda"
     if use_kernel:
         from . import turbodecoder_cuda
 

@@ -4,9 +4,10 @@
 `turbodecoder_pallas2.map_decode_pallas2`: one MAP half-iteration of one
 constituent decoder over a batch of code blocks, windowed into
 (code block x window) columns.  On a CUDA tensor it launches the kernel of
-`csrc/turbo_map.cu` (`map_decode_cuda`: the time-major windowing in torch,
-then `launch`) or raises; on a CPU tensor it runs `map_decode_ref`, the
-plain PyTorch version of the same function.
+`csrc/turbo_map.cu` (`map_decode_cuda`: beta_K, then one launch on the
+(B, K) tensors; the kernel windows the inputs itself, as `window_index`
+states) or raises; on a CPU tensor it runs `map_decode_ref`, the plain
+PyTorch version of the same function.
 
 That kernel steps two trellis stages at a time, so it needs an even window
 length L.  For an odd L, `map_decode` takes the second kernel, as the
@@ -24,8 +25,8 @@ kernel's VMEM-driven refinement; halo windowing changes the LLRs, so
 comparisons with the TPU kernel pass it the same `n_windows`.
 
 Rounding points follow the TPU kernel: the inputs are halved in float32,
-then (narrow mode) cast to bf16; beta is rounded to the scratch type when
-stored; m0 - m1 is float32.
+then (narrow mode) cast to bf16; beta is rounded to the storage type when
+stored; alpha and m0 - m1 are float32.
 
 Each kernel library is compiled from the repository's source with nvcc at
 first use, into build/<kernel>-<hash of sources and flags>/, and reused after.
@@ -61,9 +62,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 launches = 0
 launches_v1 = 0
 
+
 # argument types of each library's C entry point `<source stem>_launch`
 _ARGTYPES = {
-    "turbo_map": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+    "turbo_map": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
     "turbo_map_v1": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
 }
 
@@ -101,7 +103,22 @@ def build(source: pathlib.Path) -> Build:
     entry = getattr(lib, f"{name}_launch")
     entry.argtypes = _ARGTYPES[name]
     entry.restype = ctypes.c_int
+    if name == "turbo_map":
+        lib.turbo_map_blocks_per_sm.argtypes = [ctypes.c_int] * 4
+        lib.turbo_map_cols.argtypes = [ctypes.c_int] * 3
     return Build(lib, path, seconds, log)
+
+
+def occupancy(K: int, n_windows: int, narrow: bool) -> tuple[int, int]:
+    """(columns per block, blocks per SM) of turbo_map.cu on the current
+    card for this code-block size (blocks per SM from CUDA's occupancy
+    calculator)."""
+    L, H = _windows(K, n_windows)
+    lib = build(SOURCE).lib
+    n = lib.turbo_map_blocks_per_sm(L, H, int(narrow), int(LOGMAP))
+    if n < 0:
+        raise RuntimeError(f"occupancy query failed for K={K}")
+    return lib.turbo_map_cols(L, H, int(narrow)), n
 
 
 def _windows(K: int, n_windows: int):
@@ -111,9 +128,22 @@ def _windows(K: int, n_windows: int):
     return L, min(HALO, L)
 
 
+@functools.lru_cache(maxsize=64)
+def window_index(K: int, n_windows: int) -> torch.Tensor:
+    """The kernel's addressing: (L + 2H, W) int64, the K-index that step i
+    of window w reads (i in [0, L + 2H), the window's halos included), or
+    -1 where the step lies outside [0, K) and reads zero.  The kernel reads
+    flat index b*K + k of the (B, K) inputs for column b*W + w."""
+    L, H = _windows(K, n_windows)
+    k = (torch.arange(n_windows)[None, :] * L - H + torch.arange(L + 2 * H)[:, None])
+    return torch.where((k >= 0) & (k < K), k, -1)
+
+
 def time_major(x: torch.Tensor, n_windows: int, narrow: bool) -> torch.Tensor:
     """(B, K) LLRs -> (L + 2H, B*W) pre-halved windows with halos, zero
-    outside [0, K), column b*W + w, in the kernel's storage type."""
+    outside [0, K), column b*W + w, in the kernel's storage type: the TPU
+    kernel's layout, built with pad and strides (`window_index` states the
+    same windows as indices)."""
     B, K = x.shape
     L, H = _windows(K, n_windows)
     x = (x.to(torch.float32) * 0.5).to(torch.bfloat16 if narrow else torch.float32)
@@ -133,28 +163,24 @@ def _require(name: str, t: torch.Tensor, device: torch.device, dtypes: tuple, sh
         raise ValueError(f"{name} must be contiguous")
 
 
-def launch(ls_t: torch.Tensor, lp_t: torch.Tensor, beta_k: torch.Tensor,
-           n_windows: int, L: int) -> torch.Tensor:
-    """The kernel alone, on PyTorch's current stream.  ls_t/lp_t: (L + 2H,
-    n_cols) time-major pre-halved LLRs (`time_major`), bf16 (narrow mode)
-    or float32; beta_k: (n_cols / n_windows, 8) float32 exact beta_K; all
-    contiguous on one CUDA device.  Returns the posterior LLRs (L, n_cols)."""
+def launch(ls: torch.Tensor, lp: torch.Tensor, beta_k: torch.Tensor, n_windows: int,
+           narrow: bool) -> torch.Tensor:
+    """The kernel alone, on PyTorch's current stream.  ls/lp: (B, K)
+    float32 LLRs as the decoder holds them; beta_k: (B, 8) float32 exact
+    beta_K (`beta_tail`); all contiguous on one CUDA device.  Returns the
+    posterior LLRs (B, K) float32."""
     global launches
-    H = min(HALO, L)
-    n_cols = ls_t.shape[-1]
-    if L <= 0 or L % 2 or n_windows <= 0 or n_cols % n_windows:
-        raise ValueError(f"{n_cols} columns, {n_windows} windows of length {L}: "
-                         "need an even L and whole code blocks")
-    dev = ls_t.device
-    _require("ls_t", ls_t, dev, (torch.float32, torch.bfloat16), (L + 2 * H, n_cols))
-    _require("lp_t", lp_t, dev, (ls_t.dtype,), (L + 2 * H, n_cols))
-    _require("beta_k", beta_k, dev, (torch.float32,), (n_cols // n_windows, 8))
-    llr = torch.empty((L, n_cols), dtype=torch.float32, device=dev)
-    scratch = torch.empty((L, 8, n_cols), dtype=ls_t.dtype, device=dev)
+    B, K = ls.shape
+    L, H = _windows(K, n_windows)
+    dev = ls.device
+    _require("ls", ls, dev, (torch.float32,), (B, K))
+    _require("lp", lp, dev, (torch.float32,), (B, K))
+    _require("beta_k", beta_k, dev, (torch.float32,), (B, 8))
+    llr = torch.empty((B, K), dtype=torch.float32, device=dev)
     err = build(SOURCE).lib.turbo_map_launch(
-        ls_t.data_ptr(), lp_t.data_ptr(), beta_k.data_ptr(), llr.data_ptr(),
-        scratch.data_ptr(), n_cols, n_windows, L, H, int(ls_t.dtype == torch.bfloat16),
-        int(LOGMAP), torch.cuda.current_stream(dev).cuda_stream)
+        ls.data_ptr(), lp.data_ptr(), beta_k.data_ptr(), llr.data_ptr(), B * n_windows,
+        n_windows, L, H, int(narrow), int(LOGMAP),
+        torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"turbo_map kernel launch failed: cudaError_t {err}")
     launches += 1
@@ -164,17 +190,15 @@ def launch(ls_t: torch.Tensor, lp_t: torch.Tensor, beta_k: torch.Tensor,
 def map_decode_cuda(ls: torch.Tensor, lp: torch.Tensor, tail_x: torch.Tensor,
                     tail_z: torch.Tensor, n_windows: int,
                     narrow: bool = False) -> torch.Tensor:
-    """One MAP half-iteration through the kernel.  ls/lp: (B, K) float32,
-    tail_x/tail_z: (B, 3) float32, all contiguous on one CUDA device.
-    Returns the posterior LLRs (B, K) float32."""
+    """One MAP half-iteration through the kernel: beta_K, then one launch
+    on the (B, K) tensors.  ls/lp: (B, K) float32, tail_x/tail_z: (B, 3)
+    float32, all contiguous on one CUDA device.  Returns the posterior LLRs
+    (B, K) float32."""
     B, K = ls.shape
     for name, t, shape in (("ls", ls, (B, K)), ("lp", lp, (B, K)),
                            ("tail_x", tail_x, (B, 3)), ("tail_z", tail_z, (B, 3))):
         _require(name, t, ls.device, (torch.float32,), shape)
-    L, _ = _windows(K, n_windows)
-    llr = launch(time_major(ls, n_windows, narrow), time_major(lp, n_windows, narrow),
-                 beta_tail(tail_x, tail_z).contiguous(), n_windows, L)
-    return llr.view(L, B, n_windows).permute(1, 2, 0).reshape(B, K)
+    return launch(ls, lp, beta_tail(tail_x, tail_z).contiguous(), n_windows, narrow)
 
 
 @functools.lru_cache(maxsize=8)
@@ -202,8 +226,15 @@ def map_decode_ref(ls: torch.Tensor, lp: torch.Tensor, tail_x: torch.Tensor,
     dev = ls.device
     ns0, ns1, cb0, cb1, ps0, ps1, pu0, pu1, cf0, cf1 = _index_tables(dev)
 
-    ls_t = time_major(ls, n_windows, narrow).to(torch.float32)
-    lp_t = time_major(lp, n_windows, narrow).to(torch.float32)
+    idx = window_index(K, n_windows).to(dev)
+    zero = ls.new_zeros((B, 1))
+
+    def windows(x):  # (L + 2H, B*W), halved and rounded as the kernel stages it
+        x = (x.to(torch.float32) * 0.5).to(torch.bfloat16 if narrow else torch.float32)
+        x = torch.cat([x.to(torch.float32), zero], dim=1)[:, idx]  # index -1: the zero
+        return x.permute(1, 0, 2).reshape(L + 2 * H, n_cols)
+
+    ls_t, lp_t = windows(ls), windows(lp)
 
     def g4(t):
         a, b = ls_t[t] + lp_t[t], ls_t[t] - lp_t[t]

@@ -87,7 +87,7 @@ def encode(tb_bits: torch.Tensor, cfg: sch.SchConfig, cell: grid_mod.CellConfig,
 
 def decode(rx_grid: torch.Tensor, cfg: sch.SchConfig, cell: grid_mod.CellConfig,
            sf_idx: int, rnti: int, prb_mask: tuple, softbuf=None, max_iter: int = 8,
-           use_kernel: bool = False, llr_bits: int = 32):
+           use_kernel: bool | None = None, llr_bits: int = 32):
     """Decode one PDSCH grant from a received subframe grid (B, 14, NRE, 2).
 
     Returns (payload bits (B, tbs), crc ok (B,), softbuf', ChestResult)."""

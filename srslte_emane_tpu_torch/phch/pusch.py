@@ -159,7 +159,7 @@ def estimate_ul(rx_grid: torch.Tensor, cell: grid_mod.CellConfig, sf_idx: int,
 
 def decode(rx_grid: torch.Tensor, cfg: sch.SchConfig, cell: grid_mod.CellConfig, sf_idx: int,
            rnti: int, rb_start: int, l_prb: int, softbuf=None, max_iter: int = 8,
-           uci_dims_in=None, use_kernel: bool = False, llr_bits: int = 32):
+           uci_dims_in=None, use_kernel: bool | None = None, llr_bits: int = 32):
     """eNB-side PUSCH decode.  Returns (payload, ok, softbuf, noise_est)
     or, with uci_dims_in=(q_ack, q_ri, q_cqi, n_ack, n_ri, n_cqi), a dict
     also carrying decoded ack/ri/cqi.  use_kernel and llr_bits go to

@@ -107,7 +107,7 @@ def init_softbuffer(batch: int, cfg: SchConfig, dtype=torch.float32, device=None
 
 
 def decode_tb(llrs: torch.Tensor, cfg: SchConfig, softbuf=None, max_iter: int = 8,
-              use_kernel: bool = False, llr_bits: int = 32):
+              use_kernel: bool | None = None, llr_bits: int = 32):
     """(B, G) codeword LLRs (positive = bit 0) -> (tb_bits (B, tbs), ok (B,),
     softbuf', n_iter).
 

@@ -11,7 +11,7 @@ import pytest
 import torch
 
 from srslte_emane_tpu_torch.ops import channel
-from srslte_emane_tpu_torch.ops.fec import turbo, turbodecoder, turbodecoder_cuda
+from srslte_emane_tpu_torch.ops.fec import cbsegm, turbo, turbodecoder, turbodecoder_cuda
 
 pytestmark = pytest.mark.cuda
 
@@ -49,6 +49,63 @@ def test_kernel_matches_plain(dev, k, B, narrow):
     torch.testing.assert_close(got, ref, atol=ATOL, rtol=RTOL)
     strong = ref.abs() > 0.5
     assert torch.equal(got[strong].sign(), ref[strong].sign())
+
+
+def _sweep_sizes():
+    """Every sixth code-block size, plus 40, 6144 and the first size of
+    each window count W = 1, 2, 4, 8, 16, 32."""
+    ks = [int(k) for k in cbsegm.TC_CB_SIZES]
+    first = {}
+    for k in ks:
+        first.setdefault(turbodecoder._pick_windows(k), k)
+    assert sorted(first) == [1, 2, 4, 8, 16, 32]
+    return sorted(set(ks[::6]) | set(first.values()) | {40, 6144})
+
+
+@pytest.mark.parametrize("narrow", [False, True])
+def test_kernel_equals_plain_at_code_block_sizes(dev, narrow):
+    """Bit for bit (max abs err 0.0) at B=2 over the sizes of _sweep_sizes,
+    K=6144 in f32 (the most shared memory) included."""
+    for k in _sweep_sizes():
+        args = _random_inputs(k, 2, dev)
+        w = turbodecoder._pick_windows(k)
+        got = turbodecoder_cuda.map_decode_cuda(*args, w, narrow)
+        torch.cuda.synchronize()
+        assert torch.equal(got, turbodecoder_cuda.map_decode_ref(*args, w, narrow)), k
+
+
+@pytest.mark.parametrize("B", [3, 13, 33])
+def test_kernel_partial_last_block(dev, B):
+    """B x W=4 columns (12, 52, 132) that do not fill the last thread block
+    (32 columns in bf16, 23 in f32 at K=512): still bit for bit."""
+    args = _random_inputs(512, B, dev)
+    for narrow in (False, True):
+        cols, _ = turbodecoder_cuda.occupancy(512, 4, narrow)
+        assert (B * 4) % cols
+        got = turbodecoder_cuda.map_decode_cuda(*args, 4, narrow)
+        assert torch.equal(got, turbodecoder_cuda.map_decode_ref(*args, 4, narrow))
+
+
+@pytest.mark.parametrize("narrow", [False, True])
+def test_wrapper_is_one_launch_without_scratch(dev, narrow):
+    """map_decode_cuda at 96 x K=5504: one turbo_map launch, and a peak
+    device-memory growth below the (L, 8, columns) beta scratch of the
+    earlier design."""
+    B, k, w = 96, 5504, 32
+    args = _random_inputs(k, B, dev)
+    turbodecoder_cuda.map_decode_cuda(*args, w, narrow)  # build, warm up
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = turbodecoder_cuda.launches
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        turbodecoder_cuda.map_decode_cuda(*args, w, narrow)
+        torch.cuda.synchronize()
+    assert turbodecoder_cuda.launches == before + 1
+    names = [e.name for e in prof.events() if "map_kernel" in e.name]
+    assert len(names) == 1, names
+    scratch = (k // w) * 8 * B * w * (2 if narrow else 4)
+    assert torch.cuda.max_memory_allocated(dev) - base < scratch
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take(dev):
@@ -150,3 +207,23 @@ def test_pusch_decode_through_the_kernel(dev, llr_bits):
     assert turbodecoder_cuda.launches > before
     got, ok = out["pusch"]
     assert bool(ok.all()) and torch.equal(got, payload)
+
+
+def test_link_defaults_to_the_kernel_on_the_card(dev):
+    """pdsch_link.rx_subframe with use_kernel left at its default decodes
+    CUDA samples through turbo_map."""
+    from srslte_emane_tpu_torch.models import pdsch_link
+    from srslte_emane_tpu_torch.phch import grid
+
+    cfg = pdsch_link.LinkConfig(cell=grid.CellConfig(n_prb=6, cell_id=1), qm=4,
+                                snr_db=20.0, llr_bits=16)
+    payload = torch.from_numpy(
+        np.random.default_rng(4).integers(0, 2, (4, cfg.tbs), dtype=np.int8)).to(dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    rx = channel.awgn(gen, pdsch_link.tx_subframe(payload, cfg), cfg.snr_db)
+    before = turbodecoder_cuda.launches
+    out, ok, _, _ = pdsch_link.rx_subframe(rx, cfg)
+    torch.cuda.synchronize()
+    assert turbodecoder_cuda.launches > before
+    assert bool(ok.all()) and torch.equal(out, payload)

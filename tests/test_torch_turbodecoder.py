@@ -81,6 +81,24 @@ def test_trellis_and_windows():
         p_tdc._windows(40, 8)  # odd window length
 
 
+@pytest.mark.parametrize("narrow", [False, True])
+def test_window_index_gathers_time_major(narrow):
+    """The kernel's addressing (`window_index`: the K-index each halo-window
+    step reads, -1 for a zero) gathers the TPU kernel's time-major windows,
+    at every code-block size with the decoder's window count."""
+    rng = np.random.default_rng(11)
+    for k in map(int, p_cbsegm.TC_CB_SIZES):
+        w = p_td._pick_windows(k)
+        L, H = p_tdc._windows(k, w)
+        idx = p_tdc.window_index(k, w)
+        assert tuple(idx.shape) == (L + 2 * H, w)
+        x = torch.from_numpy(rng.normal(0, 4, (2, k)).astype(np.float32))
+        xs = (x * 0.5).to(torch.bfloat16 if narrow else torch.float32)
+        got = torch.cat([xs, xs.new_zeros((2, 1))], dim=1)[:, idx]  # (2, L + 2H, W)
+        want = p_tdc.time_major(x, w, narrow)
+        assert torch.equal(got.permute(1, 0, 2).reshape(L + 2 * H, 2 * w), want), k
+
+
 @pytest.mark.parametrize("k,B", [(40, 4), (512, 4), (5504, 2)])
 def test_map_decode_matches_jax(k, B):
     ls, lp, tail_x, tail_z = _map_inputs(k, B)
@@ -240,6 +258,27 @@ def test_turbo_decode_cascade_matches_jax(monkeypatch, use_kernel):
     if not use_kernel:
         np.testing.assert_array_equal(runs["1"][0].numpy(), np.asarray(j_bits))
         np.testing.assert_array_equal(runs["1"][1].numpy(), np.asarray(j_ok))
+
+
+@pytest.mark.parametrize("llr_bits", [32, 16])
+def test_turbo_decode_default_on_cpu_is_plain_map(monkeypatch, llr_bits):
+    """use_kernel left at its default on CPU tensors decodes through
+    `_map_decode`, as use_kernel=False does: same bits, CRC flags, n_iter."""
+    k, B = 512, 3
+    bits, (d0, d1, d2) = _code_block_llrs(k, B, 1.0, 5)
+    args = (*_t(d0, d1, d2, np.ones(B, bool)), k, 6, p_crc.LTE_CRC24B)
+    calls = []
+    plain = p_td._map_decode
+    monkeypatch.setattr(p_td, "_map_decode", lambda *a: calls.append(1) or plain(*a))
+    before = p_tdc.launches
+    got = p_td.turbo_decode(*args, llr_bits=llr_bits)
+    n_default = len(calls)
+    want = p_td.turbo_decode(*args, use_kernel=False, llr_bits=llr_bits)
+    assert n_default > 0 and len(calls) == 2 * n_default and p_tdc.launches == before
+    for a, b in zip(got[:2], want[:2]):
+        assert torch.equal(a, b)
+    assert got[2] == want[2] > 1
+    assert torch.equal(got[0], torch.from_numpy(np.array(bits)))
 
 
 @pytest.mark.parametrize("llr_bits", [32, 16])
