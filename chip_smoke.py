@@ -18,11 +18,17 @@ Phases (any failure raises; the exit code is then non-zero):
      (tx_subframe, AWGN, rx_subframe with the kernel) must decode the payload
      bit-exactly with every CRC passing, through the kernel; then decode and
      encode throughput, median of 3 runs;
-  5. v1 kernel vs plain (map_decode_v1_ref) at 768 x K=5504 (W=32, L=172),
-     768 x K=1040 (W=16, L=65, an odd window) and the odd-window path's
-     128 x K=1056 (W=32, L=33); then the odd-window path:
-     turbo_decode with the window count patched to give L=33 must launch v1
-     (and not the radix-2 kernel) and decode every code block;
+  5. v1 kernel vs plain (map_decode_v1_ref), bit for bit unless
+     SRSLTE_TPU_LOGMAP is set, at 768 x K=5504 (W=32, L=172), 768 x K=1040
+     (W=16, L=65, an odd window) and the odd-window path's 128 x K=1056
+     (W=32, L=33), each with the kernel's time warm and L2-flushed, its
+     bound and share, the wrapper's time, its block and occupancy; then at
+     a window shorter than the halo (64 x K=1056, W=96, L=11), long windows
+     (64 x K=6144, W=4, L=1536, staged in several passes; 16 x K=6144, W=1,
+     the long-window kernel) and a batch that leaves the last block partly
+     empty (5 x K=1040); then the odd-window path: turbo_decode with the
+     window count patched to give L=33 must launch v1 once per MAP pass
+     (and not the radix-2 kernel) and decode every code block; its time;
   6. uplink path: the 20 MHz PUSCH cell of scripts/bench_extra.py (100 PRB,
      16QAM rate 0.5, 14 dB, llr_bits=16) at batch 128 through
      models/ue_ul (build_subframe, AWGN, enb_receive with the kernel) must
@@ -37,6 +43,7 @@ The line before the last is {"kernels": [...]}; the last line is
 """
 
 import concurrent.futures
+import contextlib
 import json
 import os
 import statistics
@@ -105,12 +112,16 @@ def map_bound(k, batch, w, narrow):
 
 
 def v1_bound(k, batch, w):
-    """turbo_map_v1's bound: read the branch metrics (L, 4, n_cols) and the
-    window-edge states 2 x (8, n_cols), write the LLRs (L, n_cols), all f32;
-    per column and step 125 f32 add/max: beta and alpha steps 24 each, their
-    normalisations 15 each, the posterior 47 (32 adds, 14 max, 1 sub)."""
-    L, n_cols = k // w, batch * w
-    return bound(4 * n_cols * (4 * L + 16 + L), n_cols * L * 125)
+    """turbo_map_v1's bound, on what any implementation must do: read ls,
+    lp (B, K) f32 and beta_K (B, 8), write the LLRs (B, K) f32 (turbo_map's
+    bytes in f32); per (code block, window) column 2H halo steps of 41 f32
+    add/max (2 for the branch metrics, a 24-operation step, its 15-operation
+    normalisation) and L steps of 127: 2 for the branch metrics, beta and
+    alpha steps 24 each, their normalisations 15 each, the posterior 47 (32
+    adds, 14 max, 1 subtraction)."""
+    L = k // w
+    H = min(40, L)
+    return bound(4 * batch * (3 * k + 8), batch * w * (2 * H * 41 + L * 127))
 
 
 def rate(fn, check=lambda out: True):
@@ -288,50 +299,112 @@ def code_block_llrs(k, batch, dev, seed, scale):
     return (bits, *((1 - 2.0 * d.float()) * scale + noise(d) for d in turbo.turbo_encode(bits)))
 
 
+# (K, rows, W) of phase 5.  Timed with bound and share: the downlink bench
+# shape (L=172), an odd window (L=65), the odd-window path's own shape (L=33,
+# halo H=33).  Then a window shorter than the halo, of odd length (L=11: the
+# halo is the whole neighbouring window), a long window staged in several
+# passes (L=1536), one that takes the long-window kernel (L=6144), and a
+# batch whose 80 columns leave the last block partly empty.
+V1_SHAPES = ((5504, 768, 32), (1040, 768, 16), (1056, BATCH, 32))
+V1_EDGE_SHAPES = ((1056, 64, 96), (6144, 64, 4), (6144, 16, 1), (1040, 5, 16))
+ODD_K, ODD_W = 1056, 32  # the odd-window path: L = 1056 / 32 = 33
+
+
+@contextlib.contextmanager
+def window_count(n):
+    """The decoder's window count set to n for every code-block size (no
+    size gives an odd window length by itself)."""
+    from srslte_emane_tpu_torch.ops.fec import turbodecoder_cuda as tdc
+
+    pick = tdc._pick_windows
+    tdc._pick_windows = lambda _: n
+    try:
+        yield
+    finally:
+        tdc._pick_windows = pick
+
+
+def odd_window_decode(dev):
+    """(decode, bits): turbo_decode of BATCH code blocks of K=ODD_K through
+    the kernels, to be called under window_count(ODD_W)."""
+    import torch
+
+    from srslte_emane_tpu_torch.ops.fec import crc, turbodecoder
+
+    bits, d0, d1, d2 = code_block_llrs(ODD_K, BATCH, dev, 1, 1.5)
+    valid = torch.ones(BATCH, dtype=torch.bool, device=dev)
+    return (lambda: turbodecoder.turbo_decode(d0, d1, d2, valid, ODD_K, 8, crc.LTE_CRC24B,
+                                              use_kernel=True, llr_bits=16)), bits
+
+
+def host_ms(fn, n):
+    """Median milliseconds of n synchronised calls of fn on the host clock."""
+    import torch
+
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(times)
+
+
 def phase_v1(dev):
     """The v1 kernel against its plain version, then the odd-window path
     through the decoder.  Returns (cases, launches of the path)."""
     import torch
 
-    from srslte_emane_tpu_torch.ops.fec import crc, turbodecoder, turbodecoder_cuda as tdc
+    from srslte_emane_tpu_torch.ops.fec import turbodecoder, turbodecoder_cuda as tdc
 
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
     cases = []
-    # the downlink bench shape (L=172), an odd window (L=65), and the
-    # odd-window path's own shape below (L=33, halo H=33)
-    for k, batch, w in ((5504, 768, 32), (1040, 768, 16), (1056, BATCH, 32)):
-        args = random_llrs(k, batch, dev, k)
+    for k, batch, w in V1_SHAPES + V1_EDGE_SHAPES:
+        edge = (k, batch, w) in V1_EDGE_SHAPES
+        args = random_llrs(k, batch, dev, k + w)
+        what = f"v1 K={k} B={batch} W={w}"
         got = tdc.map_decode_v1_cuda(*args, w)
         ref = tdc.map_decode_v1_ref(*args, w)
-        err = check_close(got, ref, f"v1 K={k} B={batch} W={w}")
-        prepared = tdc._v1_inputs(*args, w)
-        ms = cuda_ms(lambda: tdc.launch_v1(*prepared), 10)
-        wrapper_ms = cuda_ms(lambda: tdc.map_decode_v1_cuda(*args, w), 10)
-        plain_ms = cuda_ms(lambda: tdc.map_decode_v1_ref(*args, w), 3)
-        case = dict(K=k, B=batch, W=w, L=k // w, max_abs_err=err,
-                    ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms)
+        if tdc.LOGMAP:  # the card's log and exp round differently from torch's
+            err = check_close(got, ref, what)
+        else:
+            assert torch.equal(got, ref), f"{what}: not bit-exact"
+            err = (got - ref).abs().max().item()
+        cols, blocks = tdc.occupancy_v1(k, w)
+        if (k, batch) == (1040, 5):
+            assert (batch * w) % cols, f"{what}: the last block is full"
+        assert (cols == 0) == ((k, w) == (6144, 1)), f"{what}: {cols} columns per block"
+        # the kernel alone (warm, and L2 flushed), the whole wrapper, the plain version
+        beta_k = turbodecoder.beta_tail(*args[2:]).contiguous()
+        kernel = lambda: tdc.launch_v1(args[0], args[1], beta_k, w)
+        ms = cuda_ms(kernel, 20)
+        flushed_ms = cuda_ms(kernel, 20, flush)
+        wrapper_ms = cuda_ms(lambda: tdc.map_decode_v1_cuda(*args, w), 20)
+        plain_ms = cuda_ms(lambda: tdc.map_decode_v1_ref(*args, w), 1 if edge else 3)
+        bound_ms, bound_by = v1_bound(k, batch, w)
+        case = dict(K=k, B=batch, W=w, L=k // w, max_abs_err=err, ms=ms, flushed_ms=flushed_ms,
+                    wrapper_ms=wrapper_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                    bound_by=bound_by, share=bound_ms / ms, cols_per_block=cols,
+                    blocks_per_sm=blocks)
         log(f"v1 kernel vs plain {json.dumps(case)}")
         cases.append(case)
 
     # the odd-window path: the decoder's entry point with a window count
-    # that gives L = 1056 / 32 = 33 (no code-block size does by itself)
-    k = 1056
-    bits, d0, d1, d2 = code_block_llrs(k, BATCH, dev, 1, 1.5)
-    valid = torch.ones(BATCH, dtype=torch.bool, device=dev)
-    pick = tdc._pick_windows
-    tdc._pick_windows = lambda _: 32
-    try:
-        tdc.launches = tdc.launches_v1 = 0
-        out, ok, n_iter = turbodecoder.turbo_decode(d0, d1, d2, valid, k, 8, crc.LTE_CRC24B,
-                                                    use_kernel=True, llr_bits=16)
+    # that gives L = 1056 / 32 = 33
+    decode, bits = odd_window_decode(dev)
+    with window_count(ODD_W):
+        turbodecoder.map_rows = tdc.launches = tdc.launches_v1 = 0
+        out, ok, n_iter = decode()
         torch.cuda.synchronize()
-        launches = tdc.launches_v1
+        launches, passes = tdc.launches_v1, turbodecoder.map_rows / BATCH
         assert launches > 0 and tdc.launches == 0, \
             f"odd window: {launches} v1 and {tdc.launches} radix-2 launches"
-    finally:
-        tdc._pick_windows = pick
+        decode_ms = host_ms(decode, 5)
     assert bool(ok.all()) and torch.equal(out, bits), "odd-window decode failed"
-    log(f"odd-window path: {BATCH} code blocks of K={k} at L=33 decoded through v1, "
-        f"{launches} v1 launches, n_iter {n_iter}")
+    log(f"odd-window path: {BATCH} code blocks of K={ODD_K} at L={ODD_K // ODD_W} decoded "
+        f"through v1, {launches} v1 launches in {passes:.2f} batch-wide MAP passes, n_iter "
+        f"{n_iter}, {decode_ms:.3f} ms per decode (median of 5 calls, host clock)")
     return cases, launches
 
 
@@ -507,8 +580,7 @@ def main():
     ul_launches = phase_uplink(dev)
     phase_cascade(dev)
     bench = next(c for c in cases if (c["K"], c["B"], c["narrow"]) == (5504, 768, True))
-    odd = next(c for c in v1_cases if c["L"] == 65)
-    v1_bound_ms, v1_bound_by = v1_bound(odd["K"], odd["B"], odd["W"])
+    odd = next(c for c in v1_cases if (c["K"], c["B"]) == (1040, 768))
     print(json.dumps({"kernels": [{
         "name": "turbo_map",
         "route": "cuda",
@@ -517,6 +589,7 @@ def main():
         "launches": dl_launches + ul_launches,  # downlink path + uplink path
         "max_abs_err": max(c["max_abs_err"] for c in cases),
         "ms": bench["ms"],
+        "wrapper_ms": bench["wrapper_ms"],
         "plain_ms": bench["plain_ms"],
         "bound_ms": bench["bound_ms"],
         "bound_by": bench["bound_by"],
@@ -530,9 +603,11 @@ def main():
         "launches": v1_launches,  # the odd-window path
         "max_abs_err": max(c["max_abs_err"] for c in v1_cases),
         "ms": odd["ms"],
+        "wrapper_ms": odd["wrapper_ms"],
         "plain_ms": odd["plain_ms"],
-        "bound_ms": v1_bound_ms,
-        "bound_by": v1_bound_by,
+        "bound_ms": odd["bound_ms"],
+        "bound_by": odd["bound_by"],
+        "share": odd["share"],
         "library_ms": None,
     }]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

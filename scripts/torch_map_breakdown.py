@@ -1,18 +1,24 @@
 #!/usr/bin/env python3
-"""Where the turbo_map kernel's time goes, on one CUDA card.
+"""Where the MAP kernels' time goes, on one CUDA card.
 
 Run from the repository root:  python3 scripts/torch_map_breakdown.py
 
-Builds cut-down copies of srslte_emane_tpu_torch/csrc/turbo_map.cu into
-build/breakdown/ and times each at 768 x K=5504 (the downlink cell's MAP
-shape) in both storage modes, back-to-back launches between CUDA events:
+Builds cut-down copies of srslte_emane_tpu_torch/csrc/turbo_map.cu and
+turbo_map_v1.cu into build/breakdown/ and times each, back-to-back launches
+between CUDA events: turbo_map at 768 x K=5504 (the downlink cell's MAP
+shape) in both storage modes, turbo_map_v1 (its staged kernel) at 768 x
+K=5504 (L=172) and 768 x K=1040 (L=65).  The copies:
   full          the kernel as it is;
   stage_only    staging and write-back, no trellis work;
   no_forward    staging, the backward pass with its checkpoints and the
                 halo warm-ups, no segment recompute or forward pass;
-  no_recompute  everything but the recompute of each segment's beta rows.
-The copies compute wrong LLRs; only their times are read.  Prints one JSON
-line, then the card's name, power limit and clocks.
+  no_recompute  everything but the recompute of each segment's beta rows;
+  no_warmup     (v1) everything but the two halo warm-ups.
+The copies compute wrong LLRs; only their times are read.  For v1 the time
+by phase follows: staging = stage_only, warm-up = full - no_warmup,
+recompute = full - no_recompute, forward = no_recompute - no_forward,
+backward = no_forward - stage_only - warm-up.  Prints one JSON line, then
+the card's name, power limit and clocks.
 """
 
 import json
@@ -29,20 +35,65 @@ sys.path.insert(0, str(ROOT))
 from srslte_emane_tpu_torch.ops.fec import turbodecoder, turbodecoder_cuda as tdc  # noqa: E402
 
 K, B, N = 5504, 768, 20
+V1_SHAPES = ((5504, 768, 32), (1040, 768, 16))  # (K, rows, W)
+
+
+def replace_in(src, name, swaps):
+    for old, new in swaps:
+        assert old in src, f"{name} changed: {old!r} not found"
+        src = src.replace(old, new)
+    return src
 
 
 def variants(src):
     seg = "    for (int j = (n_pairs - 1) / kPairs; j >= 0; --j) {"
     rec = "        if (i0 + u < i1) bwd_pair(bt, L - 1 - 2 * (i0 + u), L - 1 - 2 * (i0 + u) - lo);"
     work = "  if (cl < cols && c < n_cols) {"
-    for needle in (seg, rec, work):
-        assert needle in src, f"turbo_map.cu changed: {needle!r} not found"
+    cut = lambda *swaps: replace_in(src, "turbo_map.cu", swaps)
     return {
         "full": src,
-        "stage_only": src.replace(work, "  if (cl < cols && c < 0) {"),
-        "no_forward": src.replace(seg, seg.replace("j >= 0", "j >= n_cols")),
-        "no_recompute": src.replace(rec, rec.replace("i0 + u < i1)", "i0 + u < i1 && n_cols < 0)")),
+        "stage_only": cut((work, "  if (cl < cols && c < 0) {")),
+        "no_forward": cut((seg, seg.replace("j >= 0", "j >= n_cols"))),
+        "no_recompute": cut((rec, rec.replace("i0 + u < i1)", "i0 + u < i1 && n_cols < 0)"))),
     }
+
+
+def variants_v1(src):
+    seg = "    for (int j = lay.n_seg - 1; j >= 0; --j) {"
+    rec = "        if (tt >= lo) {"
+    work = "  if (cl < cols && c < n_cols) {"
+    warm_b = "    for (int i = 2 * H + L - 1; i >= H + L; --i) {"
+    warm_a = "    for (int i = 0; i < H; ++i) {"
+    cut = lambda *swaps: replace_in(src, "turbo_map_v1.cu", swaps)
+    return {
+        "full": src,
+        "stage_only": cut((work, "  if (cl < cols && c < 0) {")),
+        "no_forward": cut((seg, seg.replace("j >= 0", "j >= n_cols"))),
+        "no_recompute": cut((rec, "        if (tt >= lo && n_cols < 0) {")),
+        "no_warmup": cut((warm_b, warm_b.replace("i >= H + L;", "i >= H + L && n_cols < 0;")),
+                         (warm_a, warm_a.replace("i < H;", "i < H && n_cols < 0;"))),
+    }
+
+
+def build_copy(kind, name, text):
+    """Build one cut-down copy of csrc/<kind>.cu under build/breakdown/."""
+    d = ROOT / "build" / "breakdown" / f"{kind}-{name}"
+    d.mkdir(parents=True, exist_ok=True)
+    (d / f"{kind}.cu").write_text(text)
+    (d / "trellis.cuh").write_text((tdc.CSRC / "trellis.cuh").read_text())
+    return tdc.build(d / f"{kind}.cu").lib
+
+
+def per_launch_ms(launch):
+    assert launch() == 0
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(N):
+        launch()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / N
 
 
 def main():
@@ -52,31 +103,37 @@ def main():
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(0)
     f = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev).contiguous()
-    ls, lp, beta_k = f(rng.normal(0, 4, (B, K))), f(rng.normal(0, 4, (B, K))), f(rng.normal(0, 4, (B, 8)))
+    normal = lambda *shape: f(rng.normal(0, 4, shape))
+    stream = torch.cuda.current_stream().cuda_stream
+    out = {}
+
+    ls, lp, beta_k = normal(B, K), normal(B, K), normal(B, 8)
     w = turbodecoder._pick_windows(K)
     L, H = tdc._windows(K, w)
-    header = (tdc.CSRC / "trellis.cuh").read_text()
-    out = {}
     for name, text in variants(tdc.SOURCE.read_text()).items():
-        d = ROOT / "build" / "breakdown" / name
-        d.mkdir(parents=True, exist_ok=True)
-        (d / "turbo_map.cu").write_text(text)
-        (d / "trellis.cuh").write_text(header)
-        lib = tdc.build(d / "turbo_map.cu").lib
+        lib = build_copy("turbo_map", name, text)
         for narrow in (True, False):
             llr = torch.empty_like(ls)
-            launch = lambda: lib.turbo_map_launch(
-                ls.data_ptr(), lp.data_ptr(), beta_k.data_ptr(), llr.data_ptr(), B * w, w, L, H,
-                int(narrow), 0, torch.cuda.current_stream().cuda_stream)
-            assert launch() == 0
-            torch.cuda.synchronize()
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            for _ in range(N):
-                launch()
-            end.record()
-            torch.cuda.synchronize()
-            out[f"{name}_{'bf16' if narrow else 'f32'}_ms"] = start.elapsed_time(end) / N
+            out[f"{name}_{'bf16' if narrow else 'f32'}_ms"] = per_launch_ms(
+                lambda: lib.turbo_map_launch(ls.data_ptr(), lp.data_ptr(), beta_k.data_ptr(),
+                                             llr.data_ptr(), B * w, w, L, H, int(narrow), 0, stream))
+
+    for k, rows, w in V1_SHAPES:
+        ls, lp, beta_k = normal(rows, k), normal(rows, k), normal(rows, 8)
+        L, H = tdc._windows_v1(k, w)
+        ms = {}
+        for name, text in variants_v1(tdc.SOURCE_V1.read_text()).items():
+            lib = build_copy("turbo_map_v1", name, text)
+            llr = torch.empty_like(ls)
+            ms[name] = per_launch_ms(
+                lambda: lib.turbo_map_v1_launch(ls.data_ptr(), lp.data_ptr(), beta_k.data_ptr(),
+                                                llr.data_ptr(), rows * w, w, L, H, 0, stream))
+        warmup = ms["full"] - ms["no_warmup"]
+        out[f"v1_{rows}x{k}_L{L}"] = dict(
+            ms, staging_ms=ms["stage_only"], warmup_ms=warmup,
+            backward_ms=ms["no_forward"] - ms["stage_only"] - warmup,
+            recompute_ms=ms["full"] - ms["no_recompute"],
+            forward_ms=ms["no_recompute"] - ms["no_forward"])
     print(json.dumps(out))
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm",
                           "--format=csv,noheader"], capture_output=True, text=True).stdout.strip())

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""The PyTorch port's MAP kernel and link decode rates, tree against tree,
+"""The PyTorch port's MAP kernels and link decode rates, tree against tree,
 on one CUDA card.
 
 Run from the repository root, with other checkouts of the port unpacked
@@ -11,10 +11,14 @@ Each tree named runs in a process of its own, in the order given (so
 parent, change, change, parent takes turns on the same card), and prints
 one JSON line: at each of chip_smoke.py's MAP_SHAPES the turbo_map kernel
 alone warm and with L2 flushed between launches, the wrapper
-`map_decode_cuda`, and the bound; then the downlink and uplink cells'
-decode rates in subframes/s (chip_smoke.py's cells, batch 128, median of 5
-runs of 10 calls).  A tree whose kernel takes time-major inputs (the
-port's first design) has them prepared outside the timed launch.
+`map_decode_cuda`, and the bound; the same for the turbo_map_v1 kernel and
+`map_decode_v1_cuda` at chip_smoke.py's V1_SHAPES, and the decode time of
+its odd-window path (turbo_decode at L=33); then the downlink and uplink
+cells' decode and encode rates in subframes/s (chip_smoke.py's cells, batch
+128, median of 5 runs of 10 calls).  A tree whose kernels take inputs
+prepared in torch (the port's first designs: time-major windows for
+turbo_map, branch metrics and window-edge states for v1) has them prepared
+outside the timed launch; its wrappers are timed whole.
 """
 
 import importlib.util
@@ -38,7 +42,7 @@ def smoke():
     return mod
 
 
-def decode_rate(fn, check):
+def rate(fn, check=lambda out: True):
     import torch
 
     cs = smoke()
@@ -90,6 +94,31 @@ def child(tree):
                                    wrapper_ms=cs.cuda_ms(wrapper, 20), bound_ms=bound_ms,
                                    bound_by=bound_by, share=bound_ms / ms))
 
+    v1_prepared = "g" in inspect.signature(tdc.launch_v1).parameters
+    out["v1"] = []
+    for k, batch, w in cs.V1_SHAPES:
+        args = cs.random_llrs(k, batch, dev, k + w)
+        if v1_prepared:
+            prepared = tdc._v1_inputs(*args, w)
+            kernel = lambda: tdc.launch_v1(*prepared)
+        else:
+            beta_k = turbodecoder.beta_tail(*args[2:]).contiguous()
+            kernel = lambda: tdc.launch_v1(args[0], args[1], beta_k, w)
+        wrapper = lambda: tdc.map_decode_v1_cuda(*args, w)
+        wrapper()
+        torch.cuda.synchronize()
+        bound_ms, bound_by = cs.v1_bound(k, batch, w)
+        ms = cs.cuda_ms(kernel, 20)
+        out["v1"].append(dict(K=k, B=batch, W=w, L=k // w, ms=ms,
+                              flushed_ms=cs.cuda_ms(kernel, 20, flush),
+                              wrapper_ms=cs.cuda_ms(wrapper, 20), bound_ms=bound_ms,
+                              bound_by=bound_by, share=bound_ms / ms))
+    decode, bits = cs.odd_window_decode(dev)
+    with cs.window_count(cs.ODD_W):
+        got, ok, _ = decode()
+        assert bool(ok.all()) and torch.equal(got, bits), "odd-window decode failed"
+        out["odd_window_decode_ms"] = cs.host_ms(decode, 9)
+
     cfg = pdsch_link.LinkConfig(cell=grid.CellConfig(n_prb=100, cell_id=1, cfi=1), qm=6,
                                 code_rate=0.55, snr_db=20.0, sf_idx=1, llr_bits=16)
     payload = torch.from_numpy(
@@ -97,18 +126,22 @@ def child(tree):
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     rx = channel.awgn(gen, pdsch_link.tx_subframe(payload, cfg), cfg.snr_db)
-    out["dl_decode_sf_s"], out["dl_runs"] = decode_rate(
+    out["dl_decode_sf_s"], out["dl_runs"] = rate(
         lambda: pdsch_link.rx_subframe(rx, cfg, use_kernel=True)[:2],
         lambda r: bool(r[1].all()) and torch.equal(r[0], payload))
+    out["dl_encode_sf_s"], out["dl_encode_runs"] = rate(
+        lambda: pdsch_link.tx_subframe(payload, cfg))
 
     ucfg = cs.ul_bench_config()
     upay = torch.from_numpy(
         np.random.default_rng(2).integers(0, 2, (cs.BATCH, ucfg.tbs), dtype=np.int8)).to(dev)
     gen.manual_seed(2)
     urx = channel.awgn(gen, ue_ul.build_subframe(ucfg, tb_bits=upay), 14.0)
-    out["ul_decode_sf_s"], out["ul_runs"] = decode_rate(
+    out["ul_decode_sf_s"], out["ul_runs"] = rate(
         lambda: ue_ul.enb_receive(urx, ucfg, use_kernel=True, llr_bits=16)["pusch"],
         lambda r: bool(r[1].all()) and torch.equal(r[0], upay))
+    out["ul_encode_sf_s"], out["ul_encode_runs"] = rate(
+        lambda: ue_ul.build_subframe(ucfg, tb_bits=upay))
     print(json.dumps(out), flush=True)
 
 

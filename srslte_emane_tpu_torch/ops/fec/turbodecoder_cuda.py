@@ -13,11 +13,11 @@ That kernel steps two trellis stages at a time, so it needs an even window
 length L.  For an odd L, `map_decode` takes the second kernel, as the
 reference falls back to its v1 TPU kernel (`turbodecoder_pallas2.py:241-245`,
 `turbodecoder_pallas.map_decode_pallas`): `csrc/turbo_map_v1.cu`
-(`map_decode_v1_cuda`, float32 only, any L), whose wrapper computes the
-branch metrics and the window-edge states in torch; its plain version is
-`map_decode_v1_ref`.  No LTE code-block size gives an odd L with
-`_pick_windows`, so the decoder reaches v1 only when a caller picks the
-window count.
+(`map_decode_v1_cuda`, float32 only, any L): beta_K, then one launch on the
+(B, K) tensors too, with the branch metrics, the halo warm-ups and the
+window-edge rules in the kernel; its plain version is `map_decode_v1_ref`.
+No LTE code-block size gives an odd L with `_pick_windows`, so the decoder
+reaches v1 only when a caller picks the window count.
 
 The window count is the reference decoder's `_pick_windows(K)` (W=32 at
 both 20 MHz bench sizes: L=172 at K=5504, L=174 at K=5568), not the TPU
@@ -63,10 +63,19 @@ launches = 0
 launches_v1 = 0
 
 
-# argument types of each library's C entry point `<source stem>_launch`
-_ARGTYPES = {
-    "turbo_map": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
-    "turbo_map_v1": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+# argument types of each library's C entry points (all return an int)
+_ENTRY_POINTS = {
+    "turbo_map": {
+        "turbo_map_launch": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+        "turbo_map_blocks_per_sm": [ctypes.c_int] * 4,
+        "turbo_map_cols": [ctypes.c_int] * 3,
+    },
+    "turbo_map_v1": {
+        "turbo_map_v1_launch": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+        "turbo_map_v1_long_launch": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+        "turbo_map_v1_blocks_per_sm": [ctypes.c_int] * 3,
+        "turbo_map_v1_cols": [ctypes.c_int] * 2,
+    },
 }
 
 
@@ -100,12 +109,9 @@ def build(source: pathlib.Path) -> Build:
             raise RuntimeError(f"nvcc failed on {source.name} with code {res.returncode}:\n{log}")
         os.replace(tmp, path)  # atomic: a concurrent build never sees half a file
     lib = ctypes.CDLL(str(path))
-    entry = getattr(lib, f"{name}_launch")
-    entry.argtypes = _ARGTYPES[name]
-    entry.restype = ctypes.c_int
-    if name == "turbo_map":
-        lib.turbo_map_blocks_per_sm.argtypes = [ctypes.c_int] * 4
-        lib.turbo_map_cols.argtypes = [ctypes.c_int] * 3
+    for entry, argtypes in _ENTRY_POINTS[name].items():
+        getattr(lib, entry).argtypes = argtypes
+        getattr(lib, entry).restype = ctypes.c_int
     return Build(lib, path, seconds, log)
 
 
@@ -121,20 +127,42 @@ def occupancy(K: int, n_windows: int, narrow: bool) -> tuple[int, int]:
     return lib.turbo_map_cols(L, H, int(narrow)), n
 
 
-def _windows(K: int, n_windows: int):
+def occupancy_v1(K: int, n_windows: int) -> tuple[int, int]:
+    """(columns per block, blocks per SM) of turbo_map_v1.cu on the current
+    card for this shape; 0 columns per block means the long-window kernel
+    (64 threads per block, one per column)."""
+    L, H = _windows_v1(K, n_windows)
+    lib = build(SOURCE_V1).lib
+    n = lib.turbo_map_v1_blocks_per_sm(L, H, int(LOGMAP))
+    if n < 0:
+        raise RuntimeError(f"occupancy query failed for K={K}")
+    return lib.turbo_map_v1_cols(L, H), n
+
+
+def _windows_v1(K: int, n_windows: int):
+    """(L, H) of K split into n_windows windows of any length L >= 1."""
+    if n_windows <= 0 or K <= 0 or K % n_windows:
+        raise ValueError(f"K={K} does not split into {n_windows} windows")
     L = K // n_windows
-    if K % n_windows or L % 2:
-        raise ValueError(f"K={K} with {n_windows} windows: window length must be even")
     return L, min(HALO, L)
+
+
+def _windows(K: int, n_windows: int):
+    """(L, H) for the radix-2 kernel, which needs an even L."""
+    L, H = _windows_v1(K, n_windows)
+    if L % 2:
+        raise ValueError(f"K={K} with {n_windows} windows: window length must be even")
+    return L, H
 
 
 @functools.lru_cache(maxsize=64)
 def window_index(K: int, n_windows: int) -> torch.Tensor:
-    """The kernel's addressing: (L + 2H, W) int64, the K-index that step i
+    """Both kernels' addressing: (L + 2H, W) int64, the K-index that step i
     of window w reads (i in [0, L + 2H), the window's halos included), or
-    -1 where the step lies outside [0, K) and reads zero.  The kernel reads
-    flat index b*K + k of the (B, K) inputs for column b*W + w."""
-    L, H = _windows(K, n_windows)
+    -1 where the step lies outside [0, K) and reads zero.  A kernel reads
+    flat index b*K + k of the (B, K) inputs for column b*W + w.  Any window
+    length L >= 1: up to L = 40 the halo is the whole neighbouring window."""
+    L, H = _windows_v1(K, n_windows)
     k = (torch.arange(n_windows)[None, :] * L - H + torch.arange(L + 2 * H)[:, None])
     return torch.where((k >= 0) & (k < K), k, -1)
 
@@ -302,26 +330,32 @@ def _v1_steps(dev: torch.device):
     return beta_step, alpha_step, posterior
 
 
-def _v1_inputs(ls: torch.Tensor, lp: torch.Tensor, tail_x: torch.Tensor,
-               tail_z: torch.Tensor, n_windows: int):
-    """What the v1 kernel is given, as `map_decode_pallas` computes it
-    outside its kernel: branch metrics (L, 4, n_cols) time-major, alpha at
-    node 0 and beta at node L of every window (8, n_cols); column
-    b*W + w.  The halo pre-scans start from uniform metrics and subtract
-    the max at every step; window 0 takes the exact alpha_0, window W-1 the
-    tail-derived beta_K less its max."""
+def _v1_windows(ls: torch.Tensor, lp: torch.Tensor, n_windows: int) -> torch.Tensor:
+    """The branch metrics of every window with its halos, time-major:
+    (L + 2H, 4, n_cols), zero outside [0, K), column b*W + w, built with pad
+    and strides (`window_index` states the same windows as indices)."""
     B, K = ls.shape
-    if n_windows <= 0 or K % n_windows:
-        raise ValueError(f"K={K} does not split into {n_windows} windows")
-    L = K // n_windows
-    H = min(HALO, L)
-    n_cols = B * n_windows
-    dev = ls.device
-    beta_step, alpha_step, _ = _v1_steps(dev)
+    L, H = _windows_v1(K, n_windows)
     g = torch.nn.functional.pad(_gammas(ls.to(torch.float32), lp.to(torch.float32)),
                                 (0, 0, H, H))  # (B, K + 2H, 4), zero outside [0, K)
     spans = g.as_strided((B, n_windows, L + 2 * H, 4), ((K + 2 * H) * 4, L * 4, 4, 1))
-    gw = spans.permute(2, 3, 0, 1).reshape(L + 2 * H, 4, n_cols)
+    return spans.permute(2, 3, 0, 1).reshape(L + 2 * H, 4, B * n_windows)
+
+
+def _v1_inputs(ls: torch.Tensor, lp: torch.Tensor, tail_x: torch.Tensor,
+               tail_z: torch.Tensor, n_windows: int):
+    """What the TPU's v1 kernel is given, as `map_decode_pallas` computes it
+    outside its kernel (the CUDA kernel computes all of it itself): branch
+    metrics (L, 4, n_cols) time-major, alpha at node 0 and beta at node L of
+    every window (8, n_cols); column b*W + w.  The halo pre-scans start from
+    the all-zero state and subtract the max at every step; window 0 takes
+    the exact alpha_0, window W-1 the tail-derived beta_K less its max."""
+    B, K = ls.shape
+    L, H = _windows_v1(K, n_windows)
+    n_cols = B * n_windows
+    dev = ls.device
+    beta_step, alpha_step, _ = _v1_steps(dev)
+    gw = _v1_windows(ls, lp, n_windows)
     a0 = gw.new_zeros((8, n_cols))
     b0 = gw.new_zeros((8, n_cols))
     for i in range(H):
@@ -337,24 +371,57 @@ def _v1_inputs(ls: torch.Tensor, lp: torch.Tensor, tail_x: torch.Tensor,
     return gw[H:H + L].contiguous(), a0.contiguous(), b0.contiguous()
 
 
-def launch_v1(g: torch.Tensor, a0: torch.Tensor, b0: torch.Tensor) -> torch.Tensor:
-    """The v1 kernel alone, on PyTorch's current stream.  g: (L, 4, n_cols)
-    branch metrics; a0, b0: (8, n_cols) alpha at node 0 and beta at node L
-    (`_v1_inputs`); all float32, contiguous, on one CUDA device.  Returns the
-    posterior LLRs (L, n_cols)."""
+def _v1_launch_args(ls: torch.Tensor, lp: torch.Tensor, beta_k: torch.Tensor, n_windows: int):
+    """Validate one v1 launch; returns (L, H, the C arguments that both
+    entry points share after the pointers)."""
+    B, K = ls.shape
+    L, H = _windows_v1(K, n_windows)
+    dev = ls.device
+    _require("ls", ls, dev, (torch.float32,), (B, K))
+    _require("lp", lp, dev, (torch.float32,), (B, K))
+    _require("beta_k", beta_k, dev, (torch.float32,), (B, 8))
+    return L, H, (B * n_windows, n_windows, L, H, int(LOGMAP),
+                  torch.cuda.current_stream(dev).cuda_stream)
+
+
+def launch_v1_long(ls: torch.Tensor, lp: torch.Tensor, beta_k: torch.Tensor,
+                   n_windows: int) -> torch.Tensor:
+    """The long-window kernel of turbo_map_v1.cu alone, on PyTorch's current
+    stream: arguments and result as `launch_v1`.  It takes any shape, reads
+    its inputs from device memory step by step and keeps beta in an (L, 8,
+    columns) float32 scratch allocated here."""
     global launches_v1
-    if g.ndim != 3 or g.shape[0] <= 0 or g.shape[2] <= 0:
-        raise ValueError(f"branch metrics of shape {tuple(g.shape)}: need (L, 4, n_cols)")
-    L, _, n_cols = g.shape
-    dev = g.device
-    _require("g", g, dev, (torch.float32,), (L, 4, n_cols))
-    _require("a0", a0, dev, (torch.float32,), (8, n_cols))
-    _require("b0", b0, dev, (torch.float32,), (8, n_cols))
-    llr = torch.empty((L, n_cols), dtype=torch.float32, device=dev)
-    scratch = torch.empty((L, 8, n_cols), dtype=torch.float32, device=dev)
-    err = build(SOURCE_V1).lib.turbo_map_v1_launch(
-        g.data_ptr(), a0.data_ptr(), b0.data_ptr(), llr.data_ptr(), scratch.data_ptr(),
-        n_cols, L, int(LOGMAP), torch.cuda.current_stream(dev).cuda_stream)
+    L, _, tail = _v1_launch_args(ls, lp, beta_k, n_windows)
+    llr = torch.empty_like(ls)
+    scratch = torch.empty((L, 8, tail[0]), dtype=torch.float32, device=ls.device)
+    err = build(SOURCE_V1).lib.turbo_map_v1_long_launch(
+        ls.data_ptr(), lp.data_ptr(), beta_k.data_ptr(), llr.data_ptr(), scratch.data_ptr(), *tail)
+    if err != 0:
+        raise RuntimeError(f"turbo_map_v1 long-window launch failed: cudaError_t {err}")
+    launches_v1 += 1
+    return llr
+
+
+def launch_v1(ls: torch.Tensor, lp: torch.Tensor, beta_k: torch.Tensor,
+              n_windows: int) -> torch.Tensor:
+    """The v1 kernel alone, on PyTorch's current stream.  ls/lp: (B, K)
+    float32 LLRs as the decoder holds them; beta_k: (B, 8) float32 exact
+    beta_K (`beta_tail`); all contiguous on one CUDA device.  Returns the
+    posterior LLRs (B, K) float32.
+
+    The shape picks the kernel before the launch: the staged kernel, which
+    allocates nothing but the output, while at least one column's window
+    with its halos, checkpoints and segment rows fits a quarter of an SM's
+    shared memory (L up to about 4,700); the long-window kernel
+    (`launch_v1_long`) beyond that."""
+    global launches_v1
+    L, H, tail = _v1_launch_args(ls, lp, beta_k, n_windows)
+    lib = build(SOURCE_V1).lib
+    if lib.turbo_map_v1_cols(L, H) == 0:
+        return launch_v1_long(ls, lp, beta_k, n_windows)
+    llr = torch.empty_like(ls)
+    err = lib.turbo_map_v1_launch(ls.data_ptr(), lp.data_ptr(), beta_k.data_ptr(),
+                                  llr.data_ptr(), *tail)
     if err != 0:
         raise RuntimeError(f"turbo_map_v1 kernel launch failed: cudaError_t {err}")
     launches_v1 += 1
@@ -363,20 +430,21 @@ def launch_v1(g: torch.Tensor, a0: torch.Tensor, b0: torch.Tensor) -> torch.Tens
 
 def map_decode_v1_cuda(ls: torch.Tensor, lp: torch.Tensor, tail_x: torch.Tensor,
                        tail_z: torch.Tensor, n_windows: int) -> torch.Tensor:
-    """One MAP half-iteration through the v1 kernel, any window length.
-    ls/lp: (B, K) float32, tail_x/tail_z: (B, 3) float32, all contiguous on
-    one CUDA device.  Returns the posterior LLRs (B, K) float32."""
+    """One MAP half-iteration through the v1 kernel, any window length:
+    beta_K, then one launch on the (B, K) tensors (`launch_v1` says which
+    kernel a shape takes).  ls/lp: (B, K) float32, tail_x/tail_z: (B, 3)
+    float32, all contiguous on one CUDA device.  Returns the posterior LLRs
+    (B, K) float32."""
     B, K = ls.shape
     for name, t, shape in (("ls", ls, (B, K)), ("lp", lp, (B, K)),
                            ("tail_x", tail_x, (B, 3)), ("tail_z", tail_z, (B, 3))):
         _require(name, t, ls.device, (torch.float32,), shape)
-    llr = launch_v1(*_v1_inputs(ls, lp, tail_x, tail_z, n_windows))
-    return llr.view(K // n_windows, B, n_windows).permute(1, 2, 0).reshape(B, K)
+    return launch_v1(ls, lp, beta_tail(tail_x, tail_z).contiguous(), n_windows)
 
 
 def map_decode_v1_ref(ls: torch.Tensor, lp: torch.Tensor, tail_x: torch.Tensor,
                       tail_z: torch.Tensor, n_windows: int) -> torch.Tensor:
-    """Plain PyTorch version of the v1 kernel's function (same inputs, same
+    """Plain PyTorch version of the v1 kernel's function (same windows, same
     normalisation points), states as (8, n_cols) tensors."""
     B, K = ls.shape
     g, alpha, beta = _v1_inputs(ls, lp, tail_x, tail_z, n_windows)

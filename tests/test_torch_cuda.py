@@ -181,9 +181,126 @@ def test_v1_wrapper_rejects_what_the_kernel_does_not_take(dev):
         turbodecoder_cuda.map_decode_v1_cuda(ls, lp.cpu(), tx, tz, 2)
     with pytest.raises(ValueError):
         turbodecoder_cuda.map_decode_v1_cuda(ls, lp, tx, tz, 3)  # 3 does not divide K
-    g, a0, b0 = turbodecoder_cuda._v1_inputs(ls, lp, tx, tz, 2)
+    beta_k = turbodecoder.beta_tail(tx, tz).contiguous()
+    before = turbodecoder_cuda.launches_v1
     with pytest.raises(ValueError):
-        turbodecoder_cuda.launch_v1(g, a0[:4].contiguous(), b0)
+        turbodecoder_cuda.launch_v1(ls, lp, beta_k[:, :4].contiguous(), 2)
+    with pytest.raises(TypeError):
+        turbodecoder_cuda.launch_v1(ls, lp, beta_k.double(), 2)
+    with pytest.raises(ValueError):
+        turbodecoder_cuda.launch_v1_long(ls, lp.t().contiguous().t(), beta_k, 2)
+    # the staged entry point refuses a window that does not fit shared memory
+    lib = turbodecoder_cuda.build(turbodecoder_cuda.SOURCE_V1).lib
+    llr = torch.empty(6144, device=dev)
+    assert lib.turbo_map_v1_cols(6144, 40) == 0
+    assert lib.turbo_map_v1_launch(llr.data_ptr(), llr.data_ptr(), beta_k.data_ptr(),
+                                   llr.data_ptr(), 1, 1, 6144, 40, 0,
+                                   torch.cuda.current_stream(dev).cuda_stream) != 0
+    assert turbodecoder_cuda.launches_v1 == before  # a refused launch is not counted
+
+
+# (K, B, W): window lengths 1, 3, 11 (halo = window), 33, 39, 41, 65, 255
+# (odd, around the 40-step halo, a partial last segment), an even one (172,
+# the downlink shape), one window alone, and long windows: L=1536 staged in
+# several passes, L=6144 on the long route
+V1_SHAPES = [(6, 3, 6), (18, 3, 6), (1056, 4, 96), (1056, 5, 32), (234, 3, 6), (246, 3, 6),
+             (1040, 4, 16), (510, 3, 2), (5504, 3, 32), (45, 2, 1), (6144, 2, 4), (6144, 2, 1)]
+
+
+@pytest.mark.parametrize("k,B,w", V1_SHAPES)
+def test_v1_kernel_equals_plain(dev, k, B, w):
+    """Bit for bit (max abs err 0.0), in one launch, on the route the shape
+    picks."""
+    args = _random_inputs(k, B, dev)
+    cols, blocks = turbodecoder_cuda.occupancy_v1(k, w)
+    assert (cols == 0) == (k // w > 4700) and blocks > 0
+    before = turbodecoder_cuda.launches_v1
+    got = turbodecoder_cuda.map_decode_v1_cuda(*args, w)
+    torch.cuda.synchronize()
+    assert turbodecoder_cuda.launches_v1 == before + 1
+    assert torch.equal(got, turbodecoder_cuda.map_decode_v1_ref(*args, w))
+
+
+@pytest.mark.parametrize("k,B,w", [(18, 3, 6), (1040, 4, 16), (510, 3, 2), (5504, 3, 32)])
+def test_v1_long_window_kernel_equals_plain(dev, k, B, w):
+    """The long-window kernel takes any shape when called itself: bit for
+    bit too."""
+    ls, lp, tx, tz = _random_inputs(k, B, dev)
+    before = turbodecoder_cuda.launches_v1
+    got = turbodecoder_cuda.launch_v1_long(ls, lp, turbodecoder.beta_tail(tx, tz).contiguous(), w)
+    assert turbodecoder_cuda.launches_v1 == before + 1
+    assert torch.equal(got, turbodecoder_cuda.map_decode_v1_ref(ls, lp, tx, tz, w))
+
+
+@pytest.mark.parametrize("B", [1, 13, 33])
+def test_v1_kernel_partial_last_block(dev, B):
+    """B x W=16 columns (16, 208, 528) against blocks of 32 columns at
+    L=65: the last block is half empty, still bit for bit."""
+    args = _random_inputs(1040, B, dev)
+    cols, _ = turbodecoder_cuda.occupancy_v1(1040, 16)
+    assert 0 < cols and (B * 16) % cols
+    got = turbodecoder_cuda.map_decode_v1_cuda(*args, 16)
+    assert torch.equal(got, turbodecoder_cuda.map_decode_v1_ref(*args, 16))
+
+
+def test_v1_wrapper_is_one_launch_without_scratch(dev):
+    """map_decode_v1_cuda at 96 x K=1040, W=16: one v1 launch, and a peak
+    device-memory growth below the (L, 4, columns) branch metrics or the
+    (L, 8, columns) beta scratch of the earlier design."""
+    B, k, w = 96, 1040, 16
+    args = _random_inputs(k, B, dev)
+    turbodecoder_cuda.map_decode_v1_cuda(*args, w)  # build, warm up
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = turbodecoder_cuda.launches_v1
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        turbodecoder_cuda.map_decode_v1_cuda(*args, w)
+        torch.cuda.synchronize()
+    assert turbodecoder_cuda.launches_v1 == before + 1
+    names = [e.name for e in prof.events() if "map_v1" in e.name]
+    assert len(names) == 1 and "long" not in names[0], names
+    metrics = (k // w) * 4 * B * w * 4
+    assert torch.cuda.max_memory_allocated(dev) - base < metrics
+
+
+def test_logmap_v1_kernel_matches_plain(dev, monkeypatch):
+    """The log-MAP build of v1 (both kernels) against its plain version;
+    the flag is set on both modules, as for the radix-2 kernel."""
+    monkeypatch.setattr(turbodecoder, "LOGMAP", True)
+    monkeypatch.setattr(turbodecoder_cuda, "LOGMAP", True)
+    ls, lp, tx, tz = _random_inputs(1040, 4, dev)
+    ref = turbodecoder_cuda.map_decode_v1_ref(ls, lp, tx, tz, 16)
+    beta_k = turbodecoder.beta_tail(tx, tz).contiguous()
+    for launch in (turbodecoder_cuda.launch_v1, turbodecoder_cuda.launch_v1_long):
+        torch.testing.assert_close(launch(ls, lp, beta_k, 16), ref, atol=ATOL, rtol=RTOL)
+
+
+def test_turbo_decode_at_an_odd_window_launches_v1_once_per_pass(dev, monkeypatch):
+    """turbo_decode with the window count patched to give L=33 makes one v1
+    launch for each MAP pass (half-iteration) and none of the radix-2
+    kernel, and decodes every code block."""
+    from srslte_emane_tpu_torch.ops.fec import crc
+
+    k, B = 1056, 16
+    rng = np.random.default_rng(9)
+    payload = torch.from_numpy(rng.integers(0, 2, (B, k - 24), dtype=np.int8)).to(dev)
+    bits = crc.crc_attach(payload, crc.LTE_CRC24B)
+    d0, d1, d2 = ((1 - 2.0 * d.float()) * 1.5
+                  + torch.from_numpy(rng.normal(0, 1, tuple(d.shape)).astype(np.float32)).to(dev)
+                  for d in turbo.turbo_encode(bits))
+    valid = torch.ones(B, dtype=torch.bool, device=dev)
+    monkeypatch.setattr(turbodecoder_cuda, "_pick_windows", lambda _: 32)
+    monkeypatch.setenv("SRSLTE_TPU_CASCADE", "0")  # every pass runs the whole batch
+    monkeypatch.setattr(turbodecoder, "map_rows", 0)
+    before = (turbodecoder_cuda.launches, turbodecoder_cuda.launches_v1)
+    out, ok, n_iter = turbodecoder.turbo_decode(d0, d1, d2, valid, k, 8, crc.LTE_CRC24B)
+    torch.cuda.synchronize()
+    passes = turbodecoder.map_rows // B
+    assert passes >= 1 and n_iter == (passes + 1) // 2
+    assert (turbodecoder_cuda.launches, turbodecoder_cuda.launches_v1) == (before[0],
+                                                                          before[1] + passes)
+    assert bool(ok.all()) and torch.equal(out, bits)
 
 
 @pytest.mark.parametrize("llr_bits", [32, 16])

@@ -7,8 +7,9 @@
   same window count, atol 1e-3, rtol 1e-4 and equal signs where |LLR| > 0.5;
 * `map_decode_v1_ref`, the plain version of the v1 CUDA kernel (the
   odd-window fallback), against the TPU kernel `map_decode_pallas` in
-  interpret mode and against `_map_decode` at an odd window length, atol
-  1e-3, rtol 1e-4;
+  interpret mode and against `_map_decode` at odd and short window lengths,
+  atol 1e-3, rtol 1e-4; `window_index`, the kernels' addressing, against
+  the strided windows v1's plain version builds, at the same lengths;
 * `turbo_decode` (with and without the compaction cascade) and
   `decode_tb`: bits, CRC flags and n_iter exactly equal.
 """
@@ -147,6 +148,50 @@ def test_map_decode_v1_odd_window_matches_map_decode(monkeypatch, k, B, w):
     args = _t(*_random_llrs(k, B, k))
     got = p_tdc.map_decode_v1_ref(*args, w)
     monkeypatch.setattr(p_td, "_pick_windows", lambda _: w)
+    torch.testing.assert_close(got, p_td._map_decode(*args), atol=ATOL, rtol=RTOL)
+
+
+# window lengths v1 exists for: odd ones, and ones at or below the 40-step
+# halo (H = L there, so a halo is the whole neighbouring window)
+V1_WINDOW_LENGTHS = (1, 3, 11, 33, 39, 41, 65, 255)
+
+
+def _v1_shape(L):
+    """(K, B, W) with window length L: several windows, few columns."""
+    W = 2 if L > 64 else 6
+    return L * W, 2, W
+
+
+@pytest.mark.parametrize("L", V1_WINDOW_LENGTHS)
+def test_window_index_gathers_v1_windows(L):
+    """`window_index` at any window length (the v1 kernel's addressing)
+    gathers the halo windows that v1's plain version cuts with pad and
+    strides: the same branch metrics, zero outside [0, K)."""
+    K, B, W = _v1_shape(L)
+    H = min(p_td.HALO, L)
+    ls, lp = _t(*_random_llrs(K, B, L)[:2])
+    idx = p_tdc.window_index(K, W)
+    assert tuple(idx.shape) == (L + 2 * H, W)
+    assert int(idx.min()) == -1 and int(idx.max()) == K - 1
+    assert torch.equal(idx[H:H + L].T.reshape(-1), torch.arange(K))  # the windows tile [0, K)
+    g = p_td._gammas(ls, lp)  # (B, K, 4)
+    got = torch.cat([g, g.new_zeros((B, 1, 4))], dim=1)[:, idx]  # (B, L + 2H, W, 4)
+    want = p_tdc._v1_windows(ls, lp, W)
+    assert torch.equal(got.permute(1, 3, 0, 2).reshape(L + 2 * H, 4, B * W), want)
+    with pytest.raises(ValueError):
+        p_tdc.window_index(K + 1, W)  # does not split into W windows
+
+
+@pytest.mark.parametrize("L", V1_WINDOW_LENGTHS)
+def test_map_decode_v1_ref_matches_map_decode_at_window_length(monkeypatch, L):
+    """At odd and short window lengths v1's plain version computes the same
+    posterior as the plain twin of the reference's XLA MAP with the same
+    window count (the normalisation points differ, the LLRs do not)."""
+    K, B, W = _v1_shape(L)
+    args = _t(*_random_llrs(K, B, 100 + L))
+    got = p_tdc.map_decode_v1_ref(*args, W)
+    assert tuple(got.shape) == (B, K) and bool(got.isfinite().all())
+    monkeypatch.setattr(p_td, "_pick_windows", lambda _: W)
     torch.testing.assert_close(got, p_td._map_decode(*args), atol=ATOL, rtol=RTOL)
 
 
