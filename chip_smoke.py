@@ -25,7 +25,7 @@ Phases (any failure raises; the exit code is then non-zero):
      bound and share, the wrapper's time, its block and occupancy; then at
      a window shorter than the halo (64 x K=1056, W=96, L=11), long windows
      (64 x K=6144, W=4, L=1536, staged in several passes; 16 x K=6144, W=1,
-     the long-window kernel) and a batch that leaves the last block partly
+     one column per block) and a batch that leaves the last block partly
      empty (5 x K=1040); then the odd-window path: turbo_decode with the
      window count patched to give L=33 must launch v1 once per MAP pass
      (and not the radix-2 kernel) and decode every code block; its time;
@@ -116,12 +116,13 @@ def v1_bound(k, batch, w):
     lp (B, K) f32 and beta_K (B, 8), write the LLRs (B, K) f32 (turbo_map's
     bytes in f32); per (code block, window) column 2H halo steps of 41 f32
     add/max (2 for the branch metrics, a 24-operation step, its 15-operation
-    normalisation) and L steps of 127: 2 for the branch metrics, beta and
-    alpha steps 24 each, their normalisations 15 each, the posterior 47 (32
-    adds, 14 max, 1 subtraction)."""
+    normalisation) and L steps of 111: 2 for the branch metrics, beta and
+    alpha steps 24 each, their normalisations 15 each, the posterior 31 (16
+    adds of beta to the alpha step's own alpha + g sums, 14 max, 1
+    subtraction; `map_bound` counts its forward step the same way)."""
     L = k // w
     H = min(40, L)
-    return bound(4 * batch * (3 * k + 8), batch * w * (2 * H * 41 + L * 127))
+    return bound(4 * batch * (3 * k + 8), batch * w * (2 * H * 41 + L * 111))
 
 
 def rate(fn, check=lambda out: True):
@@ -303,7 +304,7 @@ def code_block_llrs(k, batch, dev, seed, scale):
 # shape (L=172), an odd window (L=65), the odd-window path's own shape (L=33,
 # halo H=33).  Then a window shorter than the halo, of odd length (L=11: the
 # halo is the whole neighbouring window), a long window staged in several
-# passes (L=1536), one that takes the long-window kernel (L=6144), and a
+# passes (L=1536), one so long that a block takes one column (L=6144), and a
 # batch whose 80 columns leave the last block partly empty.
 V1_SHAPES = ((5504, 768, 32), (1040, 768, 16), (1056, BATCH, 32))
 V1_EDGE_SHAPES = ((1056, 64, 96), (6144, 64, 4), (6144, 16, 1), (1040, 5, 16))
@@ -374,7 +375,7 @@ def phase_v1(dev):
         cols, blocks = tdc.occupancy_v1(k, w)
         if (k, batch) == (1040, 5):
             assert (batch * w) % cols, f"{what}: the last block is full"
-        assert (cols == 0) == ((k, w) == (6144, 1)), f"{what}: {cols} columns per block"
+        assert (cols == 1) == ((k, w) == (6144, 1)), f"{what}: {cols} columns per block"
         # the kernel alone (warm, and L2 flushed), the whole wrapper, the plain version
         beta_k = turbodecoder.beta_tail(*args[2:]).contiguous()
         kernel = lambda: tdc.launch_v1(args[0], args[1], beta_k, w)

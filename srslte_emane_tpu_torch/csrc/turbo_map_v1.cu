@@ -26,9 +26,13 @@
 //
 // What bounds it (H100 SXM, 3.35 TB/s, 33.5 T non-FMA f32 op/s): it must
 // read ls and lp and write the LLRs, (B, K) f32 each, and do per column 2H
-// warm-up steps of 41 f32 add/max (2 + 24 + 15) and L steps of 127.  At 768
-// x K=5504 (L=172, H=40) that is 50.7 MB or 15 us against 0.62 G operations
-// or 18 us: bound by operations.  In practice each column is a chain of
+// warm-up steps of 41 f32 add/max (2 for the branch metrics, a 24-operation
+// step, its 15-operation normalisation) and L steps of 111: 2, the beta step
+// and its normalisation 24 + 15, the alpha step and its normalisation 24 +
+// 15, and 31 for the posterior (16 adds of beta to the alpha step's own
+// alpha + g sums, 14 max, 1 subtraction).  At 768 x K=5504 (L=172, H=40)
+// that is 50.7 MB or 15.1 us against 0.55 G operations or 16.4 us: bound by
+// operations.  In practice each column is a chain of
 // 2H + 3L dependent steps, each six operations deep (add, max, a three-level
 // max tree, subtract), and how many chains an SM holds (shared memory) and
 // how fast one steps set the time.
@@ -42,7 +46,7 @@
 // f32 scratch in device memory (135 MB at the shape above, more than the
 // 50 MB L2, written and read back every launch).
 //
-// This design (the staged route, `map_v1_kernel`), as turbo_map.cu's:
+// This design, as turbo_map.cu's:
 //  * windowing in the kernel: it reads ls, lp (B, K) f32 as they are.  A
 //    thread block owns `cols` consecutive columns and stages each column's
 //    window with its halos, [w*L - H, (w+1)*L + H) of its code block, zero
@@ -84,20 +88,19 @@
 // the rate at which a scheduler dispatches one warp's operations: a
 // computing warp steps its chain at the same rate whether one or four run
 // on an SM, and more, emptier warps per scheduler were slower
-// (scripts/torch_map_v1_tune.py).  Segments of 8 steps read within 2 % of
-// 16 at L=172 and L=33 and 8 % faster at L=65, where they make the block a
+// (scripts/torch_map_breakdown.py).  Segments of 8 steps read within 2 % of
+// 16 at L=172 and L=33 and 14 % faster at L=65, where they make the block a
 // whole warp.  ptxas -v: 96 registers, no spills; the occupancy calculator
 // gives 4 blocks per SM at these shapes (5 at L=33 and L=1536).
 //
-// Long windows (the long route, `map_v1_long_kernel`): when not even one
-// column's window fits a quarter of an SM's shared memory (L above about
-// 4,700 at H=40; the decoder's own window count never exceeds L=256), the
-// staged design has lost what it was built for, and the launch goes to a
-// second kernel chosen by shape before the launch: one thread per column in
-// blocks of 64, the same steps reading ls, lp from device memory, with the
-// warm-ups in the kernel and beta at node t+1 in an (L, 8, columns) f32
-// scratch in device memory that the wrapper allocates.  It is also bit for
-// bit the plain version.
+// Long windows: staging loops over passes of 352 steps, so a window of any
+// length is staged while it fits.  When not even one column fits a quarter
+// of an SM's shared memory (L above about 4,700 at H=40; the decoder's own
+// window count never exceeds L=256), a block takes one column and an SM
+// fewer blocks: a whole code block of the largest LTE size as one window
+// (K=6144, W=1) takes 74,632 B, three blocks per SM.  A window that does not
+// fit a block's 227 KB at all (L above about 19,000, three times the largest
+// code block) is refused.
 
 #include <climits>
 
@@ -111,13 +114,12 @@ using namespace trellis;
 
 constexpr int kThreads = 128;  // threads per block: all stage, one per column computes
 constexpr int kWarps = kThreads / 32;
-constexpr int kBlocksPerSm = 4;  // blocks the staged route sizes an SM's shared memory for
+constexpr int kBlocksPerSm = 4;  // blocks an SM's shared memory is sized for
 constexpr int kChunks = 11;      // 32-step chunks of a window staged per pass
 constexpr int kStageCols = 4;    // columns per warp whose loads are in flight at once
 constexpr int kSeg = 8;          // steps per checkpointed segment of the backward pass
 constexpr int kSmem = 232448;    // shared memory one block may use (227 KB)
 constexpr int kSmemPerSm = 233472;  // of one SM, 1 KB of it reserved per block
-constexpr int kLongBlock = 64;   // threads per block of the long route
 
 // the four branch metrics of a step from its (ls, lp) pair, combo u*2 + z
 __device__ __forceinline__ void branch(float2 v, float (&g)[4]) {
@@ -155,7 +157,7 @@ __device__ __forceinline__ void exact_alpha0(float (&alpha)[8]) {
   for (int s = 1; s < 8; ++s) alpha[s] = kNeg;
 }
 
-// Shared memory of one block of the staged route: the checkpoints as float4
+// Shared memory of one block: the checkpoints as float4
 // [segment][half][cols], one segment's beta rows [kSeg][2][cols], then each
 // column's window of L + 2H pairs at an odd stride.  Segment j holds the
 // rows [max(L - (j+1)*kSeg, 0), L - j*kSeg); its checkpoint is beta at node
@@ -320,64 +322,6 @@ map_v1_kernel(const float* __restrict__ ls, const float* __restrict__ lp,
       llr[(long long)(c0 + k) * L + tt] = xy[k * lay.stride + H + tt].x;
 }
 
-// The long route: one thread per column, every step's (ls, lp) read from
-// device memory (zero outside [0, K)), beta at node t+1 in scratch
-// [t][state][column].
-template <bool LOGMAP>
-__global__ void __launch_bounds__(kLongBlock)
-map_v1_long_kernel(const float* __restrict__ ls, const float* __restrict__ lp,
-                   const float* __restrict__ beta_tail, float* __restrict__ llr,
-                   float* __restrict__ scratch, int n_cols, int W, int L, int H) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= n_cols) return;
-  const size_t n = n_cols;
-  const int K = W * L, w = c % W, k0 = w * L;
-  const long long base = (long long)(c / W) * K;
-  float g[4];
-  auto branch_at = [&](int k) {  // k relative to the code block
-    const bool in_k = k >= 0 && k < K;
-    branch(make_float2(in_k ? ls[base + k] : 0.f, in_k ? lp[base + k] : 0.f), g);
-  };
-
-  // ---- backward: warm-up, edge rule, then scratch[t] = beta at node t+1 ----
-  float beta[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  for (int i = H - 1; i >= 0; --i) {
-    branch_at(k0 + L + i);
-    bwd_step<LOGMAP>(beta, g);
-    normalise(beta);
-  }
-  if (w == W - 1) {
-#pragma unroll
-    for (int s = 0; s < 8; ++s) beta[s] = beta_tail[(size_t)(c / W) * 8 + s];
-    normalise(beta);
-  }
-#pragma unroll 4
-  for (int t = L - 1; t >= 0; --t) {
-#pragma unroll
-    for (int s = 0; s < 8; ++s) scratch[((size_t)t * 8 + s) * n + c] = beta[s];
-    branch_at(k0 + t);
-    bwd_step<LOGMAP>(beta, g);
-    normalise(beta);
-  }
-
-  // ---- forward: warm-up, edge rule, then the posterior combine fused in ----
-  float alpha[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  for (int i = 0; i < H; ++i) {
-    branch_at(k0 - H + i);
-    fwd_step<LOGMAP>(alpha, g);
-    normalise(alpha);
-  }
-  if (w == 0) exact_alpha0(alpha);
-#pragma unroll 4
-  for (int t = 0; t < L; ++t) {
-    float bn[8];
-#pragma unroll
-    for (int s = 0; s < 8; ++s) bn[s] = scratch[((size_t)t * 8 + s) * n + c];
-    branch_at(k0 + t);
-    llr[base + k0 + t] = posterior_and_step<LOGMAP>(alpha, g, bn);
-  }
-}
-
 // Dynamic shared memory above 48 KB must be allowed per kernel first; the
 // cap is set to cover `bytes` on every call, so a smaller launch after a
 // larger one still fits.
@@ -387,14 +331,16 @@ cudaError_t allow_smem(F* kernel, int bytes) {
                               bytes > 48 * 1024 ? bytes : 48 * 1024);
 }
 
-// Columns per block of the staged route: the most (up to kThreads) of which
-// kBlocksPerSm blocks fit one SM's shared memory, so each of the SM's four
-// schedulers runs a computing warp; 0 when not even one column does, and the
-// shape goes to the long route.
-int staged_cols(int L, int H) {
+// Columns per block: the most (up to kThreads) of which kBlocksPerSm blocks
+// fit one SM's shared memory, so each of the SM's four schedulers runs a
+// computing warp.  A window so long that not even one column fits a quarter
+// of an SM takes one column per block, and fewer blocks per SM, while it fits
+// a block's shared memory at all (L up to about 19,000); 0 beyond that.
+int block_cols(int L, int H) {
   if (L + 2 * H > kSmem / 8) return 0;  // also keeps Layout's byte counts inside an int
   int cols = kThreads;
   while (cols > 0 && kBlocksPerSm * (Layout(cols, L, H).bytes + 1024) > kSmemPerSm) --cols;
+  if (cols == 0) return Layout(1, L, H).bytes <= kSmem ? 1 : 0;
   return cols >= 32 ? cols / 32 * 32 : cols;  // whole warps beat more, emptier ones
 }
 
@@ -404,9 +350,9 @@ bool valid_shape(int n_cols, int W, int L, int H) {
 }
 
 template <bool LOGMAP>
-cudaError_t launch_staged(const float* ls, const float* lp, const float* beta_tail, float* llr,
-                          int n_cols, int W, int L, int H, cudaStream_t stream) {
-  const int cols = staged_cols(L, H);
+cudaError_t launch(const float* ls, const float* lp, const float* beta_tail, float* llr,
+                   int n_cols, int W, int L, int H, cudaStream_t stream) {
+  const int cols = block_cols(L, H);
   if (cols == 0) return cudaErrorInvalidValue;
   const Layout lay(cols, L, H);
   const auto kernel = map_v1_kernel<LOGMAP>;
@@ -420,10 +366,8 @@ cudaError_t launch_staged(const float* ls, const float* lp, const float* beta_ta
 template <bool LOGMAP>
 int blocks_per_sm(int L, int H) {
   int n = 0;
-  const int cols = staged_cols(L, H);
-  if (cols == 0)
-    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, map_v1_long_kernel<LOGMAP>,
-                                                         kLongBlock, 0) ? -1 : n;
+  const int cols = block_cols(L, H);
+  if (cols == 0) return -1;
   const Layout lay(cols, L, H);
   const auto kernel = map_v1_kernel<LOGMAP>;
   if (allow_smem(kernel, lay.bytes) ||
@@ -434,24 +378,23 @@ int blocks_per_sm(int L, int H) {
 
 }  // namespace
 
-// Columns per block of a staged launch with these arguments, or 0 when the
-// shape goes to the long route (turbo_map_v1_long_launch).
+// Columns per block of a launch with these arguments, or 0 when the window
+// does not fit a block's shared memory and the launch is refused.
 extern "C" int turbo_map_v1_cols(int L, int H) {
-  return L > 0 && H >= 0 && H <= L ? staged_cols(L, H) : 0;
+  return L > 0 && H >= 0 && H <= L ? block_cols(L, H) : 0;
 }
 
-// Thread blocks that one SM holds at once of the kernel these arguments
-// go to (the card's occupancy calculator), or -1 on an error.
+// Thread blocks that one SM holds at once with these arguments (the card's
+// occupancy calculator), or -1 on an error.
 extern "C" int turbo_map_v1_blocks_per_sm(int L, int H, int logmap) {
   if (L <= 0 || H < 0 || H > L) return -1;
   return logmap ? blocks_per_sm<true>(L, H) : blocks_per_sm<false>(L, H);
 }
 
 // Plain C entry points, loaded with ctypes.  ls, lp, llr: (B, K) float32
-// with K = W * L and n_cols = B * W; beta_tail: (B, 8) float32.  Each
-// returns the cudaError_t of the launch.
-
-// The staged route; refuses a shape for which turbo_map_v1_cols is 0.
+// with K = W * L and n_cols = B * W; beta_tail: (B, 8) float32.  Returns
+// the cudaError_t of the launch; refuses a shape for which turbo_map_v1_cols
+// is 0.
 extern "C" int turbo_map_v1_launch(const void* ls, const void* lp, const void* beta_tail,
                                    void* llr, int n_cols, int W, int L, int H, int logmap,
                                    void* stream) {
@@ -461,25 +404,6 @@ extern "C" int turbo_map_v1_launch(const void* ls, const void* lp, const void* b
   const auto* y = static_cast<const float*>(lp);
   const auto* bt = static_cast<const float*>(beta_tail);
   auto* out = static_cast<float*>(llr);
-  return static_cast<int>(logmap ? launch_staged<true>(x, y, bt, out, n_cols, W, L, H, st)
-                                 : launch_staged<false>(x, y, bt, out, n_cols, W, L, H, st));
-}
-
-// The long route, any shape; scratch: (L, 8, n_cols) float32.
-extern "C" int turbo_map_v1_long_launch(const void* ls, const void* lp, const void* beta_tail,
-                                        void* llr, void* scratch, int n_cols, int W, int L,
-                                        int H, int logmap, void* stream) {
-  if (!valid_shape(n_cols, W, L, H)) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((n_cols + kLongBlock - 1) / kLongBlock), block(kLongBlock);
-  const auto st = static_cast<cudaStream_t>(stream);
-  const auto* x = static_cast<const float*>(ls);
-  const auto* y = static_cast<const float*>(lp);
-  const auto* bt = static_cast<const float*>(beta_tail);
-  auto* out = static_cast<float*>(llr);
-  auto* sc = static_cast<float*>(scratch);
-  if (logmap)
-    map_v1_long_kernel<true><<<grid, block, 0, st>>>(x, y, bt, out, sc, n_cols, W, L, H);
-  else
-    map_v1_long_kernel<false><<<grid, block, 0, st>>>(x, y, bt, out, sc, n_cols, W, L, H);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(logmap ? launch<true>(x, y, bt, out, n_cols, W, L, H, st)
+                                 : launch<false>(x, y, bt, out, n_cols, W, L, H, st));
 }

@@ -72,7 +72,6 @@ _ENTRY_POINTS = {
     },
     "turbo_map_v1": {
         "turbo_map_v1_launch": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
-        "turbo_map_v1_long_launch": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
         "turbo_map_v1_blocks_per_sm": [ctypes.c_int] * 3,
         "turbo_map_v1_cols": [ctypes.c_int] * 2,
     },
@@ -129,13 +128,13 @@ def occupancy(K: int, n_windows: int, narrow: bool) -> tuple[int, int]:
 
 def occupancy_v1(K: int, n_windows: int) -> tuple[int, int]:
     """(columns per block, blocks per SM) of turbo_map_v1.cu on the current
-    card for this shape; 0 columns per block means the long-window kernel
-    (64 threads per block, one per column)."""
+    card for this shape (one column per block when the window is too long
+    for four blocks to share an SM)."""
     L, H = _windows_v1(K, n_windows)
     lib = build(SOURCE_V1).lib
     n = lib.turbo_map_v1_blocks_per_sm(L, H, int(LOGMAP))
     if n < 0:
-        raise RuntimeError(f"occupancy query failed for K={K}")
+        raise RuntimeError(f"occupancy query failed for K={K} in {n_windows} windows")
     return lib.turbo_map_v1_cols(L, H), n
 
 
@@ -371,57 +370,31 @@ def _v1_inputs(ls: torch.Tensor, lp: torch.Tensor, tail_x: torch.Tensor,
     return gw[H:H + L].contiguous(), a0.contiguous(), b0.contiguous()
 
 
-def _v1_launch_args(ls: torch.Tensor, lp: torch.Tensor, beta_k: torch.Tensor, n_windows: int):
-    """Validate one v1 launch; returns (L, H, the C arguments that both
-    entry points share after the pointers)."""
+def launch_v1(ls: torch.Tensor, lp: torch.Tensor, beta_k: torch.Tensor,
+              n_windows: int) -> torch.Tensor:
+    """The v1 kernel alone, on PyTorch's current stream.  ls/lp: (B, K)
+    float32 LLRs as the decoder holds them; beta_k: (B, 8) float32 exact
+    beta_K (`beta_tail`); all contiguous on one CUDA device.  Returns the
+    posterior LLRs (B, K) float32 and allocates nothing else.
+
+    One kernel takes every window length that fits a block's shared memory
+    (L up to about 19,000, three times the largest code block): as many
+    columns per block as let four blocks share an SM, or, for L above about
+    4,700, one column per block.  A longer window raises ValueError."""
+    global launches_v1
     B, K = ls.shape
     L, H = _windows_v1(K, n_windows)
     dev = ls.device
     _require("ls", ls, dev, (torch.float32,), (B, K))
     _require("lp", lp, dev, (torch.float32,), (B, K))
     _require("beta_k", beta_k, dev, (torch.float32,), (B, 8))
-    return L, H, (B * n_windows, n_windows, L, H, int(LOGMAP),
-                  torch.cuda.current_stream(dev).cuda_stream)
-
-
-def launch_v1_long(ls: torch.Tensor, lp: torch.Tensor, beta_k: torch.Tensor,
-                   n_windows: int) -> torch.Tensor:
-    """The long-window kernel of turbo_map_v1.cu alone, on PyTorch's current
-    stream: arguments and result as `launch_v1`.  It takes any shape, reads
-    its inputs from device memory step by step and keeps beta in an (L, 8,
-    columns) float32 scratch allocated here."""
-    global launches_v1
-    L, _, tail = _v1_launch_args(ls, lp, beta_k, n_windows)
-    llr = torch.empty_like(ls)
-    scratch = torch.empty((L, 8, tail[0]), dtype=torch.float32, device=ls.device)
-    err = build(SOURCE_V1).lib.turbo_map_v1_long_launch(
-        ls.data_ptr(), lp.data_ptr(), beta_k.data_ptr(), llr.data_ptr(), scratch.data_ptr(), *tail)
-    if err != 0:
-        raise RuntimeError(f"turbo_map_v1 long-window launch failed: cudaError_t {err}")
-    launches_v1 += 1
-    return llr
-
-
-def launch_v1(ls: torch.Tensor, lp: torch.Tensor, beta_k: torch.Tensor,
-              n_windows: int) -> torch.Tensor:
-    """The v1 kernel alone, on PyTorch's current stream.  ls/lp: (B, K)
-    float32 LLRs as the decoder holds them; beta_k: (B, 8) float32 exact
-    beta_K (`beta_tail`); all contiguous on one CUDA device.  Returns the
-    posterior LLRs (B, K) float32.
-
-    The shape picks the kernel before the launch: the staged kernel, which
-    allocates nothing but the output, while at least one column's window
-    with its halos, checkpoints and segment rows fits a quarter of an SM's
-    shared memory (L up to about 4,700); the long-window kernel
-    (`launch_v1_long`) beyond that."""
-    global launches_v1
-    L, H, tail = _v1_launch_args(ls, lp, beta_k, n_windows)
     lib = build(SOURCE_V1).lib
     if lib.turbo_map_v1_cols(L, H) == 0:
-        return launch_v1_long(ls, lp, beta_k, n_windows)
+        raise ValueError(f"window length {L} does not fit the kernel's shared memory")
     llr = torch.empty_like(ls)
-    err = lib.turbo_map_v1_launch(ls.data_ptr(), lp.data_ptr(), beta_k.data_ptr(),
-                                  llr.data_ptr(), *tail)
+    err = lib.turbo_map_v1_launch(
+        ls.data_ptr(), lp.data_ptr(), beta_k.data_ptr(), llr.data_ptr(), B * n_windows,
+        n_windows, L, H, int(LOGMAP), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"turbo_map_v1 kernel launch failed: cudaError_t {err}")
     launches_v1 += 1
@@ -431,8 +404,7 @@ def launch_v1(ls: torch.Tensor, lp: torch.Tensor, beta_k: torch.Tensor,
 def map_decode_v1_cuda(ls: torch.Tensor, lp: torch.Tensor, tail_x: torch.Tensor,
                        tail_z: torch.Tensor, n_windows: int) -> torch.Tensor:
     """One MAP half-iteration through the v1 kernel, any window length:
-    beta_K, then one launch on the (B, K) tensors (`launch_v1` says which
-    kernel a shape takes).  ls/lp: (B, K) float32, tail_x/tail_z: (B, 3)
+    beta_K, then one launch on the (B, K) tensors.  ls/lp: (B, K) float32, tail_x/tail_z: (B, 3)
     float32, all contiguous on one CUDA device.  Returns the posterior LLRs
     (B, K) float32."""
     B, K = ls.shape

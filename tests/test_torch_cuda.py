@@ -188,13 +188,16 @@ def test_v1_wrapper_rejects_what_the_kernel_does_not_take(dev):
     with pytest.raises(TypeError):
         turbodecoder_cuda.launch_v1(ls, lp, beta_k.double(), 2)
     with pytest.raises(ValueError):
-        turbodecoder_cuda.launch_v1_long(ls, lp.t().contiguous().t(), beta_k, 2)
-    # the staged entry point refuses a window that does not fit shared memory
+        turbodecoder_cuda.launch_v1(ls, lp.t().contiguous().t(), beta_k, 2)
+    # a window that does not fit a block's shared memory: the wrapper raises
+    # and the library's entry point refuses it
+    long = torch.zeros((1, 30000), device=dev)
+    with pytest.raises(ValueError):
+        turbodecoder_cuda.launch_v1(long, long, beta_k[:1].contiguous(), 1)
     lib = turbodecoder_cuda.build(turbodecoder_cuda.SOURCE_V1).lib
-    llr = torch.empty(6144, device=dev)
-    assert lib.turbo_map_v1_cols(6144, 40) == 0
-    assert lib.turbo_map_v1_launch(llr.data_ptr(), llr.data_ptr(), beta_k.data_ptr(),
-                                   llr.data_ptr(), 1, 1, 6144, 40, 0,
+    assert lib.turbo_map_v1_cols(30000, 40) == 0
+    assert lib.turbo_map_v1_launch(long.data_ptr(), long.data_ptr(), beta_k.data_ptr(),
+                                   long.data_ptr(), 1, 1, 30000, 40, 0,
                                    torch.cuda.current_stream(dev).cuda_stream) != 0
     assert turbodecoder_cuda.launches_v1 == before  # a refused launch is not counted
 
@@ -202,18 +205,18 @@ def test_v1_wrapper_rejects_what_the_kernel_does_not_take(dev):
 # (K, B, W): window lengths 1, 3, 11 (halo = window), 33, 39, 41, 65, 255
 # (odd, around the 40-step halo, a partial last segment), an even one (172,
 # the downlink shape), one window alone, and long windows: L=1536 staged in
-# several passes, L=6144 on the long route
+# several passes, L=6144 with one column per block
 V1_SHAPES = [(6, 3, 6), (18, 3, 6), (1056, 4, 96), (1056, 5, 32), (234, 3, 6), (246, 3, 6),
              (1040, 4, 16), (510, 3, 2), (5504, 3, 32), (45, 2, 1), (6144, 2, 4), (6144, 2, 1)]
 
 
 @pytest.mark.parametrize("k,B,w", V1_SHAPES)
 def test_v1_kernel_equals_plain(dev, k, B, w):
-    """Bit for bit (max abs err 0.0), in one launch, on the route the shape
-    picks."""
+    """Bit for bit (max abs err 0.0), in one launch, with the block the
+    shape picks."""
     args = _random_inputs(k, B, dev)
     cols, blocks = turbodecoder_cuda.occupancy_v1(k, w)
-    assert (cols == 0) == (k // w > 4700) and blocks > 0
+    assert blocks > 0 and (cols == 1) == (k // w == 6144)
     before = turbodecoder_cuda.launches_v1
     got = turbodecoder_cuda.map_decode_v1_cuda(*args, w)
     torch.cuda.synchronize()
@@ -221,15 +224,16 @@ def test_v1_kernel_equals_plain(dev, k, B, w):
     assert torch.equal(got, turbodecoder_cuda.map_decode_v1_ref(*args, w))
 
 
-@pytest.mark.parametrize("k,B,w", [(18, 3, 6), (1040, 4, 16), (510, 3, 2), (5504, 3, 32)])
-def test_v1_long_window_kernel_equals_plain(dev, k, B, w):
-    """The long-window kernel takes any shape when called itself: bit for
-    bit too."""
-    ls, lp, tx, tz = _random_inputs(k, B, dev)
-    before = turbodecoder_cuda.launches_v1
-    got = turbodecoder_cuda.launch_v1_long(ls, lp, turbodecoder.beta_tail(tx, tz).contiguous(), w)
-    assert turbodecoder_cuda.launches_v1 == before + 1
-    assert torch.equal(got, turbodecoder_cuda.map_decode_v1_ref(ls, lp, tx, tz, w))
+@pytest.mark.parametrize("k,B,w", [(9402, 3, 2), (9602, 3, 2), (6144, 5, 1), (12289, 2, 1)])
+def test_v1_long_window_equals_plain(dev, k, B, w):
+    """Windows around the length from which a block takes one column (L =
+    4701, 4801) and beyond (a whole code block as one window, and twice
+    that, odd): bit for bit too, with fewer blocks per SM."""
+    args = _random_inputs(k, B, dev)
+    cols, blocks = turbodecoder_cuda.occupancy_v1(k, w)
+    assert cols >= 1 and 1 <= blocks <= 4
+    got = turbodecoder_cuda.map_decode_v1_cuda(*args, w)
+    assert torch.equal(got, turbodecoder_cuda.map_decode_v1_ref(*args, w))
 
 
 @pytest.mark.parametrize("B", [1, 13, 33])
@@ -259,21 +263,21 @@ def test_v1_wrapper_is_one_launch_without_scratch(dev):
         torch.cuda.synchronize()
     assert turbodecoder_cuda.launches_v1 == before + 1
     names = [e.name for e in prof.events() if "map_v1" in e.name]
-    assert len(names) == 1 and "long" not in names[0], names
+    assert len(names) == 1, names
     metrics = (k // w) * 4 * B * w * 4
     assert torch.cuda.max_memory_allocated(dev) - base < metrics
 
 
 def test_logmap_v1_kernel_matches_plain(dev, monkeypatch):
-    """The log-MAP build of v1 (both kernels) against its plain version;
-    the flag is set on both modules, as for the radix-2 kernel."""
+    """The log-MAP build of v1 against its plain version; the flag is set
+    on both modules, as for the radix-2 kernel."""
     monkeypatch.setattr(turbodecoder, "LOGMAP", True)
     monkeypatch.setattr(turbodecoder_cuda, "LOGMAP", True)
     ls, lp, tx, tz = _random_inputs(1040, 4, dev)
     ref = turbodecoder_cuda.map_decode_v1_ref(ls, lp, tx, tz, 16)
     beta_k = turbodecoder.beta_tail(tx, tz).contiguous()
-    for launch in (turbodecoder_cuda.launch_v1, turbodecoder_cuda.launch_v1_long):
-        torch.testing.assert_close(launch(ls, lp, beta_k, 16), ref, atol=ATOL, rtol=RTOL)
+    torch.testing.assert_close(turbodecoder_cuda.launch_v1(ls, lp, beta_k, 16), ref,
+                               atol=ATOL, rtol=RTOL)
 
 
 def test_turbo_decode_at_an_odd_window_launches_v1_once_per_pass(dev, monkeypatch):

@@ -7,8 +7,9 @@
   same window count, atol 1e-3, rtol 1e-4 and equal signs where |LLR| > 0.5;
 * `map_decode_v1_ref`, the plain version of the v1 CUDA kernel (the
   odd-window fallback), against the TPU kernel `map_decode_pallas` in
-  interpret mode and against `_map_decode` at odd and short window lengths,
-  atol 1e-3, rtol 1e-4; `window_index`, the kernels' addressing, against
+  interpret mode (at K=512 and at odd windows down to the short-halo case
+  H = L) and against both packages' `_map_decode` at odd and short window
+  lengths, atol 1e-3, rtol 1e-4; `window_index`, the kernels' addressing, against
   the strided windows v1's plain version builds, at the same lengths;
 * `turbo_decode` (with and without the compaction cascade) and
   `decode_tb`: bits, CRC flags and n_iter exactly equal.
@@ -193,6 +194,34 @@ def test_map_decode_v1_ref_matches_map_decode_at_window_length(monkeypatch, L):
     assert tuple(got.shape) == (B, K) and bool(got.isfinite().all())
     monkeypatch.setattr(p_td, "_pick_windows", lambda _: W)
     torch.testing.assert_close(got, p_td._map_decode(*args), atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("L", V1_WINDOW_LENGTHS)
+def test_map_decode_v1_ref_matches_jax_map_decode_at_window_length(monkeypatch, L):
+    """The same lengths against the JAX package: its XLA MAP with its window
+    count patched to the same W states the short-halo rule (H = L below 40,
+    a halo spanning whole neighbouring windows) independently of the port."""
+    K, B, W = _v1_shape(L)
+    arrays = _random_llrs(K, B, 200 + L)
+    monkeypatch.setattr(j_td, "_pick_windows", lambda _: W)
+    ref = np.asarray(j_td._map_decode(*arrays))
+    got = p_tdc.map_decode_v1_ref(*_t(*arrays), W).numpy()
+    np.testing.assert_allclose(got, ref, atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("L", [1, 11, 33, 65])
+def test_map_decode_v1_ref_matches_pallas_v1_at_short_halo(monkeypatch, L):
+    """The TPU v1 kernel in interpret mode, with its wrapper's halo pre-scans,
+    at odd windows, three of them no longer than the halo (H = L): per-step
+    normalisation and the window-edge rules as the JAX package states them."""
+    K, B, W = _v1_shape(L)
+    arrays = _random_llrs(K, B, 300 + L)
+    monkeypatch.setattr(j_td, "_pick_windows", lambda _: W)
+    ref = np.asarray(j_pallas.map_decode_pallas(*arrays, interpret=True))
+    got = p_tdc.map_decode_v1_ref(*_t(*arrays), W).numpy()
+    np.testing.assert_allclose(got, ref, atol=ATOL, rtol=RTOL)
+    strong = np.abs(ref) > 0.5
+    assert (np.sign(got[strong]) == np.sign(ref[strong])).all()
 
 
 def test_map_decode_odd_window_goes_to_v1_on_cpu(monkeypatch):
