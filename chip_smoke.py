@@ -13,7 +13,8 @@ Phases (any failure raises; the exit code is then non-zero):
      K=5568), f32 and bf16-storage modes, and the uplink cell's (128 x
      K=5504, 512 x K=5568), bf16-storage mode; at each, the kernel's time
      warm and with L2 flushed between launches, its bound and share of it,
-     the wrapper's time, its block and occupancy;
+     the wrapper's time, its block and occupancy; and the downlink
+     subframe's (phase 8) 128 x K=4480, f32;
   4. downlink path: the 20 MHz SISO 64QAM PDSCH link at batch 128
      (tx_subframe, AWGN, rx_subframe with the kernel) must decode the payload
      bit-exactly with every CRC passing, through the kernel; then decode and
@@ -37,7 +38,19 @@ Phases (any failure raises; the exit code is then non-zero):
      reference test's 25 PRB composites (PUSCH + PUCCH 1a + SRS; PUCCH 2);
   7. cascade: turbo_decode on 128 code blocks of K=5504, a quarter of them
      at low SNR, gives the same bits, CRC flags and n_iter with the
-     compaction cascade on and off, on fewer MAP rows with it on.
+     compaction cascade on and off, on fewer MAP rows with it on;
+  8. downlink subframe: netsim --waveform's plan at 100 PRB (cell_id 1,
+     cfi 2, sf 1; four UEs, RNTIs 0x46-0x49, 24 PRBs each at 16QAM, TBS
+     4,416 = one code block of K=4480; CCEs from pdcch.allocate_cces) at
+     batch 128 and 20 dB through models/enb_dl.build_subframe and
+     models/ue_dl.decode_subframe: CFI 2, every DCI and CRC, payloads
+     bit-exact, through turbo_map in f32 mode and never v1; the first two
+     rows against the same calls on the CPU; the time by stage of one
+     decode (the Viterbi calls apart); decode and encode sf/s; an sf 0
+     subframe at batch 16 with PSS/SSS, PBCH (SFN 8) and all 13 PHICH
+     groups (MIB, port count, SFN offset, PHICH signs); and
+     runtime/wavesim.WaveformDataPlane.send_tti for the four UEs with 128
+     PDUs each (every PDU delivered), in PDUs/s.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -183,9 +196,11 @@ def check_close(got, ref, what):
 
 # (K, rows, modes): the downlink cell's MAP shapes (6 and 3 code blocks of
 # batch 128) in both modes, then the uplink cell's (1 and 4 code blocks of
-# batch 128) in the narrow mode that llr_bits=16 selects
+# batch 128) in the narrow mode that llr_bits=16 selects, then the downlink
+# subframe's (one code block of batch 128 per grant) in the f32 mode of
+# ue_dl's llr_bits=32
 MAP_SHAPES = ((5504, 768, (False, True)), (5568, 384, (False, True)),
-              (5504, 128, (True,)), (5568, 512, (True,)))
+              (5504, 128, (True,)), (5568, 512, (True,)), (4480, BATCH, (False,)))
 
 
 def phase_kernel(dev):
@@ -549,6 +564,189 @@ def phase_cascade(dev):
         f"{statistics.median(secs['1']) * 1e3:.2f} ms vs {statistics.median(secs['0']) * 1e3:.2f} "
         f"ms per decode (median of 3 calls each, alternating, host clock)")
 
+DL_SF_RNTIS = (0x46, 0x47, 0x48, 0x49)
+DL_SF_SNR_DB = 20.0
+
+
+def dl_subframe_config(sf_idx, **kw):
+    """netsim --waveform's plan (apps/netsim.py:399-416) at 100 PRB: four
+    UEs of 100 // 4 - 1 = 24 PRBs each at 16QAM with WaveformDataPlane's
+    TBS, CCEs from each UE's search space by pdcch.allocate_cces."""
+    from srslte_emane_tpu_torch.models import enb_dl
+    from srslte_emane_tpu_torch.phch import grid, pdcch
+    from srslte_emane_tpu_torch.runtime import wavesim
+
+    cell = grid.CellConfig(n_prb=100, cell_id=1, cfi=2)
+    alloc = pdcch.allocate_cces(cell, DL_SF_RNTIS, sf_idx)
+    assert set(alloc) == set(DL_SF_RNTIS), alloc
+    per_ue = 100 // len(DL_SF_RNTIS) - 1
+    grants = []
+    for i, r in enumerate(DL_SF_RNTIS):
+        mask = tuple(int(i * per_ue <= p < (i + 1) * per_ue) for p in range(100))
+        grants.append((r, mask, 4, wavesim.UeSlot(r, mask).tbs(cell, sf_idx), *alloc[r]))
+    return enb_dl.DlSubframeConfig(cell=cell, sf_idx=sf_idx, grants=tuple(grants), **kw)
+
+
+@contextlib.contextmanager
+def timed_calls(targets):
+    """Each (module, function name) of `targets` wrapped so that its calls
+    are bracketed by torch.cuda.synchronize() and their host time summed.
+    Yields {"module.name": [calls, seconds]}; nested calls count in both."""
+    import torch
+
+    totals, saved = {}, []
+
+    def wrap(fn, label):
+        def timed(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            totals[label][0] += 1
+            totals[label][1] += time.perf_counter() - t0
+            return out
+        return timed
+
+    for mod, name in targets:
+        label = f"{mod.__name__.rsplit('.', 1)[-1]}.{name}"
+        totals[label] = [0, 0.0]
+        saved.append((mod, name, getattr(mod, name)))
+        setattr(mod, name, wrap(getattr(mod, name), label))
+    try:
+        yield totals
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def phase_dl_subframe(dev, card):
+    """The full downlink subframe (phase 8).  Returns the turbo_map
+    launches of its first decode."""
+    import torch
+
+    from srslte_emane_tpu_torch.models import enb_dl, ue_dl
+    from srslte_emane_tpu_torch.ops import channel, ofdm
+    from srslte_emane_tpu_torch.ops.fec import turbodecoder, turbodecoder_cuda as tdc, viterbi
+    from srslte_emane_tpu_torch.phch import chest, pbch, pcfich, pdcch, pdsch, phich
+    from srslte_emane_tpu_torch.runtime import wavesim
+
+    cfg = dl_subframe_config(1)
+    cell = cfg.cell
+    for gi, g in enumerate(cfg.grants):
+        assert g[3] == 4416 and cfg.sch_cfg(gi).segm.cb_sizes == [4480], (g, cfg.sch_cfg(gi).segm)
+    rng = np.random.default_rng(8)
+    payloads = [torch.from_numpy(rng.integers(0, 2, (BATCH, g[3]), dtype=np.int8)).to(dev)
+                for g in cfg.grants]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(8)
+
+    def decoded_right(res, sent):
+        return (bool((res.cfi == cell.cfi).all()) and bool(res.dci_found.all())
+                and all(bool(ok.all()) for ok in res.crc_ok)
+                and all(torch.equal(a, b) for a, b in zip(res.payloads, sent)))
+
+    # the main path, counted: which kernel, how often, in which mode
+    modes = []
+    launch = tdc.launch
+    tdc.launch = lambda *a, **kw: modes.append(a[4]) or launch(*a, **kw)
+    try:
+        tdc.launches = tdc.launches_v1 = 0
+        t0 = time.perf_counter()
+        tx = enb_dl.build_subframe(cfg, payloads)
+        rx = channel.awgn(gen, tx, DL_SF_SNR_DB)
+        res, _ = ue_dl.decode_subframe(rx, cfg)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        launches, launches_v1 = tdc.launches, tdc.launches_v1
+    finally:
+        tdc.launch = launch
+    assert tuple(tx.shape) == (BATCH, 30720, 2) and bool(tx.isfinite().all())
+    assert decoded_right(res, payloads), "DL subframe: CFI, a DCI, a CRC or a payload wrong"
+    assert launches > 0 and launches_v1 == 0, f"turbo_map {launches}, v1 {launches_v1} launches"
+    assert not any(modes), "turbo_map ran in the narrow (bf16) mode"
+    log(f"DL subframe: {BATCH} subframes x {len(cfg.grants)} grants (CCEs "
+        f"{[g[4:] for g in cfg.grants]}) decoded: CFI 2, every DCI and CRC, payloads "
+        f"bit-exact; {launches} turbo_map launches, all f32 mode, 0 v1; first call "
+        f"{first_s:.2f} s (host tables included), estimated SNR {res.snr_db.mean().item():.2f} dB")
+
+    # the card against the port on the CPU, first two rows
+    tx_cpu = enb_dl.build_subframe(cfg, [p[:2].cpu() for p in payloads])
+    rel = ((tx[:2].cpu() - tx_cpu).square().mean() / tx_cpu.square().mean()).sqrt().item()
+    assert rel < 1e-5, f"DL subframe: card vs CPU TX relative RMS {rel}"
+    res_cpu, _ = ue_dl.decode_subframe(rx[:2].cpu(), cfg)
+    for got, ref in ((res.cfi, res_cpu.cfi), (res.dci_found, res_cpu.dci_found),
+                     *zip(res.payloads, res_cpu.payloads), *zip(res.crc_ok, res_cpu.crc_ok)):
+        assert torch.equal(got[:2].cpu(), ref), "DL subframe: card and CPU decode differ"
+    log(f"DL subframe: card vs CPU on 2 rows: TX relative RMS {rel:.3e}, decode equal")
+
+    # time by stage of one decode (synchronised at every stage: a breakdown,
+    # not a rate)
+    stages = ((ofdm, "demodulate"), (chest, "estimate"), (pcfich, "decode"),
+              (pdcch, "blind_search"), (viterbi, "viterbi_decode"), (pdsch, "decode"),
+              (turbodecoder, "turbo_decode"), (ue_dl, "decode_subframe"))
+    with timed_calls(stages) as totals:
+        ue_dl.decode_subframe(rx, cfg)
+    whole = totals["ue_dl.decode_subframe"][1]
+    log("DL subframe decode by stage (host clock, synchronised; nested stages count in "
+        "their callers too): " + json.dumps({k: {"calls": n, "ms": 1e3 * t, "share": t / whole}
+                                              for k, (n, t) in totals.items()}))
+
+    dec = rate(lambda: ue_dl.decode_subframe(rx, cfg)[0],
+               check=lambda r: decoded_right(r, payloads))
+    enc = rate(lambda: enb_dl.build_subframe(cfg, payloads))
+    log(f"DL subframe {fmt_rate('decode', *dec)}; {fmt_rate('encode', *enc)}; batch {BATCH}, "
+        f"4 grants of TBS 4416; {card}")
+
+    # sf 0: PSS/SSS, PBCH and every PHICH group beside the four grants
+    n_groups = phich.n_groups(cell.n_prb)
+    cfg0 = dl_subframe_config(0, with_pbch_sfn=8, phich_groups=n_groups)
+    b0 = 16
+    payloads0 = [torch.from_numpy(rng.integers(0, 2, (b0, g[3]), dtype=np.int8)).to(dev)
+                 for g in cfg0.grants]
+    mib = torch.from_numpy(np.tile(pbch.pack_mib(cell.n_prb, 8), (b0, 1))).to(dev)
+    acks = torch.from_numpy(rng.choice([-1.0, 1.0], (b0, n_groups, 8)).astype(np.float32)).to(dev)
+    rx0 = channel.awgn(gen, enb_dl.build_subframe(cfg0, payloads0, mib_bits=mib, acks=acks),
+                       DL_SF_SNR_DB)
+    res0, _ = ue_dl.decode_subframe(rx0, cfg0, with_phich=True)
+    assert decoded_right(res0, payloads0), "sf 0: CFI, a DCI, a CRC or a payload wrong"
+    assert torch.equal(res0.phich.sign(), acks), "sf 0: PHICH signs wrong"
+    grid0 = ofdm.demodulate(rx0, cell.n_prb)
+    ce0 = chest.estimate(grid0, cell, 0).ce
+    with timed_calls(((pbch, "decode"), (viterbi, "viterbi_decode"))) as pbch_t:
+        mib_out, ports, off, ok = pbch.decode(grid0, ce0, cell)
+    assert bool(ok.all()) and torch.equal(mib_out, mib), "sf 0: MIB"
+    assert bool((ports == 1).all()) and bool((off == 0).all()), "sf 0: port count or SFN offset"
+    log(f"DL sf 0: {b0} subframes with PSS/SSS, PBCH (SFN 8), {n_groups} PHICH groups and 4 "
+        f"grants: payloads, CRCs, PHICH signs right; MIB, 1 port, SFN offset 0 decoded; "
+        f"pbch.decode {1e3 * pbch_t['pbch.decode'][1]:.2f} ms, of which Viterbi "
+        f"{1e3 * pbch_t['viterbi.viterbi_decode'][1]:.2f} ms")
+
+    # the waveform data plane: four UEs' bursts of 128 PDUs in shared subframes
+    dp = wavesim.WaveformDataPlane(cell)
+    assert dp.device.type == dev.type, dp.device  # the plane's default: the card
+    for r, mask, qm, _, l_aggr, start in cfg.grants:
+        dp.add_ue(r, mask, qm=qm, l_aggr=l_aggr, cce_start=start)
+    nb = 4416 // 8 - 2
+    pdus = {r: [bytes(rng.integers(0, 256, int(rng.integers(1, nb + 1)), dtype=np.uint8))
+                for _ in range(BATCH)] for r in DL_SF_RNTIS}
+    pathloss = {r: 112.0 + i for i, r in enumerate(DL_SF_RNTIS)}  # 22 to 19 dB
+    n_pdus = BATCH * len(DL_SF_RNTIS)
+    out = dp.send_tti(pdus, pathloss)
+    assert all([got for got, _ in out[r]] == pdus[r] for r in DL_SF_RNTIS), "send_tti lost a PDU"
+    runs = []
+    for _ in range(N_RUNS):
+        t0 = time.perf_counter()
+        for _ in range(3):
+            out = dp.send_tti(pdus, pathloss)
+        runs.append(3 * n_pdus / (time.perf_counter() - t0))
+        assert all([got for got, _ in out[r]] == pdus[r] for r in DL_SF_RNTIS), "send_tti"
+    med = statistics.median(runs)
+    log(f"WaveformDataPlane.send_tti: {len(DL_SF_RNTIS)} UEs x {BATCH} PDUs, every PDU "
+        f"delivered; {med:.1f} PDUs/s median of {N_RUNS} runs of 3 calls (spread "
+        f"{100 * (max(runs) - min(runs)) / med:.2f}%: {[round(r, 1) for r in runs]}); "
+        f"metrics {dp.metrics}; {card}")
+    return launches
+
 
 def main():
     import torch
@@ -558,7 +756,8 @@ def main():
         return 1
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    card = smi.stdout.strip().splitlines()[0]
+    print(card, flush=True)
     dev = torch.device("cuda", 0)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
@@ -580,6 +779,7 @@ def main():
     v1_cases, v1_launches = phase_v1(dev)
     ul_launches = phase_uplink(dev)
     phase_cascade(dev)
+    sf_launches = phase_dl_subframe(dev, card)
     bench = next(c for c in cases if (c["K"], c["B"], c["narrow"]) == (5504, 768, True))
     odd = next(c for c in v1_cases if (c["K"], c["B"]) == (1040, 768))
     print(json.dumps({"kernels": [{
@@ -587,7 +787,7 @@ def main():
         "route": "cuda",
         "source": "srslte_emane_tpu_torch/csrc/turbo_map.cu",
         "replaces": "srslte_emane_tpu/ops/fec/turbodecoder_pallas2.py:70",
-        "launches": dl_launches + ul_launches,  # downlink path + uplink path
+        "launches": dl_launches + ul_launches + sf_launches,  # PDSCH link, uplink, DL subframe
         "max_abs_err": max(c["max_abs_err"] for c in cases),
         "ms": bench["ms"],
         "wrapper_ms": bench["wrapper_ms"],

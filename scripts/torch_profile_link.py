@@ -1,17 +1,19 @@
 #!/usr/bin/env python3
-"""Device time of the port's downlink and uplink decodes, by kernel, on one
-CUDA card.
+"""Device time of the port's downlink, uplink and downlink-subframe
+decodes, by kernel, on one CUDA card.
 
 Run from the repository root:  python3 scripts/torch_profile_link.py
 
-For each of chip_smoke.py's two cells (the 20 MHz PDSCH and PUSCH decodes,
+For each of chip_smoke.py's three cells (the 20 MHz PDSCH and PUSCH
+decodes and the four-grant downlink subframe's `ue_dl.decode_subframe`,
 batch 128), after two warm-up calls: the host-clock time per call over 10
 synchronised calls, then torch.profiler over 5 calls: the device time per
 call (the sum of the CUDA kernels' device time), the busy share (device
 time over the profiled wall time, which includes the profiler's own
-overhead, so the share is a lower bound), the MAP kernel's device time and
-launches per call, and the six kernels with the most device time.  Prints
-one JSON line per cell, after the card's name and power limit.
+overhead, so the share is a lower bound), the kernel launches per call,
+the MAP kernel's device time and launches per call, and the six kernels
+with the most device time.  Prints one JSON line per cell, after the
+card's name and power limit.
 """
 
 import importlib.util
@@ -61,6 +63,7 @@ def profile(name, fn):
     map_k = [e for e in kernels if "map_kernel" in e.key]
     return dict(cell=name, host_ms_per_call=host_ms, profiled_wall_ms_per_call=wall_ms / CALLS,
                 device_ms_per_call=device_ms / CALLS, busy_share=device_ms / wall_ms,
+                launches_per_call=sum(e.count for e in kernels) / CALLS,
                 map_ms_per_call=sum(e.self_device_time_total for e in map_k) / 1e3 / CALLS,
                 map_launches_per_call=sum(e.count for e in map_k) / CALLS,
                 top=[(e.key[:60], e.self_device_time_total / 1e3 / CALLS, e.count / CALLS)
@@ -71,7 +74,7 @@ def main():
     if not torch.cuda.is_available():
         print("torch_profile_link: torch.cuda is not available", file=sys.stderr)
         return 1
-    from srslte_emane_tpu_torch.models import pdsch_link, ue_ul
+    from srslte_emane_tpu_torch.models import enb_dl, pdsch_link, ue_dl, ue_ul
     from srslte_emane_tpu_torch.ops import channel
     from srslte_emane_tpu_torch.phch import grid
 
@@ -93,6 +96,14 @@ def main():
     gen.manual_seed(2)
     urx = channel.awgn(gen, ue_ul.build_subframe(ucfg, tb_bits=upay), 14.0)
     print(json.dumps(profile("ul_decode", lambda: ue_ul.enb_receive(urx, ucfg, llr_bits=16))),
+          flush=True)
+    scfg = cs.dl_subframe_config(1)
+    rng = np.random.default_rng(8)
+    spay = [torch.from_numpy(rng.integers(0, 2, (cs.BATCH, g[3]), dtype=np.int8)).to(dev)
+            for g in scfg.grants]
+    gen.manual_seed(8)
+    srx = channel.awgn(gen, enb_dl.build_subframe(scfg, spay), cs.DL_SF_SNR_DB)
+    print(json.dumps(profile("dl_subframe_decode", lambda: ue_dl.decode_subframe(srx, scfg))),
           flush=True)
     return 0
 

@@ -2,10 +2,10 @@
 
 The links have no weights: their state is the HARQ soft buffers (the
 per-CB w-buffer lists of `sch.init_softbuffer` / `sch.decode_tb`, for PDSCH
-and PUSCH alike) and the link or uplink-subframe configuration.  These
-helpers rebuild both from plain data, without importing jax: soft buffers
-arrive as numpy arrays, the configuration as the reference dataclass's
-fields (`dataclasses.asdict`).
+and PUSCH alike) and the link, downlink-subframe or uplink-subframe
+configuration.  These helpers rebuild both from plain data, without
+importing jax: soft buffers arrive as numpy arrays, the configuration as
+the reference dataclass's fields (`dataclasses.asdict`).
 """
 
 from __future__ import annotations
@@ -15,6 +15,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .models.enb_dl import DlSubframeConfig
 from .models.pdsch_link import LinkConfig
 from .models.ue_ul import UlSubframeConfig
 from .phch.grid import CellConfig
@@ -50,3 +51,11 @@ def link_config_from_fields(**fields) -> LinkConfig:
 def ul_config_from_fields(**fields) -> UlSubframeConfig:
     """Port UlSubframeConfig from the reference UlSubframeConfig's fields."""
     return UlSubframeConfig(**_with_cell(fields))
+
+
+def dl_config_from_fields(**fields) -> DlSubframeConfig:
+    """Port DlSubframeConfig from the reference DlSubframeConfig's fields
+    (grants as tuples of (rnti, prb_mask, Qm, tbs, l_aggr, cce_start))."""
+    fields = _with_cell(fields)
+    fields["grants"] = tuple((g[0], tuple(g[1]), *g[2:]) for g in fields.get("grants", ()))
+    return DlSubframeConfig(**fields)

@@ -31,6 +31,10 @@ def zeros(shape, dtype=torch.float32, device=None) -> torch.Tensor:
     return torch.zeros(tuple(shape) + (2,), dtype=dtype, device=device)
 
 
+def conj(x):
+    return make(x[..., 0], -x[..., 1])
+
+
 def mul(a, b):
     """Elementwise complex multiply of cf tensors (broadcasting)."""
     ar, ai = a[..., 0], a[..., 1]

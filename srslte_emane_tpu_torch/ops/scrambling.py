@@ -22,6 +22,18 @@ def pusch_cinit(rnti, sf_idx, cell_id):
     return (rnti << 14) + (sf_idx << 9) + cell_id
 
 
+def pbch_cinit(cell_id):
+    return cell_id
+
+
+def pcfich_cinit(sf_idx, cell_id):
+    return ((sf_idx + 1) * (2 * cell_id + 1) << 9) + cell_id
+
+
+def pdcch_cinit(sf_idx, cell_id):
+    return (sf_idx << 9) + cell_id
+
+
 @functools.lru_cache(maxsize=64)
 def _cached_sequence(c_init: int, n: int, device: torch.device) -> torch.Tensor:
     return sequence.gold_sequence(c_init, n, device)

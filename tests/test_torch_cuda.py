@@ -348,3 +348,109 @@ def test_link_defaults_to_the_kernel_on_the_card(dev):
     torch.cuda.synchronize()
     assert turbodecoder_cuda.launches > before
     assert bool(ok.all()) and torch.equal(out, payload)
+
+
+def _four_grant_config(sf_idx):
+    """netsim --waveform's plan (apps/netsim.py:399-416) at 100 PRB: four
+    UEs of 24 PRBs each at 16QAM (TBS 4,416 at sf 1: one code block of
+    K=4480), CCEs from pdcch.allocate_cces."""
+    from srslte_emane_tpu_torch.models import enb_dl
+    from srslte_emane_tpu_torch.phch import grid, pdcch
+    from srslte_emane_tpu_torch.runtime import wavesim
+
+    cell = grid.CellConfig(n_prb=100, cell_id=1, cfi=2)
+    rntis = (0x46, 0x47, 0x48, 0x49)
+    alloc = pdcch.allocate_cces(cell, rntis, sf_idx)
+    per_ue = 100 // 4 - 1
+    grants = []
+    for i, r in enumerate(rntis):
+        mask = tuple(int(i * per_ue <= p < (i + 1) * per_ue) for p in range(100))
+        grants.append((r, mask, 4, wavesim.UeSlot(r, mask).tbs(cell, sf_idx), *alloc[r]))
+    return enb_dl.DlSubframeConfig(cell=cell, sf_idx=sf_idx, grants=tuple(grants))
+
+
+def test_four_grant_subframe_through_the_kernel(dev):
+    """The 100 PRB four-grant subframe at batch 8: CFI, every DCI and CRC,
+    payloads bit-exact, decoded through turbo_map (f32 mode) and not v1."""
+    from srslte_emane_tpu_torch.models import enb_dl, ue_dl
+
+    cfg = _four_grant_config(1)
+    assert [g[3] for g in cfg.grants] == [4416] * 4
+    rng = np.random.default_rng(5)
+    payloads = [torch.from_numpy(rng.integers(0, 2, (8, g[3]), dtype=np.int8)).to(dev)
+                for g in cfg.grants]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    rx = channel.awgn(gen, enb_dl.build_subframe(cfg, payloads), 20.0)
+    before = (turbodecoder_cuda.launches, turbodecoder_cuda.launches_v1)
+    res, _ = ue_dl.decode_subframe(rx, cfg)
+    torch.cuda.synchronize()
+    assert turbodecoder_cuda.launches > before[0] and turbodecoder_cuda.launches_v1 == before[1]
+    assert bool((res.cfi == 2).all()) and bool(res.dci_found.all())
+    for gi, p in enumerate(payloads):
+        assert bool(res.crc_ok[gi].all()) and torch.equal(res.payloads[gi], p)
+
+
+def _control_grid(dev):
+    """A noisy 25 PRB sf 0 grid with PDCCH (rnti 0x46, L=2) and PBCH, its
+    channel estimate, on `dev` and on the CPU."""
+    from srslte_emane_tpu_torch.models import enb_dl
+    from srslte_emane_tpu_torch.ops import ofdm
+    from srslte_emane_tpu_torch.phch import chest, grid, pbch, pdcch
+
+    cell = grid.CellConfig(n_prb=25, cell_id=123, cfi=2)
+    l_aggr, start = next(c for c in pdcch.candidates(cell, 0x46, 0) if c[0] == 2)
+    mask = tuple(int(p < 8) for p in range(25))
+    tbs = (grid.nof_re(cell, 0, mask) * 2 // 3) // 8 * 8
+    cfg = enb_dl.DlSubframeConfig(cell=cell, sf_idx=0, with_pbch_sfn=8,
+                                  grants=((0x46, mask, 2, tbs, l_aggr, start),))
+    rng = np.random.default_rng(6)
+    payload = torch.from_numpy(rng.integers(0, 2, (4, tbs), dtype=np.int8))
+    mib = torch.from_numpy(np.tile(pbch.pack_mib(25, 8), (4, 1)))
+    tx = enb_dl.build_subframe(cfg, [payload], mib_bits=mib).numpy()
+    rx = torch.from_numpy((tx + rng.normal(0, 0.02, tx.shape)).astype(np.float32))
+    g = ofdm.demodulate(rx, 25)
+    ce = chest.estimate(g, cell, 0).ce
+    return cell, (g.to(dev), ce.to(dev)), (g, ce)
+
+
+def test_control_decoders_on_the_card_equal_the_cpu(dev):
+    """blind_search, blind_search_all and pbch.decode give on the card what
+    they give on the CPU, equal-metric ties included (first maximum)."""
+    from srslte_emane_tpu_torch.phch import dci, pbch, pcfich, pdcch
+
+    cell, on_card, on_cpu = _control_grid(dev)
+    n = dci.format0_1a_len(25)
+    results = []
+    for g, ce in (on_card, on_cpu):
+        bits, ok, cands = pdcch.blind_search(g, ce, cell, 0, 0x46, n)
+        all_bits, resid, pos = pdcch.blind_search_all(g, ce, cell, 0, n)
+        zero, ones = torch.zeros_like(g), torch.ones_like(ce)
+        results.append([bits, ok, all_bits, resid, *pbch.decode(g, ce, cell),
+                        *pbch.decode(zero, ones, cell), *pcfich.decode(zero, ones, cell, 0)])
+        assert bool(ok.any(dim=1).all())
+    for got, ref in zip(*results):
+        assert torch.equal(got.cpu(), ref)
+    mib_ok, tie_off, tie_cfi = results[0][7], results[0][10], results[0][12]
+    assert bool(mib_ok.all()) and bool((tie_off == 0).all()) and bool((tie_cfi == 1).all())
+
+
+def test_waveform_plane_defaults_to_the_card(dev):
+    """WaveformDataPlane() with no device argument runs on the card and
+    delivers every PDU of two UEs' bursts."""
+    from srslte_emane_tpu_torch.phch import grid, pdcch
+    from srslte_emane_tpu_torch.runtime import wavesim
+
+    cell = grid.CellConfig(n_prb=25, cell_id=1, cfi=1)
+    dp = wavesim.WaveformDataPlane(cell)
+    assert dp.device.type == "cuda"
+    alloc = pdcch.allocate_cces(cell, [0x46, 0x47], 1)
+    for u, r in enumerate((0x46, 0x47)):
+        l_aggr, start = alloc[r]
+        dp.add_ue(r, tuple(int(u * 12 <= p < (u + 1) * 12) for p in range(25)), qm=4,
+                  l_aggr=l_aggr, cce_start=start)
+    pdus = {0x46: [bytes([i]) * (10 + i) for i in range(8)], 0x47: [b"b" * 30] * 5}
+    out = dp.send_tti(pdus, {0x46: 100.0, 0x47: 105.0})
+    for r, sent in pdus.items():
+        assert [g for g, _ in out[r]] == sent
+    assert dp.metrics == {"sf_tx": 13, "crc_ok": 13, "crc_fail": 0}

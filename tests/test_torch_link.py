@@ -82,7 +82,13 @@ def test_port_never_imports_jax():
             "import srslte_emane_tpu_torch.models.pdsch_link, srslte_emane_tpu_torch.convert, "
             "srslte_emane_tpu_torch.ops.fec.turbodecoder_cuda, srslte_emane_tpu_torch.models.ue_ul, "
             "srslte_emane_tpu_torch.phch.pusch_uci, srslte_emane_tpu_torch.phch.uci, "
-            "srslte_emane_tpu_torch.ops.fec.viterbi; "
+            "srslte_emane_tpu_torch.ops.fec.viterbi, srslte_emane_tpu_torch.ops.bits, "
+            "srslte_emane_tpu_torch.ops.mimo, srslte_emane_tpu_torch.phch.regs, "
+            "srslte_emane_tpu_torch.phch.dci, srslte_emane_tpu_torch.phch.ra, "
+            "srslte_emane_tpu_torch.phch.pcfich, srslte_emane_tpu_torch.phch.phich, "
+            "srslte_emane_tpu_torch.phch.pdcch, srslte_emane_tpu_torch.phch.pbch, "
+            "srslte_emane_tpu_torch.phch.sync, srslte_emane_tpu_torch.models.enb_dl, "
+            "srslte_emane_tpu_torch.models.ue_dl, srslte_emane_tpu_torch.runtime.wavesim; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', "
             "'srslte_emane_tpu')]; assert not bad, bad")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
