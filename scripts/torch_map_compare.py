@@ -15,7 +15,9 @@ alone warm and with L2 flushed between launches, the wrapper
 `map_decode_v1_cuda` at chip_smoke.py's V1_SHAPES, and the decode time of
 its odd-window path (turbo_decode at L=33); then the downlink and uplink
 cells' decode and encode rates in subframes/s (chip_smoke.py's cells, batch
-128, median of 5 runs of 10 calls).  A tree whose kernels take inputs
+128, median of 5 runs of 10 calls); last, `pbch.decode` on phase 8's sf 0
+subframe (100 PRB, batch 16): its median ms of 9 synchronised calls, and
+the mean ms of its Viterbi call.  A tree whose kernels take inputs
 prepared in torch (the port's first designs: time-major windows for
 turbo_map, branch metrics and window-edge states for v1) has them prepared
 outside the timed launch; its wrappers are timed whole.
@@ -64,10 +66,10 @@ def child(tree):
     import torch
 
     sys.path.insert(0, str(pathlib.Path(tree).resolve()))
-    from srslte_emane_tpu_torch.models import pdsch_link, ue_ul
-    from srslte_emane_tpu_torch.ops import channel
-    from srslte_emane_tpu_torch.ops.fec import turbodecoder, turbodecoder_cuda as tdc
-    from srslte_emane_tpu_torch.phch import grid
+    from srslte_emane_tpu_torch.models import enb_dl, pdsch_link, ue_ul
+    from srslte_emane_tpu_torch.ops import channel, ofdm
+    from srslte_emane_tpu_torch.ops.fec import turbodecoder, turbodecoder_cuda as tdc, viterbi
+    from srslte_emane_tpu_torch.phch import chest, grid, pbch
 
     cs = smoke()
     dev = torch.device("cuda", 0)
@@ -142,6 +144,26 @@ def child(tree):
         lambda r: bool(r[1].all()) and torch.equal(r[0], upay))
     out["ul_encode_sf_s"], out["ul_encode_runs"] = rate(
         lambda: ue_ul.build_subframe(ucfg, tb_bits=upay))
+
+    # pbch.decode on chip_smoke.py's phase-8 sf 0 subframe (100 PRB, batch 16)
+    cfg0 = cs.dl_subframe_config(0, with_pbch_sfn=8)
+    cell = cfg0.cell
+    rng = np.random.default_rng(8)
+    pay0 = [torch.from_numpy(rng.integers(0, 2, (16, g[3]), dtype=np.int8)).to(dev)
+            for g in cfg0.grants]
+    mib = torch.from_numpy(np.tile(pbch.pack_mib(cell.n_prb, 8), (16, 1))).to(dev)
+    gen.manual_seed(8)
+    grid0 = ofdm.demodulate(channel.awgn(gen, enb_dl.build_subframe(cfg0, pay0, mib_bits=mib),
+                                         cs.DL_SF_SNR_DB), cell.n_prb)
+    ce0 = chest.estimate(grid0, cell, 0).ce
+    decode = lambda: pbch.decode(grid0, ce0, cell)
+    got, _, _, ok = decode()
+    assert bool(ok.all()) and torch.equal(got, mib), "pbch.decode failed"
+    out["pbch_decode_ms"] = cs.host_ms(decode, 9)
+    with cs.timed_calls(((viterbi, "viterbi_decode"),)) as vit:
+        for _ in range(9):
+            decode()
+    out["pbch_viterbi_ms"] = 1e3 * vit["viterbi.viterbi_decode"][1] / 9
     print(json.dumps(out), flush=True)
 
 

@@ -5,8 +5,9 @@ MIB + CRC16 masked by the antenna-port pattern, K=7 tail-biting conv code,
 rate match to 1920 bits (normal CP), 40 ms scrambling period, QPSK, 4
 radio frames x 240 symbols on subframe 0 symbols 7-10 (center 72
 subcarriers, CRS holes assume 4 ports).  The decoder tries all 4 frame
-offsets and 3 port hypotheses (pbch.c:153); the 12 hypotheses go through
-ONE Viterbi call and the CRC adjudicates.
+offsets and 3 port hypotheses (pbch.c:153); the 2- and 4-port hypotheses
+share their LLRs, so 8 distinct rows go through ONE Viterbi call and the
+CRC masks of the 12 hypotheses adjudicate.
 """
 
 from __future__ import annotations
@@ -108,17 +109,18 @@ def decode(rx_grid: torch.Tensor, ce: torch.Tensor, cell: grid_mod.CellConfig,
     the reference's argmax."""
     B = rx_grid.shape[0]
     ces = [ce, ce_port1 if ce_port1 is not None else ce]
-    # the 2- and 4-port hypotheses share their LLRs (both combine ports 0/1)
-    llr1 = _llrs_port_hyp(rx_grid, ces, cell, 1)
-    llr2 = _llrs_port_hyp(rx_grid, ces, cell, 2)
-    llr = torch.stack([llr1, llr2, llr2], dim=1)  # (B, port hyp, 480)
+    # the 2- and 4-port hypotheses share their LLRs (both combine ports 0/1),
+    # so only the 4 offsets x {1-port, SFBC} LLRs are decoded
+    llr = torch.stack([_llrs_port_hyp(rx_grid, ces, cell, n) for n in (1, 2)], dim=1)
     # each frame offset places the segment in its quarter of the 1920 bits
-    hyp = llr.new_zeros((B, 4, len(PORT_HYPOTHESES), 4, SEG))
+    hyp = llr.new_zeros((B, 4, 2, 4, SEG))
     for off in range(4):
         hyp[:, off, :, off] = llr
-    hyp = scrambling.scramble_llrs(hyp.reshape(B * 12, CODED), scrambling.pbch_cinit(cell.cell_id))
+    hyp = scrambling.scramble_llrs(hyp.reshape(B * 8, CODED), scrambling.pbch_cinit(cell.cell_id))
     streams = convcoder.rate_unmatch_cc(hyp, 40)
-    bits = viterbi.viterbi_decode(streams).reshape(B, 12, 40)  # hypothesis = off*3 + port
+    bits = viterbi.viterbi_decode(streams).reshape(B, 4, 2, 40)
+    # hypothesis = off*3 + port, ports (1, 2, 4) on LLR rows (1-port, SFBC, SFBC)
+    bits = bits[:, :, [0, 1, 1]].reshape(B, 12, 40)
     _, masks = _device_tables(cell, rx_grid.device)
     unmasked = torch.cat([bits[..., :MIB_LEN],
                           bits[..., MIB_LEN:] ^ masks.repeat(4, 1)], dim=-1)

@@ -42,7 +42,7 @@ class WaveformDataPlane:
     """Carries DL PDCP PDUs of attached UEs over the waveform pipeline."""
 
     def __init__(self, cell: grid_mod.CellConfig, noise_floor_dbm: float = -104.0,
-                 tx_power_dbm: float = 30.0, device="cuda", seed: int = 0):
+                 tx_power_dbm: float = 30.0, device="cuda"):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("WaveformDataPlane: no CUDA device (pass device='cpu' "
@@ -52,7 +52,7 @@ class WaveformDataPlane:
         self.tx_power_dbm = tx_power_dbm
         self.slots: dict = {}  # rnti -> UeSlot
         self.gen = torch.Generator(self.device)
-        self.gen.manual_seed(seed)
+        self.gen.manual_seed(0)
         self.metrics = {"sf_tx": 0, "crc_ok": 0, "crc_fail": 0}
 
     def add_ue(self, rnti: int, prb_mask: tuple, qm: int = 4,

@@ -7,12 +7,14 @@ same bits agree to float32 rounding (rtol 1e-5, atol 1e-6); PCFICH
 correlations and PHICH soft metrics to atol 1e-3, rtol 1e-2.  Receivers see
 the same numpy grid: the transmit grid times a random per-RE channel, plus
 numpy noise, with that channel as the estimate.  The JAX receivers run
-under jax.jit: op by op they compile each op on first use, several times
-slower here.
+under jax.jit (op by op they compile each op on first use, several times
+slower here); the Viterbi-bearing ones once per module for their static
+arguments.
 """
 
 import dataclasses
 import filecmp
+import functools
 import pathlib
 
 import jax
@@ -81,6 +83,27 @@ def _channel(grid, snr_db, seed, flat=False):
     rx = x + sigma * (rng.normal(size=x.shape) + 1j * rng.normal(size=x.shape))
     f = lambda z: np.stack([z.real, z.imag], -1).astype(np.float32)
     return f(rx), f(h)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_blind_search(cell_j, sf, rnti, n):
+    """(jitted JAX blind_search on (rx, ce) -> (bits, ok), its candidate
+    list, filled while tracing)."""
+    cands = []
+
+    def search(rx, ce):
+        out, ok, c = j_pdcch.blind_search(rx, ce, cell_j, sf, rnti, n)
+        cands[:] = c
+        return out, ok
+
+    return jax.jit(search), cands
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_pbch_decode(cell_j):
+    """Jitted JAX pbch.decode on (rx, ce, ce_port1); a ce_port1 equal to ce
+    is what ce_port1=None means."""
+    return jax.jit(lambda rx, ce, ce1: j_pbch.decode(rx, ce, cell_j, ce_port1=ce1))
 
 
 def _count_viterbi(monkeypatch):
@@ -313,7 +336,8 @@ def test_pcfich_encode_decode(n_ports):
     cell_p, cell_j = _cells(**CELL_KW, n_ports=n_ports)
     sf = 4
     cfis = np.array([1, 2, 3])
-    g_j = np.asarray(j_pcfich.encode(jnp.asarray(cfis), cell_j, sf, jnp.asarray(_zero_grid(cell_p, 3))))
+    g_j = np.asarray(jax.jit(lambda c, g: j_pcfich.encode(c, cell_j, sf, g))(
+        cfis, _zero_grid(cell_p, 3)))
     g_p = p_pcfich.encode(_t(cfis), cell_p, sf, _t(_zero_grid(cell_p, 3)))
     np.testing.assert_allclose(g_p.numpy(), g_j, rtol=RTOL, atol=ATOL)
     np.testing.assert_array_equal(p_pcfich.encode(2, cell_p, sf, _t(_zero_grid(cell_p, 3)))[1],
@@ -321,8 +345,8 @@ def test_pcfich_encode_decode(n_ports):
     rx, ce = _channel(g_j, 0.0, seed=n_ports, flat=n_ports == 2)
     # 2 ports: a zero port-1 estimate makes the SFBC combiner a scaled ZF
     ce1 = np.zeros_like(ce) if n_ports == 2 else None
-    cfi_j, corr_j = j_pcfich.decode(jnp.asarray(rx), jnp.asarray(ce), cell_j, sf,
-                                    ce_port1=None if ce1 is None else jnp.asarray(ce1))
+    cfi_j, corr_j = jax.jit(lambda rx, ce, ce1: j_pcfich.decode(rx, ce, cell_j, sf, ce_port1=ce1))(
+        rx, ce, ce1)
     cfi_p, corr_p = p_pcfich.decode(_t(rx), _t(ce), cell_p, sf,
                                     ce_port1=None if ce1 is None else _t(ce1))
     np.testing.assert_array_equal(cfi_p.numpy(), np.asarray(cfi_j))
@@ -334,7 +358,7 @@ def test_pcfich_tie_picks_the_first_cfi():
     """All three correlations equal (nothing received): CFI 1 in both."""
     cell_p, cell_j = _cells(**CELL_KW)
     rx, ce = _zero_grid(cell_p, 2), np.ones_like(_zero_grid(cell_p, 2))
-    cfi_j, corr_j = j_pcfich.decode(jnp.asarray(rx), jnp.asarray(ce), cell_j, 1)
+    cfi_j, corr_j = jax.jit(lambda rx, ce: j_pcfich.decode(rx, ce, cell_j, 1))(rx, ce)
     cfi_p, corr_p = p_pcfich.decode(_t(rx), _t(ce), cell_p, 1)
     assert (corr_p == 0).all() and (np.asarray(corr_j) == 0).all()
     np.testing.assert_array_equal(cfi_p.numpy(), np.asarray(cfi_j))
@@ -346,11 +370,12 @@ def test_phich_encode_decode():
     sf = 3
     ng = p_phich.n_groups(cell_p.n_prb)
     acks = np.random.default_rng(0).choice([-1, 0, 1], size=(2, ng, 8)).astype(np.float32)
-    g_j = np.asarray(j_phich.encode(jnp.asarray(acks), cell_j, sf, jnp.asarray(_zero_grid(cell_p, 2))))
+    g_j = np.asarray(jax.jit(lambda a, g: j_phich.encode(a, cell_j, sf, g))(
+        acks, _zero_grid(cell_p, 2)))
     g_p = p_phich.encode(_t(acks), cell_p, sf, _t(_zero_grid(cell_p, 2)))
     np.testing.assert_allclose(g_p.numpy(), g_j, rtol=RTOL, atol=ATOL)
     rx, ce = _channel(g_j, 15.0, seed=3)
-    m_j = np.asarray(j_phich.decode(jnp.asarray(rx), jnp.asarray(ce), cell_j, sf))
+    m_j = np.asarray(jax.jit(lambda rx, ce: j_phich.decode(rx, ce, cell_j, sf))(rx, ce))
     m_p = p_phich.decode(_t(rx), _t(ce), cell_p, sf).numpy()
     np.testing.assert_allclose(m_p, m_j, rtol=SOFT_RTOL, atol=SOFT_ATOL)
     on = acks != 0
@@ -361,8 +386,8 @@ def _dci_grid(cell_p, cell_j, rnti, l_aggr, start, sf, B=2):
     """(dci bits (B, n), the JAX grid, the port grid) of one DCI 1A."""
     d = j_dci.DciDl("1A", mcs=12, harq_pid=2, ndi=1, rv=0, rb_start=1, l_crbs=4)
     bits = np.tile(j_dci.pack_dl(d, cell_p.n_prb), (B, 1))
-    g_j = np.asarray(j_pdcch.encode(bits, rnti, l_aggr, start, cell_j, sf,
-                                    jnp.asarray(_zero_grid(cell_p, B))))
+    g_j = np.asarray(jax.jit(lambda b, g: j_pdcch.encode(b, rnti, l_aggr, start, cell_j, sf, g))(
+        bits, _zero_grid(cell_p, B)))
     g_p = p_pdcch.encode(_t(bits), rnti, l_aggr, start, cell_p, sf, _t(_zero_grid(cell_p, B)))
     return bits, g_j, g_p
 
@@ -380,20 +405,14 @@ def test_pdcch_encode_and_blind_search(l_aggr, rnti, monkeypatch):
     dyn_p = p_pdcch.encode_dyn(_t(bits), torch.tensor(rnti), l_aggr, torch.tensor(start),
                                cell_p, sf, _t(_zero_grid(cell_p, 2)))
     assert torch.equal(dyn_p, g_p)
-    dyn_j = j_pdcch.encode_dyn(bits, rnti, l_aggr, start, cell_j, sf,
-                               jnp.asarray(_zero_grid(cell_p, 2)))
+    dyn_j = jax.jit(lambda b, r, s, g: j_pdcch.encode_dyn(b, r, l_aggr, s, cell_j, sf, g))(
+        bits, rnti, start, _zero_grid(cell_p, 2))
     np.testing.assert_allclose(dyn_p.numpy(), np.asarray(dyn_j), rtol=RTOL, atol=ATOL)
 
     rx, ce = _channel(g_j, 8.0, seed=l_aggr)
     n = bits.shape[1]
-    cands_j = []
-
-    def search_j(rx, ce):
-        out, ok, cands = j_pdcch.blind_search(rx, ce, cell_j, sf, rnti, n)
-        cands_j.extend(cands)  # host list, filled while tracing
-        return out, ok
-
-    out_j, ok_j = jax.jit(search_j)(rx, ce)
+    search_j, cands_j = _jax_blind_search(cell_j, sf, rnti, n)
+    out_j, ok_j = search_j(rx, ce)
     calls = _count_viterbi(monkeypatch)
     out_p, ok_p, cands_p = p_pdcch.blind_search(_t(rx), _t(ce), cell_p, sf, rnti, n)
     assert len(calls) == 1 and calls[0][0] == 2 * len(cands_p), calls
@@ -432,20 +451,22 @@ def test_blind_search_all_equal(monkeypatch):
 @pytest.mark.parametrize("n_ports,sfn", [(1, 8), (2, 5), (4, 2)])
 def test_pbch_encode_decode(n_ports, sfn, monkeypatch):
     """MIB, port count, SFN offset and CRC flags equal the JAX package's,
-    with the 12 hypotheses in one Viterbi call.  The transmitter places one
-    stream whatever the port count, so a zero port-1 estimate makes the
-    SFBC hypotheses a scaled ZF and the port count shows in the CRC mask."""
+    with the 12 hypotheses' 8 distinct LLR rows in one Viterbi call.  The
+    transmitter places one stream whatever the port count, so a zero port-1
+    estimate makes the SFBC hypotheses a scaled ZF and the port count shows
+    in the CRC mask."""
     cell_p, cell_j = _cells(n_prb=6, cell_id=301, n_ports=n_ports)
     mib = np.tile(p_pbch.pack_mib(6, sfn), (2, 1))
-    g_j = np.asarray(j_pbch.encode(mib, cell_j, sfn, jnp.asarray(_zero_grid(cell_p, 2))))
+    g_j = np.asarray(jax.jit(lambda m, g: j_pbch.encode(m, cell_j, sfn, g))(
+        mib, _zero_grid(cell_p, 2)))
     g_p = p_pbch.encode(_t(mib), cell_p, sfn, _t(_zero_grid(cell_p, 2)))
     np.testing.assert_allclose(g_p.numpy(), g_j, rtol=RTOL, atol=ATOL)
     rx, ce = _channel(g_j, 5.0, seed=n_ports, flat=True)
     ce1 = np.zeros_like(ce) if n_ports > 1 else None
-    out_j = jax.jit(lambda rx, ce, ce1: j_pbch.decode(rx, ce, cell_j, ce_port1=ce1))(rx, ce, ce1)
+    out_j = _jax_pbch_decode(cell_j)(rx, ce, ce if ce1 is None else ce1)
     calls = _count_viterbi(monkeypatch)
     out_p = p_pbch.decode(_t(rx), _t(ce), cell_p, ce_port1=None if ce1 is None else _t(ce1))
-    assert len(calls) == 1 and tuple(calls[0]) == (2 * 12, 3, 40), calls
+    assert len(calls) == 1 and tuple(calls[0]) == (2 * 8, 3, 40), calls
     for got, ref in zip(out_p, out_j):
         np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
     mib_p, ports, off, ok = out_p
@@ -460,7 +481,7 @@ def test_pbch_tie_picks_the_first_hypothesis():
     every frame offset: both packages take offset 0."""
     cell_p, cell_j = _cells(n_prb=6, cell_id=301)
     rx, ce = _zero_grid(cell_p, 2), np.ones_like(_zero_grid(cell_p, 2))
-    out_j = jax.jit(lambda rx, ce: j_pbch.decode(rx, ce, cell_j))(rx, ce)
+    out_j = _jax_pbch_decode(cell_j)(rx, ce, ce)
     out_p = p_pbch.decode(_t(rx), _t(ce), cell_p)
     for got, ref in zip(out_p, out_j):
         np.testing.assert_array_equal(got.numpy(), np.asarray(ref))

@@ -6,6 +6,9 @@ so run this file there without the suite's conftest:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 """
 
+import importlib.util
+import pathlib
+
 import numpy as np
 import pytest
 import torch
@@ -351,22 +354,14 @@ def test_link_defaults_to_the_kernel_on_the_card(dev):
 
 
 def _four_grant_config(sf_idx):
-    """netsim --waveform's plan (apps/netsim.py:399-416) at 100 PRB: four
-    UEs of 24 PRBs each at 16QAM (TBS 4,416 at sf 1: one code block of
+    """chip_smoke.py's phase-8 plan: netsim --waveform's four UEs of 24
+    PRBs each at 100 PRB, 16QAM (TBS 4,416 at sf 1: one code block of
     K=4480), CCEs from pdcch.allocate_cces."""
-    from srslte_emane_tpu_torch.models import enb_dl
-    from srslte_emane_tpu_torch.phch import grid, pdcch
-    from srslte_emane_tpu_torch.runtime import wavesim
-
-    cell = grid.CellConfig(n_prb=100, cell_id=1, cfi=2)
-    rntis = (0x46, 0x47, 0x48, 0x49)
-    alloc = pdcch.allocate_cces(cell, rntis, sf_idx)
-    per_ue = 100 // 4 - 1
-    grants = []
-    for i, r in enumerate(rntis):
-        mask = tuple(int(i * per_ue <= p < (i + 1) * per_ue) for p in range(100))
-        grants.append((r, mask, 4, wavesim.UeSlot(r, mask).tbs(cell, sf_idx), *alloc[r]))
-    return enb_dl.DlSubframeConfig(cell=cell, sf_idx=sf_idx, grants=tuple(grants))
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke.dl_subframe_config(sf_idx)
 
 
 def test_four_grant_subframe_through_the_kernel(dev):

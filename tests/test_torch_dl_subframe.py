@@ -104,7 +104,13 @@ def test_full_dl_subframe_sf0():
     assert tx_p.shape == tx_j.shape and _rel_rms(tx_p, tx_j) < REL
 
     rx = _noisy(tx_j, 14.0, rng)
-    res_j, _ = jax.jit(lambda x: j_ue.decode_subframe(x, jcfg, with_phich=True))(rx)
+
+    def decode_j(x):  # the subframe, then the MIB from the same capture
+        g = j_ofdm.demodulate(x, 25)
+        return (j_ue.decode_subframe(x, jcfg, with_phich=True)[0],
+                j_pbch.decode(g, j_chest.estimate(g, jcell, 0).ce, jcell))
+
+    res_j, mib_j = jax.jit(decode_j)(rx)
     res_p, bufs = p_ue.decode_subframe(_t(rx), pcfg, with_phich=True)
     _assert_same_decode(res_p, res_j, 1)
     assert (res_p.cfi == 2).all() and res_p.dci_found.all() and res_p.crc_ok[0].all()
@@ -114,15 +120,9 @@ def test_full_dl_subframe_sf0():
     assert (res_p.phich[:, 0, :] > 0).all()
     assert len(bufs) == 1 and bufs[0][0].shape[0] == B
 
-    # the MIB from the same capture
-    def mib_j(x):
-        g = j_ofdm.demodulate(x, 25)
-        return j_pbch.decode(g, j_chest.estimate(g, jcell, 0).ce, jcell)
-
-    out_j = jax.jit(mib_j)(rx)
     g_p = p_ofdm.demodulate(_t(rx), 25)
     out_p = p_pbch.decode(g_p, p_chest.estimate(g_p, pcfg.cell, 0).ce, pcfg.cell)
-    for got, ref in zip(out_p, out_j):
+    for got, ref in zip(out_p, mib_j):
         np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
     assert out_p[3].all() and (out_p[2] == 0).all()
     np.testing.assert_array_equal(out_p[0].numpy(), mib)
@@ -170,7 +170,7 @@ def test_build_subframe_takes_an_explicit_device():
     with pytest.raises(ValueError, match="device"):
         p_enb.build_subframe(pcfg, [])
     tx_p = p_enb.build_subframe(pcfg, [], device="cpu")
-    tx_j = np.asarray(j_enb.build_subframe(jcfg, []))
+    tx_j = np.asarray(jax.jit(lambda: j_enb.build_subframe(jcfg, []))())
     assert tx_p.shape == tx_j.shape == (1, p_ofdm.params(6)["sf_len"], 2)
     assert _rel_rms(tx_p, tx_j) < REL
 
