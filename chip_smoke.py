@@ -50,11 +50,31 @@ Phases (any failure raises; the exit code is then non-zero):
      subframe at batch 16 with PSS/SSS, PBCH (SFN 8) and all 13 PHICH
      groups (MIB, port count, SFN offset, PHICH signs); and
      runtime/wavesim.WaveformDataPlane.send_tti for the four UEs with 128
-     PDUs each (every PDU delivered), in PDUs/s.
+     PDUs each (every PDU delivered), in PDUs/s;
+  9. MIMO, MBSFN, CA and the UL planes: turbo_map against its plain version
+     at the 2x2 TM3 cell's code blocks (768 x K=5440, 256 x K=5376, bf16)
+     and MimoDataPlane's (256 x K=4864, 256 x K=4800, f32), with each
+     shape's launches per decode; the TM3 cell of scripts/bench_extra.py
+     (100 PRB, cell_id 7, 2 ports, cfi 1, sf 1, RNTI 0x46, 64QAM rate 0.5
+     per codeword: TBS 43,176, 6 x K=5440 + 2 x K=5376; flat 2x2 channel
+     N(0, 1) + 3.5 I at 30 dB, as drawn; llr_bits=16, batch 128) through
+     pdsch.encode_tm / decode_tm, through turbo_map in bf16 mode: every
+     codeword whose CRC passes is bit-exact, the decode equals the one with
+     turbo_map's plain version in its place, bit for bit in every row (so a
+     row that fails, fails there too), and the rows that fail are the
+     worst-conditioned ones; the first two rows against the CPU, the decode
+     by stage, decode and encode sf/s; TM2 (2 and 4 ports), TM4 (PMI 1),
+     TM6 (PMI 0-3), TM7 and TM8 at 100 PRB, batch 8; CA with 2
+     CCs of the 20 MHz PDSCH link at batch 128 (carrier-sf/s);
+     MimoDataPlane.send (128 PDUs) and MbsfnPlane.send (128 PDUs to 4
+     receivers) at 100 PRB, every PDU delivered, PDUs/s; UlControlPlane.step
+     and UlSchPlane.step on netsim --waveform's UL plan at 100 PRB with four
+     UEs (n_pucch 0-3; 24 PRB each), every ACK and wideband CQI right.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
 """
 
+import collections
 import concurrent.futures
 import contextlib
 import json
@@ -138,9 +158,9 @@ def v1_bound(k, batch, w):
     return bound(4 * batch * (3 * k + 8), batch * w * (2 * H * 41 + L * 111))
 
 
-def rate(fn, check=lambda out: True):
-    """Calls per second times BATCH: one warm-up call, then the median of
-    N_RUNS runs of ITERS calls (host clock, synchronised), with the spread
+def rate(fn, check=lambda out: True, per_call=BATCH, iters=ITERS):
+    """Calls per second times per_call: one warm-up call, then the median of
+    N_RUNS runs of `iters` calls (host clock, synchronised), with the spread
     (max - min) / median in percent and the rates themselves."""
     import torch
 
@@ -149,17 +169,17 @@ def rate(fn, check=lambda out: True):
     rates = []
     for _ in range(N_RUNS):
         t0 = time.perf_counter()
-        for _ in range(ITERS):
+        for _ in range(iters):
             out = fn()
         torch.cuda.synchronize()
-        rates.append(BATCH * ITERS / (time.perf_counter() - t0))
+        rates.append(per_call * iters / (time.perf_counter() - t0))
         assert check(out), "a timed run produced a wrong result"
     med = statistics.median(rates)
     return med, 100.0 * (max(rates) - min(rates)) / med, rates
 
 
-def fmt_rate(name, med, spread, rates):
-    return (f"{name} {med:.1f} sf/s median of {N_RUNS} (spread {spread:.2f}%: "
+def fmt_rate(name, med, spread, rates, unit="sf/s"):
+    return (f"{name} {med:.1f} {unit} median of {N_RUNS} (spread {spread:.2f}%: "
             f"{[round(r, 1) for r in rates]})")
 
 
@@ -203,14 +223,17 @@ MAP_SHAPES = ((5504, 768, (False, True)), (5568, 384, (False, True)),
               (5504, 128, (True,)), (5568, 512, (True,)), (4480, BATCH, (False,)))
 
 
-def phase_kernel(dev):
+def map_cases(shapes, dev):
+    """turbo_map against map_decode_ref, bit for bit, at each (K, rows,
+    modes) of `shapes`, with the kernel's time warm and L2-flushed, the
+    wrapper's and the plain version's, its bound, share and occupancy."""
     import torch
 
     from srslte_emane_tpu_torch.ops.fec import turbodecoder, turbodecoder_cuda as tdc
 
     flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
     cases = []
-    for k, batch, modes in MAP_SHAPES:
+    for k, batch, modes in shapes:
         args = map_inputs(k, batch, dev)
         w = turbodecoder._pick_windows(k)
         beta_k = turbodecoder.beta_tail(*args[2:]).contiguous()
@@ -234,6 +257,10 @@ def phase_kernel(dev):
             log(f"kernel vs plain {json.dumps(case)}")
             cases.append(case)
     return cases
+
+
+def phase_kernel(dev):
+    return map_cases(MAP_SHAPES, dev)
 
 
 def phase_main_path(dev):
@@ -619,6 +646,20 @@ def timed_calls(targets):
             setattr(mod, name, fn)
 
 
+@contextlib.contextmanager
+def launch_log():
+    """Yields a list that gets (K, rows, narrow) of every turbo_map launch
+    made inside the block."""
+    from srslte_emane_tpu_torch.ops.fec import turbodecoder_cuda as tdc
+
+    seen, launch = [], tdc.launch
+    tdc.launch = lambda *a, **kw: seen.append((a[0].shape[1], a[0].shape[0], a[4])) or launch(*a, **kw)
+    try:
+        yield seen
+    finally:
+        tdc.launch = launch
+
+
 def phase_dl_subframe(dev, card):
     """The full downlink subframe (phase 8).  Returns the turbo_map
     launches of its first decode."""
@@ -646,10 +687,7 @@ def phase_dl_subframe(dev, card):
                 and all(torch.equal(a, b) for a, b in zip(res.payloads, sent)))
 
     # the main path, counted: which kernel, how often, in which mode
-    modes = []
-    launch = tdc.launch
-    tdc.launch = lambda *a, **kw: modes.append(a[4]) or launch(*a, **kw)
-    try:
+    with launch_log() as sf_log:
         tdc.launches = tdc.launches_v1 = 0
         t0 = time.perf_counter()
         tx = enb_dl.build_subframe(cfg, payloads)
@@ -658,12 +696,10 @@ def phase_dl_subframe(dev, card):
         torch.cuda.synchronize()
         first_s = time.perf_counter() - t0
         launches, launches_v1 = tdc.launches, tdc.launches_v1
-    finally:
-        tdc.launch = launch
     assert tuple(tx.shape) == (BATCH, 30720, 2) and bool(tx.isfinite().all())
     assert decoded_right(res, payloads), "DL subframe: CFI, a DCI, a CRC or a payload wrong"
     assert launches > 0 and launches_v1 == 0, f"turbo_map {launches}, v1 {launches_v1} launches"
-    assert not any(modes), "turbo_map ran in the narrow (bf16) mode"
+    assert not any(narrow for _, _, narrow in sf_log), "turbo_map ran in the narrow (bf16) mode"
     log(f"DL subframe: {BATCH} subframes x {len(cfg.grants)} grants (CCEs "
         f"{[g[4:] for g in cfg.grants]}) decoded: CFI 2, every DCI and CRC, payloads "
         f"bit-exact; {launches} turbo_map launches, all f32 mode, 0 v1; first call "
@@ -748,6 +784,260 @@ def phase_dl_subframe(dev, card):
     return launches
 
 
+# phase 9: the 2x2 TM3 cell's code blocks (6 x K=5440 and 2 x K=5376 per
+# codeword, batch 128, llr_bits=16: bf16 mode, one decode per codeword) and
+# MimoDataPlane's (2 x K=4864 and 2 x K=4800 per codeword, f32 mode; 128 PDUs
+# are 64 subframes, whose two codewords share one decode)
+MIMO_MAP_SHAPES = ((5440, 6 * BATCH, (True,)), (5376, 2 * BATCH, (True,)),
+                   (4864, 4 * BATCH // 2, (False,)), (4800, 4 * BATCH // 2, (False,)))
+TM3_RNTI, TM3_SNR_DB = 0x46, 30.0
+
+
+def tm3_cell():
+    """scripts/bench_extra.py:60-82: the 20 MHz 2x2 TM3 cell (100 PRB,
+    cell_id 7, 2 ports, cfi 1, sf 1), full PRB mask, 64QAM at code rate 0.5
+    per codeword.  Returns (cell, prb_mask, [SchConfig] * 2)."""
+    from srslte_emane_tpu_torch.phch import grid, sch
+
+    cell = grid.CellConfig(n_prb=100, cell_id=7, n_ports=2, cfi=1)
+    mask = (1,) * 100
+    n_re = grid.nof_re(cell, 1, mask)
+    cfg = sch.SchConfig(tbs=(int(n_re * 6 * 0.5) - 24) // 8 * 8, G=n_re * 6, Qm=6, Nl=1)
+    return cell, mask, [cfg, cfg]
+
+
+def flat_channel(rng, batch, n_rx, n_tx, boost, dev):
+    """(batch, n_rx, n_tx, 2) flat channel: complex N(0, 1) entries (real
+    and imaginary parts each N(0, 1), as scripts/bench_extra.py draws them)
+    plus boost on the diagonal."""
+    from srslte_emane_tpu_torch.ops import cplx
+
+    h = rng.normal(size=(batch, n_rx, n_tx)) + 1j * rng.normal(size=(batch, n_rx, n_tx))
+    return cplx.from_numpy((h + boost * np.eye(n_rx, n_tx)[None]).astype(np.complex64), dev)
+
+
+def phase_mimo(dev, card):
+    """Phase 9: MIMO, MBSFN, CA and the UL planes.  Returns (the turbo_map
+    cases at the new shapes, the launches of the TM3 cell's first decode)."""
+    import torch
+
+    from srslte_emane_tpu_torch.models import pdsch_link
+    from srslte_emane_tpu_torch.ops import channel, cplx, mimo, modem, ofdm
+    from srslte_emane_tpu_torch.ops.fec import turbodecoder, turbodecoder_cuda as tdc
+    from srslte_emane_tpu_torch.phch import grid, pdsch, sch
+    from srslte_emane_tpu_torch.runtime import wavesim
+
+    cases = map_cases(MIMO_MAP_SHAPES, dev)
+
+    # the TM3 cell, not cut
+    cell, mask, cfgs = tm3_cell()
+    segm = cfgs[0].segm
+    assert (cfgs[0].tbs, segm.C, sorted(set(segm.cb_sizes))) == (43176, 8, [5376, 5440]), segm
+    rng = np.random.default_rng(9)
+    tbs = [torch.from_numpy(rng.integers(0, 2, (BATCH, c.tbs), dtype=np.int8)).to(dev)
+           for c in cfgs]
+    h = flat_channel(rng, BATCH, 2, 2, 3.5, dev)
+    h_np = h.cpu().numpy()
+    cond_db = 20 * np.log10(np.linalg.cond(h_np[..., 0] + 1j * h_np[..., 1]))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(9)
+    encode = lambda p: ofdm.modulate(pdsch.encode_tm(p, cfgs, cell, 1, TM3_RNTI, mask, "tm3"), 100)
+    decode = lambda x: pdsch.decode_tm(ofdm.demodulate(x, 100), cfgs, cell, 1, TM3_RNTI, mask,
+                                       "tm3", llr_bits=16)
+
+    def passed_right(res):
+        """Every codeword whose CRC passes is bit-exact."""
+        outs, oks, _ = res
+        return all(torch.equal(a[ok], b[ok]) for a, ok, b in zip(outs, oks, tbs))
+
+    with launch_log() as tm3_log:
+        tdc.launches = tdc.launches_v1 = 0
+        t0 = time.perf_counter()
+        tx = encode(tbs)
+        rx = channel.mimo_flat(gen, tx, h, TM3_SNR_DB)
+        res = decode(rx)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        launches, launches_v1 = tdc.launches, tdc.launches_v1
+    assert tuple(tx.shape) == (BATCH, 2, 30720, 2) and bool(tx.isfinite().all())
+    assert passed_right(res), "TM3 cell: a codeword passed its CRC with wrong bits"
+    assert launches > 0 and launches_v1 == 0, f"turbo_map {launches}, v1 {launches_v1} launches"
+    assert all(narrow for _, _, narrow in tm3_log), "TM3 cell: turbo_map ran in f32 mode"
+    # a row that fails must fail alike with turbo_map's plain version in its
+    # place (the whole decode is the same bits and flags), and be one of the
+    # worst-conditioned channels of the batch
+    t0 = time.perf_counter()
+    map_cuda, tdc.map_decode_cuda = tdc.map_decode_cuda, tdc.map_decode_ref
+    try:
+        plain = decode(rx)
+    finally:
+        tdc.map_decode_cuda = map_cuda
+    plain_s = time.perf_counter() - t0
+    for got, ref in zip(res[0] + res[1], plain[0] + plain[1]):
+        assert torch.equal(got, ref), "TM3 cell: the kernel and the plain MAP decode differ"
+    row_ok = torch.stack(res[1]).all(0).cpu().numpy()
+    failed = np.flatnonzero(~row_ok)
+    worst = np.argsort(-cond_db)[:len(failed)]
+    assert set(failed) == set(worst), f"TM3 cell: rows {failed} fail, worst conditioned {worst}"
+    log(f"TM3 cell: {BATCH} subframes x 2 codewords of TBS {cfgs[0].tbs} ({segm.C} code "
+        f"blocks: {segm.cb_sizes}) at {TM3_SNR_DB} dB: {int(row_ok.sum())} rows bit-exact with "
+        f"both CRCs passing; rows failing {failed.tolist()} (channel condition "
+        f"{[round(float(cond_db[i]), 1) for i in failed]} dB, the worst of the batch; next "
+        f"{round(float(np.sort(cond_db)[-len(failed) - 1]), 1)} dB); every row's bits and CRC "
+        f"flags equal the plain MAP's ({plain_s:.1f} s); {launches} turbo_map launches per "
+        f"decode (all bf16, 0 v1), first call {first_s:.2f} s (host tables included)")
+
+    # the card against the port on the CPU, first two rows
+    tx_cpu = encode([t[:2].cpu() for t in tbs])
+    rel = ((tx[:2].cpu() - tx_cpu).square().mean() / tx_cpu.square().mean()).sqrt().item()
+    assert rel < 1e-5, f"TM3 cell: card vs CPU TX relative RMS {rel}"
+    outs_cpu, oks_cpu, _ = decode(rx[:2].cpu())
+    for got, ref in zip(res[0] + res[1], outs_cpu + oks_cpu):
+        assert torch.equal(got[:2].cpu(), ref), "TM3 cell: card and CPU decode differ"
+    log(f"TM3 cell: card vs CPU on 2 rows: TX relative RMS {rel:.3e}, bits equal")
+
+    stages = ((ofdm, "demodulate"), (pdsch, "estimate_mimo"), (mimo, "decode_zf2"),
+              (modem, "demod_soft"), (turbodecoder, "turbo_decode"), (pdsch, "decode_tm"))
+    for _ in range(2):  # the second call is the one printed
+        with timed_calls(stages) as totals:
+            decode(rx)
+    whole = totals["ofdm.demodulate"][1] + totals["pdsch.decode_tm"][1]
+    log("TM3 cell decode by stage (second of two calls; host clock, synchronised; whole = "
+        "ofdm.demodulate + pdsch.decode_tm; nested stages count in their callers too): "
+        + json.dumps({k: {"calls": n, "ms": 1e3 * t, "share": t / whole}
+                      for k, (n, t) in totals.items()}))
+    dec = rate(lambda: decode(rx), check=lambda r: passed_right(r) and all(
+        torch.equal(ok, ok0) for ok, ok0 in zip(r[1], res[1])))
+    enc = rate(lambda: encode(tbs))
+    log(f"TM3 cell {fmt_rate('decode', *dec)}, {dec[0] * 2 * cfgs[0].tbs / 1e6:.1f} Mb/s "
+        f"payload; {fmt_rate('encode', *enc)}; batch {BATCH}, 2 x TBS {cfgs[0].tbs}; {card}")
+
+    # the other transmission modes at 100 PRB, batch 8: 16QAM at code rate 0.4
+    b8, rnti = 8, 0x47
+
+    def qam16(n_re):
+        return sch.SchConfig(tbs=(int(n_re * 4 * 0.4) - 24) // 8 * 8, G=n_re * 4, Qm=4, Nl=1)
+
+    def payloads(cfgs_):
+        return [torch.from_numpy(rng.integers(0, 2, (b8, c.tbs), dtype=np.int8)).to(dev)
+                for c in cfgs_]
+
+    def through(grids, n_tx, snr_db=TM3_SNR_DB):
+        rx_ = channel.mimo_flat(gen, ofdm.modulate(grids, 100), flat_channel(rng, b8, 2, n_tx, 2.5,
+                                                                              dev), snr_db)
+        return ofdm.demodulate(rx_, 100)
+
+    done = []
+    for tm, n_ports, pmi in (("tm2", 2, 0), ("tm2", 4, 0), ("tm4", 2, 1),
+                             *(("tm6", 2, p) for p in range(4))):
+        c = grid.CellConfig(n_prb=100, cell_id=7, n_ports=n_ports, cfi=1)
+        cw = [qam16(grid.nof_re(c, 1, mask))] * (2 if tm == "tm4" else 1)
+        sent = payloads(cw)
+        outs, oks, _ = pdsch.decode_tm(through(pdsch.encode_tm(sent, cw, c, 1, rnti, mask, tm, pmi),
+                                               n_ports), cw, c, 1, rnti, mask, tm, pmi)
+        assert all(bool(ok.all()) for ok in oks) and all(
+            torch.equal(a, b) for a, b in zip(outs, sent)), f"{tm} ({n_ports} ports, PMI {pmi})"
+        done.append(f"{tm.upper()} {n_ports}p PMI {pmi}")
+    c = grid.CellConfig(n_prb=100, cell_id=9, n_ports=2, cfi=1)
+    cw = qam16(len(grid.pdsch_re_indices_tm7(c, 3, mask)))
+    sent = payloads([cw])[0]
+    beam = cplx.from_numpy(np.array([0.8 + 0.3j, -0.4 + 0.6j], np.complex64), dev)
+    g = pdsch.encode_tm7(sent, cw, c, 3, 0x52, mask, beam)
+    out, ok, _, _ = pdsch.decode_tm7(through(g, 2), cw, c, 3, 0x52, mask)
+    assert bool(ok.all()) and torch.equal(out, sent), "TM7"
+    c = grid.CellConfig(n_prb=100, cell_id=4, n_ports=2, cfi=1)
+    cw = [qam16(len(grid.pdsch_re_indices_tm8(c, 2, mask)))] * 2
+    sent = payloads(cw)
+    beams = cplx.from_numpy(np.array([[1.0, 0.5 + 0.5j], [0.5 - 0.5j, -1.0]], np.complex64)
+                            / np.sqrt(1.5), dev)
+    outs, oks, _ = pdsch.decode_tm8(through(pdsch.encode_tm8(sent, cw, c, 2, rnti, mask, beams), 2),
+                                    cw, c, 2, rnti, mask)
+    assert all(bool(ok.all()) for ok in oks) and all(
+        torch.equal(a, b) for a, b in zip(outs, sent)), "TM8"
+    log(f"other modes at 100 PRB, batch {b8}, 16QAM rate 0.4, {TM3_SNR_DB} dB: "
+        f"{', '.join(done)}, TM7, TM8: payloads bit-exact, every CRC passes")
+
+    # carrier aggregation: 2 CCs of the PDSCH link's 20 MHz cell
+    # (scripts/bench_extra.py:103-116), end to end, batch 128 per carrier
+    ca_cfg = pdsch_link.LinkConfig(cell=grid.CellConfig(n_prb=100, cell_id=1, cfi=1), qm=6,
+                                   code_rate=0.55, snr_db=20.0, sf_idx=1)
+    step = pdsch_link.make_ca_link_step(ca_cfg, n_cc=2)
+    ca_payloads = torch.from_numpy(
+        rng.integers(0, 2, (2, BATCH, ca_cfg.tbs), dtype=np.int8)).to(dev)
+    out, ok = step(ca_payloads, gen)
+    assert bool(ok.all()) and torch.equal(out, ca_payloads), "CA: a CRC or a payload wrong"
+    ca = rate(lambda: step(ca_payloads, gen)[1], check=lambda ok_: bool(ok_.all()),
+              per_call=2 * BATCH)
+    log(f"CA 2 CCs (cell_id 1 and 4, 100 PRB, 64QAM rate 0.55, 20 dB, encode + channel + "
+        f"decode): every CRC passes; {fmt_rate('CA', *ca, unit='carrier-sf/s')}, "
+        f"{ca[0] * ca_cfg.tbs / 1e6:.1f} Mb/s aggregate; {card}")
+
+    # MimoDataPlane: 128 PDUs = 64 TM3 subframes
+    mp = wavesim.MimoDataPlane(grid.CellConfig(n_prb=100, cell_id=7, n_ports=2, cfi=1))
+    assert mp.device.type == dev.type, mp.device
+    mp.add_ue(TM3_RNTI, mask, qm=4)
+    nb = mp._sch_cfgs(1, TM3_RNTI)[0].tbs // 8 - 2
+    pdus = [bytes(rng.integers(0, 256, int(rng.integers(1, nb + 1)), dtype=np.uint8))
+            for _ in range(BATCH)]
+    with launch_log() as mp_log:
+        assert mp.send(TM3_RNTI, pdus, pathloss_db=100.0) == pdus, "MimoDataPlane lost a PDU"
+    mp_launches = len(mp_log)
+    assert not any(narrow for _, _, narrow in mp_log), "MimoDataPlane: turbo_map in bf16 mode"
+    r = rate(lambda: mp.send(TM3_RNTI, pdus, pathloss_db=100.0), lambda o: o == pdus, iters=1)
+    log(f"MimoDataPlane.send: {BATCH} PDUs ({BATCH // 2} subframes, TBS {nb * 8 + 16} per codeword, "
+        f"{mp_launches} turbo_map launches, f32) all delivered; {fmt_rate('send', *r, unit='PDUs/s')}; "
+        f"metrics {mp.metrics}; {card}")
+
+    # MbsfnPlane: 128 PDUs to 4 receivers
+    bp = wavesim.MbsfnPlane(grid.CellConfig(n_prb=100, cell_id=1))
+    nb = bp.cfg.tbs // 8 - 2
+    pdus = [bytes(rng.integers(0, 256, int(rng.integers(1, nb + 1)), dtype=np.uint8))
+            for _ in range(BATCH)]
+    pathloss = {rx_id: 100.0 + 5 * rx_id for rx_id in range(4)}  # 34 to 19 dB
+    want = {rx_id: pdus for rx_id in pathloss}
+    assert bp.send(pdus, pathloss) == want, "MbsfnPlane lost a PDU"
+    r = rate(lambda: bp.send(pdus, pathloss), lambda o: o == want, iters=1)
+    log(f"MbsfnPlane.send: {BATCH} PDUs (TBS {bp.cfg.tbs}) to 4 receivers, all delivered; "
+        f"{fmt_rate('send', *r, unit='PDUs/s')} ({4 * r[0]:.1f} deliveries/s); {card}")
+
+    # netsim --waveform's UL plan at 100 PRB with four UEs
+    ul_cell = grid.CellConfig(n_prb=100, cell_id=1, cfi=2)
+    rntis = DL_SF_RNTIS
+    pl = {r_: 100.0 + 2 * i for i, r_ in enumerate(rntis)}
+    cp = wavesim.UlControlPlane(ul_cell)
+    for i, r_ in enumerate(rntis):
+        cp.add_ue(r_, i)
+    acks = {r_: i % 2 for i, r_ in enumerate(rntis)}
+    ok_acks = lambda o: all(o[r_][:2] == (True, acks[r_]) for r_ in rntis)
+    assert ok_acks(cp.step(acks, pl)), "UlControlPlane: an ACK missed"
+    r = rate(lambda: cp.step(acks, pl), ok_acks, per_call=len(rntis), iters=1)
+    log(f"UlControlPlane.step: 4 UEs' PUCCH 1a (n_pucch 0-3) superposed, every ACK/NACK "
+        f"detected; {fmt_rate('step', *r, unit='ACKs/s')}; {card}")
+    up = wavesim.UlSchPlane(ul_cell)
+    ul_prb = 100 // len(rntis) - 1
+    for i, r_ in enumerate(rntis):
+        up.add_ue(r_, min(i * ul_prb, 100 - ul_prb), ul_prb)
+    wb = {r_: min(15, max(1, int(round((up.tx_power_dbm - pl[r_] - up.noise_floor_dbm) / 2 + 2))))
+          for r_ in rntis}
+    sent = {r_: (b"ul" * 6, wb[r_]) for r_ in rntis}
+    ok_ul = lambda o: all(o[r_] == (b"ul" * 6, True, wb[r_]) for r_ in rntis)
+    assert ok_ul(up.step(sent, pl)), "UlSchPlane: a PUSCH or a CQI wrong"
+    r = rate(lambda: up.step(sent, pl), ok_ul, per_call=len(rntis), iters=1)
+    log(f"UlSchPlane.step: 4 UEs' PUSCH ({ul_prb} PRB each) with aperiodic CQI, payloads and "
+        f"wideband CQIs {sorted(wb.values())} exact; {fmt_rate('step', *r, unit='TBs/s')}; {card}")
+
+    # the new shapes' kernel times beside the launches one decode makes at them
+    for c in cases:
+        per = [(rows, n) for (k, rows, _), n in
+               collections.Counter(tm3_log + mp_log).items() if k == c["K"]]
+        where = "TM3 cell decode" if c["narrow"] else "MimoDataPlane.send decode"
+        log(f"turbo_map at {c['B']} x K={c['K']} {'bf16' if c['narrow'] else 'f32'}: "
+            f"{1e3 * c['ms']:.1f} us (L2-flushed {1e3 * c['flushed_ms']:.1f} us), bound "
+            f"{1e3 * c['bound_ms']:.2f} us ({c['bound_by']}), share {c['share']:.3f}; launches "
+            f"per {where} at K={c['K']} by rows: {sorted(per, reverse=True)}; {card}")
+    return cases, launches
+
+
 def main():
     import torch
 
@@ -780,6 +1070,7 @@ def main():
     ul_launches = phase_uplink(dev)
     phase_cascade(dev)
     sf_launches = phase_dl_subframe(dev, card)
+    mimo_cases, tm3_launches = phase_mimo(dev, card)
     bench = next(c for c in cases if (c["K"], c["B"], c["narrow"]) == (5504, 768, True))
     odd = next(c for c in v1_cases if (c["K"], c["B"]) == (1040, 768))
     print(json.dumps({"kernels": [{
@@ -787,8 +1078,9 @@ def main():
         "route": "cuda",
         "source": "srslte_emane_tpu_torch/csrc/turbo_map.cu",
         "replaces": "srslte_emane_tpu/ops/fec/turbodecoder_pallas2.py:70",
-        "launches": dl_launches + ul_launches + sf_launches,  # PDSCH link, uplink, DL subframe
-        "max_abs_err": max(c["max_abs_err"] for c in cases),
+        # PDSCH link, uplink, DL subframe, TM3 cell
+        "launches": dl_launches + ul_launches + sf_launches + tm3_launches,
+        "max_abs_err": max(c["max_abs_err"] for c in cases + mimo_cases),
         "ms": bench["ms"],
         "wrapper_ms": bench["wrapper_ms"],
         "plain_ms": bench["plain_ms"],

@@ -2,7 +2,7 @@
 
 The links have no weights: their state is the HARQ soft buffers (the
 per-CB w-buffer lists of `sch.init_softbuffer` / `sch.decode_tb`, for PDSCH
-and PUSCH alike) and the link, downlink-subframe or uplink-subframe
+and PUSCH alike, and one such list per codeword on the MIMO path) and the link, downlink-subframe or uplink-subframe
 configuration.  These helpers rebuild both from plain data, without
 importing jax: soft buffers arrive as numpy arrays, the configuration as
 the reference dataclass's fields (`dataclasses.asdict`).
@@ -27,6 +27,14 @@ def softbuffer_from_numpy(arrays, device=None, dtype=torch.float32) -> list:
     float32, which holds every bf16 and float32 value exactly."""
     return [torch.from_numpy(np.array(a, dtype=np.float32)).to(device=device, dtype=dtype)
             for a in arrays]
+
+
+def softbuffers_from_numpy(codewords, device=None, dtype=torch.float32) -> list:
+    """Per-codeword soft buffers, as `pdsch.decode_tm` carries them (a list
+    over codewords of per-CB w-buffer lists, or None for a codeword with no
+    buffer yet) -> the same nesting of tensors, each codeword through
+    `softbuffer_from_numpy`."""
+    return [None if cw is None else softbuffer_from_numpy(cw, device, dtype) for cw in codewords]
 
 
 def _with_cell(fields: dict) -> dict:

@@ -85,3 +85,25 @@ def link_step(payload: torch.Tensor, gen: torch.Generator, cfg: LinkConfig,
 def make_link_step(cfg: LinkConfig, use_kernel: bool | None = None):
     """link_step bound to cfg: step(payload, gen) -> (out, ok, snr_db)."""
     return functools.partial(link_step, cfg=cfg, use_kernel=use_kernel)
+
+
+def make_ca_link_step(cfg: LinkConfig, n_cc: int, use_kernel: bool | None = None):
+    """Carrier-aggregation link step: n_cc component carriers, carrier i a
+    cell of its own with cell_id + 3 i (distinct scrambling c_init and CRS
+    sequences, as the UE's per-SCell cc_worker sees —
+    srsue/src/phy/scell/scell_recv.cc role).
+
+    step(payloads (n_cc, B, tbs), gen) -> (out (n_cc, B, tbs), ok (n_cc, B));
+    `gen` draws each carrier's channel noise in carrier order."""
+    cfgs = [dataclasses.replace(cfg, cell=dataclasses.replace(
+        cfg.cell, cell_id=cfg.cell.cell_id + 3 * i)) for i in range(n_cc)]
+
+    def step(payloads: torch.Tensor, gen: torch.Generator):
+        outs, oks = [], []
+        for i, c in enumerate(cfgs):
+            out, ok, _ = link_step(payloads[i], gen, c, use_kernel=use_kernel)
+            outs.append(out)
+            oks.append(ok)
+        return torch.stack(outs), torch.stack(oks)
+
+    return step

@@ -1,4 +1,5 @@
-"""CP-OFDM modulation/demodulation (normal CP) over ops/dft.py.
+"""CP-OFDM modulation/demodulation (normal CP, and the hybrid-CP MBSFN
+subframe) over ops/dft.py.
 
 Twin of the reference's `ops/ofdm.py`.  Grid convention: a subframe resource
 grid is a cf tensor (..., 14, NRE, 2) with NRE = 12*n_prb; subcarrier k maps
@@ -88,3 +89,73 @@ def demodulate(samples: torch.Tensor, n_prb: int) -> torch.Tensor:
     bins, _, remove = _device_tables(n_prb, samples.device)
     x = samples[..., remove, :].reshape(samples.shape[:-2] + (p["n_sym"], p["n"], 2))
     return dft.dft(x)[..., bins, :]
+
+
+# ---------------- MBSFN hybrid-CP subframes (ofdm.c mbsfn path) ----------------
+
+N_SYM_MBSFN = 10  # extended-CP symbols after the 2-symbol non-MBSFN region
+
+
+@functools.lru_cache(maxsize=None)
+def mbsfn_layout(n_prb: int):
+    """(starts, cps) of the 2 normal-CP control symbols, the guard length,
+    and the 10 extended-CP MBSFN symbols (ofdm.c:122-147)."""
+    p = params(n_prb)
+    n = p["n"]
+    cp_ext = 512 * n // 2048
+    out = [(0, p["cp0"]), (p["cp0"] + n, p["cp"])]
+    t = p["cp0"] + p["cp"] + 2 * n
+    guard = 2 * cp_ext - p["cp0"] - p["cp"]
+    t += guard
+    mb = []
+    for _ in range(N_SYM_MBSFN):
+        mb.append((t, cp_ext))
+        t += cp_ext + n
+    assert t == p["sf_len"], (t, p["sf_len"])
+    return tuple(out), guard, tuple(mb)
+
+
+@functools.lru_cache(maxsize=None)
+def _mbsfn_cp_tables(n_prb: int):
+    """(add (SF_LEN,), remove (12*N,)) for the 2 + 10 symbols of an MBSFN
+    subframe, as `_cp_tables`; the guard samples read position 12*N, a
+    zero row appended after the symbols."""
+    n = params(n_prb)["n"]
+    ctrl, guard, mb = mbsfn_layout(n_prb)
+    add, remove = [], []
+    for l, (start, cpl) in enumerate(ctrl + mb):
+        if l == len(ctrl):
+            add.append(np.full(guard, (len(ctrl) + len(mb)) * n))
+        add.append(l * n + np.concatenate([np.arange(n - cpl, n), np.arange(n)]))
+        remove.append(start + cpl + np.arange(n))
+    return np.concatenate(add), np.concatenate(remove)
+
+
+@functools.lru_cache(maxsize=16)
+def _mbsfn_device_tables(n_prb: int, device: torch.device):
+    add, remove = _mbsfn_cp_tables(n_prb)
+    return torch.from_numpy(add).to(device), torch.from_numpy(remove).to(device)
+
+
+def modulate_mbsfn(ctrl_grid: torch.Tensor, mbsfn_grid: torch.Tensor, n_prb: int) -> torch.Tensor:
+    """(B, 2, NRE, 2) control (normal CP) + (B, 10, NRE, 2) MBSFN (ext CP)
+    -> (B, SF_LEN, 2)."""
+    n = params(n_prb)["n"]
+    bins = _device_tables(n_prb, ctrl_grid.device)[0]
+    add, _ = _mbsfn_device_tables(n_prb, ctrl_grid.device)
+    grid = torch.cat([ctrl_grid, mbsfn_grid.to(ctrl_grid.dtype)], dim=-3)
+    x = grid.new_zeros(grid.shape[:-3] + (grid.shape[-3], n, 2))
+    x[..., bins, :] = grid
+    flat = dft.idft(x).reshape(grid.shape[:-3] + (-1, 2))
+    flat = torch.cat([flat, flat.new_zeros(flat.shape[:-2] + (1, 2))], dim=-2)
+    return flat[..., add, :]
+
+
+def demodulate_mbsfn(samples: torch.Tensor, n_prb: int):
+    """-> (ctrl (B, 2, NRE, 2), mbsfn (B, 10, NRE, 2))."""
+    n = params(n_prb)["n"]
+    bins = _device_tables(n_prb, samples.device)[0]
+    _, remove = _mbsfn_device_tables(n_prb, samples.device)
+    x = samples[..., remove, :].reshape(samples.shape[:-2] + (2 + N_SYM_MBSFN, n, 2))
+    grid = dft.dft(x)[..., bins, :]
+    return grid[..., :2, :, :], grid[..., 2:, :, :]

@@ -138,3 +138,22 @@ def equalize_mmse(rx, ce, noise, eps: float = 1e-9):
     den = csi + noise_b + eps
     x = cplx.mul_conj(rx, ce) / den[..., None]
     return x, csi
+
+
+@functools.lru_cache(maxsize=None)
+def interp_matrix(pk: tuple, nre: int) -> np.ndarray:
+    """(NRE, len(pk)) linear interp/extrapolation from pilots at arbitrary
+    subcarriers pk (ascending) to all NRE subcarriers."""
+    pk = np.asarray(pk, dtype=np.float64)
+    m = np.zeros((nre, len(pk)), dtype=np.float32)
+    for k in range(nre):
+        if k <= pk[0]:
+            j0 = 0
+        elif k >= pk[-1]:
+            j0 = len(pk) - 2
+        else:
+            j0 = min(int(np.searchsorted(pk, k, side="right")) - 1, len(pk) - 2)
+        t = (k - pk[j0]) / (pk[j0 + 1] - pk[j0])
+        m[k, j0] = 1 - t
+        m[k, j0 + 1] = t
+    return m

@@ -1,7 +1,8 @@
 """Downlink resource grid: CRS values, RE hole maps, PDSCH RE indexing.
 
 Host-side numpy tables, copied from the reference's `phch/grid.py` (which
-cannot be imported without jax): all placement logic runs once per static
+cannot be imported without jax), with the UE-specific reference signals of
+TM7 (port 5) and TM8 (ports 7/8): all placement logic runs once per static
 cell configuration and yields flat index tables into the flattened (14*NRE)
 grid; the device only gathers.  Flat index = sym*NRE + k.
 """
@@ -119,21 +120,31 @@ def reserved_mask(cell: CellConfig, sf_idx: int) -> np.ndarray:
     return m
 
 
+def alloc_mask(nre: int, prb_mask: tuple) -> np.ndarray:
+    """(NRE,) bool: the subcarriers of the allocated PRBs."""
+    k_allowed = np.zeros(nre, dtype=bool)
+    for prb, on in enumerate(prb_mask):
+        if on:
+            k_allowed[12 * prb : 12 * (prb + 1)] = True
+    return k_allowed
+
+
+def _re_indices_around(cell: CellConfig, res: np.ndarray, prb_mask: tuple) -> np.ndarray:
+    """Ordered flat RE indices of the allocated PRBs outside `res`, symbols
+    cfi..13 (36.211 §6.3.5)."""
+    k_allowed = alloc_mask(cell.nre, prb_mask)
+    idx = []
+    for sym in range(n_ctrl_symbols(cell.cfi, cell.n_prb), cell.n_sym):
+        idx.append(sym * cell.nre + np.flatnonzero(k_allowed & ~res[sym]))
+    return np.concatenate(idx).astype(np.int32)
+
+
 @functools.lru_cache(maxsize=None)
 def pdsch_re_indices(cell: CellConfig, sf_idx: int, prb_mask: tuple) -> np.ndarray:
     """Ordered flat RE indices (sym*NRE + k) for a PDSCH allocation:
     frequency first within each symbol l = cfi..13 (36.211 §6.3.5), over
     allocated PRBs only, skipping reserved REs."""
-    res = reserved_mask(cell, sf_idx)
-    k_allowed = np.zeros(cell.nre, dtype=bool)
-    for prb, on in enumerate(prb_mask):
-        if on:
-            k_allowed[12 * prb : 12 * (prb + 1)] = True
-    idx = []
-    for sym in range(n_ctrl_symbols(cell.cfi, cell.n_prb), cell.n_sym):
-        ks = np.flatnonzero(k_allowed & ~res[sym])
-        idx.append(sym * cell.nre + ks)
-    return np.concatenate(idx).astype(np.int32)
+    return _re_indices_around(cell, reserved_mask(cell, sf_idx), prb_mask)
 
 
 def nof_re(cell: CellConfig, sf_idx: int, prb_mask: tuple) -> int:
@@ -155,3 +166,84 @@ def tx_gather_table(cell: CellConfig, sf_idx: int, prb_mask: tuple,
     table[re_idx] = np.arange(n_re, dtype=np.int32)
     table[pidx] = n_re + np.arange(n_crs, dtype=np.int32)
     return table
+
+
+# ---------------- UE-specific RS, port 5 (TM7 beamforming) ----------------
+
+UERS5_SYMS = (3, 6, 9, 12)  # normal CP (36.211 §6.10.3.2)
+
+
+@functools.lru_cache(maxsize=None)
+def uers5_k(cell_id: int, n_prb: int) -> np.ndarray:
+    """Port-5 UE-RS subcarriers: (4 syms, 3*n_prb) — 3 pilots/PRB/symbol at
+    spacing 4, frequency offset alternating 0/2 plus the cell shift
+    (refsignal_dl.c UE-RS mapping)."""
+    vshift = cell_id % 3
+    out = np.zeros((len(UERS5_SYMS), 3 * n_prb), dtype=np.int32)
+    for i in range(len(UERS5_SYMS)):
+        v = 0 if i % 2 == 0 else 2
+        out[i] = (v + vshift) % 4 + 4 * np.arange(3 * n_prb)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def uers5_values(cell_id: int, sf_idx: int, rnti: int, n_prb: int) -> np.ndarray:
+    """Port-5 UE-RS sequence (4 syms, 3*n_prb): QPSK gold sequence with
+    c_init = (sf+1)(2 cell_id+1) 2^16 + rnti (36.211 §6.10.3.1)."""
+    c_init = ((sf_idx + 1) * (2 * cell_id + 1) << 16) + rnti
+    c = sequence.gold_sequence_host(c_init, 2 * len(UERS5_SYMS) * 3 * MAX_PRB)
+    n = 3 * n_prb
+    out = np.zeros((len(UERS5_SYMS), n), dtype=np.complex64)
+    for i in range(len(UERS5_SYMS)):
+        m = np.arange(n) + i * 3 * MAX_PRB
+        out[i] = ((1 - 2 * c[2 * m]) + 1j * (1 - 2 * c[2 * m + 1])) / np.sqrt(2)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def pdsch_re_indices_tm7(cell: CellConfig, sf_idx: int, prb_mask: tuple) -> np.ndarray:
+    """PDSCH RE indices for TM7: the standard holes plus the port-5 UE-RS."""
+    res = reserved_mask(cell, sf_idx).copy()  # don't pollute the lru cache
+    ks = uers5_k(cell.cell_id, cell.n_prb)
+    for i, sym in enumerate(UERS5_SYMS):
+        res[sym, ks[i]] = True
+    return _re_indices_around(cell, res, prb_mask)
+
+
+# ---------------- UE-specific RS, ports 7/8 (TM8 dual-layer) ----------------
+
+UERS78_SYMS = (5, 6, 12, 13)  # normal CP DMRS symbols (36.211 §6.10.3.2)
+# length-2 OCC across each adjacent symbol pair (Table 6.10.3.2-1)
+UERS78_OCC = {7: (1.0, 1.0), 8: (1.0, -1.0)}
+
+
+@functools.lru_cache(maxsize=None)
+def uers78_k(cell_id: int, n_prb: int) -> np.ndarray:
+    """Ports-7/8 DMRS subcarriers (shared between the two ports, separated
+    by OCC): (3*n_prb,) — 3 pilots/PRB at spacing 4 with the cell shift."""
+    vshift = cell_id % 3
+    return (vshift % 4 + 4 * np.arange(3 * n_prb)).astype(np.int32)
+
+
+@functools.lru_cache(maxsize=None)
+def uers78_values(cell_id: int, sf_idx: int, n_scid: int, n_prb: int) -> np.ndarray:
+    """DMRS base sequence per symbol (4 syms, 3*n_prb): gold QPSK with
+    c_init = (sf+1)(2 cell_id+1) 2^16 + n_scid (36.211 §6.10.3.1 Rel-9)."""
+    c_init = ((sf_idx + 1) * (2 * cell_id + 1) << 16) + n_scid
+    c = sequence.gold_sequence_host(c_init, 2 * len(UERS78_SYMS) * 3 * MAX_PRB)
+    n = 3 * n_prb
+    out = np.zeros((len(UERS78_SYMS), n), dtype=np.complex64)
+    for i in range(len(UERS78_SYMS)):
+        m = np.arange(n) + i * 3 * MAX_PRB
+        out[i] = ((1 - 2 * c[2 * m]) + 1j * (1 - 2 * c[2 * m + 1])) / np.sqrt(2)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def pdsch_re_indices_tm8(cell: CellConfig, sf_idx: int, prb_mask: tuple) -> np.ndarray:
+    """PDSCH RE indices for TM8: standard holes plus the ports-7/8 DMRS."""
+    res = reserved_mask(cell, sf_idx).copy()
+    ks = uers78_k(cell.cell_id, cell.n_prb)
+    for sym in UERS78_SYMS:
+        res[sym, ks] = True
+    return _re_indices_around(cell, res, prb_mask)

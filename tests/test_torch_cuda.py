@@ -1,5 +1,6 @@
-"""The CUDA MAP kernels against their plain PyTorch versions, and a PUSCH
-decode through them, on the card.
+"""The CUDA MAP kernels against their plain PyTorch versions, and the
+paths through them (PUSCH, the downlink subframe, the 2x2 TM3 cell, the
+waveform planes), on the card.
 
 Marked `cuda`: skips without a CUDA device.  The card's machine has no jax,
 so run this file there without the suite's conftest:
@@ -353,15 +354,19 @@ def test_link_defaults_to_the_kernel_on_the_card(dev):
     assert bool(ok.all()) and torch.equal(out, payload)
 
 
-def _four_grant_config(sf_idx):
-    """chip_smoke.py's phase-8 plan: netsim --waveform's four UEs of 24
-    PRBs each at 100 PRB, 16QAM (TBS 4,416 at sf 1: one code block of
-    K=4480), CCEs from pdcch.allocate_cces."""
+def _chip_smoke():
     spec = importlib.util.spec_from_file_location(
         "chip_smoke", pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py")
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
-    return smoke.dl_subframe_config(sf_idx)
+    return smoke
+
+
+def _four_grant_config(sf_idx):
+    """chip_smoke.py's phase-8 plan: netsim --waveform's four UEs of 24
+    PRBs each at 100 PRB, 16QAM (TBS 4,416 at sf 1: one code block of
+    K=4480), CCEs from pdcch.allocate_cces."""
+    return _chip_smoke().dl_subframe_config(sf_idx)
 
 
 def test_four_grant_subframe_through_the_kernel(dev):
@@ -449,3 +454,74 @@ def test_waveform_plane_defaults_to_the_card(dev):
     for r, sent in pdus.items():
         assert [g for g, _ in out[r]] == sent
     assert dp.metrics == {"sf_tx": 13, "crc_ok": 13, "crc_fail": 0}
+
+
+@pytest.mark.parametrize("k,B,narrow", [(5440, 768, True), (4864, 256, False)])
+def test_kernel_equals_plain_at_the_mimo_shapes(dev, k, B, narrow):
+    """turbo_map at the TM3 cell's 768 x K=5440 (bf16) and MimoDataPlane's
+    256 x K=4864 (f32): bit for bit its plain version."""
+    args = _inputs(k, B, dev)
+    w = turbodecoder._pick_windows(k)
+    got = turbodecoder_cuda.map_decode_cuda(*args, w, narrow)
+    assert torch.equal(got, turbodecoder_cuda.map_decode_ref(*args, w, narrow))
+
+
+def test_tm3_cell_decode_on_the_card_equals_the_cpu(dev):
+    """The 20 MHz 2x2 TM3 cell (chip_smoke.tm3_cell) at batch 4, llr_bits=16:
+    the card (through turbo_map, bf16 mode) decodes both codewords
+    bit-exact, and the same samples give the same bits and flags on the
+    CPU (plain MAP)."""
+    from srslte_emane_tpu_torch.ops import ofdm
+    from srslte_emane_tpu_torch.phch import pdsch
+
+    smoke = _chip_smoke()
+    cell, mask, cfgs = smoke.tm3_cell()
+    rng = np.random.default_rng(9)
+    tbs = [torch.from_numpy(rng.integers(0, 2, (4, c.tbs), dtype=np.int8)).to(dev) for c in cfgs]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(9)
+    tx = ofdm.modulate(pdsch.encode_tm(tbs, cfgs, cell, 1, 0x46, mask, "tm3"), 100)
+    h = smoke.flat_channel(rng, 4, 2, 2, 3.5, dev)
+    rx = channel.mimo_flat(gen, tx, h, 30.0)
+    results = []
+    for samples in (rx, rx.cpu()):
+        before = turbodecoder_cuda.launches
+        outs, oks, _ = pdsch.decode_tm(ofdm.demodulate(samples, 100), cfgs, cell, 1, 0x46, mask,
+                                       "tm3", llr_bits=16)
+        assert (turbodecoder_cuda.launches > before) == (samples.device.type == "cuda")
+        results.append([t.cpu() for t in outs + oks])
+    for got, ref in zip(*results):
+        assert torch.equal(got, ref)
+    for q in range(2):
+        assert bool(results[0][2 + q].all()) and torch.equal(results[0][q], tbs[q].cpu())
+
+
+@pytest.mark.parametrize("plane", ["MbsfnPlane", "UlControlPlane", "UlSchPlane", "MimoDataPlane"])
+def test_new_planes_default_to_the_card(dev, plane):
+    """Each plane with no device argument runs on the card and delivers its
+    reference test's traffic."""
+    from srslte_emane_tpu_torch.phch import grid
+    from srslte_emane_tpu_torch.runtime import wavesim
+
+    if plane == "MbsfnPlane":
+        p = wavesim.MbsfnPlane(grid.CellConfig(n_prb=6, cell_id=1), area_id=2)
+        pkts = [b"mbms-%d" % i * 3 for i in range(3)]
+        assert p.send(pkts, {10: 80.0, 11: 140.0}) == {10: pkts, 11: [None] * 3}
+    elif plane == "UlControlPlane":
+        p = wavesim.UlControlPlane(grid.CellConfig(n_prb=25, cell_id=17))
+        for u in range(4):
+            p.add_ue(100 + u, u)
+        out = p.step({100 + u: u % 2 for u in range(3)}, {100 + u: 90.0 for u in range(4)})
+        assert [out[100 + u][:2] for u in range(3)] == [(True, u % 2) for u in range(3)]
+        assert not out[103][0]
+    elif plane == "UlSchPlane":
+        p = wavesim.UlSchPlane(grid.CellConfig(n_prb=25, cell_id=1))
+        p.add_ue(0x46, 0, 8, qm=2)
+        assert p.step({0x46: (b"hello-ul-world!!", 9)}, {0x46: 100.0}) == {
+            0x46: (b"hello-ul-world!!", True, 9)}
+    else:
+        p = wavesim.MimoDataPlane(grid.CellConfig(n_prb=25, cell_id=5, n_ports=2, cfi=1))
+        p.add_ue(0x50, (1,) * 25, qm=4)
+        pdus = [bytes([i]) * 150 for i in range(5)]
+        assert p.send(0x50, pdus, pathloss_db=95.0) == pdus
+    assert p.device.type == "cuda" and p.gen.device.type == "cuda"

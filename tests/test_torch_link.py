@@ -88,12 +88,28 @@ def test_port_never_imports_jax():
             "srslte_emane_tpu_torch.phch.pcfich, srslte_emane_tpu_torch.phch.phich, "
             "srslte_emane_tpu_torch.phch.pdcch, srslte_emane_tpu_torch.phch.pbch, "
             "srslte_emane_tpu_torch.phch.sync, srslte_emane_tpu_torch.models.enb_dl, "
-            "srslte_emane_tpu_torch.models.ue_dl, srslte_emane_tpu_torch.runtime.wavesim; "
+            "srslte_emane_tpu_torch.models.ue_dl, srslte_emane_tpu_torch.runtime.wavesim, "
+            "srslte_emane_tpu_torch.phch.pmch, srslte_emane_tpu_torch.phch.pdsch, "
+            "srslte_emane_tpu_torch.ops.channel, srslte_emane_tpu_torch.phch.chest; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', "
             "'srslte_emane_tpu')]; assert not bad, bad")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=300, check=False)
     assert res.returncode == 0, res.stderr
+
+
+def test_port_sources_name_no_jax():
+    """No source file of the port, and not chip_smoke.py, imports jax or the
+    JAX package, not even in a function body the import test never runs."""
+    import pathlib
+    import re
+
+    pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|srslte_emane_tpu)(\.|\s|$)", re.M)
+    pkg = pathlib.Path(REPO) / "srslte_emane_tpu_torch"
+    files = sorted(pkg.rglob("*.py")) + [pathlib.Path(REPO) / "chip_smoke.py"]
+    assert len(files) > 40
+    bad = [f"{f}: {m.group(0).strip()}" for f in files for m in pat.finditer(f.read_text())]
+    assert not bad, bad
 
 
 def test_link_config_from_fields():
