@@ -69,7 +69,27 @@ Phases (any failure raises; the exit code is then non-zero):
      MimoDataPlane.send (128 PDUs) and MbsfnPlane.send (128 PDUs to 4
      receivers) at 100 PRB, every PDU delivered, PDUs/s; UlControlPlane.step
      and UlSchPlane.step on netsim --waveform's UL plan at 100 PRB with four
-     UEs (n_pucch 0-3; 24 PRB each), every ACK and wideband CQI right.
+     UEs (n_pucch 0-3; 24 PRB each), every ACK and wideband CQI right;
+ 10. sync, channel models, TDD, PRACH, NB-IoT and the scan, batch 128: the
+     cell search sweep of scripts/bench_extra.py (cell 301, 6 PRB, sf 0 with
+     PBCH, 5 dB, +1 kHz offset) under 5 CFO hypotheses in one
+     cell_search(detect_cp=True), the -1 kHz rows right, captures/s; the MIB
+     (decodes/s, the Viterbi's share); a stream through UeSync to CAMPING;
+     CP detection on extended-CP captures; extended-CP PDSCH at 100 PRB
+     (tests/test_extended_cp.py's chain, 16QAM, 20 dB) bit-exact, sf/s; an
+     MBSFN subframe at n_fft 1536; the fading link of
+     tests/test_fading_link.py at 100 PRB (EPA, EVA, 18 dB, MMSE): passing
+     rows bit-exact and the decode equal to the plain MAP's, sf/s; a TDD
+     frame (config 1, special subframe 7, 16QAM, UL 96 PRB, 20 dB) with
+     every CRC, bit and ACK right, frames/s; two 100 PRB cells (PCI 3 and 6
+     on their halves of the band) and two UEs at 25 dB, UE-subframes/s, and
+     the co-channel collision and capture at batch 8; PRACH format 0 at
+     30.72 Msps with random preambles and delays, preambles/s; NB-IoT
+     NPSS/NSSS, NPBCH and NPDSCH (decodes/s, the Viterbi's share); the
+     beacons of all 504 PCIs and a 64-cell network scan (cells/s); neighbour
+     measurement over 32 PCIs at 100 PRB; the first two rows of the search,
+     the TDD frame and PRACH against the CPU; then turbo_map against its
+     plain version at every new shape of these paths, with its launches.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -1038,6 +1058,570 @@ def phase_mimo(dev, card):
     return cases, launches
 
 
+# phase 10: sync and cell search, extended CP, fading, TDD, multi-cell,
+# PRACH, NB-IoT, the beacon scan and neighbour measurement
+SEARCH_CELL, SEARCH_SNR_DB, SEARCH_CFO_HZ = 301, 5.0, 1000.0
+CFO_HYPOTHESES_HZ = (-2000.0, -1000.0, 0.0, 1000.0, 2000.0)
+
+
+def noise_like(gen, x, snr_db):
+    """Complex white noise for x at snr_db against each row's mean power."""
+    import torch
+
+    p = x.square().sum(-1).reshape(x.shape[0], -1).mean(-1)
+    s = torch.sqrt(p / 10 ** (snr_db / 10) / 2).reshape((-1,) + (1,) * (x.ndim - 1))
+    return torch.randn(x.shape, generator=gen, device=x.device) * s
+
+
+@contextlib.contextmanager
+def replaying_awgn(record=None, replay=None):
+    """channel.awgn recording the first two rows of each call's input and
+    output into `record`, or answering each call with the next recorded
+    output of `replay` (and checking its input against the recorded one),
+    so that a run on the CPU sees the card's noise."""
+    from srslte_emane_tpu_torch.ops import channel
+
+    awgn, it = channel.awgn, iter(replay or ())
+
+    def recording(gen, x, snr_db, signal_power=None):
+        y = awgn(gen, x, snr_db, signal_power)
+        record.append((x[:2].cpu(), y[:2].cpu()))
+        return y
+
+    def replaying(gen, x, snr_db, signal_power=None):
+        x_card, y_card = next(it)
+        rel = ((x - x_card).square().mean() / x_card.square().mean()).sqrt().item()
+        assert rel < 1e-5, f"card vs CPU transmit samples: relative RMS {rel}"
+        return y_card
+
+    channel.awgn = recording if record is not None else replaying
+    try:
+        yield
+    finally:
+        channel.awgn = awgn
+
+
+def by_stage(totals, whole):
+    """timed_calls' totals as {stage: {calls, ms, share of `whole`}}."""
+    w = totals[whole][1]
+    return json.dumps({k: {"calls": n, "ms": round(1e3 * t, 3), "share": round(t / w, 3)}
+                       for k, (n, t) in totals.items()})
+
+
+def new_map_shapes(logs, known):
+    """The (K, rows, modes) of every turbo_map launch in `logs` not already
+    in `known` (the most rows per (K, mode))."""
+    rows = {}
+    for k, r, narrow in logs:
+        rows[(k, narrow)] = max(rows.get((k, narrow), 0), r)
+    seen = {(k, b, n) for k, b, modes in known for n in modes}
+    return tuple((k, r, (n,)) for (k, n), r in sorted(rows.items()) if (k, r, n) not in seen)
+
+
+def step_cell_search(dev, card):
+    """Phase 10.1: the cell search sweep, the MIB, UeSync, CP detection."""
+    import torch
+
+    from srslte_emane_tpu_torch.models import ue_sync
+    from srslte_emane_tpu_torch.ops import cplx, fading, ofdm
+    from srslte_emane_tpu_torch.ops.fec import viterbi
+    from srslte_emane_tpu_torch.phch import chest, grid, pbch, pdsch, sync
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(10)
+    cell = grid.CellConfig(n_prb=6, cell_id=SEARCH_CELL)
+    sfn = 8
+    g = sync.put_pss_sss(cplx.zeros((BATCH, 14, 72), device=dev), cell, 0)
+    g = pdsch.put_crs(g, cell, 0)
+    mib = torch.from_numpy(np.tile(pbch.pack_mib(6, sfn), (BATCH, 1))).to(dev)
+    g = pbch.encode(mib, cell, sfn, g)
+    srate = ofdm.params(6)["sf_len"] * 1e3
+    tx = ofdm.modulate(g, 6)
+    caps = fading.apply_cfo(tx + noise_like(gen, tx, SEARCH_SNR_DB), SEARCH_CFO_HZ, srate)
+    hyp = torch.tensor(CFO_HYPOTHESES_HZ, device=dev)[:, None]
+
+    def sweep(x):
+        rows = fading.apply_cfo_dyn(x[:, None], hyp, srate)  # (B, 5, T, 2)
+        return sync.cell_search(rows.reshape(-1, *x.shape[1:]), detect_cp=True)
+
+    res = sweep(caps)
+    h0 = CFO_HYPOTHESES_HZ.index(-SEARCH_CFO_HZ)
+    ids = res["cell_id"].reshape(BATCH, -1)
+    q = res["quality"].reshape(BATCH, -1)
+    cancel_ok = lambda r: bool((r["cell_id"].reshape(BATCH, -1)[:, h0] == SEARCH_CELL).all()) \
+        and not bool(r["cp_ext"].reshape(BATCH, -1)[:, h0].any())
+    assert cancel_ok(res), "cell search: the -1 kHz hypothesis missed the cell or its CP"
+    per_hyp = {f"{h:+.0f} Hz": dict(found=int((ids[:, i] == SEARCH_CELL).sum()),
+                                     quality_median=float(q[:, i].median()))
+               for i, h in enumerate(CFO_HYPOTHESES_HZ)}
+    # the card against the CPU: the first two captures' five hypotheses
+    res_cpu = sweep(caps[:2].cpu())
+    for k, v in res_cpu.items():
+        if k != "quality":
+            assert torch.equal(res[k][:10].cpu(), v), f"cell search: card and CPU differ in {k}"
+    rate_cs = rate(lambda: sweep(caps), check=cancel_ok)
+    with timed_calls(((fading, "apply_cfo_dyn"), (sync, "pss_correlate"),
+                      (sync, "_sss_hypothesis"), (sync, "cell_search"))) as t_cs:
+        sweep(caps)
+    log(f"cell search sweep: {BATCH} captures (6 PRB, cell {SEARCH_CELL}, sf 0, {SEARCH_SNR_DB} dB, "
+        f"{SEARCH_CFO_HZ:+.0f} Hz offset) x {len(CFO_HYPOTHESES_HZ)} CFO hypotheses = "
+        f"{BATCH * len(CFO_HYPOTHESES_HZ)} rows in one cell_search(detect_cp=True); the -1 kHz rows "
+        f"all find cell {SEARCH_CELL}, normal CP; by hypothesis {json.dumps(per_hyp)}; card vs CPU "
+        f"on 2 captures equal; {fmt_rate('sweep', *rate_cs, unit='captures/s')}; {card}")
+    log("cell search sweep by stage (host clock, synchronised; whole = cell_search; "
+        f"apply_cfo_dyn runs before it): {by_stage(t_cs, 'sync.cell_search')}")
+
+    # the MIB of the found cell, from the corrected sf 0 captures
+    found = grid.CellConfig(n_prb=6, cell_id=int(res["cell_id"][h0]))
+    rx0 = ofdm.demodulate(fading.apply_cfo(caps, -SEARCH_CFO_HZ, srate), 6)
+    ce0 = chest.estimate(rx0, found, 0).ce
+
+    def mib_right(out):
+        mib_out, ports, off, ok = out
+        return bool(ok.all()) and torch.equal(mib_out, mib) and bool((ports == 1).all()) \
+            and bool((off == 0).all())
+
+    with timed_calls(((pbch, "decode"), (viterbi, "viterbi_decode"))) as t_mib:
+        assert mib_right(pbch.decode(rx0, ce0, found)), "MIB: wrong bits, ports or SFN offset"
+    share = t_mib["viterbi.viterbi_decode"][1] / t_mib["pbch.decode"][1]
+    rate_mib = rate(lambda: pbch.decode(rx0, ce0, found), check=mib_right)
+    log(f"MIB: {BATCH} PBCH decodes of cell {found.cell_id} (SFN {sfn}): bits, 1 port, offset 0 "
+        f"right; {fmt_rate('pbch.decode', *rate_mib, unit='decodes/s')}; Viterbi share of a "
+        f"decode {share:.3f} ({1e3 * t_mib['viterbi.viterbi_decode'][1]:.2f} of "
+        f"{1e3 * t_mib['pbch.decode'][1]:.2f} ms); {card}")
+
+    # one stream through UeSync on the card: CELL_SEARCH -> SFN_SYNC -> CAMPING
+    rng = np.random.default_rng(10)
+    sfn0, sfs = 32, []
+    for i in range(25):
+        sf_idx, f = i % 10, sfn0 + i // 10
+        gs = sync.put_pss_sss(cplx.zeros((1, 14, 72), device=dev), cell, sf_idx)
+        gs = pdsch.put_crs(gs, cell, sf_idx)
+        if sf_idx == 0:
+            gs = pbch.encode(torch.from_numpy(pbch.pack_mib(6, f)[None]).to(dev), cell, f, gs)
+        sfs.append(ofdm.modulate(gs, 6)[0])
+    t = torch.cat(sfs)
+    t = cplx.to_numpy(t + noise_like(gen, t[None], 10.0)[0])
+    x = np.concatenate([np.zeros(77, np.complex64),
+                        t * np.exp(2j * np.pi * 150.0 * np.arange(len(t)) / srate)]).astype(np.complex64)
+    us = ue_sync.UeSync(n_prb=6, device=dev)
+    states = []
+    for i in range(20):
+        chunk = x[i * 1920 : (i + 2) * 1920]
+        s = us.step(chunk if us.s.state == "CELL_SEARCH" else chunk[:1920 + 200])
+        states.append(s.state)
+        if s.state == "CAMPING":
+            break
+    assert (s.state, s.cell_id, s.sfn, s.n_ports) == ("CAMPING", SEARCH_CELL, sfn0 + i // 10, 1), vars(s)
+    log(f"UeSync on the card: {' -> '.join(dict.fromkeys(['CELL_SEARCH'] + states))} in {len(states)} subframes, "
+        f"cell {s.cell_id}, SFN {s.sfn}, {s.n_ports} port, CFO {s.cfo_hz:.1f} Hz (150 sent)")
+
+    # CP detection on extended-CP captures of random cells
+    ids_ext = rng.choice(504, BATCH, replace=False)
+    rows = []
+    for cid in ids_ext:
+        c = grid.CellConfig(n_prb=6, cell_id=int(cid), cp="ext")
+        rows.append(sync.put_pss_sss(cplx.zeros((1, 12, 72), device=dev), c, 0))
+    tx_e = ofdm.modulate(torch.cat(rows), 6, cp="ext")
+    res_e = sync.cell_search(tx_e + noise_like(gen, tx_e, 10.0), detect_cp=True)
+    assert bool(res_e["cp_ext"].all()), "CP detection: an extended-CP capture read as normal"
+    assert torch.equal(res_e["cell_id"].cpu(), torch.from_numpy(ids_ext).to(torch.int32))
+    log(f"CP detection: {BATCH} extended-CP captures of random cells at 10 dB: every row "
+        f"cp_ext and its cell id")
+
+
+def step_ext_cp(dev, card):
+    """Phase 10.2: extended-CP PDSCH at 100 PRB, and the reduced-rate OFDM.
+    Returns the turbo_map launches of the first decode and their log."""
+    import torch
+
+    from srslte_emane_tpu_torch.ops import channel, cplx, dft, ofdm
+    from srslte_emane_tpu_torch.ops.fec import turbodecoder_cuda as tdc
+    from srslte_emane_tpu_torch.phch import grid, pdsch, sch
+
+    cell = grid.CellConfig(n_prb=100, cell_id=2, cp="ext")
+    mask, sf = (1,) * 100, 3
+    n_re = grid.nof_re(cell, sf, mask)
+    cfg = sch.SchConfig(tbs=(n_re * 4 // 2 - 24) // 8 * 8, G=n_re * 4, Qm=4, Nl=1)
+    tb = torch.from_numpy(np.random.default_rng(11).integers(0, 2, (BATCH, cfg.tbs),
+                                                             dtype=np.int8)).to(dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    decode = lambda r: pdsch.decode(ofdm.demodulate(r, 100, cp="ext"), cfg, cell, sf, 0x46, mask)
+    right = lambda out: bool(out[1].all()) and torch.equal(out[0], tb)
+    with launch_log() as seen:
+        tdc.launches = 0
+        tx = ofdm.modulate(pdsch.encode(tb, cfg, cell, sf, 0x46, mask), 100, cp="ext")
+        rx = channel.awgn(gen, tx, 20.0)
+        out = decode(rx)
+        launches = tdc.launches
+    assert right(out), "extended CP: a CRC failed or the bits differ"
+    dec = rate(lambda: decode(rx), check=right)
+    log(f"extended CP: {BATCH} subframes of 100 PRB (12 symbols), sf 3, 16QAM, TBS {cfg.tbs} "
+        f"({cfg.segm.C} code blocks {sorted(set(cfg.segm.cb_sizes))}), 20 dB: every CRC passes, "
+        f"bits exact; {launches} turbo_map launches; {fmt_rate('decode', *dec)}; {card}")
+
+    # the 100 PRB MBSFN subframe at srsLTE's reduced rate (n_fft 1536)
+    n = 1536
+    ctrl_syms, guard, mb_syms = ofdm.mbsfn_layout(100, n)
+    grid_in = torch.randn((BATCH, 12, 1200, 2), generator=gen, device=dev)
+    bins = torch.from_numpy(ofdm._bin_map(100, n)).to(dev)
+    x = grid_in.new_zeros((BATCH, 12, n, 2))
+    x[..., bins, :] = grid_in
+    sym = dft.idft(x)
+    pieces = []
+    for l, (_, cp) in enumerate(ctrl_syms + mb_syms):
+        if l == len(ctrl_syms):
+            pieces.append(sym.new_zeros((BATCH, guard, 2)))
+        pieces += [sym[:, l, n - cp:], sym[:, l]]
+    samples = torch.cat(pieces, dim=1)
+    assert samples.shape[1] == ofdm.params(100, n)["sf_len"] == 23040
+    ctrl, mb = ofdm.demodulate_mbsfn(samples, 100, n)
+    err = (torch.cat([ctrl, mb], 1) - grid_in).abs().max().item()
+    assert err < 1e-4, f"reduced-rate OFDM round trip: max error {err}"
+    log(f"reduced-rate OFDM: {BATCH} MBSFN subframes at 100 PRB, n_fft {n} (23,040 samples): "
+        f"demodulate_mbsfn returns the grid, max error {err:.2e}")
+    return launches, seen
+
+
+def step_fading(dev, card):
+    """Phase 10.3: the fading link at 100 PRB.  Returns the launches of the
+    first decode and the launch log."""
+    import torch
+
+    from srslte_emane_tpu_torch.models import pdsch_link
+    from srslte_emane_tpu_torch.ops import channel, fading, ofdm
+    from srslte_emane_tpu_torch.ops.fec import turbodecoder_cuda as tdc
+    from srslte_emane_tpu_torch.phch import grid, pdsch
+
+    cfg = pdsch_link.LinkConfig(cell=grid.CellConfig(n_prb=100, cell_id=2, cfi=1), qm=2,
+                                code_rate=0.35, sf_idx=1)
+    tb = torch.from_numpy(np.random.default_rng(12).integers(0, 2, (BATCH, cfg.tbs),
+                                                             dtype=np.int8)).to(dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(12)
+    srate = ofdm.params(100)["sf_len"] * 1e3
+    decode = lambda r: pdsch.decode(ofdm.demodulate(r, 100), cfg.sch_cfg, cfg.cell, 1, cfg.rnti,
+                                    cfg.prb_mask, equalizer="mmse")
+    passed_right = lambda out: torch.equal(out[0][out[1]], tb[out[1]])
+    total_launches, seen = 0, []
+    for profile in ("epa", "eva"):
+        with launch_log() as seen_p:
+            tdc.launches = 0
+            faded, _ = fading.apply_fading(pdsch_link.tx_subframe(tb, cfg), gen, profile, srate,
+                                           doppler_hz=5.0)
+            rx = channel.awgn(gen, faded, 18.0)
+            out = decode(rx)
+            total_launches += tdc.launches
+        seen += seen_p
+        assert passed_right(out), f"{profile}: a row passed its CRC with wrong bits"
+        map_cuda, tdc.map_decode_cuda = tdc.map_decode_cuda, tdc.map_decode_ref
+        try:
+            plain = decode(rx)
+        finally:
+            tdc.map_decode_cuda = map_cuda
+        assert torch.equal(out[0], plain[0]) and torch.equal(out[1], plain[1]), \
+            f"{profile}: the kernel and the plain MAP decode differ"
+        failing = torch.nonzero(~out[1]).flatten().tolist()
+        dec = rate(lambda: decode(rx), check=lambda o: passed_right(o) and torch.equal(o[1], out[1]))
+        log(f"fading link {profile.upper()} (100 PRB, QPSK rate 0.35, TBS {cfg.tbs}, "
+            f"{cfg.sch_cfg.segm.C} code blocks {sorted(set(cfg.sch_cfg.segm.cb_sizes))}, 5 Hz, "
+            f"18 dB, MMSE): {BATCH - len(failing)} rows bit-exact, failing rows {failing}; the "
+            f"decode equals the plain MAP's bit for bit; {fmt_rate('decode', *dec)}; {card}")
+    return total_launches, seen
+
+
+def step_tdd(dev, card):
+    """Phase 10.4: one TDD frame at 100 PRB.  Returns the launches of the
+    first frame and the launch log."""
+    import torch
+
+    from srslte_emane_tpu_torch.models import tdd_frame
+    from srslte_emane_tpu_torch.ops import channel, ofdm
+    from srslte_emane_tpu_torch.ops.fec import turbodecoder, turbodecoder_cuda as tdc
+    from srslte_emane_tpu_torch.phch import grid, pdsch, pusch, tdd
+
+    cfg = tdd_frame.TddFrameConfig(cell=grid.CellConfig(n_prb=100, cell_id=4, cfi=1),
+                                   sf_config=1, ss_config=7, qm=4, ul_l_prb=96)
+    rng = np.random.default_rng(13)
+    bits = lambda n: torch.from_numpy(rng.integers(0, 2, (BATCH, n), dtype=np.int8)).to(dev)
+    dl = {sf: bits(cfg.dl_cfg(sf).tbs) for sf in tdd.dl_subframes(1)}
+    ul = {sf: bits(cfg.ul_cfg().tbs) for sf in tdd.ul_subframes(1)}
+    want_acks = {}
+    for sf in dl:
+        want_acks.setdefault(tdd.ack_subframe_for_dl(1, sf) % 10, []).append(sf)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(13)
+
+    def right(out):
+        return all(bool(out[k][sf][1].all()) and torch.equal(out[k][sf][0], tbs[sf])
+                   for k, tbs in (("dl", dl), ("ul", ul)) for sf in tbs) \
+            and {a: [s for s, _ in v] for a, v in out["acks"].items()} == want_acks \
+            and all(bool(ok.all()) for v in out["acks"].values() for _, ok in v)
+
+    record = []
+    with launch_log() as seen, replaying_awgn(record=record):
+        tdc.launches = 0
+        out = tdd_frame.run_frame(cfg, dl, ul, gen)
+        launches = tdc.launches
+    assert right(out), "TDD frame: a CRC, a payload or the ACK map is wrong"
+    # the card against the CPU: the same frame's first two rows, with the
+    # card's received samples replayed into the CPU run
+    with replaying_awgn(replay=record):
+        out_cpu = tdd_frame.run_frame(cfg, {k: v[:2].cpu() for k, v in dl.items()},
+                                      {k: v[:2].cpu() for k, v in ul.items()}, torch.Generator())
+    for k in ("dl", "ul"):
+        for sf, (b, ok) in out[k].items():
+            assert torch.equal(b[:2].cpu(), out_cpu[k][sf][0]) and torch.equal(
+                ok[:2].cpu(), out_cpu[k][sf][1]), f"TDD frame: card and CPU differ at {k} sf {sf}"
+    fr = rate(lambda: tdd_frame.run_frame(cfg, dl, ul, gen), check=right, iters=2)
+    with timed_calls(((pdsch, "encode"), (pusch, "encode"), (ofdm, "modulate"), (channel, "awgn"),
+                      (ofdm, "demodulate"), (pdsch, "decode"), (pusch, "decode"),
+                      (turbodecoder, "turbo_decode"), (tdd_frame, "run_frame"))) as t_tdd:
+        tdd_frame.run_frame(cfg, dl, ul, gen)
+    sizes = {f"sf {sf} ({tdd.sf_type(1, sf)})": (cfg.dl_cfg(sf) if sf in dl else cfg.ul_cfg()).tbs
+             for sf in sorted({**dl, **ul})}
+    log(f"TDD frame (100 PRB, config 1 DSUUDDSUUD, special subframe 7 (DwPTS 10 symbols), "
+        f"16QAM, UL 96 PRB, 20 dB, batch {BATCH}): TBS {json.dumps(sizes)}; every CRC passes, "
+        f"bits exact, ACKs {want_acks}; card vs CPU on 2 rows equal; {launches} turbo_map "
+        f"launches per frame; {fmt_rate('run_frame', *fr, unit='frames/s')}; {card}")
+    log(f"TDD frame by stage (host clock, synchronised): {by_stage(t_tdd, 'tdd_frame.run_frame')}")
+    return launches, seen
+
+
+def multicell_cfg(pci, prb_lo, prb_hi, n_prb=100, rnti=0x50):
+    """tests/test_multicell.py's _cell_cfg: cfi 2, sf 1, one QPSK grant at
+    about rate 2/3 on PRBs [prb_lo, prb_hi), DCI at aggregation level 4."""
+    from srslte_emane_tpu_torch.models import enb_dl
+    from srslte_emane_tpu_torch.phch import grid, pdcch
+
+    cell = grid.CellConfig(n_prb=n_prb, cell_id=pci, cfi=2)
+    cand = next(c for c in pdcch.candidates(cell, rnti, 1) if c[0] == 4)
+    mask = tuple(1 if prb_lo <= i < prb_hi else 0 for i in range(n_prb))
+    tbs = (grid.nof_re(cell, 1, mask) * 2 // 3) // 8 * 8
+    return enb_dl.DlSubframeConfig(cell=cell, sf_idx=1, grants=((rnti, mask, 2, tbs, *cand),))
+
+
+def step_multicell(dev, card):
+    """Phase 10.5: two 100 PRB cells, two UEs.  Returns the launches of the
+    first step and the launch log."""
+    import torch
+
+    from srslte_emane_tpu_torch.models import enb_dl, multicell, ue_dl
+    from srslte_emane_tpu_torch.ops.fec import turbodecoder, turbodecoder_cuda as tdc, viterbi
+    from srslte_emane_tpu_torch.phch import pdcch, pdsch
+
+    gains = lambda db: np.stack([10 ** (-np.asarray(db, np.float64) / 20.0),
+                                 np.zeros(np.shape(db))], -1).astype(np.float32)
+    rng = np.random.default_rng(14)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(14)
+    cells = (multicell_cfg(3, 0, 50), multicell_cfg(6, 50, 100))
+    cfg = multicell.MulticellConfig(cells=cells, serving=(0, 1), grant_of=(0, 0), snr_db=25.0)
+    pays = [[torch.from_numpy(rng.integers(0, 2, (BATCH, c.grants[0][3]), dtype=np.int8)).to(dev)]
+            for c in cells]
+    g = gains([[0.0, 6.0], [6.0, 0.0]])
+    right = lambda res: all(bool(ok.all()) and torch.equal(b, p[0]) for (ok, b, _), p in zip(res, pays))
+    with launch_log() as seen:
+        tdc.launches = 0
+        res = multicell.step(cfg, pays, g, gen)
+        launches = tdc.launches
+    assert right(res), "multi-cell: a UE failed to decode its serving cell"
+    r = rate(lambda: multicell.step(cfg, pays, g, gen), check=right, per_call=2 * BATCH, iters=1)
+    with timed_calls(((enb_dl, "build_subframe"), (ue_dl, "decode_subframe"),
+                      (pdcch, "blind_search"), (viterbi, "viterbi_decode"), (pdsch, "decode"),
+                      (turbodecoder, "turbo_decode"), (multicell, "step"))) as t_mc:
+        multicell.step(cfg, pays, g, gen)
+    log(f"multi-cell: PCI 3 (PRB 0-49) and PCI 6 (PRB 50-99) at 100 PRB, TBS "
+        f"{cells[0].grants[0][3]} each, two UEs 6 dB nearer their own cell, 25 dB, batch "
+        f"{BATCH}: both UEs bit-exact; {launches} turbo_map launches per step; "
+        f"{fmt_rate('step', *r, unit='UE-subframes/s')}; {card}")
+    log(f"multi-cell step by stage (host clock, synchronised): {by_stage(t_mc, 'multicell.step')}")
+
+    # co-channel: the same PRBs in both cells, batch 8
+    b8 = 8
+    cells = (multicell_cfg(3, 0, 50), multicell_cfg(6, 0, 50))
+    cfg = multicell.MulticellConfig(cells=cells, serving=(0,), grant_of=(0,), snr_db=30.0)
+    pays = [[torch.from_numpy(rng.integers(0, 2, (b8, c.grants[0][3]), dtype=np.int8)).to(dev)]
+            for c in cells]
+    equal = multicell.step(cfg, pays, gains([[0.0, 0.0]]), gen)
+    capture = multicell.step(cfg, pays, gains([[0.0, 20.0]]), gen)
+    assert not bool(equal[0][0].any()), "co-channel at 0 dB C/I decoded"
+    assert bool(capture[0][0].all()) and torch.equal(capture[0][1], pays[0][0]), "capture at 20 dB"
+    log(f"multi-cell co-channel (PRB 0-49 in both cells, batch {b8}, 30 dB): 0 dB C/I fails in "
+        f"every row, 20 dB C/I captures in every row")
+    return launches, seen
+
+
+def step_prach(dev, card):
+    """Phase 10.6: PRACH format 0 at 20 MHz, batch 128."""
+    import torch
+
+    from srslte_emane_tpu_torch.phch import prach
+
+    root, zczc, fmt, div = 6, 2, 0, 1
+    n_seq, nzc = prach.N_SEQ // div, prach.nzc_for(fmt)
+    rng = np.random.default_rng(15)
+    idx = torch.from_numpy(rng.integers(0, 64, BATCH)).to(dev)
+    # delays inside the zero-correlation zone (N_cs 15 ZC samples)
+    delay = torch.from_numpy(rng.integers(0, 14 * n_seq // nzc, BATCH)).to(dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(15)
+
+    def channel(t):
+        """Per-row integer delay, then white noise at the per-bin SNR of
+        test_prach.py::test_detect_noisy_with_delay (0.7 per component on
+        bins of power 839): 0.7 sqrt(n_seq / N_ZC) per time sample."""
+        n = torch.arange(t.shape[1], device=t.device)[None] - delay[:, None]
+        x = torch.where((n >= 0)[..., None], t.gather(1, n.clamp(min=0)[..., None].expand(-1, -1, 2)), 0.0)
+        return x + 0.7 * np.sqrt(n_seq / nzc) * torch.randn(x.shape, generator=gen, device=x.device)
+
+    def chain(t_rx):
+        det, metric, toff = prach.detect(prach.rx_waveform_to_freq(t_rx, fmt=fmt, srate_div=div),
+                                         root, zczc, fmt=fmt)
+        return det, toff
+
+    def right(out):
+        det, toff = out
+        b = torch.arange(BATCH, device=dev)
+        want = delay.double() * nzc / n_seq
+        return bool(det[b, idx].all()) and bool(((toff[b, idx].double() - want).abs() < 1).all())
+
+    tx = prach.gen_waveform(idx, root, zczc, fmt=fmt, srate_div=div)
+    rx = channel(tx)
+    out = chain(rx)
+    assert right(out), "PRACH: a sent preamble missed, or its timing offset wrong"
+    tx_cpu = prach.gen_waveform(idx[:2].cpu(), root, zczc, fmt=fmt, srate_div=div)
+    rel = ((tx[:2].cpu() - tx_cpu).square().mean() / tx_cpu.square().mean()).sqrt().item()
+    assert rel < 1e-5, f"PRACH: card vs CPU waveform relative RMS {rel}"
+    out_cpu = chain(rx[:2].cpu())
+    assert all(torch.equal(a[:2].cpu(), b) for a, b in zip(out, out_cpu)), "PRACH: card vs CPU"
+    r = rate(lambda: chain(channel(prach.gen_waveform(idx, root, zczc, fmt=fmt, srate_div=div))),
+             check=right)
+    n_false = int(out[0].sum()) - BATCH
+    log(f"PRACH format 0 (root {root}, zczc {zczc}, 30.72 Msps, {prach.waveform_len(fmt, div)} "
+        f"samples), {BATCH} random preambles and delays 0-{14 * n_seq // nzc} samples: every sent "
+        f"preamble detected within 1 ZC sample of its delay, {n_false} other detections; card vs "
+        f"CPU on 2 rows equal (waveform relative RMS {rel:.1e}); gen_waveform + channel + "
+        f"rx_waveform_to_freq + detect {fmt_rate('', *r, unit='preambles/s')}; {card}")
+
+
+def step_nbiot(dev, card):
+    """Phase 10.7: NB-IoT sync and channels at batch 128."""
+    import torch
+
+    from srslte_emane_tpu_torch.ops import channel, cplx
+    from srslte_emane_tpu_torch.ops.fec import viterbi
+    from srslte_emane_tpu_torch.phch import nbiot, sync_nbiot
+
+    rng = np.random.default_rng(16)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(16)
+    # NPSS in the even rows only, 0.05 noise per component (test_nbiot.py)
+    g = np.zeros((BATCH, 14, 12), np.complex64)
+    g[::2, 3:, :11] = sync_nbiot.npss_grid()
+    g += 0.05 * (rng.normal(size=g.shape) + 1j * rng.normal(size=g.shape))
+    m = sync_nbiot.npss_detect(cplx.from_numpy(g, dev)).cpu().numpy()
+    assert (m[::2] > 0.9).all() and (m[1::2] < 0.3).all(), "NPSS detection"
+    nid, fp = rng.integers(0, 504, BATCH), rng.integers(0, 4, BATCH)
+    s = np.stack([sync_nbiot.nsss_sequence(int(a), 2 * int(b)) for a, b in zip(nid, fp)])
+    s = s + 0.2 * (rng.normal(size=s.shape) + 1j * rng.normal(size=s.shape))
+    got_id, got_fp, _ = sync_nbiot.nsss_detect(cplx.from_numpy(s.astype(np.complex64), dev))
+    assert (got_id.cpu().numpy() == nid).all() and (got_fp.cpu().numpy() == fp).all(), "NSSS"
+    log(f"NB-IoT sync: NPSS metric > 0.9 in the {BATCH // 2} rows that carry it, < 0.3 in the "
+        f"rest; NSSS: {BATCH} random (cell id, frame phase) pairs all found")
+
+    mib = torch.from_numpy(rng.integers(0, 2, (BATCH, nbiot.MIB_NB_BITS), dtype=np.int8)).to(dev)
+    rx_b = channel.awgn(gen, nbiot.npbch_encode(mib, 17), 6.0)
+    tb = torch.from_numpy(rng.integers(0, 2, (BATCH, 208), dtype=np.int8)).to(dev)
+    rx_d = channel.awgn(gen, nbiot.npdsch_encode(tb, 4, 5, 0x51), 12.0)
+    cases = (("NPBCH", lambda: nbiot.npbch_decode(rx_b, 17), mib, (nbiot, "npbch_decode")),
+             ("NPDSCH", lambda: nbiot.npdsch_decode(rx_d, 208, 5, 0x51), tb, (nbiot, "npdsch_decode")))
+    for name, fn, sent, target in cases:
+        right = lambda out, sent=sent: bool(out[1].all()) and torch.equal(out[0], sent)
+        with timed_calls((target, (viterbi, "viterbi_decode"))) as tc:
+            assert right(fn()), f"{name}: a CRC failed or the bits differ"
+        share = tc["viterbi.viterbi_decode"][1] / tc[f"nbiot.{target[1]}"][1]
+        r = rate(fn, check=right)
+        log(f"{name} round trip ({'MIB-NB, 8 blocks, 6 dB' if name == 'NPBCH' else 'TBS 208 over 4 subframes, 12 dB'}"
+            f", batch {BATCH}): every CRC passes, bits exact; {fmt_rate('decode', *r, unit='decodes/s')}"
+            f"; Viterbi share of a decode {share:.3f}; {card}")
+
+
+def step_scan(dev, card):
+    """Phase 10.8-9: the beacon scan and neighbour measurement."""
+    import torch
+
+    from srslte_emane_tpu_torch.models import measure, netscan
+    from srslte_emane_tpu_torch.ops import channel, cplx, ofdm
+    from srslte_emane_tpu_torch.phch import grid, pdsch, sync
+
+    ids = torch.arange(504, device=dev)
+    beacons = netscan.build_beacons(ids)
+    for cid in range(504):
+        c = grid.CellConfig(n_prb=6, cell_id=cid)
+        ref = pdsch.put_crs(sync.put_pss_sss(cplx.zeros((1, 14, 72), device=dev), c, 0), c, 0)
+        assert torch.equal(beacons[cid], ref[0]), f"beacon of cell {cid}"
+    rng = np.random.default_rng(17)
+    n = 64
+    scan_ids = torch.from_numpy(rng.choice(504, n, replace=False)).to(dev)
+    gm = 0.05 * (rng.normal(size=(n, n)) + 1j * rng.normal(size=(n, n)))
+    gm[np.arange(n), (np.arange(n) + 1) % n] = 1.0  # one dominant neighbour per observer
+    gm = gm.astype(np.complex64)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(17)
+    want = scan_ids[(torch.arange(n, device=dev) + 1) % n].to(torch.int32)
+    scan = lambda: netscan.network_scan(None, scan_ids, gm, gen=gen, noise_std=0.02)
+    right = lambda res: torch.equal(res["cell_id"], want)
+    assert right(scan()), "network scan: an observer missed its dominant neighbour"
+    r = rate(scan, check=right, per_call=n)
+    log(f"beacon scan: build_beacons of all 504 PCIs equals the per-cell grids; network_scan "
+        f"over {n} cells (one dominant neighbour each, others at 0.05, noise 0.02): every row "
+        f"finds its neighbour; {fmt_rate('scan', *r, unit='cells/s')}; {card}")
+
+    # neighbour measurement: a serving cell and two weaker neighbours
+    serving, n1, n2 = 11, 303, 42
+    g = cplx.zeros((BATCH, 14, 1200), device=dev)
+    for pci, amp in ((serving, 1.0), (n1, 0.5), (n2, 0.3)):
+        g = g + amp * pdsch.put_crs(cplx.zeros((BATCH, 14, 1200), device=dev),
+                                    grid.CellConfig(n_prb=100, cell_id=pci), 1)
+    tx = ofdm.modulate(g, 100)
+    rg = ofdm.demodulate(channel.awgn(gen, tx, 10.0), 100)
+    others = [int(p) for p in rng.choice([p for p in range(504) if p not in (serving, n1, n2)], 29,
+                                         replace=False)]
+    pcis = [n1, n2] + others[:14] + [serving] + others[14:]
+    best, meas = measure.strongest_cell(rg, 100, 1, pcis)
+    assert best == [serving] * BATCH, "measurement: the strongest cell is not the serving cell"
+    r = rate(lambda: measure.strongest_cell(rg, 100, 1, pcis)[0], check=lambda b: b == [serving] * BATCH)
+    rsrp = {p: float(meas[p][0].mean()) for p in (serving, n1, n2, others[0])}
+    log(f"measurement: 100 PRB, {len(pcis)} candidate PCIs, batch {BATCH}, 10 dB: the serving "
+        f"cell is strongest in every row; mean RSRP {json.dumps(rsrp)}; "
+        f"{fmt_rate('strongest_cell', *r, unit='grids/s')}; {card}")
+
+
+def phase_sync(dev, card):
+    """Phase 10.  Returns (the turbo_map cases at its new shapes, the
+    launches of its paths' first runs)."""
+    t0 = time.perf_counter()
+    step_cell_search(dev, card)
+    paths = [step(dev, card) for step in (step_ext_cp, step_fading, step_tdd, step_multicell)]
+    step_prach(dev, card)
+    step_nbiot(dev, card)
+    step_scan(dev, card)
+    logs = [entry for _, seen in paths for entry in seen]
+    cases = map_cases(new_map_shapes(logs, MAP_SHAPES + MIMO_MAP_SHAPES), dev)
+    names = ("extended-CP decode", "fading decodes (EPA + EVA)", "TDD frame", "multi-cell step")
+    for c in cases:
+        per = {name: sum(1 for k, _, narrow in seen if k == c["K"] and narrow == c["narrow"])
+               for name, (_, seen) in zip(names, paths)}
+        log(f"turbo_map at {c['B']} x K={c['K']} {'bf16' if c['narrow'] else 'f32'}: "
+            f"{1e3 * c['ms']:.1f} us (L2-flushed {1e3 * c['flushed_ms']:.1f} us), bound "
+            f"{1e3 * c['bound_ms']:.2f} us ({c['bound_by']}), share {c['share']:.3f}, bit for bit; "
+            f"launches at K={c['K']}: {json.dumps({k: v for k, v in per.items() if v})}; {card}")
+    log(f"phase 10: {time.perf_counter() - t0:.1f} s")
+    return cases, sum(n for n, _ in paths)
+
+
 def main():
     import torch
 
@@ -1071,6 +1655,7 @@ def main():
     phase_cascade(dev)
     sf_launches = phase_dl_subframe(dev, card)
     mimo_cases, tm3_launches = phase_mimo(dev, card)
+    sync_cases, sync_launches = phase_sync(dev, card)
     bench = next(c for c in cases if (c["K"], c["B"], c["narrow"]) == (5504, 768, True))
     odd = next(c for c in v1_cases if (c["K"], c["B"]) == (1040, 768))
     print(json.dumps({"kernels": [{
@@ -1078,9 +1663,9 @@ def main():
         "route": "cuda",
         "source": "srslte_emane_tpu_torch/csrc/turbo_map.cu",
         "replaces": "srslte_emane_tpu/ops/fec/turbodecoder_pallas2.py:70",
-        # PDSCH link, uplink, DL subframe, TM3 cell
-        "launches": dl_launches + ul_launches + sf_launches + tm3_launches,
-        "max_abs_err": max(c["max_abs_err"] for c in cases + mimo_cases),
+        # PDSCH link, uplink, DL subframe, TM3 cell, phase 10's paths
+        "launches": dl_launches + ul_launches + sf_launches + tm3_launches + sync_launches,
+        "max_abs_err": max(c["max_abs_err"] for c in cases + mimo_cases + sync_cases),
         "ms": bench["ms"],
         "wrapper_ms": bench["wrapper_ms"],
         "plain_ms": bench["plain_ms"],

@@ -51,3 +51,15 @@ def mul_conj(a, b):
 
 def abs2(x):
     return x[..., 0] ** 2 + x[..., 1] ** 2
+
+
+def matmul(a, w_re, w_im):
+    """cf tensor (..., K, 2) times complex matrix W (K, N) given as two real
+    matrices -> (..., N, 2): four real matrix products."""
+    ar, ai = a[..., 0], a[..., 1]
+    return make(ar @ w_re - ai @ w_im, ar @ w_im + ai @ w_re)
+
+
+def exp_i(theta):
+    """e^{j theta} as cf tensor."""
+    return make(torch.cos(theta), torch.sin(theta))

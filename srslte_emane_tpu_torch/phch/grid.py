@@ -98,7 +98,8 @@ def crs_k(cell_id: int, n_prb: int, port: int, cp: str = "normal") -> np.ndarray
 
 
 @functools.lru_cache(maxsize=None)
-def reserved_mask(cell: CellConfig, sf_idx: int) -> np.ndarray:
+def reserved_mask(cell: CellConfig, sf_idx: int, has_pss_sss: bool = True,
+                  has_pbch: bool = True) -> np.ndarray:
     """(14, NRE) bool mask of REs NOT available to PDSCH: control region,
     own-cell CRS of all configured ports, PSS/SSS (sf 0/5), PBCH (sf 0)."""
     m = np.zeros((cell.n_sym, cell.nre), dtype=bool)
@@ -110,11 +111,11 @@ def reserved_mask(cell: CellConfig, sf_idx: int) -> np.ndarray:
             m[sym, ks[i]] = True
     center = cell.nre // 2
     n_slot_sym = cell.n_sym // 2
-    if sf_idx in (0, 5):
+    if has_pss_sss and sf_idx in (0, 5):
         # PSS on the last, SSS on the second-to-last symbol of slot 0
         m[n_slot_sym - 2, center - 36 : center + 36] = True  # SSS
         m[n_slot_sym - 1, center - 36 : center + 36] = True  # PSS
-    if sf_idx == 0:
+    if has_pbch and sf_idx == 0:
         for sym in range(n_slot_sym, n_slot_sym + 4):
             m[sym, center - 36 : center + 36] = True
     return m
@@ -129,35 +130,50 @@ def alloc_mask(nre: int, prb_mask: tuple) -> np.ndarray:
     return k_allowed
 
 
-def _re_indices_around(cell: CellConfig, res: np.ndarray, prb_mask: tuple) -> np.ndarray:
+def _re_indices_around(cell: CellConfig, res: np.ndarray, prb_mask: tuple,
+                       max_sym: int = 0) -> np.ndarray:
     """Ordered flat RE indices of the allocated PRBs outside `res`, symbols
-    cfi..13 (36.211 §6.3.5)."""
+    cfi..n_sym-1, or cfi..max_sym-1 where max_sym is set (36.211 §6.3.5)."""
     k_allowed = alloc_mask(cell.nre, prb_mask)
     idx = []
-    for sym in range(n_ctrl_symbols(cell.cfi, cell.n_prb), cell.n_sym):
+    for sym in range(n_ctrl_symbols(cell.cfi, cell.n_prb), max_sym or cell.n_sym):
         idx.append(sym * cell.nre + np.flatnonzero(k_allowed & ~res[sym]))
     return np.concatenate(idx).astype(np.int32)
 
 
 @functools.lru_cache(maxsize=None)
-def pdsch_re_indices(cell: CellConfig, sf_idx: int, prb_mask: tuple) -> np.ndarray:
+def pdsch_re_indices(cell: CellConfig, sf_idx: int, prb_mask: tuple,
+                     max_sym: int = 0) -> np.ndarray:
     """Ordered flat RE indices (sym*NRE + k) for a PDSCH allocation:
     frequency first within each symbol l = cfi..13 (36.211 §6.3.5), over
-    allocated PRBs only, skipping reserved REs."""
-    return _re_indices_around(cell, reserved_mask(cell, sf_idx), prb_mask)
+    allocated PRBs only, skipping reserved REs.  `max_sym` truncates the
+    symbol range for TDD DwPTS (phch/tdd.py nof_dw)."""
+    return _re_indices_around(cell, reserved_mask(cell, sf_idx), prb_mask, max_sym)
 
 
-def nof_re(cell: CellConfig, sf_idx: int, prb_mask: tuple) -> int:
-    return len(pdsch_re_indices(cell, sf_idx, prb_mask))
+def nof_re(cell: CellConfig, sf_idx: int, prb_mask: tuple, max_sym: int = 0) -> int:
+    return len(pdsch_re_indices(cell, sf_idx, prb_mask, max_sym))
+
+
+@functools.lru_cache(maxsize=None)
+def worst_nof_re(cell: CellConfig, sf_idx: int, n_prb_alloc: int, max_sym: int = 0) -> int:
+    """Minimum PDSCH RE count over all contiguous width-n allocations in
+    subframe sf_idx: the scheduler's capacity bound (srsenb
+    scheduler_ue.cc computes nof_re per grant for this reason)."""
+    from . import ra as _ra
+
+    return min(
+        nof_re(cell, sf_idx, _ra.type2_to_prb_mask(s, n_prb_alloc, cell.n_prb), max_sym)
+        for s in range(cell.n_prb - n_prb_alloc + 1))
 
 
 @functools.lru_cache(maxsize=None)
 def tx_gather_table(cell: CellConfig, sf_idx: int, prb_mask: tuple,
-                    port: int = 0) -> np.ndarray:
+                    port: int = 0, max_sym: int = 0) -> np.ndarray:
     """(n_sym*NRE,) int32 inverse placement map for one TX port: each grid
     position reads from [pdsch syms (n_re) | own-port CRS (n_crs) | zero],
     so subframe assembly is one device gather."""
-    re_idx = pdsch_re_indices(cell, sf_idx, prb_mask)
+    re_idx = pdsch_re_indices(cell, sf_idx, prb_mask, max_sym)
     ks = crs_k(cell.cell_id, cell.n_prb, port, cell.cp)
     syms = pilot_syms(port, cell.cp)
     pidx = (np.asarray(syms)[:, None] * cell.nre + ks).reshape(-1)

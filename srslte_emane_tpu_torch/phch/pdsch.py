@@ -34,15 +34,15 @@ def _crs_table(cell: grid_mod.CellConfig, sf_idx: int, port: int, device: torch.
 
 @functools.lru_cache(maxsize=32)
 def _re_table(cell: grid_mod.CellConfig, sf_idx: int, prb_mask: tuple,
-              device: torch.device) -> torch.Tensor:
-    idx = grid_mod.pdsch_re_indices(cell, sf_idx, prb_mask)
+              device: torch.device, max_sym: int = 0) -> torch.Tensor:
+    idx = grid_mod.pdsch_re_indices(cell, sf_idx, prb_mask, max_sym)
     return torch.from_numpy(idx.astype(np.int64)).to(device)
 
 
 @functools.lru_cache(maxsize=32)
 def _tx_gather(cell: grid_mod.CellConfig, sf_idx: int, prb_mask: tuple, port: int,
-               device: torch.device) -> torch.Tensor:
-    tbl = grid_mod.tx_gather_table(cell, sf_idx, prb_mask, port)
+               device: torch.device, max_sym: int = 0) -> torch.Tensor:
+    tbl = grid_mod.tx_gather_table(cell, sf_idx, prb_mask, port, max_sym)
     return torch.from_numpy(tbl.astype(np.int64)).to(device)
 
 
@@ -56,10 +56,10 @@ def put_crs(grid: torch.Tensor, cell: grid_mod.CellConfig, sf_idx: int,
 
 
 def assemble_grid(syms: torch.Tensor, cell: grid_mod.CellConfig, sf_idx: int,
-                  prb_mask: tuple, port: int = 0) -> torch.Tensor:
+                  prb_mask: tuple, port: int = 0, max_sym: int = 0) -> torch.Tensor:
     """(B, n_re, 2) PDSCH symbols -> (B, 14, NRE, 2) grid with CRS, as ONE
     gather (see grid.tx_gather_table).  Unused REs are zero."""
-    tbl = _tx_gather(cell, sf_idx, prb_mask, port, syms.device)
+    tbl = _tx_gather(cell, sf_idx, prb_mask, port, syms.device, max_sym)
     _, crs_v = _crs_table(cell, sf_idx, port, syms.device)
     B = syms.shape[0]
     src = torch.cat([syms, crs_v.expand((B,) + crs_v.shape).to(syms.dtype),
@@ -68,16 +68,18 @@ def assemble_grid(syms: torch.Tensor, cell: grid_mod.CellConfig, sf_idx: int,
 
 
 def encode(tb_bits: torch.Tensor, cfg: sch.SchConfig, cell: grid_mod.CellConfig,
-           sf_idx: int, rnti: int, prb_mask: tuple, grid=None) -> torch.Tensor:
+           sf_idx: int, rnti: int, prb_mask: tuple, grid=None,
+           max_sym: int = 0) -> torch.Tensor:
     """Encode one PDSCH grant into a subframe grid.
 
     tb_bits: (B, tbs).  Returns grid (B, 14, NRE, 2) with CRS + PDSCH placed
-    (into a copy of `grid` if given)."""
-    re_idx = _re_table(cell, sf_idx, prb_mask, tb_bits.device)
+    (into a copy of `grid` if given); max_sym truncates the PDSCH symbols
+    (TDD DwPTS)."""
+    re_idx = _re_table(cell, sf_idx, prb_mask, tb_bits.device, max_sym)
     assert cfg.G == len(re_idx) * cfg.Qm, (cfg.G, len(re_idx), cfg.Qm)
     syms = _codeword_symbols([tb_bits], [cfg], cell, sf_idx, rnti)[0]  # (B, n_re, 2)
     if grid is None:
-        return assemble_grid(syms, cell, sf_idx, prb_mask)
+        return assemble_grid(syms, cell, sf_idx, prb_mask, 0, max_sym)
     B = syms.shape[0]
     flat = grid.reshape(B, cell.n_sym * cell.nre, 2).clone()
     flat[:, re_idx, :] = syms
@@ -86,17 +88,22 @@ def encode(tb_bits: torch.Tensor, cfg: sch.SchConfig, cell: grid_mod.CellConfig,
 
 def decode(rx_grid: torch.Tensor, cfg: sch.SchConfig, cell: grid_mod.CellConfig,
            sf_idx: int, rnti: int, prb_mask: tuple, softbuf=None, max_iter: int = 8,
-           use_kernel: bool | None = None, llr_bits: int = 32):
+           use_kernel: bool | None = None, llr_bits: int = 32, max_sym: int = 0,
+           equalizer: str = "zf"):
     """Decode one PDSCH grant from a received subframe grid (B, 14, NRE, 2).
+    equalizer: "zf" or "mmse" (with the estimate's noise variance).
 
     Returns (payload bits (B, tbs), crc ok (B,), softbuf', ChestResult)."""
-    re_idx = _re_table(cell, sf_idx, prb_mask, rx_grid.device)
+    re_idx = _re_table(cell, sf_idx, prb_mask, rx_grid.device, max_sym)
     ch = chest.estimate(rx_grid, cell, sf_idx)
     flat_rx = rx_grid.reshape(rx_grid.shape[:-3] + (cell.n_sym * cell.nre, 2))
     flat_ce = ch.ce.reshape(flat_rx.shape)
     y = flat_rx[..., re_idx, :]
     h = flat_ce[..., re_idx, :]
-    x_eq, csi = chest.equalize_zf(y, h)
+    if equalizer == "mmse":
+        x_eq, csi = chest.equalize_mmse(y, h, ch.noise_est)
+    else:
+        x_eq, csi = chest.equalize_zf(y, h)
     llr = modem.demod_soft(x_eq, modem.MOD_FROM_QM[cfg.Qm])  # (B, G)
     llr = llr * torch.repeat_interleave(csi, cfg.Qm, dim=-1)
     if _td.LOGMAP:

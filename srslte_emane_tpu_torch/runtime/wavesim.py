@@ -28,14 +28,7 @@ import torch
 from ..models import enb_dl, ue_dl
 from ..ops import bits as bits_mod, channel, cplx, ofdm
 from ..phch import grid as grid_mod, pdsch, pmch, pucch, pusch, sch, uci as uci_codes
-
-
-def _device(device, plane: str) -> torch.device:
-    """torch.device(device); raises for a CUDA device where there is none."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"{plane}: no CUDA device (pass device='cpu' to run on the CPU)")
-    return device
+from ..utils.devices import resolve as _device
 
 
 def _generator(device: torch.device, seed: int) -> torch.Generator:

@@ -525,3 +525,80 @@ def test_new_planes_default_to_the_card(dev, plane):
         pdus = [bytes([i]) * 150 for i in range(5)]
         assert p.send(0x50, pdus, pathloss_db=95.0) == pdus
     assert p.device.type == "cuda" and p.gen.device.type == "cuda"
+
+
+# ---------------- sync, TDD, PRACH (chip_smoke.py phase 10) ----------------
+
+def test_cell_search_sweep_on_the_card_equals_the_cpu(dev):
+    """chip_smoke's cell search capture (cell 301, 6 PRB, sf 0, 5 dB, +1 kHz)
+    at batch 8 under its 5 CFO hypotheses: the -1 kHz rows find the cell
+    with normal CP, and every row's ids equal the CPU's."""
+    from srslte_emane_tpu_torch.ops import cplx, fading, ofdm
+    from srslte_emane_tpu_torch.phch import grid, pdsch, sync
+
+    smoke = _chip_smoke()
+    cell = grid.CellConfig(n_prb=6, cell_id=smoke.SEARCH_CELL)
+    g = pdsch.put_crs(sync.put_pss_sss(cplx.zeros((8, 14, 72), device=dev), cell, 0), cell, 0)
+    tx = ofdm.modulate(g, 6)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    caps = fading.apply_cfo(tx + smoke.noise_like(gen, tx, smoke.SEARCH_SNR_DB),
+                            smoke.SEARCH_CFO_HZ, 1.92e6)
+    hyp = torch.tensor(smoke.CFO_HYPOTHESES_HZ, device=dev)[:, None]
+    sweep = lambda x: sync.cell_search(
+        fading.apply_cfo_dyn(x[:, None], hyp.to(x.device), 1.92e6).reshape(-1, 1920, 2),
+        detect_cp=True)
+    res, res_cpu = sweep(caps), sweep(caps.cpu())
+    h0 = smoke.CFO_HYPOTHESES_HZ.index(-smoke.SEARCH_CFO_HZ)
+    assert (res["cell_id"].reshape(8, -1)[:, h0] == smoke.SEARCH_CELL).all()
+    assert not res["cp_ext"].reshape(8, -1)[:, h0].any()
+    for k in ("n_id_2", "pss_pos", "n_id_1", "sf_idx", "cell_id", "cp_ext"):
+        assert torch.equal(res[k].cpu(), res_cpu[k]), k
+
+
+def test_tdd_frame_on_the_card(dev):
+    """A TDD frame (config 1, special subframe 7) at 25 PRB, batch 4, 20 dB:
+    every D, S and U CRC passes, bits exact, through turbo_map."""
+    from srslte_emane_tpu_torch.models import tdd_frame
+    from srslte_emane_tpu_torch.phch import grid, tdd
+
+    cfg = tdd_frame.TddFrameConfig(cell=grid.CellConfig(n_prb=25, cell_id=4, cfi=1),
+                                   sf_config=1, ss_config=7, qm=4, ul_l_prb=24)
+    rng = np.random.default_rng(0)
+    bits = lambda n: torch.from_numpy(rng.integers(0, 2, (4, n), dtype=np.int8)).to(dev)
+    dl = {sf: bits(cfg.dl_cfg(sf).tbs) for sf in tdd.dl_subframes(1)}
+    ul = {sf: bits(cfg.ul_cfg().tbs) for sf in tdd.ul_subframes(1)}
+    before = turbodecoder_cuda.launches
+    out = tdd_frame.run_frame(cfg, dl, ul, torch.Generator(device=dev).manual_seed(1))
+    assert turbodecoder_cuda.launches > before
+    for kind, sent in (("dl", dl), ("ul", ul)):
+        for sf, tb in sent.items():
+            b, ok = out[kind][sf]
+            assert ok.all() and torch.equal(b, tb), (kind, sf)
+
+
+def test_prach_detection_on_the_card(dev):
+    """PRACH format 0 at 30.72 Msps, batch 8, random preambles: each sent
+    preamble is detected at timing offset 0, and the detections and offsets
+    equal the CPU's."""
+    from srslte_emane_tpu_torch.phch import prach
+
+    idx = torch.from_numpy(np.random.default_rng(2).integers(0, 64, 8)).to(dev)
+    t = prach.gen_waveform(idx, 6, 2)
+    t = t + 0.7 * torch.randn(t.shape, generator=torch.Generator(device=dev).manual_seed(3),
+                              device=dev)
+    chain = lambda x: prach.detect(prach.rx_waveform_to_freq(x), 6, 2)
+    det, _, toff = chain(t)
+    det_cpu, _, toff_cpu = chain(t.cpu())
+    b = torch.arange(8, device=dev)
+    assert det[b, idx].all() and (toff[b, idx] == 0).all()
+    assert torch.equal(det.cpu(), det_cpu) and torch.equal(toff[det].cpu(), toff_cpu[det_cpu])
+
+
+@pytest.mark.parametrize("k,B,narrow", [(5120, 512, False), (5312, 128, False)])
+def test_kernel_equals_plain_at_the_phase_10_shapes(dev, k, B, narrow):
+    """turbo_map bit for bit at the extended-CP link's (4 x 128 rows of
+    K=5120) and the fading link's (128 x K=5312) code blocks, f32."""
+    args = _inputs(k, B, dev)
+    w = turbodecoder._pick_windows(k)
+    got = turbodecoder_cuda.map_decode_cuda(*args, w, narrow)
+    assert torch.equal(got, turbodecoder_cuda.map_decode_ref(*args, w, narrow))
