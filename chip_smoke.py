@@ -1491,7 +1491,7 @@ def step_prach(dev, card):
     rx = channel(tx)
     out = chain(rx)
     assert right(out), "PRACH: a sent preamble missed, or its timing offset wrong"
-    tx_cpu = prach.gen_waveform(idx[:2].cpu(), root, zczc, fmt=fmt, srate_div=div)
+    tx_cpu = prach.gen_waveform(idx[:2].cpu(), root, zczc, fmt=fmt, srate_div=div, device="cpu")
     rel = ((tx[:2].cpu() - tx_cpu).square().mean() / tx_cpu.square().mean()).sqrt().item()
     assert rel < 1e-5, f"PRACH: card vs CPU waveform relative RMS {rel}"
     out_cpu = chain(rx[:2].cpu())

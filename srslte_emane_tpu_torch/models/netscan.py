@@ -20,6 +20,7 @@ import torch
 
 from ..ops import cplx, ofdm, sequence
 from ..phch import grid as grid_mod, sync
+from ..utils.devices import resolve
 
 MAX_PRB = 110
 
@@ -65,11 +66,12 @@ def _crs_values_traced(cell_ids: torch.Tensor, sf_idx: int, n_prb: int) -> torch
     return cplx.make(re, im)
 
 
-def build_beacons(cell_ids, n_prb: int = 6, sf_idx: int = 0) -> torch.Tensor:
-    """(N, 14, 12*n_prb, 2) beacon grids (port-0 CRS + PSS/SSS) for a
-    tensor of cell ids, on its device."""
-    cid = torch.as_tensor(cell_ids, dtype=torch.int64)
-    dev = cid.device
+def build_beacons(cell_ids, n_prb: int = 6, sf_idx: int = 0, device="cuda") -> torch.Tensor:
+    """(N, 14, 12*n_prb, 2) beacon grids (port-0 CRS + PSS/SSS) for (N,)
+    cell ids (array or tensor), built on `device` ("cuda" by default: it
+    raises where there is no card)."""
+    dev = resolve(device, "build_beacons")
+    cid = torch.as_tensor(cell_ids, dtype=torch.int64).to(dev)
     N, nre = cid.shape[0], 12 * n_prb
     vals = _crs_values_traced(cid, sf_idx, n_prb)  # (N, 4, 2*n_prb, 2)
     # pilot subcarriers: k = (v + cid % 6) % 6 + 6m
@@ -87,18 +89,19 @@ def build_beacons(cell_ids, n_prb: int = 6, sf_idx: int = 0) -> torch.Tensor:
     return grid
 
 
-def beacon_waveforms(cell_ids, n_prb: int = 6, sf_idx: int = 0) -> torch.Tensor:
-    """(N, T, 2) time-domain beacon subframes (1.92 Msps at 6 PRB)."""
-    return ofdm.modulate(build_beacons(cell_ids, n_prb, sf_idx), n_prb)
+def beacon_waveforms(cell_ids, n_prb: int = 6, sf_idx: int = 0, device="cuda") -> torch.Tensor:
+    """(N, T, 2) time-domain beacon subframes (1.92 Msps at 6 PRB) on `device`."""
+    return ofdm.modulate(build_beacons(cell_ids, n_prb, sf_idx, device), n_prb)
 
 
 def network_scan(mesh, cell_ids, gains, gen: torch.Generator = None,
-                 noise_std: float = 0.0, n_prb: int = 6):
+                 noise_std: float = 0.0, n_prb: int = 6, device="cuda"):
     """Scan: synthesize all cells' beacons, superpose them through the link
     matrix, and run a batched cell search on every observation point's
     capture.
 
-    cell_ids: (N,) int tensor (its device is where the scan runs); gains:
+    cell_ids: (N,) ints (array or tensor); the scan runs on `device`
+    ("cuda" by default: it raises where there is no card); gains:
     (N, N) complex rx-by-tx link matrix (diagonal ignored).  Returns the
     `sync.cell_search` dict per row: observation point i sees the
     gain-weighted sum of all OTHER cells, plus noise_std complex white noise
@@ -108,7 +111,7 @@ def network_scan(mesh, cell_ids, gains, gen: torch.Generator = None,
         raise NotImplementedError(
             "network_scan over a device mesh needs parallel/ota_collective.py, which the "
             "port does not have yet (ROADMAP.md slice 14); pass mesh=None")
-    tx = beacon_waveforms(cell_ids, n_prb)  # (N, T, 2)
+    tx = beacon_waveforms(cell_ids, n_prb, device=device)  # (N, T, 2)
     g = np.asarray(gains, np.complex64) * (1.0 - np.eye(tx.shape[0], dtype=np.float32))
     gr = torch.from_numpy(np.ascontiguousarray(g.real)).to(tx.device)
     gi = torch.from_numpy(np.ascontiguousarray(g.imag)).to(tx.device)

@@ -45,7 +45,9 @@ def profile_taps(profile: str, srate_hz: float):
 
 def draw_phases(gen: torch.Generator, batch: int, n_taps: int, device=None):
     """(alpha, phi), each (batch, n_taps, N_SINUSOIDS) uniform in [0, 2 pi):
-    the arrival angles and phases of the sinusoids."""
+    the arrival angles and phases of the sinusoids, on `device` (by default
+    the generator's)."""
+    device = gen.device if device is None else device
     shape = (batch, n_taps, N_SINUSOIDS)
     alpha = torch.rand(shape, generator=gen, device=device) * (2 * np.pi)
     phi = torch.rand(shape, generator=gen, device=device) * (2 * np.pi)

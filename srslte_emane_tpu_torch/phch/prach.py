@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from ..ops import cplx
+from ..utils.devices import resolve
 
 _DATA = np.load(pathlib.Path(__file__).parent / "prach_tables.npz")
 ZC_ROOTS = _DATA["zc_roots"]  # logical order, formats 0-3
@@ -132,11 +133,13 @@ def _preamble_table(root_seq_idx: int, zczc: int, hs: bool, fmt: int, device: to
 
 
 def gen(preamble_idx, root_seq_idx: int = 0, zczc: int = 1, hs: bool = False,
-        fmt: int = 0) -> torch.Tensor:
-    """(B,) preamble indices -> (B, N_ZC, 2) frequency-domain preambles, on
-    the indices' device."""
-    idx = torch.as_tensor(preamble_idx, dtype=torch.int64)
-    return _preamble_table(root_seq_idx, zczc, hs, fmt, idx.device)[idx]
+        fmt: int = 0, device="cuda") -> torch.Tensor:
+    """(B,) preamble indices (array or tensor) -> (B, N_ZC, 2)
+    frequency-domain preambles on `device` ("cuda" by default: it raises
+    where there is no card)."""
+    dev = resolve(device, "prach.gen")
+    idx = torch.as_tensor(preamble_idx, dtype=torch.int64).to(dev)
+    return _preamble_table(root_seq_idx, zczc, hs, fmt, dev)[idx]
 
 
 @functools.lru_cache(maxsize=8)
@@ -232,14 +235,15 @@ def waveform_len(fmt: int = 0, srate_div: int = 1) -> int:
 
 
 def gen_waveform(preamble_idx, root_seq_idx: int = 0, zczc: int = 1, hs: bool = False,
-                 k0: int = 12 * 12 + 7, fmt: int = 0, srate_div: int = 1) -> torch.Tensor:
+                 k0: int = 12 * 12 + 7, fmt: int = 0, srate_div: int = 1,
+                 device="cuda") -> torch.Tensor:
     """(B,) preamble indices -> (B, waveform_len(fmt), 2) time samples at
     30.72 / srate_div Msps (prach.c srslte_prach_gen waveform path).
 
     k0: first occupied PRACH bin (1.25 kHz spacing for formats 0-3, 7.5 kHz
     for format 4; the default centers the 6-PRB region near
-    prach_freq_offset=12 PRB)."""
-    x = gen(preamble_idx, root_seq_idx, zczc, hs, fmt)  # (B, nzc, 2)
+    prach_freq_offset=12 PRB).  Runs on `device`, as `gen`."""
+    x = gen(preamble_idx, root_seq_idx, zczc, hs, fmt, device)  # (B, nzc, 2)
     n_seq, _, _ = _ct_split(fmt, srate_div)
     tw, e = _ct_device_tables(k0, fmt, srate_div, x.device)
     y = cplx.mul(x[:, :, None, :], tw[None])  # stage 1: (B, nzc, ct_b, 2)

@@ -6,8 +6,8 @@ u in {25, 29, 34}, cross-correlation at 1.92 Msps, peak-to-mean quality;
 `ue/ue_cell_search.c`: composite search over N_id_2).  The sequences are
 host numpy; `put_pss_sss` writes them into a subframe grid on the device
 (enb_dl.c put_base).  On the UE side the PSS correlation for all 3 roots
-and every lag is one matrix product over `Tensor.unfold`'s sliding windows,
-and the SSS detection one (B, 62) x (62, 336) product per N_id_2 over
+and every lag is one conv1d of the samples against the replicas, and the
+SSS detection one (B, 62) x (62, 336) product per N_id_2 over
 every (N_id_1, subframe) hypothesis.  Ties go to the first maximum over
 the reference's flattened layouts.
 """
@@ -18,6 +18,7 @@ import functools
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..ops import cplx, dft, ofdm
 
@@ -150,11 +151,13 @@ def _to(a: np.ndarray, device) -> torch.Tensor:
 
 @functools.lru_cache(maxsize=16)
 def _pss_replicas(fft_size: int, device: torch.device) -> torch.Tensor:
-    """(2*fft, 6): a window laid out [re (fft) | im (fft)] times this gives
-    [re | im] of its correlation with the 3 conjugated PSS replicas."""
-    reps = np.stack([pss_time(i, fft_size) for i in range(3)], axis=1)  # (fft, 3)
+    """(6, 2, fft) conv1d weight: channels (re, im) of a window against it
+    give [re (3) | im (3)] of its correlation with the 3 conjugated PSS
+    replicas."""
+    reps = np.stack([pss_time(i, fft_size) for i in range(3)])  # (3, fft)
     w_re, w_im = reps.real, -reps.imag
-    return _to(np.block([[w_re, w_im], [-w_im, w_re]]), device)
+    return _to(np.stack([np.stack([w_re, -w_im], 1), np.stack([w_im, w_re], 1)]).reshape(
+        6, 2, fft_size), device)
 
 
 @functools.lru_cache(maxsize=16)
@@ -165,14 +168,12 @@ def _sss_banks(device: torch.device) -> torch.Tensor:
 
 def pss_correlate(samples: torch.Tensor, fft_size: int = 128):
     """samples (B, T, 2) -> correlation energy (B, 3, T-fft_size+1) and
-    complex corr (B, lags, 3, 2) for CFO use.  Every lag's window comes
-    from one `unfold` (B, lags, 2, fft), correlated in one product."""
+    complex corr (B, lags, 3, 2) for CFO use.  One conv1d over the (B, 2, T)
+    samples slides the replicas; no window is copied."""
     B = samples.shape[0]
-    win = samples.unfold(-2, fft_size, 1)  # (B, lags, 2, fft)
-    lags = win.shape[1]
-    corr = win.reshape(B, lags, 2 * fft_size) @ _pss_replicas(fft_size, samples.device)
-    corr = corr.reshape(B, lags, 2, 3).transpose(-1, -2)  # (B, lags, 3, 2)
-    return cplx.abs2(corr).transpose(-1, -2), corr
+    out = F.conv1d(samples.transpose(1, 2), _pss_replicas(fft_size, samples.device))
+    corr = out.reshape(B, 2, 3, -1).permute(0, 3, 2, 1)  # (B, lags, 3, 2)
+    return out[:, :3] ** 2 + out[:, 3:] ** 2, corr
 
 
 def pss_find(samples: torch.Tensor, fft_size: int = 128):

@@ -594,10 +594,32 @@ def test_prach_detection_on_the_card(dev):
     assert torch.equal(det.cpu(), det_cpu) and torch.equal(toff[det].cpu(), toff_cpu[det_cpu])
 
 
-@pytest.mark.parametrize("k,B,narrow", [(5120, 512, False), (5312, 128, False)])
+def test_scan_and_prach_run_on_the_card_from_numpy_ids(dev):
+    """network_scan and prach.gen_waveform given numpy ids, as the reference's
+    callers pass them, run on the card and equal the CPU's result."""
+    from srslte_emane_tpu_torch.models import netscan
+    from srslte_emane_tpu_torch.phch import prach
+
+    n = 6
+    ids = np.arange(10, 10 + n)
+    g = np.zeros((n, n), np.complex64)
+    g[np.arange(n), (np.arange(n) + 3) % n] = 1.0
+    res = netscan.network_scan(None, ids, g)
+    assert res["cell_id"].device.type == "cuda"
+    assert (res["cell_id"].cpu().numpy() == ids[(np.arange(n) + 3) % n]).all()
+    assert torch.equal(res["cell_id"].cpu(), netscan.network_scan(None, ids, g, device="cpu")["cell_id"])
+    t = prach.gen_waveform(np.array([3, 9]))
+    assert t.device.type == "cuda"
+    t_cpu = prach.gen_waveform(np.array([3, 9]), device="cpu")
+    assert ((t.cpu() - t_cpu).square().mean() / t_cpu.square().mean()).sqrt() < 1e-5
+
+
+@pytest.mark.parametrize("k,B,narrow", [(5056, 512, False), (5120, 128, False),
+                                         (5312, 128, False)])
 def test_kernel_equals_plain_at_the_phase_10_shapes(dev, k, B, narrow):
-    """turbo_map bit for bit at the extended-CP link's (4 x 128 rows of
-    K=5120) and the fading link's (128 x K=5312) code blocks, f32."""
+    """turbo_map bit for bit, f32, at shapes the smoke's phase 10 launches:
+    512 x K=5056 (the extended-CP decode and the TDD frame), 128 x K=5120
+    (the extended-CP decode) and 128 x K=5312 (the fading link)."""
     args = _inputs(k, B, dev)
     w = turbodecoder._pick_windows(k)
     got = turbodecoder_cuda.map_decode_cuda(*args, w, narrow)

@@ -115,7 +115,7 @@ def test_restricted_set_avoids_doppler_images():
 
 def test_detect_clean():
     idx = np.array([0, 5, 17, 63])
-    p = p_prach.gen(_t(idx), 0, 1)
+    p = p_prach.gen(idx, 0, 1, device="cpu")
     np.testing.assert_allclose(p.numpy(), np.asarray(j_prach.gen(idx, 0, 1)), rtol=1e-6, atol=1e-3)
     det, _, toff = _detect_both(p.numpy(), root_seq_idx=0, zczc=1)
     assert det[np.arange(4), idx].all() and (toff[np.arange(4), idx] == 0).all()
@@ -127,7 +127,7 @@ def test_detect_noisy_with_delay():
     rng = np.random.default_rng(1)
     idx = np.array([3, 40])
     d = 5
-    pc = p_cplx.to_numpy(p_prach.gen(_t(idx), 6, 2))
+    pc = p_cplx.to_numpy(p_prach.gen(idx, 6, 2, device="cpu"))
     pc = pc * np.exp(-1j * 2 * np.pi * np.arange(p_prach.N_ZC) * d / p_prach.N_ZC)
     pc = pc + rng.normal(0, 0.7, pc.shape) + 1j * rng.normal(0, 0.7, pc.shape)
     det, _, toff = _detect_both(_cf(pc), root_seq_idx=6, zczc=2, threshold=8.0)
@@ -138,7 +138,7 @@ def test_detect_noisy_with_delay():
 
 def test_prach_restricted_set_high_speed():
     idx = np.array([0, 17, 40, 63])
-    tx = p_cplx.to_numpy(p_prach.gen(_t(idx), root_seq_idx=22, zczc=3, hs=True))
+    tx = p_cplx.to_numpy(p_prach.gen(idx, root_seq_idx=22, zczc=3, hs=True, device="cpu"))
     rng = np.random.default_rng(0)
     p = np.mean(np.abs(tx) ** 2)
     rx = tx + np.sqrt(p / 10 / 2) * (rng.normal(size=tx.shape) + 1j * rng.normal(size=tx.shape))
@@ -149,7 +149,7 @@ def test_prach_restricted_set_high_speed():
 def test_prach_format4_sequence_level():
     pairs, n_cs = p_prach.shift_list(1, 2, fmt=4)
     assert len(pairs) == 64 and n_cs == p_prach.NCS_F4[2]
-    x = p_prach.gen(_t(np.arange(64)), root_seq_idx=1, zczc=2, fmt=4)
+    x = p_prach.gen(np.arange(64), root_seq_idx=1, zczc=2, fmt=4, device="cpu")
     assert x.shape == (64, 139, 2)
     det, _, _ = _detect_both(x.numpy(), root_seq_idx=1, zczc=2, fmt=4)
     assert det[np.arange(64), np.arange(64)].all()
@@ -159,7 +159,7 @@ def test_prach_format4_sequence_level():
 
 def test_prach_waveform_two_stage_dft_roundtrip():
     idx = np.array([3, 21, 40])
-    t = p_prach.gen_waveform(_t(idx), root_seq_idx=0, zczc=1)
+    t = p_prach.gen_waveform(idx, root_seq_idx=0, zczc=1, device="cpu")
     assert t.shape == (3, p_prach.N_CP_F0 + p_prach.N_SEQ, 2)
     assert _rel_rms(t, j_prach.gen_waveform(idx, root_seq_idx=0, zczc=1)) < REL
     tt = t.numpy()
@@ -167,7 +167,7 @@ def test_prach_waveform_two_stage_dft_roundtrip():
     rx = tt + np.random.default_rng(0).normal(0, 0.002, tt.shape).astype(np.float32)
     freq = p_prach.rx_waveform_to_freq(_t(rx))
     assert _rel_rms(freq, j_prach.rx_waveform_to_freq(jnp.asarray(rx))) < REL
-    ref = p_prach.gen(_t(idx), 0, 1).numpy()
+    ref = p_prach.gen(idx, 0, 1, device="cpu").numpy()
     got = freq.numpy()
     np.testing.assert_allclose(got / (np.abs(got).mean() / np.abs(ref).mean()), ref, atol=0.05)
     det, _, _ = _detect_both(got, root_seq_idx=0, zczc=1)
@@ -181,7 +181,8 @@ def test_prach_waveform_all_formats(fmt, srate_div):
     a reduced cell rate (srate_div)."""
     rng = np.random.default_rng(1)
     idx = np.array([5, 17])
-    t = p_prach.gen_waveform(_t(idx), root_seq_idx=2, zczc=1, fmt=fmt, srate_div=srate_div).numpy()
+    t = p_prach.gen_waveform(idx, root_seq_idx=2, zczc=1, fmt=fmt, srate_div=srate_div,
+                             device="cpu").numpy()
     jt = np.asarray(j_prach.gen_waveform(idx, root_seq_idx=2, zczc=1, fmt=fmt, srate_div=srate_div))
     assert t.shape == jt.shape == (2, p_prach.waveform_len(fmt, srate_div), 2)
     assert _rel_rms(t, jt) < REL
@@ -202,6 +203,17 @@ def test_prach_waveform_all_formats(fmt, srate_div):
     samp_per_zc = n_seq / p_prach.nzc_for(fmt)
     assert np.all(np.abs(toff[np.arange(2), idx] * samp_per_zc - delay) < 2.5 * samp_per_zc)
 
+
+
+@pytest.mark.parametrize("fn", ["gen", "gen_waveform"])
+def test_prach_default_device_is_the_card(fn):
+    """Numpy preamble indices go to the card by default; where there is none
+    the call raises instead of running on the CPU."""
+    if torch.cuda.is_available():
+        assert getattr(p_prach, fn)(np.array([3, 9])).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            getattr(p_prach, fn)(np.array([3, 9]))
 
 # ---------------- NB-IoT sync ----------------
 

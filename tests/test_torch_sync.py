@@ -413,7 +413,7 @@ def test_measure_rsrq_per_row():
 
 def test_traced_beacons_bitexact_vs_host_specialized():
     ids = np.array([0, 5, 6, 151, 503], np.int32)
-    got = p_netscan.build_beacons(_t(ids))
+    got = p_netscan.build_beacons(ids, device="cpu")
     np.testing.assert_array_equal(got.numpy(), np.asarray(jax.jit(j_netscan.build_beacons)(ids)))
     for i, cid in enumerate(ids):
         cell = p_grid.CellConfig(n_prb=6, cell_id=int(cid))
@@ -427,10 +427,27 @@ def test_network_scan_unsharded_path():
     g = np.zeros((N, N), np.complex64)
     for i in range(N):
         g[i, (i + 3) % N] = 1.0
-    res = p_netscan.network_scan(None, _t(ids), g)
+    res = p_netscan.network_scan(None, ids, g, device="cpu")
     ref = jax.jit(lambda i, gg: j_netscan.network_scan(None, i, gg))(ids, g)
     for k in ("n_id_2", "pss_pos", "n_id_1", "sf_idx", "cell_id"):
         np.testing.assert_array_equal(res[k].numpy(), np.asarray(ref[k]), err_msg=k)
     assert (res["cell_id"].numpy() == ids[(np.arange(N) + 3) % N]).all()
     with pytest.raises(NotImplementedError, match="mesh"):
-        p_netscan.network_scan(object(), _t(ids), g)
+        p_netscan.network_scan(object(), ids, g, device="cpu")
+
+
+@pytest.mark.parametrize("call", [
+    lambda ids: p_netscan.build_beacons(ids),
+    lambda ids: p_netscan.beacon_waveforms(ids),
+    lambda ids: p_netscan.network_scan(None, ids, np.eye(len(ids), dtype=np.complex64)),
+], ids=["build_beacons", "beacon_waveforms", "network_scan"])
+def test_scan_default_device_is_the_card(call):
+    """Numpy ids, as the reference's callers pass them, go to the card by
+    default; where there is none the call raises instead of running on the CPU."""
+    ids = np.arange(3)
+    if torch.cuda.is_available():
+        out = call(ids)
+        assert (out["cell_id"] if isinstance(out, dict) else out).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call(ids)

@@ -152,7 +152,7 @@ def test_tdd_copy_byte_equal_and_tables_equal():
     assert p_tdd.ack_subframe_for_dl(1, 9) == 13 and p_tdd.pusch_subframe_for_grant(6, 9) == 14
 
 
-# ---------------- grid: max_sym and the reserved-RE options ----------------
+# ---------------- grid: max_sym ----------------
 
 @pytest.mark.parametrize("n_prb,cfi,n_ports,cp", [(6, 2, 1, "normal"), (15, 1, 2, "normal"),
                                                   (25, 3, 4, "normal"), (15, 2, 1, "ext")])
@@ -160,10 +160,8 @@ def test_grid_max_sym_tables_equal(n_prb, cfi, n_ports, cp):
     pcell, jcell = _cells(n_prb=n_prb, cell_id=7, cfi=cfi, n_ports=n_ports, cp=cp)
     rng = np.random.default_rng(n_prb)
     for sf in (0, 1, 5, 6):
-        for kw in (dict(), dict(has_pss_sss=False), dict(has_pbch=False),
-                   dict(has_pss_sss=False, has_pbch=False)):
-            np.testing.assert_array_equal(p_grid.reserved_mask(pcell, sf, **kw),
-                                          j_grid.reserved_mask(jcell, sf, **kw))
+        np.testing.assert_array_equal(p_grid.reserved_mask(pcell, sf),
+                                      j_grid.reserved_mask(jcell, sf))
         for max_sym in (0, 6, 9, 10, 12):
             mask = tuple(int(v) for v in rng.integers(0, 2, n_prb))
             np.testing.assert_array_equal(p_grid.pdsch_re_indices(pcell, sf, mask, max_sym),
