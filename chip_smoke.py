@@ -89,7 +89,23 @@ Phases (any failure raises; the exit code is then non-zero):
      beacons of all 504 PCIs and a 64-cell network scan (cells/s); neighbour
      measurement over 32 PCIs at 100 PRB; the first two rows of the search,
      the TDD frame and PRACH against the CPU; then turbo_map against its
-     plain version at every new shape of these paths, with its launches.
+     plain version at every new shape of these paths, with its launches;
+ 11. the device-resident block engines: the SPS block of
+     scripts/bench_waveform_tpu.py (100 PRB, cell_id 1, cfi 1, 8 UEs, DL 11
+     PRB and UL 12 PRB at MCS 20, 30 dB, T=160, llr_bits=16) through
+     runtime/waveblock.make_block_step on the card: every DL and UL CRC and
+     ACK, payloads bit-exact; the first two TTIs against the CPU (the card's
+     noise replayed); TTIs/s, CUDA-event time, a profile of one block
+     (device time, kernel launches, busy share), DL/UL Mb/s, peak memory
+     and a depth sweep at T = 20, 40, 80, 160; the same block in TM3 with 2
+     ports (every codeword); the dynamic block of
+     scripts/bench_waveblock_dyn.py (100 PRB, cfi 2, 8 feasible RNTIs, DL 11
+     PRB MCS 25, UL 10 PRB MCS 20, 30 dB, R=20) through
+     runtime/waveblock_dyn.make_dyn_block_step: every CRC and ACK, no DCI
+     miss, the decoded RIVs followed, the TBs delivered in queue order; the
+     first two rounds against the CPU; TTIs/s, its profile and the time by
+     stage of a round (the Viterbi's share); then turbo_map against its
+     plain version at the blocks' shapes, with its launches per block.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -1621,6 +1637,317 @@ def phase_sync(dev, card):
     log(f"phase 10: {time.perf_counter() - t0:.1f} s")
     return cases, sum(n for n, _ in paths)
 
+# phase 11: the device-resident block engines.  The SPS block as
+# scripts/bench_waveform_tpu.py configures it (100 PRB, 8 UEs, T=160) in
+# SISO and TM3, the dynamic block as scripts/bench_waveblock_dyn.py does
+# (100 PRB, 8 UEs, R=20)
+SPS_T, SPS_DEPTHS, DYN_R = 160, (20, 40, 80, 160), 20
+
+
+def sps_config(T, tm3=False):
+    """scripts/bench_waveform_tpu.py:50-69: 100 PRB, cell_id 1, cfi 1, 8 UEs
+    (RNTIs 70-77), DL segments packed around the centre PRBs at MCS 20, UL
+    width (n_prb - 2) // 8 made a valid DFT size at MCS 20 from PRB 1,
+    ack_res = nCCE + i, 30 dB, llr_bits=16; tm3 with 2 ports."""
+    from srslte_emane_tpu_torch.phch import grid, pdcch, pusch
+    from srslte_emane_tpu_torch.runtime import waveblock
+
+    n_prb, n = 100, 8
+    cell = grid.CellConfig(n_prb=n_prb, cell_id=1, cfi=1, n_ports=2 if tm3 else 1)
+    n_cce = pdcch.n_cce(cell)
+    c0, c1 = waveblock.centre_prbs(n_prb)
+    dl_starts, dl_w = waveblock._pack_segments(n_prb, n, [(0, c0), (c1, n_prb)])
+    ul_w = max(1, (n_prb - 2) // n)
+    while ul_w > 1 and not pusch.valid_n_prb(ul_w):
+        ul_w -= 1
+    return waveblock.BlockConfig(
+        cell=cell, rntis=tuple(70 + i for i in range(n)), dl_rb_start=dl_starts,
+        dl_l_crbs=dl_w, dl_mcs=20, ul_rb_start=tuple(1 + ul_w * i for i in range(n)),
+        ul_l_prb=ul_w, ul_mcs=20, ack_res=tuple(n_cce + i for i in range(n)),
+        snr_db=(30.0,) * n, T=T, llr_bits=16, tm3=tm3)
+
+
+def dyn_config(R):
+    """scripts/bench_waveblock_dyn.py:48-60: 100 PRB, cell_id 1, cfi 2, 8
+    UEs from feasible_rntis, DL 11 PRB at MCS 25, UL 10 PRB at MCS 20, 30 dB,
+    llr_bits=16."""
+    from srslte_emane_tpu_torch.phch import grid
+    from srslte_emane_tpu_torch.runtime import waveblock_dyn
+
+    cell = grid.CellConfig(n_prb=100, cell_id=1, cfi=2)
+    return waveblock_dyn.DynBlockConfig(
+        cell=cell, rntis=waveblock_dyn.feasible_rntis(cell, 8), dl_l_crbs=11, dl_mcs=25,
+        ul_l_prb=10, ul_mcs=20, snr_db=(30.0,) * 8, R=R, llr_bits=16)
+
+
+@contextlib.contextmanager
+def recorded_noise(record=None, replay=None, rows=slice(None)):
+    """waveblock._randn recording each draw into `record`, or answering each
+    call with the next recorded draw of `replay` cut to `rows` along its
+    first axis and moved to the caller's device."""
+    from srslte_emane_tpu_torch.runtime import waveblock
+
+    randn, it = waveblock._randn, iter(replay or ())
+
+    def recording(gen, shape, device):
+        x = randn(gen, shape, device)
+        record.append(x)
+        return x
+
+    def replaying(gen, shape, device):
+        x = next(it)[rows]
+        assert tuple(x.shape) == tuple(shape), (tuple(x.shape), tuple(shape))
+        return x.to(device)
+
+    waveblock._randn = recording if record is not None else replaying
+    try:
+        yield
+    finally:
+        waveblock._randn = randn
+
+
+def profile_block(fn):
+    """One call of fn under torch.profiler (after a synchronise): the
+    device time (the CUDA kernels' own time), the kernel launches, the busy
+    share (device time over the profiled wall time, which includes the
+    profiler's overhead: a lower bound) and turbo_map's device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    map_ms = sum(e.self_device_time_total for e in kernels if "map_kernel" in e.key) / 1e3
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
+    return dict(profiled_wall_ms=round(wall_ms, 3), device_ms=round(device_ms, 3),
+                busy_share=round(device_ms / wall_ms, 4),
+                kernel_launches=sum(e.count for e in kernels), turbo_map_ms=round(map_ms, 3),
+                top=[(e.key[:50], round(e.self_device_time_total / 1e3, 3), e.count)
+                     for e in top])
+
+
+def block_timing(fn, ttis):
+    """The block's rate (TTIs/s, median of N_RUNS runs of one call each,
+    after one warm-up call) and its CUDA-event time (median of 3 calls; the
+    events bracket the whole call on the stream, host waits included)."""
+    import torch
+
+    r = rate(fn, per_call=ttis, iters=1)
+
+    def one():
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end)
+
+    return r, statistics.median(one() for _ in range(3))
+
+
+def step_sps(dev, card, tm3):
+    """Phase 11.1/11.2: the SPS block at T=160 (SISO, or TM3 with 2 ports).
+    Returns (turbo_map launches of one block, launch log)."""
+    import torch
+
+    from srslte_emane_tpu_torch.ops.fec import turbodecoder_cuda as tdc
+    from srslte_emane_tpu_torch.runtime import waveblock
+
+    name = "SPS block TM3" if tm3 else "SPS block"
+    cfg = sps_config(SPS_T, tm3)
+    n, T = cfg.n_ues, cfg.T
+    n_cw = 2 if tm3 else 1
+    rng = np.random.default_rng(0)
+    dl_shape = (T, n) + ((2,) if tm3 else ()) + (cfg.dl_tbs,)
+    dl = torch.from_numpy(rng.integers(0, 2, dl_shape, dtype=np.int8)).to(dev)
+    ul = torch.from_numpy(rng.integers(0, 2, (T, n, cfg.ul_tbs), dtype=np.int8)).to(dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    t0 = time.perf_counter()
+    step = waveblock.make_block_step(cfg, sfn0=4)  # the card: the entry point's default
+    bench = waveblock.make_bench_step(cfg, sfn0=4)
+    build_s = time.perf_counter() - t0
+
+    def right(out):
+        return (bool(out["dl_ok"].all()) and bool(out["ul_ok"].all())
+                and (not tm3 or bool(out["dl_ok_cw"].all()))
+                and int((out["ack_energy"] > 1e-2).sum()) == T * n
+                and torch.equal(out["dl_out"], dl.reshape(T, n, -1))
+                and torch.equal(out["ul_out"], ul))
+
+    record = []
+    torch.cuda.reset_peak_memory_stats()
+    with launch_log() as seen, recorded_noise(record=record):
+        tdc.launches = 0
+        t0 = time.perf_counter()
+        out = step(dl, ul, gen, 0)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        launches = tdc.launches
+    peak = torch.cuda.max_memory_allocated()
+    assert all(v.device.type == "cuda" for v in out.values()), "a block output left the card"
+    assert launches > 0, f"{name}: no turbo_map launch"
+    assert right(out), (f"{name}: DL {int(out['dl_ok'].sum())}, UL {int(out['ul_ok'].sum())}, "
+                        f"ACK {int((out['ack_energy'] > 1e-2).sum())} of {T * n}, or a payload")
+    log(f"{name}: 100 PRB, 8 UEs, T={T}, DL {cfg.dl_l_crbs} PRB MCS 20 (TBS {cfg.dl_tbs} x "
+        f"{n_cw}), UL {cfg.ul_l_prb} PRB MCS 20 (TBS {cfg.ul_tbs}), 30 dB: every DL and UL "
+        f"CRC passes, {T * n} ACKs, payloads bit-exact; {launches} turbo_map launches "
+        f"{sorted(set(seen))} (K, rows, bf16); first call {first_s:.2f} s, tables {build_s:.2f} s; "
+        f"peak memory {peak / 2**20:.1f} MiB")
+
+    # the card against the CPU (the plain MAP): the first two TTIs, with the
+    # card's noise replayed into the CPU run
+    cpu_step = waveblock.make_block_step(cfg._replace(T=2), sfn0=4, device="cpu")
+    with recorded_noise(replay=record, rows=slice(0, 2)):
+        out_cpu = cpu_step(dl[:2].cpu(), ul[:2].cpu(), torch.Generator(), 0)
+    for k, v in out_cpu.items():
+        if v.dtype.is_floating_point:
+            torch.testing.assert_close(out[k][:2].cpu(), v, rtol=1e-4, atol=1e-5)
+        else:
+            assert torch.equal(out[k][:2].cpu(), v), f"{name}: card and CPU differ at {k}"
+    log(f"{name}: card vs CPU on the first 2 TTIs: bits, CRCs equal, ACK values within 1e-4")
+
+    counts = lambda: bench(dl, ul, gen, 0)
+    (med, spread, rates), event_ms = block_timing(counts, T)
+    assert [int(x) for x in counts()] == [T * n * n_cw, T * n, T * n]
+    prof = profile_block(lambda: step(dl, ul, gen, 0))
+    log(f"{name}: {fmt_rate('block', med, spread, rates, unit='TTIs/s')}; DL "
+        f"{med * n * n_cw * cfg.dl_tbs / 1e6:.1f} Mb/s + UL {med * n * cfg.ul_tbs / 1e6:.1f} Mb/s; "
+        f"CUDA-event time per block {event_ms:.2f} ms; profile of one block {json.dumps(prof)}; {card}")
+    if not tm3:
+        sweep = {}
+        for depth in SPS_DEPTHS:
+            c = sps_config(depth)
+            b = waveblock.make_bench_step(c, sfn0=4)
+            d, u = dl[:depth], ul[:depth]
+            sweep[depth] = rate(lambda: b(d, u, gen, 0), per_call=depth, iters=1,
+                                check=lambda o: int(o[0]) == depth * n)[0]
+        log(f"{name} depth sweep (TTIs/s by T, median of {N_RUNS}): "
+            f"{json.dumps({k: round(v, 1) for k, v in sweep.items()})}; {card}")
+    return launches, seen
+
+
+def step_dyn(dev, card):
+    """Phase 11.3: the dynamic block at R=20.  Returns (turbo_map launches
+    of one block, launch log)."""
+    import torch
+
+    from srslte_emane_tpu_torch.ops import ofdm
+    from srslte_emane_tpu_torch.ops.fec import convcoder, turbodecoder, turbodecoder_cuda as tdc
+    from srslte_emane_tpu_torch.ops.fec import viterbi
+    from srslte_emane_tpu_torch.phch import sch
+    from srslte_emane_tpu_torch.runtime import waveblock_dyn as wbd
+
+    cfg = dyn_config(DYN_R)
+    n, T = cfg.n_ues, cfg.T
+    rng = np.random.default_rng(0)
+    dl_q = torch.from_numpy(rng.integers(0, 2, (T, n, cfg.dl_tbs), dtype=np.int8)).to(dev)
+    ul_q = torch.from_numpy(rng.integers(0, 2, (T, n, cfg.ul_tbs), dtype=np.int8)).to(dev)
+    rb_dl, rb_ul = (torch.from_numpy(a).to(dev) for a in wbd.make_schedule(cfg, seed=3))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    t0 = time.perf_counter()
+    step = wbd.make_dyn_block_step(cfg)  # the card: the entry point's default
+    bench = wbd.make_bench_step(cfg)
+    build_s = time.perf_counter() - t0
+    args = (dl_q, ul_q, rb_dl, rb_ul)
+
+    def right(o):
+        if not (int(o["dl_ok"].sum()) == int(o["ul_ok"].sum()) == int(o["ack_det"].sum()) == T * n
+                and int(o["dci_dl_miss"]) == int(o["dci_ul_miss"]) == 0
+                and torch.equal(o["rb_ue"], rb_dl.long())):
+            return False
+        for new, outs, q in (("dl_new", "dl_out", dl_q), ("ul_new", "ul_out", ul_q)):
+            for u in range(n):  # delivered TBs equal the queue, in order
+                sent = o[outs][:, :, u][o[new][:, :, u]]
+                if not torch.equal(sent, q[: sent.shape[0], u]) or sent.shape[0] != T:
+                    return False
+        return True
+
+    record = []
+    torch.cuda.reset_peak_memory_stats()
+    with launch_log() as seen, recorded_noise(record=record):
+        tdc.launches = 0
+        t0 = time.perf_counter()
+        out = step(*args, gen, 0)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        launches = tdc.launches
+    peak = torch.cuda.max_memory_allocated()
+    assert all(v.device.type == "cuda" for v in out.values()), "a block output left the card"
+    assert launches > 0, "dynamic block: no turbo_map launch"
+    assert right(out), (
+        f"dynamic block: DL {int(out['dl_ok'].sum())}, UL {int(out['ul_ok'].sum())}, ACK "
+        f"{int(out['ack_det'].sum())} of {T * n}, DCI misses {int(out['dci_dl_miss'])} + "
+        f"{int(out['dci_ul_miss'])}, RBs followed {bool(torch.equal(out['rb_ue'], rb_dl.long()))}")
+    log(f"dynamic block: 100 PRB, 8 UEs (RNTIs {list(cfg.rntis)}), R={DYN_R} ({T} TTIs), DL 11 PRB "
+        f"MCS 25 (TBS {cfg.dl_tbs}, 2 code blocks), UL 10 PRB MCS 20 (TBS {cfg.ul_tbs}), 30 dB: "
+        f"every DL and UL CRC and ACK, no DCI miss, the UE followed every decoded RIV, the "
+        f"delivered TBs equal the queues in order; {launches} turbo_map launches "
+        f"{sorted(set(seen))} (K, rows, bf16); first call {first_s:.2f} s, tables {build_s:.2f} s; "
+        f"peak memory {peak / 2**20:.1f} MiB")
+
+    # the card against the CPU (the plain MAP): the first two rounds, with
+    # the card's noise replayed into the CPU run
+    with recorded_noise(replay=record):
+        cpu_out = wbd.make_dyn_block_step(cfg._replace(R=2), device="cpu")(
+            *(a.cpu() for a in (dl_q, ul_q, rb_dl[:2], rb_ul[:2])), torch.Generator(), 0)
+    for k, v in cpu_out.items():
+        if k in ("dl_consumed", "ul_consumed") or v.ndim == 0:
+            continue  # block totals: the CPU ran 2 of the card's rounds
+        assert torch.equal(out[k][:2].cpu(), v), f"dynamic block: card and CPU differ at {k}"
+    log("dynamic block: card vs CPU on the first 2 rounds: every per-round output equal")
+
+    counts = lambda: bench(*args, gen, 0)
+    (med, spread, rates), event_ms = block_timing(counts, T)
+    assert [int(x) for x in counts()] == [T * n, T * n, T * n, 0, 0, 0]
+    stages = ((ofdm, "modulate"), (ofdm, "demodulate"), (convcoder, "rate_unmatch_cc"),
+              (viterbi, "viterbi_decode"), (sch, "encode_tb"), (sch, "decode_tb"),
+              (turbodecoder, "turbo_decode"), (wbd, "_scatter_rows"))
+    whole = "waveblock_dyn.step"
+    with timed_calls(stages) as totals:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(*args, gen, 0)
+        torch.cuda.synchronize()
+        totals[whole] = [1, time.perf_counter() - t0]
+    per_round = {k: {"calls_per_round": n_ / DYN_R, "ms_per_round": round(1e3 * t / DYN_R, 3),
+                     "share": round(t / totals[whole][1], 3)} for k, (n_, t) in totals.items()}
+    prof = profile_block(lambda: step(*args, gen, 0))
+    log(f"dynamic block: {fmt_rate('block', med, spread, rates, unit='TTIs/s')}; DL "
+        f"{med * n * cfg.dl_tbs / 1e6:.1f} Mb/s + UL {med * n * cfg.ul_tbs / 1e6:.1f} Mb/s; "
+        f"CUDA-event time per block {event_ms:.2f} ms; profile of one block {json.dumps(prof)}; {card}")
+    log(f"dynamic block by stage, per round (host clock, synchronised at every stage: a "
+        f"breakdown, not a rate; the Viterbi's share is viterbi.viterbi_decode's): "
+        f"{json.dumps(per_round)}")
+    return launches, seen
+
+
+def phase_blocks(dev, card):
+    """Phase 11.  Returns (the turbo_map cases at its new shapes, the
+    launches of one block of each engine)."""
+    t0 = time.perf_counter()
+    paths = [step_sps(dev, card, False), step_sps(dev, card, True), step_dyn(dev, card)]
+    logs = [entry for _, seen in paths for entry in seen]
+    cases = map_cases(new_map_shapes(logs, ()), dev)
+    names = ("SPS block", "SPS block TM3", "dynamic block")
+    for c in cases:
+        per = {name: sum(1 for k, _, narrow in seen if k == c["K"] and narrow == c["narrow"])
+               for name, (_, seen) in zip(names, paths)}
+        log(f"turbo_map at {c['B']} x K={c['K']} {'bf16' if c['narrow'] else 'f32'}: "
+            f"{1e3 * c['ms']:.1f} us (L2-flushed {1e3 * c['flushed_ms']:.1f} us), bound "
+            f"{1e3 * c['bound_ms']:.2f} us ({c['bound_by']}), share {c['share']:.3f}, bit for bit; "
+            f"launches at K={c['K']} per block: {json.dumps({k: v for k, v in per.items() if v})}; "
+            f"{card}")
+    log(f"phase 11: {time.perf_counter() - t0:.1f} s")
+    return cases, sum(n for n, _ in paths)
+
 
 def main():
     import torch
@@ -1656,6 +1983,7 @@ def main():
     sf_launches = phase_dl_subframe(dev, card)
     mimo_cases, tm3_launches = phase_mimo(dev, card)
     sync_cases, sync_launches = phase_sync(dev, card)
+    block_cases, block_launches = phase_blocks(dev, card)
     bench = next(c for c in cases if (c["K"], c["B"], c["narrow"]) == (5504, 768, True))
     odd = next(c for c in v1_cases if (c["K"], c["B"]) == (1040, 768))
     print(json.dumps({"kernels": [{
@@ -1663,9 +1991,11 @@ def main():
         "route": "cuda",
         "source": "srslte_emane_tpu_torch/csrc/turbo_map.cu",
         "replaces": "srslte_emane_tpu/ops/fec/turbodecoder_pallas2.py:70",
-        # PDSCH link, uplink, DL subframe, TM3 cell, phase 10's paths
-        "launches": dl_launches + ul_launches + sf_launches + tm3_launches + sync_launches,
-        "max_abs_err": max(c["max_abs_err"] for c in cases + mimo_cases + sync_cases),
+        # PDSCH link, uplink, DL subframe, TM3 cell, phase 10's and 11's paths
+        "launches": (dl_launches + ul_launches + sf_launches + tm3_launches + sync_launches
+                     + block_launches),
+        "max_abs_err": max(c["max_abs_err"] for c in cases + mimo_cases + sync_cases
+                           + block_cases),
         "ms": bench["ms"],
         "wrapper_ms": bench["wrapper_ms"],
         "plain_ms": bench["plain_ms"],

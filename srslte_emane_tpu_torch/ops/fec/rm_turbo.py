@@ -1,10 +1,11 @@
-"""36.212 §5.1.4.1 turbo rate matching, static redundancy version.
+"""36.212 §5.1.4.1 turbo rate matching.
 
-Twin of the static-RV part of the reference's `ops/fec/rm_turbo.py`: flat
-index tables are computed on the host once per (K, F, E, rv, Ncb)
-configuration (and uploaded once per device); the device op is one batched
-gather (TX), or a gather + sum soft-combine into the HARQ w-buffer (RX).
-NULL fillers and interleaver dummies never touch the device.
+Twin of the reference's `ops/fec/rm_turbo.py`: flat index tables are
+computed on the host once per (K, F, E, rv, Ncb) configuration (and uploaded
+once per device); the device op is one batched gather (TX), or a gather +
+sum soft-combine into the HARQ w-buffer (RX).  NULL fillers and interleaver
+dummies never touch the device.  The `_dyn` variants take one redundancy
+version per row as a tensor (the in-block HARQ path's RV cycling).
 
 LLR convention: positive LLR <=> bit 0.
 """
@@ -159,6 +160,62 @@ def rate_unmatch_rx(llrs: torch.Tensor, wbuf: torch.Tensor, k: int, f: int,
     tbl = _on_device(rx_gather_table, (k, f, e, rv, ncb), llrs.device)
     padded = torch.cat([llrs, llrs.new_zeros(llrs.shape[:-1] + (1,))], dim=-1)
     return wbuf + padded[..., tbl].sum(-1)
+
+
+@functools.lru_cache(maxsize=None)
+def _cyclic_tables(k: int, f: int, ncb: int = 0):
+    """Tables for the per-row RV paths.  The redundancy version changes only
+    the circular-buffer start k0 (§5.1.4.1.2), so the bit-selection stream
+    z[j] = d[region[valid[j]]] is RV-invariant and each RV reads it from its
+    own start:
+
+      tx_rv[i] = z[(start_rv + i) mod V]
+      rx: w[valid[j]] += sum of llr[i] over i == j - start_rv (mod V)
+
+    Returns (z_src (V,) gather into d_flat, starts (4,), inv (size,) index
+    into the z domain per w-buffer position (V = "none"))."""
+    w = wbuf_map(k, f)
+    if ncb <= 0 or ncb > len(w):
+        ncb = len(w)
+    region = w[:ncb]
+    valid = np.flatnonzero(region >= 0)
+    starts = np.array([np.searchsorted(valid, k0_index(k, rv, ncb))
+                       for rv in range(4)], np.int32)
+    size = wbuf_size(k)
+    inv = np.full(size, len(valid), np.int32)
+    inv[valid] = np.arange(len(valid))
+    return region[valid].astype(np.int32), starts, inv
+
+
+def rate_match_tx_dyn(d_flat: torch.Tensor, k: int, f: int, e: int, rv_b: torch.Tensor,
+                      ncb: int = 0):
+    """rate_match_tx with one redundancy version per row, rv_b (B,) int:
+    one gather of d_flat at z_src[(starts[rv_b] + i) mod V].  (The reference
+    blends four static rolls, `_blend_rolled`, because per-row gathers were
+    slow on its device; the bits are the same.)"""
+    z_src, starts, _ = _on_device(_cyclic_tables, (k, f, ncb), d_flat.device)
+    V = z_src.shape[0]
+    pos = (starts[rv_b.long()][:, None] + torch.arange(e, device=d_flat.device)) % V
+    return d_flat.gather(1, z_src[pos])
+
+
+def rate_unmatch_rx_dyn(llrs: torch.Tensor, wbuf: torch.Tensor, k: int, f: int, e: int,
+                        rv_b: torch.Tensor, ncb: int = 0):
+    """rate_unmatch_rx with one redundancy version per row (HARQ IR
+    soft-combining where each row may be another retransmission).  The
+    wrap-combine of e > V LLRs sums in the LLRs' dtype; the combined stream
+    is cast to the w-buffer's dtype before it is added, as in the
+    reference.  One gather per row: w position p reads the combined stream
+    at (inv[p] - starts[rv]) mod V, or a zero where inv[p] = V."""
+    z_src, starts, inv = _on_device(_cyclic_tables, (k, f, ncb), llrs.device)
+    V = z_src.shape[0]
+    B = llrs.shape[0]
+    reps = -(-e // V)
+    pad = torch.cat([llrs, llrs.new_zeros((B, reps * V - e))], dim=-1)
+    s = pad.reshape(B, reps, V).sum(-2) if reps > 1 else pad  # wrap-combine
+    s = torch.cat([s, s.new_zeros((B, 1))], dim=-1)
+    src = torch.where(inv < V, (inv - starts[rv_b.long()][:, None]) % V, V)
+    return wbuf + s.gather(1, src).to(wbuf.dtype)
 
 
 def wbuf_to_d_llrs(wbuf: torch.Tensor, k: int, f: int):

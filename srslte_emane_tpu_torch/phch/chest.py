@@ -65,6 +65,13 @@ class ChestResult(typing.NamedTuple):
     sync_err: torch.Tensor = None  # (...,) timing offset estimate (samples)
 
 
+@functools.lru_cache(maxsize=None)
+def _crs_values10(cell_id: int, n_prb: int, port: int, cp: str) -> np.ndarray:
+    """(10, S, P) CRS values for every subframe: the gather table for an
+    sf_idx given as a tensor (pilot positions do not depend on sf)."""
+    return np.stack([grid_mod.crs_values(cell_id, s, n_prb, port, cp) for s in range(10)])
+
+
 @functools.lru_cache(maxsize=32)
 def _device_tables(cell: grid_mod.CellConfig, sf_idx: int, port: int,
                    device: torch.device):

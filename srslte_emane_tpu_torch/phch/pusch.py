@@ -63,6 +63,36 @@ def re_indices(n_prb_cell: int, rb_start: int, l_prb: int):
     return data, dmrs
 
 
+@functools.lru_cache(maxsize=None)
+def _dmrs10(cell_id: int, l_prb: int) -> np.ndarray:
+    """(10, 2, 12*l_prb) PUSCH DMRS for every subframe: the gather table for
+    an sf_idx given as a tensor (group/sequence hopping varies per slot)."""
+    return np.stack([refsignal_ul.pusch_dmrs(cell_id, s, l_prb) for s in range(10)])
+
+
+def _dmrs_for(cell_id: int, sf_idx, l_prb: int, device=None) -> torch.Tensor:
+    """(..., 2, 12*l_prb, 2) cf DMRS values; sf_idx an int, or an int tensor
+    of any shape (one table row per element)."""
+    if isinstance(sf_idx, (int, np.integer)):
+        return cplx.from_numpy(refsignal_ul.pusch_dmrs(cell_id, int(sf_idx), l_prb), device)
+    d10 = cplx.from_numpy(_dmrs10(cell_id, l_prb), sf_idx.device)
+    return d10[sf_idx.long()]
+
+
+def _re_idx(n_prb_cell: int, rb_start, l_prb: int):
+    """re_indices that also takes rb_start as an int tensor (of any shape,
+    giving (..., 12, m_sc) and (..., 2, m_sc)): the tables are plain
+    arithmetic, so one code path serves every contiguous allocation of the
+    same width."""
+    if isinstance(rb_start, (int, np.integer)):
+        return re_indices(n_prb_cell, int(rb_start), l_prb)
+    nre = 12 * n_prb_cell
+    dev = rb_start.device
+    ks = 12 * rb_start.long()[..., None, None] + torch.arange(12 * l_prb, device=dev)
+    sym = lambda syms: torch.tensor(syms, device=dev)[:, None] * nre
+    return sym(DATA_SYMS) + ks, sym(DMRS_SYMS) + ks
+
+
 @functools.lru_cache(maxsize=32)
 def _device_tables(n_prb_cell: int, cell_id: int, sf_idx: int, rb_start: int, l_prb: int,
                    device: torch.device):

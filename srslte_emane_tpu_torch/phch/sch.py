@@ -1,4 +1,4 @@
-"""DL-SCH transport-block codec (static redundancy version).
+"""DL-SCH / UL-SCH transport-block codec.
 
 Twin of the reference's `phch/sch.py` (sch.c:291 encode_tb, sch.c:429
 decode_tb): TB CRC24A -> segmentation -> per-CB CRC24B -> turbo encode ->
@@ -86,15 +86,21 @@ def _groups(cfg: SchConfig):
     return groups
 
 
-def encode_tb(tb_bits: torch.Tensor, cfg: SchConfig) -> torch.Tensor:
-    """(B, tbs) payload bits -> (B, G) rate-matched codeword bits (int8)."""
+def encode_tb(tb_bits: torch.Tensor, cfg: SchConfig, rv_b=None) -> torch.Tensor:
+    """(B, tbs) payload bits -> (B, G) rate-matched codeword bits (int8).
+
+    rv_b: optional (B,) int tensor, one redundancy version per row in place
+    of cfg.rv (the in-block HARQ retransmission path)."""
     cbs = _segment_bits(tb_bits, cfg)
     B = cbs[0].shape[0]
     pieces = [None] * cfg.segm.C
     for (k, f, e), rs in _groups(cfg).items():
         stacked = torch.cat([cbs[r] for r in rs], dim=0)  # (n*B, K)
         d_flat = torch.cat(turbo.turbo_encode(stacked), dim=1)
-        tx = rm_turbo.rate_match_tx(d_flat, k, f, e, cfg.rv, cfg.ncb)
+        if rv_b is None:
+            tx = rm_turbo.rate_match_tx(d_flat, k, f, e, cfg.rv, cfg.ncb)
+        else:
+            tx = rm_turbo.rate_match_tx_dyn(d_flat, k, f, e, rv_b.repeat(len(rs)), cfg.ncb)
         for i, r in enumerate(rs):
             pieces[r] = tx[i * B : (i + 1) * B]
     return torch.cat(pieces, dim=1)
@@ -107,7 +113,7 @@ def init_softbuffer(batch: int, cfg: SchConfig, dtype=torch.float32, device=None
 
 
 def decode_tb(llrs: torch.Tensor, cfg: SchConfig, softbuf=None, max_iter: int = 8,
-              use_kernel: bool | None = None, llr_bits: int = 32):
+              use_kernel: bool | None = None, llr_bits: int = 32, rv_b=None):
     """(B, G) codeword LLRs (positive = bit 0) -> (tb_bits (B, tbs), ok (B,),
     softbuf', n_iter).
 
@@ -115,7 +121,9 @@ def decode_tb(llrs: torch.Tensor, cfg: SchConfig, softbuf=None, max_iter: int = 
     and the TB CRC24A to pass (sch.c decode_tb semantics).  llr_bits <= 16
     holds the LLRs and soft buffers in bf16, as the reference does; each
     position receives at most one LLR per transmission at the bench rate, so
-    the bf16 sums are exact there.
+    the bf16 sums are exact there; HARQ retransmission sums round to bf16
+    in the soft buffers.  rv_b: optional (B,) int tensor, one redundancy
+    version per row in place of cfg.rv.
     """
     s = cfg.segm
     B = llrs.shape[0]
@@ -138,7 +146,11 @@ def decode_tb(llrs: torch.Tensor, cfg: SchConfig, softbuf=None, max_iter: int = 
     for (kr, f, e), rs in _groups(cfg).items():
         e_llr = torch.cat([llrs[:, offs[r] : offs[r + 1]] for r in rs], dim=0)
         wbuf = torch.cat([softbuf[r] for r in rs], dim=0)
-        wbuf = rm_turbo.rate_unmatch_rx(e_llr, wbuf, kr, f, e, cfg.rv, cfg.ncb)
+        if rv_b is None:
+            wbuf = rm_turbo.rate_unmatch_rx(e_llr, wbuf, kr, f, e, cfg.rv, cfg.ncb)
+        else:
+            wbuf = rm_turbo.rate_unmatch_rx_dyn(e_llr, wbuf, kr, f, e, rv_b.repeat(len(rs)),
+                                                cfg.ncb)
         d3 = rm_turbo.wbuf_to_d_llrs(wbuf, kr, f)
         for i, r in enumerate(rs):
             new_soft[r] = wbuf[i * B : (i + 1) * B]

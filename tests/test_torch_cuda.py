@@ -624,3 +624,76 @@ def test_kernel_equals_plain_at_the_phase_10_shapes(dev, k, B, narrow):
     w = turbodecoder._pick_windows(k)
     got = turbodecoder_cuda.map_decode_cuda(*args, w, narrow)
     assert torch.equal(got, turbodecoder_cuda.map_decode_ref(*args, w, narrow))
+
+
+@pytest.mark.parametrize("k,B", [(4416, 1280), (5184, 1280), (3136, 128), (4288, 64)])
+def test_kernel_equals_plain_at_the_block_shapes(dev, k, B):
+    """turbo_map bit for bit, bf16 mode (llr_bits=16), at the block engines'
+    shapes (chip_smoke.py phase 11): the SPS block's DL 1280 x K=4416 (also
+    each TM3 codeword) and UL 1280 x K=5184 at T=160, 8 UEs; the dynamic
+    block's DL 128 x K=3136 (2 code blocks x 8 TTIs x 8 UEs) and UL
+    64 x K=4288 per round."""
+    args = _inputs(k, B, dev)
+    w = turbodecoder._pick_windows(k)
+    got = turbodecoder_cuda.map_decode_cuda(*args, w, True)
+    assert torch.equal(got, turbodecoder_cuda.map_decode_ref(*args, w, True))
+
+
+def test_sps_block_kernel_equals_plain_on_the_card(dev):
+    """The SPS block of chip_smoke.py at T=8 (100 PRB, 8 UEs, llr_bits=16)
+    on the card through turbo_map equals the same call with the plain MAP
+    (use_kernel=False), output for output, under the same noise."""
+    from srslte_emane_tpu_torch.runtime import waveblock
+
+    cfg = _chip_smoke().sps_config(8)
+    rng = np.random.default_rng(0)
+    dl = rng.integers(0, 2, (cfg.T, cfg.n_ues, cfg.dl_tbs), dtype=np.int8)
+    ul = rng.integers(0, 2, (cfg.T, cfg.n_ues, cfg.ul_tbs), dtype=np.int8)
+    outs = []
+    for use_kernel in (None, False):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(1)
+        before = turbodecoder_cuda.launches
+        outs.append(waveblock.make_block_step(cfg._replace(use_kernel=use_kernel), sfn0=4)(
+            dl, ul, gen, 0))
+        assert (turbodecoder_cuda.launches > before) == (use_kernel is None)
+    for k, v in outs[0].items():
+        assert torch.equal(v, outs[1][k]), k
+    assert bool(outs[0]["dl_ok"].all()) and bool(outs[0]["ul_ok"].all())
+    assert np.array_equal(outs[0]["dl_out"].cpu().numpy(), dl)
+
+
+def test_block_entry_points_return_tensors_on_the_card(dev):
+    """make_block_step (SISO and TM3), make_dyn_block_step and both
+    make_bench_steps default to the card and, given numpy inputs, return
+    tensors there (15 PRB, 2 UEs)."""
+    from srslte_emane_tpu_torch.phch import grid, pdcch
+    from srslte_emane_tpu_torch.runtime import waveblock, waveblock_dyn
+
+    rng = np.random.default_rng(2)
+    gen = torch.Generator(device=dev)
+    for tm3 in (False, True):
+        cell = grid.CellConfig(n_prb=15, cell_id=1, cfi=2, n_ports=2 if tm3 else 1)
+        n_cce = pdcch.n_cce(cell)
+        cfg = waveblock.BlockConfig(
+            cell=cell, rntis=(70, 71), dl_rb_start=(0, 11), dl_l_crbs=4, dl_mcs=10,
+            ul_rb_start=(1, 5), ul_l_prb=4, ul_mcs=10, ack_res=(n_cce, n_cce + 1),
+            snr_db=(30.0, 29.0), T=2, tm3=tm3)
+        dl = rng.integers(0, 2, (2, 2) + ((2,) if tm3 else ()) + (cfg.dl_tbs,), dtype=np.int8)
+        ul = rng.integers(0, 2, (2, 2, cfg.ul_tbs), dtype=np.int8)
+        out = waveblock.make_block_step(cfg)(dl, ul, gen, 0)
+        assert all(v.device.type == "cuda" for v in out.values())
+        assert bool(out["dl_ok"].all()) and bool(out["ul_ok"].all())
+        counts = waveblock.make_bench_step(cfg)(dl, ul, gen, 0)
+        assert all(c.device.type == "cuda" for c in counts)
+    dcfg = waveblock_dyn.DynBlockConfig(
+        cell=grid.CellConfig(n_prb=15, cell_id=1, cfi=2), rntis=(70, 71), dl_l_crbs=3,
+        dl_mcs=8, ul_l_prb=2, ul_mcs=8, snr_db=(30.0, 28.0), R=1)
+    rb_dl, rb_ul = waveblock_dyn.make_schedule(dcfg, seed=1)
+    dl_q = rng.integers(0, 2, (dcfg.T, 2, dcfg.dl_tbs), dtype=np.int8)
+    ul_q = rng.integers(0, 2, (dcfg.T, 2, dcfg.ul_tbs), dtype=np.int8)
+    out = waveblock_dyn.make_dyn_block_step(dcfg)(dl_q, ul_q, rb_dl, rb_ul, gen, 0)
+    assert all(v.device.type == "cuda" for v in out.values())
+    assert int(out["dl_ok"].sum()) == int(out["ul_ok"].sum()) == dcfg.T * 2
+    counts = waveblock_dyn.make_bench_step(dcfg)(dl_q, ul_q, rb_dl, rb_ul, gen, 0)
+    assert all(c.device.type == "cuda" for c in counts)
