@@ -105,7 +105,20 @@ Phases (any failure raises; the exit code is then non-zero):
      miss, the decoded RIVs followed, the TBs delivered in queue order; the
      first two rounds against the CPU; TTIs/s, its profile and the time by
      stage of a round (the Viterbi's share); then turbo_map against its
-     plain version at the blocks' shapes, with its launches per block.
+     plain version at the blocks' shapes, with its launches per block;
+ 12. the waveform-native network: apps/netsim.py:run_waveform_full's
+     network (runtime/wavenet.WaveformNetwork at 100 PRB, cfi 3, 8 UEs,
+     80 dB, seed 0, on the card by default) attaches in 10-TTI slabs (all
+     8 REGISTERED, RRC CONNECTED, with an IP address; >= 8 PRACH
+     detections), then carries netsim's 4 DL + 1 UL IP packets per UE over
+     60 host-paced TTIs (every DL packet delivered, UL bytes grown):
+     sf/s, CUDA-event time and turbo_map launches per TTI, the time by
+     stage of a TTI with traffic and its profile (device time, launches,
+     busy share); then SpsBlockRunner(T=160) and DynBlockRunner(R=20) on
+     the attached network, one untimed and two timed blocks each (every
+     CRC passes, every SPS ACK detected): TTIs/s and turbo_map launches
+     per block; then turbo_map against its plain version at every shape
+     the phase launched.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -1949,6 +1962,201 @@ def phase_blocks(dev, card):
     return cases, sum(n for n, _ in paths)
 
 
+# phase 12: the waveform-native network (runtime/wavenet.py) as
+# apps/netsim.py:run_waveform_full builds it, at 100 PRB with 8 UEs, then
+# the SPS and dynamic block runners on it at phase 11's depths
+# cfi 3, not netsim's 2: at cfi 2, DynBlockRunner's CCE allocation
+# (waveblock_dyn._alloc_cces, the reference's) cannot place the 8 netsim
+# C-RNTIs 0x146-0x14d in every subframe
+NET_PRB, NET_UES, NET_CFI, STEADY_TTIS = 100, 8, 3, 60
+
+
+def waveform_network():
+    """apps/netsim.py:run_waveform_full's network: 8 UEs with IMSIs
+    0010100000000xx and preambles (7 + i) % 64, pathloss 80 dB, seed 0, at
+    cfi NET_CFI, on the card (the entry point's default)."""
+    from srslte_emane_tpu_torch.epc import hss as hss_mod, mme as mme_mod, spgw as spgw_mod
+    from srslte_emane_tpu_torch.runtime import wavenet
+    from srslte_emane_tpu_torch.stack import enb_stack, security, ue_stack
+
+    hss = hss_mod.Hss()
+    spgw = spgw_mod.Spgw()
+    mme = mme_mod.Mme(hss, spgw)
+    enb = enb_stack.EnbStack(mme, enb_id=1, n_prb=NET_PRB)
+    ues = []
+    for i in range(NET_UES):
+        imsi = f"0010100000000{i:02d}"
+        key = bytes(range(16))
+        hss.add(hss_mod.Subscriber(imsi=imsi, key=key))
+        opc = security.milenage_opc(key, b"\x00" * 16)
+        ues.append(ue_stack.UeStack(ue_stack.Usim(imsi, key, opc), preamble=(7 + i) % 64))
+    net = wavenet.WaveformNetwork(enb, ues, pathloss_db=np.full(NET_UES, 80.0),
+                                  n_prb=NET_PRB, seed=0, cfi=NET_CFI)
+    return net, ues, spgw, spgw_mod
+
+
+def network_stages():
+    """(module or class, function) pairs of one host-paced TTI for timed_calls."""
+    from srslte_emane_tpu_torch.ops.fec import turbodecoder, viterbi
+    from srslte_emane_tpu_torch.runtime import wavenet as wn
+
+    return ((wn.WaveformNetwork, "run"), (wn.WaveEnbPhy, "_rx"), (wn.WaveEnbPhy, "_tx"),
+            (wn.WaveMedium, "dl_take_all"), (wn._CellKernels, "rx_front"),
+            (wn._CellKernels, "blind_all"), (viterbi, "viterbi_decode"),
+            (wn.WaveUePhy, "_camp_rx_row"), (wn._CellKernels, "pdsch_rx"),
+            (wn._CellKernels, "pusch_rx"), (wn.WaveUePhy, "_tx"),
+            (turbodecoder, "turbo_decode"))
+
+
+def run_runner(runner, launch_seen):
+    """One untimed block, then 2 timed ones.  Returns (TTIs/s, turbo_map
+    launches per block)."""
+    import torch
+
+    from srslte_emane_tpu_torch.ops.fec import turbodecoder_cuda as tdc
+
+    with launch_seen():
+        tdc.launches = 0
+        runner.run_block()
+        torch.cuda.synchronize()
+        per_block = tdc.launches
+    t0 = time.perf_counter()
+    for _ in range(2):
+        runner.run_block()
+    torch.cuda.synchronize()
+    rate_ = 2 * runner.cfg.T / (time.perf_counter() - t0)
+    return rate_, per_block
+
+
+def phase_network(dev, card):
+    """Phase 12.  Returns (the turbo_map cases at its new shapes, its
+    launches: the host-paced steady state plus one block of each runner)."""
+    import torch
+
+    from srslte_emane_tpu_torch.ops.fec import turbodecoder_cuda as tdc
+    from srslte_emane_tpu_torch.runtime import waveblock, waveblock_dyn
+
+    t_phase = time.perf_counter()
+    net, ues, spgw, spgw_mod = waveform_network()
+    assert net.device.type == "cuda" and net.medium._gen.device.type == "cuda"
+    logs = []
+
+    @contextlib.contextmanager
+    def launch_seen():
+        with launch_log() as seen:
+            yield
+        logs.extend(seen)
+
+    # attach in 10-TTI slabs (netsim's loop), each UE's registration TTI
+    attach_tti = {}
+    limit = 200 + 100 * NET_UES
+    tdc.launches = 0
+    t0 = time.perf_counter()
+    with launch_seen():
+        while net.tti < limit:
+            net.run(10)
+            for i, u in enumerate(ues):
+                if i not in attach_tti and u.emm_state == "REGISTERED":
+                    attach_tti[i] = net.tti
+            if len(attach_tti) == NET_UES:
+                break
+    torch.cuda.synchronize()
+    attach_s = time.perf_counter() - t0
+    attach_launches = tdc.launches
+    bad = [(i, u.emm_state, u.rrc_state, u.ip_addr) for i, u in enumerate(ues)
+           if not (u.emm_state == "REGISTERED" and u.rrc_state == "CONNECTED" and u.ip_addr)]
+    assert not bad, f"network: UEs not attached after {net.tti} TTIs: {bad}"
+    assert net.enb.metrics["prach_det"] >= NET_UES, net.enb.metrics
+    log(f"network: {NET_PRB} PRB, cfi {NET_CFI}, {NET_UES} UEs at 80 dB: all REGISTERED, RRC "
+        f"CONNECTED, with an IP address; attach TTI per UE {json.dumps(attach_tti)}; "
+        f"{net.tti} TTIs in {attach_s:.1f} s ({net.tti / attach_s:.1f} sf/s during the attach, "
+        f"compiles none: first calls' host tables included); {attach_launches} turbo_map "
+        f"launches; eNB {json.dumps(net.enb.metrics)}; UE 0 {json.dumps(net.ues[0].metrics)}; "
+        f"{card}")
+
+    def traffic():
+        """netsim's IP traffic: 4 DL + 1 UL packets per UE."""
+        pkts = []
+        for u in ues:
+            pkt = spgw_mod.make_ipv4("8.8.8.8", u.ip_addr, b"d" * 120)
+            for _ in range(4):
+                spgw.handle_sgi_pdu(pkt)
+            u.gw_send(spgw_mod.make_ipv4(u.ip_addr, "8.8.8.8", b"u" * 120))
+            pkts.append(pkt)
+        return pkts
+
+    pkts = traffic()
+    ul_before = spgw.metrics["ul_bytes"]
+    tdc.launches = tdc.launches_v1 = 0
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with launch_seen():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        net.run(STEADY_TTIS)
+        end.record()
+        torch.cuda.synchronize()
+        steady_s = time.perf_counter() - t0
+    steady_launches = tdc.launches
+    assert steady_launches > 0 and tdc.launches_v1 == 0, (steady_launches, tdc.launches_v1)
+    missing = [i for i, (u, pkt) in enumerate(zip(ues, pkts)) if u.gw_rx.count(pkt) != 4]
+    assert not missing, f"network: DL packets missing at UEs {missing}"
+    assert spgw.metrics["ul_bytes"] > ul_before, spgw.metrics
+    log(f"network steady state: {STEADY_TTIS} host-paced TTIs with 4 DL + 1 UL packets per UE, "
+        f"every DL packet delivered, UL bytes {ul_before} -> {spgw.metrics['ul_bytes']}; "
+        f"steady_sf_per_sec {STEADY_TTIS / steady_s:.1f}; CUDA-event time per TTI "
+        f"{start.elapsed_time(end) / STEADY_TTIS:.2f} ms; turbo_map launches per TTI "
+        f"{steady_launches / STEADY_TTIS:.2f}; {card}")
+
+    # where a host-paced TTI with traffic goes (synchronised at every stage:
+    # a breakdown, not a rate; nested calls count in both), then the device
+    # profile of such TTIs
+    traffic()
+    with timed_calls(network_stages()) as totals:
+        net.run(10)
+    per_tti = {k: {"calls_per_tti": n_ / 10, "ms_per_tti": round(1e2 * t, 3),
+                   "share": round(t / totals["WaveformNetwork.run"][1], 3)}
+               for k, (n_, t) in totals.items()}
+    log(f"network by stage, per host-paced TTI (4 DL + 1 UL packets per UE offered just "
+        f"before): {json.dumps(per_tti)}")
+    traffic()
+    prof = profile_block(lambda: net.run(10))
+    log(f"network profile of 10 host-paced TTIs with traffic: {json.dumps(prof)}; per TTI: device "
+        f"{prof['device_ms'] / 10:.3f} ms, {prof['kernel_launches'] / 10:.0f} kernel launches, "
+        f"busy share {prof['busy_share']:.4f}; {card}")
+
+    # the block runners on the attached network
+    sps = waveblock.SpsBlockRunner(net, T=SPS_T)
+    sps_rate, sps_launches = run_runner(sps, launch_seen)
+    m = sps.metrics
+    assert m["blocks"] == 3 and m["dl_ok"] == m["dl_tb"] and m["ul_ok"] == m["ul_tb"] \
+        and m["ack_det"] == m["dl_tb"], m
+    log(f"SpsBlockRunner T={SPS_T}: {sps_rate:.1f} TTIs/s over 2 blocks (host mux and "
+        f"stack feedback included), {sps_launches} turbo_map launches per block; metrics "
+        f"{json.dumps(m)}; DL {sps.cfg.dl_l_crbs} PRB MCS {sps.cfg.dl_mcs} (TBS "
+        f"{sps.cfg.dl_tbs}), UL {sps.cfg.ul_l_prb} PRB (TBS {sps.cfg.ul_tbs}); {card}")
+    dyn = waveblock_dyn.DynBlockRunner(net, R=DYN_R)
+    dyn_rate, dyn_launches = run_runner(dyn, launch_seen)
+    m = dyn.metrics
+    assert m["blocks"] == 3 and m["dl_ok"] == m["dl_tb"] and m["ul_ok"] == m["ul_tb"], m
+    log(f"DynBlockRunner R={DYN_R}: {dyn_rate:.1f} TTIs/s over 2 blocks (host mux and "
+        f"stack feedback included), {dyn_launches} turbo_map launches per block; metrics "
+        f"{json.dumps(m)}; DL {dyn.cfg.dl_l_crbs} PRB (TBS {dyn.cfg.dl_tbs}), UL "
+        f"{dyn.cfg.ul_l_prb} PRB (TBS {dyn.cfg.ul_tbs}); {card}")
+    assert all(u.emm_state == "REGISTERED" for u in ues)
+
+    cases = map_cases(new_map_shapes(logs, ()), dev)
+    for c in cases:
+        n_launch = sum(1 for k, r, nw in logs if (k, r, nw) == (c["K"], c["B"], c["narrow"]))
+        log(f"turbo_map at {c['B']} x K={c['K']} {'bf16' if c['narrow'] else 'f32'}: "
+            f"{1e3 * c['ms']:.1f} us (L2-flushed {1e3 * c['flushed_ms']:.1f} us, wrapper "
+            f"{1e3 * c['wrapper_ms']:.1f} us, plain {1e3 * c['plain_ms']:.1f} us), bound "
+            f"{1e3 * c['bound_ms']:.3f} us ({c['bound_by']}), share {c['share']:.4f}, bit for "
+            f"bit; launches at this shape in phase 12: {n_launch}; {card}")
+    log(f"phase 12: {time.perf_counter() - t_phase:.1f} s")
+    return cases, steady_launches + sps_launches + dyn_launches
+
+
 def main():
     import torch
 
@@ -1984,6 +2192,7 @@ def main():
     mimo_cases, tm3_launches = phase_mimo(dev, card)
     sync_cases, sync_launches = phase_sync(dev, card)
     block_cases, block_launches = phase_blocks(dev, card)
+    net_cases, net_launches = phase_network(dev, card)
     bench = next(c for c in cases if (c["K"], c["B"], c["narrow"]) == (5504, 768, True))
     odd = next(c for c in v1_cases if (c["K"], c["B"]) == (1040, 768))
     print(json.dumps({"kernels": [{
@@ -1991,11 +2200,11 @@ def main():
         "route": "cuda",
         "source": "srslte_emane_tpu_torch/csrc/turbo_map.cu",
         "replaces": "srslte_emane_tpu/ops/fec/turbodecoder_pallas2.py:70",
-        # PDSCH link, uplink, DL subframe, TM3 cell, phase 10's and 11's paths
+        # PDSCH link, uplink, DL subframe, TM3 cell, phase 10's, 11's and 12's paths
         "launches": (dl_launches + ul_launches + sf_launches + tm3_launches + sync_launches
-                     + block_launches),
+                     + block_launches + net_launches),
         "max_abs_err": max(c["max_abs_err"] for c in cases + mimo_cases + sync_cases
-                           + block_cases),
+                           + block_cases + net_cases),
         "ms": bench["ms"],
         "wrapper_ms": bench["wrapper_ms"],
         "plain_ms": bench["plain_ms"],

@@ -69,13 +69,16 @@ def assemble_grid(syms: torch.Tensor, cell: grid_mod.CellConfig, sf_idx: int,
 
 def encode(tb_bits: torch.Tensor, cfg: sch.SchConfig, cell: grid_mod.CellConfig,
            sf_idx: int, rnti: int, prb_mask: tuple, grid=None,
-           max_sym: int = 0) -> torch.Tensor:
+           max_sym: int = 0, re_idx=None) -> torch.Tensor:
     """Encode one PDSCH grant into a subframe grid.
 
     tb_bits: (B, tbs).  Returns grid (B, 14, NRE, 2) with CRS + PDSCH placed
     (into a copy of `grid` if given); max_sym truncates the PDSCH symbols
-    (TDD DwPTS)."""
-    re_idx = _re_table(cell, sf_idx, prb_mask, tb_bits.device, max_sym)
+    (TDD DwPTS).  re_idx: the grant's (n_re,) RE index table as a tensor (or
+    array), in place of the one `prb_mask` gives; it needs `grid`."""
+    assert re_idx is None or grid is not None, "re_idx places into a given grid"
+    re_idx = (_re_table(cell, sf_idx, prb_mask, tb_bits.device, max_sym) if re_idx is None
+              else torch.as_tensor(re_idx, device=tb_bits.device).long())
     assert cfg.G == len(re_idx) * cfg.Qm, (cfg.G, len(re_idx), cfg.Qm)
     syms = _codeword_symbols([tb_bits], [cfg], cell, sf_idx, rnti)[0]  # (B, n_re, 2)
     if grid is None:
@@ -89,12 +92,15 @@ def encode(tb_bits: torch.Tensor, cfg: sch.SchConfig, cell: grid_mod.CellConfig,
 def decode(rx_grid: torch.Tensor, cfg: sch.SchConfig, cell: grid_mod.CellConfig,
            sf_idx: int, rnti: int, prb_mask: tuple, softbuf=None, max_iter: int = 8,
            use_kernel: bool | None = None, llr_bits: int = 32, max_sym: int = 0,
-           equalizer: str = "zf"):
+           equalizer: str = "zf", re_idx=None):
     """Decode one PDSCH grant from a received subframe grid (B, 14, NRE, 2).
-    equalizer: "zf" or "mmse" (with the estimate's noise variance).
+    equalizer: "zf" or "mmse" (with the estimate's noise variance); re_idx:
+    the grant's RE index table, in place of the one `prb_mask` gives (see
+    encode).
 
     Returns (payload bits (B, tbs), crc ok (B,), softbuf', ChestResult)."""
-    re_idx = _re_table(cell, sf_idx, prb_mask, rx_grid.device, max_sym)
+    re_idx = (_re_table(cell, sf_idx, prb_mask, rx_grid.device, max_sym) if re_idx is None
+              else torch.as_tensor(re_idx, device=rx_grid.device).long())
     ch = chest.estimate(rx_grid, cell, sf_idx)
     flat_rx = rx_grid.reshape(rx_grid.shape[:-3] + (cell.n_sym * cell.nre, 2))
     flat_ce = ch.ce.reshape(flat_rx.shape)

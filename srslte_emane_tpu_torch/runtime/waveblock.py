@@ -494,6 +494,129 @@ def _pack_segments(n_prb: int, n: int, segments) -> tuple:
     return tuple(starts), w
 
 
+def _mux(rlc_map, tbs_bytes: int) -> bytes:
+    """One MAC PDU from a dict of RLC entities (36.321 mux role), padded to
+    the TBS with real padding subheaders."""
+    from ..stack import pdu as pdu_mod
+
+    subs, room = [], tbs_bytes - 4
+    for lcid in sorted(rlc_map):
+        while room > 8 and rlc_map[lcid].has_data():
+            p = rlc_map[lcid].read_pdu(room - 4)
+            if p is None:
+                break
+            subs.append((lcid, p))
+            room -= len(p) + 3
+    return pdu_mod.pack(subs, tb_size=tbs_bytes)
+
+
+def _mux_block(net, rntis, ue_idx, T: int, dl_tbs: int, ul_tbs: int):
+    """T TTIs of MAC PDUs per UE drained from the eNB's and the UEs' RLC
+    entities (the MAC ticking once per TTI): ((T, n, dl_tbs), (T, n,
+    ul_tbs)) int8 bits."""
+    mac = net.enb.mac
+    dtb, utb = dl_tbs // 8, ul_tbs // 8
+    dl = np.zeros((T, len(rntis), dtb), np.uint8)
+    ul = np.zeros((T, len(rntis), utb), np.uint8)
+    for t in range(T):
+        for i, r in enumerate(rntis):
+            dl[t, i] = np.frombuffer(_mux(mac.ues[r].rlc, dtb), np.uint8)
+            ul[t, i] = np.frombuffer(_mux(net.ues[ue_idx[i]].stack.rlc, utb), np.uint8)
+        getattr(mac, "tick", lambda: None)()
+    return (np.unpackbits(dl, axis=-1).astype(np.int8),
+            np.unpackbits(ul, axis=-1).astype(np.int8))
+
+
+def _link_snrs(net, rntis) -> tuple:
+    """(UE index of each RNTI in net.ues, per-RNTI DL link SNR in dB)."""
+    med = net.medium
+    by_crnti = {ue.stack.crnti: i for i, ue in enumerate(net.ues)}
+    ue_idx = [by_crnti[r] for r in rntis]
+    snr = tuple(float(med.tx_power_dbm - med.pathloss_db[i] - med.noise_floor_dbm)
+                for i in ue_idx)
+    return ue_idx, snr
+
+
+class SpsBlockRunner:
+    """Bridge between an ATTACHED WaveformNetwork's L2/L3 stacks and the
+    device-resident block program: per block, the host drains T TTIs of
+    MAC PDUs from the eNB's and UEs' RLC entities (pure byte work), runs
+    ONE block step for the whole block's PHY on the network's device, and
+    feeds the decoded TBs back into the stacks.  Feedback loops (RLC AM
+    status, etc.) see a T-TTI latency — the block is the speculation
+    window, the same trade the reference makes pipelining TTIs across
+    sf_workers (txrx.cc:105-145), deepened to a device batch.
+
+    The per-UE dedicated SR PUCCH resource doubles as the SPS persistent
+    HARQ-ACK resource (the n1PUCCH-AN-persistentList role — rrc_wire.py
+    sps-config carries that list).  The block's noise comes from a
+    torch.Generator seeded net.tti + 17."""
+
+    def __init__(self, net, T: int = 20, dl_mcs: int = 10, ul_mcs: int = 10):
+        self.net = net
+        mac = net.enb.mac
+        cell = net.cell
+        rntis = sorted(r for r, u in mac.ues.items()
+                       if u.state == "RRC_CONNECTED"
+                       and getattr(u, "sr_pucch_res", None) is not None)
+        assert rntis, "no RRC-connected UEs to run in block mode"
+        n_prb = cell.n_prb
+        c0, c1 = centre_prbs(n_prb)
+        dl_starts, dl_w = _pack_segments(
+            n_prb, len(rntis), [(0, c0), (c1, n_prb)])
+        lo, hi = mac.ul_prb_lo, mac.ul_prb_hi
+        wu = max(1, (hi - lo) // len(rntis))
+        while wu > 1 and not pusch_mod.valid_n_prb(wu):
+            wu -= 1
+        ul_starts = tuple(lo + i * wu for i in range(len(rntis)))
+        self.ue_idx, snr = _link_snrs(net, rntis)
+        self.cfg = BlockConfig(
+            cell=cell, rntis=tuple(rntis),
+            dl_rb_start=dl_starts, dl_l_crbs=dl_w, dl_mcs=dl_mcs,
+            ul_rb_start=ul_starts, ul_l_prb=wu, ul_mcs=ul_mcs,
+            ack_res=tuple(mac.ues[r].sr_pucch_res for r in rntis),
+            snr_db=snr, T=T)
+        self.step = make_block_step(self.cfg, sfn0=(net.tti // 10) % 1024,
+                                    device=net.device)
+        self._gen = torch.Generator(device=net.device)
+        self._gen.manual_seed(net.tti + 17)
+        self.metrics = dict(blocks=0, dl_tb=0, dl_ok=0, ul_tb=0, ul_ok=0,
+                            ack_det=0)
+
+    def run_block(self) -> dict:
+        """Run T TTIs device-resident.  Returns the block's outputs (as
+        numpy arrays)."""
+        net, cfg = self.net, self.cfg
+        mac = net.enb.mac
+        dl, ul = _mux_block(net, cfg.rntis, self.ue_idx, cfg.T, cfg.dl_tbs, cfg.ul_tbs)
+        out = self.step(dl, ul, self._gen, net.tti % 10240)
+        out = {k: v.cpu().numpy() for k, v in out.items()}
+        dl_out = np.packbits(out["dl_out"].astype(np.uint8), axis=-1)
+        ul_out = np.packbits(out["ul_out"].astype(np.uint8), axis=-1)
+        ack = out["ack_energy"] > 0.25
+        for t in range(cfg.T):
+            tti = net.tti + t
+            for i, r in enumerate(cfg.rntis):
+                ust = net.ues[self.ue_idx[i]].stack
+                self.metrics["dl_tb"] += 1
+                self.metrics["ul_tb"] += 1
+                if out["dl_ok"][t, i]:
+                    self.metrics["dl_ok"] += 1
+                    ust.tb_decoded(tti, dl_out[t, i].tobytes(),
+                                   cfg.snr_db[i], rnti=r)
+                    ust.get_pucch(tti)  # PHY-level ACK already carried
+                if out["ul_ok"][t, i]:
+                    self.metrics["ul_ok"] += 1
+                    mac.ul_pdu(tti, r, ul_out[t, i].tobytes(),
+                               cfg.snr_db[i])
+                self.metrics["ack_det"] += int(ack[t, i])
+                if hasattr(ust, "tick"):
+                    ust.tick()
+        net.tti += cfg.T
+        self.metrics["blocks"] += 1
+        return out
+
+
 def make_bench_step(cfg: BlockConfig, sfn0: int = 0, device="cuda"):
     """The block step reduced on the device to three counts: (DL CRCs
     passed (per codeword with tm3), UL CRCs passed, ACKs detected with

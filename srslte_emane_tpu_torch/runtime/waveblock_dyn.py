@@ -869,6 +869,94 @@ def make_dyn_block_step(cfg: DynBlockConfig, device="cuda"):
     return step
 
 
+class DynBlockRunner:
+    """Bridge between an ATTACHED WaveformNetwork's L2/L3 stacks and the
+    dynamic block program: per block, the host muxes T TTIs of MAC PDUs
+    per UE from the RLC entities into the payload queues, runs ONE block
+    step for R rounds of dynamically-scheduled HARQ-carrying PHY on the
+    network's device, and feeds the decoded TBs back into the stacks in
+    queue order.
+
+    The mux window is SPECULATIVE: TBs the block did not consume (their
+    slots were taken by retransmissions) are dropped and recover via RLC
+    AM — the same T-TTI speculation trade as SpsBlockRunner, extended to
+    a dynamic grant/HARQ loop.  Delivery happens at recovery time, so a
+    TB that needed two IR transmissions arrives 8 TTIs late, exactly the
+    8-process cadence.  The block's noise comes from a torch.Generator
+    seeded net.tti + 23."""
+
+    def __init__(self, net, R: int = 3, dl_mcs: int = 10, ul_mcs: int = 10):
+        self.net = net
+        mac = net.enb.mac
+        cell = net.cell
+        rntis = sorted(r for r, u in mac.ues.items()
+                       if u.state == "RRC_CONNECTED")
+        assert rntis, "no RRC-connected UEs to run in dyn-block mode"
+        n = len(rntis)
+        c0, c1 = waveblock.centre_prbs(cell.n_prb)
+        usable = c0 + (cell.n_prb - c1)
+        w = max(1, usable // n)
+        lo = _pucch_region(cell)
+        wu = max(1, (cell.n_prb - 2 * lo) // n)
+        while wu > 1 and not pusch_mod.valid_n_prb(wu):
+            wu -= 1
+        self.ue_idx, snr = waveblock._link_snrs(net, rntis)
+        self.cfg = DynBlockConfig(
+            cell=cell, rntis=tuple(rntis), dl_l_crbs=w, dl_mcs=dl_mcs,
+            ul_l_prb=wu, ul_mcs=ul_mcs, snr_db=snr, R=R)
+        self.step = make_dyn_block_step(self.cfg, device=net.device)
+        self._gen = torch.Generator(device=net.device)
+        self._gen.manual_seed(net.tti + 23)
+        self._sched_seed = net.tti
+        self.metrics = dict(blocks=0, dl_tb=0, dl_ok=0, ul_tb=0, ul_ok=0,
+                            dl_retx=0, ul_retx=0, dl_drop=0, ul_drop=0,
+                            dci_miss=0)
+
+    def run_block(self) -> dict:
+        """Run R rounds device-resident.  Returns the block's outputs (as
+        numpy arrays)."""
+        net, cfg = self.net, self.cfg
+        mac = net.enb.mac
+        dl, ul = waveblock._mux_block(net, cfg.rntis, self.ue_idx, cfg.T,
+                                     cfg.dl_tbs, cfg.ul_tbs)
+        self._sched_seed += 1
+        rb_dl, rb_ul = make_schedule(cfg, seed=self._sched_seed)
+        out = self.step(dl, ul, rb_dl, rb_ul, self._gen,
+                        (net.tti + 7) // 8 * 8 % 10240)
+        out = {k: v.cpu().numpy() for k, v in out.items()}
+        dl_out = np.packbits(out["dl_out"].astype(np.uint8), axis=-1)
+        ul_out = np.packbits(out["ul_out"].astype(np.uint8), axis=-1)
+        m = self.metrics
+        for r in range(cfg.R):
+            for t in range(N_PID):
+                tti = net.tti + r * N_PID + t
+                for i, rnti in enumerate(cfg.rntis):
+                    ust = net.ues[self.ue_idx[i]].stack
+                    if out["dl_new"][r, t, i]:
+                        m["dl_tb"] += 1
+                    if out["ul_new"][r, t, i]:
+                        m["ul_tb"] += 1
+                    if out["dl_ok"][r, t, i]:
+                        m["dl_ok"] += 1
+                        ust.tb_decoded(tti, dl_out[r, t, i].tobytes(),
+                                       cfg.snr_db[i], rnti=rnti)
+                        ust.get_pucch(tti)
+                    if out["ul_ok"][r, t, i]:
+                        m["ul_ok"] += 1
+                        mac.ul_pdu(tti, rnti, ul_out[r, t, i].tobytes(),
+                                   cfg.snr_db[i])
+                    if hasattr(ust, "tick"):
+                        ust.tick()
+        m["dl_retx"] += int(out["dl_retx_tx"])
+        m["ul_retx"] += int(out["ul_retx_tx"])
+        m["dl_drop"] += int(out["dl_drop"])
+        m["ul_drop"] += int(out["ul_drop"])
+        m["dci_miss"] += int(out["dci_dl_miss"]) + int(out["dci_ul_miss"])
+        m["blocks"] += 1
+        net.tti += cfg.T
+        return out
+
+
 def make_bench_step(cfg: DynBlockConfig, device="cuda"):
     """The dynamic block reduced on the device to six counts: (DL CRCs
     passed, UL CRCs passed, ACKs detected, DL retransmissions, UL

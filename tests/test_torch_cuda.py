@@ -697,3 +697,84 @@ def test_block_entry_points_return_tensors_on_the_card(dev):
     assert int(out["dl_ok"].sum()) == int(out["ul_ok"].sum()) == dcfg.T * 2
     counts = waveblock_dyn.make_bench_step(dcfg)(dl_q, ul_q, rb_dl, rb_ul, gen, 0)
     assert all(c.device.type == "cuda" for c in counts)
+
+
+def _port_network(tmp, device):
+    """tests/test_waveblock.py's network (15 PRB, 2 UEs, 80 dB, seed 3,
+    preambles 11 + 5i) on the port alone, with a MAC pcap."""
+    from srslte_emane_tpu_torch.epc import hss as hss_mod, mme as mme_mod, spgw as spgw_mod
+    from srslte_emane_tpu_torch.runtime import wavenet
+    from srslte_emane_tpu_torch.stack import enb_stack, security, ue_stack
+    from srslte_emane_tpu_torch.utils import pcap
+
+    hss = hss_mod.Hss()
+    spgw = spgw_mod.Spgw()
+    enb = enb_stack.EnbStack(mme_mod.Mme(hss, spgw), enb_id=1, n_prb=15)
+    ues = []
+    for i in range(2):
+        imsi, key = f"00101000000002{i:02d}", bytes(range(16))
+        hss.add(hss_mod.Subscriber(imsi=imsi, key=key))
+        opc = security.milenage_opc(key, b"\x00" * 16)
+        ues.append(ue_stack.UeStack(ue_stack.Usim(imsi, key, opc), preamble=11 + 5 * i))
+    net = wavenet.WaveformNetwork(enb, ues, pathloss_db=np.full(2, 80.0), n_prb=15, seed=3,
+                                  pcap=pcap.MacPcap(str(tmp / f"{device}.pcap")),
+                                  **({} if device == "cuda" else dict(device=device)))
+    return net, ues, spgw, spgw_mod
+
+
+def test_network_on_the_card_equals_the_cpu(dev, tmp_path, monkeypatch):
+    """The waveform network on the card (its default device) in lockstep
+    with the same network on the CPU, both fed one seeded numpy noise stream
+    each and the same HSS RAND: per TTI the sync, EMM/RRC/MAC states and PHY
+    metrics, then the MAC pcaps and the delivered IP packets, are equal."""
+    import types
+
+    from srslte_emane_tpu_torch.epc import hss as hss_mod
+    from srslte_emane_tpu_torch.runtime import wavenet
+
+    rngs = {"cuda": np.random.default_rng(5), "cpu": np.random.default_rng(5)}
+
+    def randn(gen, shape, device):
+        x = rngs[torch.device(device).type].standard_normal(tuple(shape)).astype(np.float32)
+        return torch.from_numpy(x).to(device)
+
+    monkeypatch.setattr(wavenet, "_randn", randn)
+    monkeypatch.setattr(hss_mod, "os", types.SimpleNamespace(urandom=lambda n: bytes(range(n))))
+    sides = [_port_network(tmp_path, d) for d in ("cuda", "cpu")]
+    assert sides[0][0].device.type == "cuda" and sides[1][0].device.type == "cpu"
+
+    def state(side):
+        net, ues, _, _ = side
+        return ([u.state for u in net.ues], [(u.emm_state, u.rrc_state, u.mac_state) for u in ues],
+                net.enb.metrics, [u.metrics for u in net.ues])
+
+    def run(n):
+        for _ in range(n):
+            for net, *_ in sides:
+                net.run(1)
+            assert state(sides[0]) == state(sides[1]), sides[0][0].tti
+
+    while sides[0][0].tti < 300 and not all(u.emm_state == "REGISTERED" for u in sides[0][1]):
+        run(1)
+    assert all(u.emm_state == "REGISTERED" for _, ues, _, _ in sides for u in ues)
+    for _, ues, spgw, spgw_mod in sides:
+        for u in ues:
+            assert spgw.handle_sgi_pdu(spgw_mod.make_ipv4("8.8.8.8", u.ip_addr, b"blk" * 40))
+    run(20)
+    gw = [[list(u.gw_rx) for u in ues] for _, ues, _, _ in sides]
+    assert gw[0] == gw[1] and all(gw[0])
+    recs = [(tmp_path / f"{d}.pcap").read_bytes() for d in ("cuda", "cpu")]
+    strip = lambda b: [b[o + 16 : o + 16 + n] for o, n in _pcap_offsets(b)]
+    assert len(strip(recs[0])) > 40 and strip(recs[0]) == strip(recs[1])
+
+
+def _pcap_offsets(data):
+    """(offset, length) of every pcap record."""
+    import struct
+
+    off, out = 24, []
+    while off < len(data):
+        n = struct.unpack("!IIII", data[off : off + 16])[2]
+        out.append((off, n))
+        off += 16 + n
+    return out
