@@ -32,7 +32,9 @@ def _crs_table(cell: grid_mod.CellConfig, sf_idx: int, port: int, device: torch.
     return torch.from_numpy(pidx).to(device), cplx.from_numpy(vals.reshape(-1), device)
 
 
-@functools.lru_cache(maxsize=32)
+# one table per (subframe, allocation): the waveform network's DL grants
+# vary in both from TTI to TTI
+@functools.lru_cache(maxsize=256)
 def _re_table(cell: grid_mod.CellConfig, sf_idx: int, prb_mask: tuple,
               device: torch.device, max_sym: int = 0) -> torch.Tensor:
     idx = grid_mod.pdsch_re_indices(cell, sf_idx, prb_mask, max_sym)
@@ -69,16 +71,13 @@ def assemble_grid(syms: torch.Tensor, cell: grid_mod.CellConfig, sf_idx: int,
 
 def encode(tb_bits: torch.Tensor, cfg: sch.SchConfig, cell: grid_mod.CellConfig,
            sf_idx: int, rnti: int, prb_mask: tuple, grid=None,
-           max_sym: int = 0, re_idx=None) -> torch.Tensor:
+           max_sym: int = 0) -> torch.Tensor:
     """Encode one PDSCH grant into a subframe grid.
 
     tb_bits: (B, tbs).  Returns grid (B, 14, NRE, 2) with CRS + PDSCH placed
     (into a copy of `grid` if given); max_sym truncates the PDSCH symbols
-    (TDD DwPTS).  re_idx: the grant's (n_re,) RE index table as a tensor (or
-    array), in place of the one `prb_mask` gives; it needs `grid`."""
-    assert re_idx is None or grid is not None, "re_idx places into a given grid"
-    re_idx = (_re_table(cell, sf_idx, prb_mask, tb_bits.device, max_sym) if re_idx is None
-              else torch.as_tensor(re_idx, device=tb_bits.device).long())
+    (TDD DwPTS)."""
+    re_idx = _re_table(cell, sf_idx, prb_mask, tb_bits.device, max_sym)
     assert cfg.G == len(re_idx) * cfg.Qm, (cfg.G, len(re_idx), cfg.Qm)
     syms = _codeword_symbols([tb_bits], [cfg], cell, sf_idx, rnti)[0]  # (B, n_re, 2)
     if grid is None:
@@ -92,15 +91,12 @@ def encode(tb_bits: torch.Tensor, cfg: sch.SchConfig, cell: grid_mod.CellConfig,
 def decode(rx_grid: torch.Tensor, cfg: sch.SchConfig, cell: grid_mod.CellConfig,
            sf_idx: int, rnti: int, prb_mask: tuple, softbuf=None, max_iter: int = 8,
            use_kernel: bool | None = None, llr_bits: int = 32, max_sym: int = 0,
-           equalizer: str = "zf", re_idx=None):
+           equalizer: str = "zf"):
     """Decode one PDSCH grant from a received subframe grid (B, 14, NRE, 2).
-    equalizer: "zf" or "mmse" (with the estimate's noise variance); re_idx:
-    the grant's RE index table, in place of the one `prb_mask` gives (see
-    encode).
+    equalizer: "zf" or "mmse" (with the estimate's noise variance).
 
     Returns (payload bits (B, tbs), crc ok (B,), softbuf', ChestResult)."""
-    re_idx = (_re_table(cell, sf_idx, prb_mask, rx_grid.device, max_sym) if re_idx is None
-              else torch.as_tensor(re_idx, device=rx_grid.device).long())
+    re_idx = _re_table(cell, sf_idx, prb_mask, rx_grid.device, max_sym)
     ch = chest.estimate(rx_grid, cell, sf_idx)
     flat_rx = rx_grid.reshape(rx_grid.shape[:-3] + (cell.n_sym * cell.nre, 2))
     flat_ce = ch.ce.reshape(flat_rx.shape)

@@ -29,7 +29,6 @@ import numpy as np
 import torch
 
 from . import otamsg
-from . import otamsg
 
 # SINR decode thresholds (dB) at the BLER knee per modulation — the shape of
 # EMANE's pre-computed BLER curves collapsed to their operating points.

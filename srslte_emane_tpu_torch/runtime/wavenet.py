@@ -134,6 +134,20 @@ def _host(x: torch.Tensor) -> np.ndarray:
     return x.cpu().numpy()
 
 
+def _per_instance(fn):
+    """Cache a method's result by its arguments in its instance's `_memo`,
+    so the device tables live as long as their _CellKernels."""
+
+    @functools.wraps(fn)
+    def cached(self, *args):
+        key = (fn.__name__,) + args
+        if key not in self._memo:
+            self._memo[key] = fn(self, *args)
+        return self._memo[key]
+
+    return cached
+
+
 class _CellKernels:
     """Per-cell PHY calls on `device`, shared by the eNB and every UE; the
     host tables they use are built once per shape.
@@ -156,6 +170,7 @@ class _CellKernels:
         self.f2_base = f2_base
         self.n_cce = n_cce
         self.device = torch.device(device)
+        self._memo = {}
 
     def _t(self, a) -> torch.Tensor:
         """numpy (or list) -> tensor on the device."""
@@ -170,7 +185,7 @@ class _CellKernels:
 
     # ---- eNB side ----
 
-    @functools.lru_cache(maxsize=None)
+    @_per_instance
     def _base(self, sf_idx: int) -> torch.Tensor:
         """(1, 14, NRE, 2) PSS/SSS + CRS + PCFICH of subframe sf_idx."""
         cell = self.cell
@@ -191,25 +206,23 @@ class _CellKernels:
             g = pbch_mod.encode(self._t(mib_bits), self.cell, with_pbch, g)
         return g
 
-    @functools.lru_cache(maxsize=None)
-    def dl_re_idx(self, sf_idx: int, rb_start: int, l_crbs: int) -> torch.Tensor:
-        """(n_re,) RE index table of a type-2 DL alloc, on the device."""
+    def _dl_cfg(self, sf: int, rb_start: int, l_crbs: int, mcs: int):
+        """(PRB mask, SchConfig) of a type-2 DL alloc."""
         mask = ra.type2_to_prb_mask(rb_start, l_crbs, self.cell.n_prb)
-        return self._t(grid_mod.pdsch_re_indices(self.cell, sf_idx, mask)).long()
+        qm = ra.dl_mcs_to_qm(mcs)
+        g = grid_mod.nof_re(self.cell, sf, mask) * qm
+        return mask, sch.SchConfig(tbs=ra.dl_tbs(mcs, l_crbs), G=g, Qm=qm, Nl=1)
 
     def add_dl_grant(self, grid, sf: int, rb_start: int, l_crbs: int, mcs: int,
                      l_aggr: int, dci_bits, payload_bits, rnti: int,
                      cce_start: int):
         """Place one DCI-1A + its PDSCH into the grid."""
         cell = self.cell
-        re_idx = self.dl_re_idx(sf, rb_start, l_crbs)
-        qm = ra.dl_mcs_to_qm(mcs)
-        cfg = sch.SchConfig(tbs=ra.dl_tbs(mcs, l_crbs), G=len(re_idx) * qm,
-                            Qm=qm, Nl=1)
+        mask, cfg = self._dl_cfg(sf, rb_start, l_crbs, mcs)
         g = pdcch_mod.encode(self._t(dci_bits), rnti, l_aggr, cce_start, cell,
                              sf, grid)
         return pdsch_mod.encode(self._t(payload_bits), cfg, cell, sf, rnti,
-                                None, grid=g, re_idx=re_idx)
+                                mask, grid=g)
 
     def add_ul_dci(self, grid, sf_idx: int, l_aggr: int, dci_bits, rnti: int,
                    cce_start: int):
@@ -224,7 +237,7 @@ class _CellKernels:
 
     # ---- UE side ----
 
-    @functools.lru_cache(maxsize=None)
+    @_per_instance
     def _sb_layout(self):
         """(n_sb, k_sb, pad, per-subband RE counts on the device)."""
         cell = self.cell
@@ -256,12 +269,8 @@ class _CellKernels:
 
     def pdsch_rx(self, rg, sf: int, rb_start: int, l_crbs: int, mcs: int,
                  rnti: int):
-        re_idx = self.dl_re_idx(sf, rb_start, l_crbs)
-        qm = ra.dl_mcs_to_qm(mcs)
-        cfg = sch.SchConfig(tbs=ra.dl_tbs(mcs, l_crbs), G=len(re_idx) * qm,
-                            Qm=qm, Nl=1)
-        payload, ok, _, _ = pdsch_mod.decode(rg, cfg, self.cell, sf, rnti, None,
-                                             re_idx=re_idx)
+        mask, cfg = self._dl_cfg(sf, rb_start, l_crbs, mcs)
+        payload, ok, _, _ = pdsch_mod.decode(rg, cfg, self.cell, sf, rnti, mask)
         return payload, ok
 
     def phich_rx(self, rg, ce, sf_idx: int):
@@ -307,7 +316,7 @@ class _CellKernels:
 
     # ---- PUCCH: every format-1 resource of the region as ONE tensor ----
 
-    @functools.lru_cache(maxsize=None)
+    @_per_instance
     def _pucch_wf(self, sf_idx: int):
         """(N_RES, sf_len, 2) x2 on the device: time-domain DMRS part and
         data part per resource; a UE's transmission is W_dmrs[r] +
@@ -343,7 +352,7 @@ class _CellKernels:
                                       sf_idx, res, g)
         return ofdm.modulate(g, cell.n_prb)
 
-    @functools.lru_cache(maxsize=None)
+    @_per_instance
     def _f2_tables(self, sf_idx: int):
         """(pos (n*2*7*12,) int64, conj(ref) (n, 2, 7, 12, 2)) on the device
         for the whole format-2 region."""
@@ -397,7 +406,7 @@ class _CellKernels:
                   for s in range(2))  # (n, 2)
         return bits, metric, energy, ack
 
-    @functools.lru_cache(maxsize=None)
+    @_per_instance
     def _pucch_rx_tables(self, sf_idx: int):
         """(RE indices (n_res*n_mf*12,) int64, conj(ref) (n_res, n_mf, 12,
         2)) of every format-1 resource's data symbols, on the device."""
@@ -590,7 +599,8 @@ class WaveEnbPhy:
             # its MCS rounded to even, floored at whatever fits the payload
             # + padding headers and capped at a legal code rate over the
             # grant's TRUE RE count
-            re_idx = self.k.dl_re_idx(sf, rb_start, l_crbs)
+            n_re = grid_mod.nof_re(self.cell, sf,
+                                   ra.type2_to_prb_mask(rb_start, l_crbs, n_prb))
             pref = min(g.mcs, 27) + 1
             sb = getattr(self.mac.ues.get(g.rnti),
                          "sb_cqi", None) if getattr(
@@ -606,7 +616,7 @@ class WaveEnbPhy:
                         for p in range(rb_start, rb_start + l_crbs)]
                 pref = max(0, min(28, pref + 2 * min(offs)))
             mcs = _dl_mcs_clamp(pref, len(g.payload),
-                                l_crbs, len(re_idx))
+                                l_crbs, n_re)
             tbs = ra.dl_tbs(mcs, l_crbs)
             d = dci_mod.DciDl("1A", mcs=mcs, harq_pid=g.harq_pid & 7,
                               ndi=g.ndi & 1, rv=g.rv & 3,
