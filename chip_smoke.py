@@ -118,7 +118,23 @@ Phases (any failure raises; the exit code is then non-zero):
      the attached network, one untimed and two timed blocks each (every
      CRC passes, every SPS ACK detected): TTIs/s and turbo_map launches
      per block; then turbo_map against its plain version at every shape
-     the phase launched.
+     the phase launched;
+ 13. slice 13c on phase 12's network: (a) with netsim's --fading epa (5 Hz)
+     --dyn-delay 0.2,1.5,1.0 --hst 40, (b) in TDD (configuration 1, special
+     subframe 4), (c) in 2x2 TM3 at 70 dB with singular-value ratio 1.0 for
+     UEs 0-5 and 0.05 for UEs 6-7; each attaches (in TM3 the UEs whose
+     antenna 0 decodes a noise-free MIB, since the PBCH rides port 0
+     alone) and carries phase 12's packets (TM3: then 3 x 1,000 B more per
+     UE, more than one TB) over 60 host-paced TTIs, every DL packet
+     delivered, with sf/s, CUDA-event time, turbo_map launches per TTI, the
+     time by stage and a profile; TDD: no UE transmission off a U
+     subframe, a TB decoded in an S subframe; TM3: every camped UE probes
+     its own rank (2, or 1 at ratio 0.05), the eNB gets RI reports, rank-2
+     grants go out and both codewords decode; (d) the dynamic block of
+     phase 11 (R=20) across 2 cells (make_bench_step(n_cells=2)) against 1:
+     every CRC and ACK in every cell, cell-TTIs/s, kernel and turbo_map
+     launches per block; then turbo_map against its plain version at every
+     shape of the phase not checked before.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -1968,13 +1984,14 @@ def phase_blocks(dev, card):
 # cfi 3, not netsim's 2: at cfi 2, DynBlockRunner's CCE allocation
 # (waveblock_dyn._alloc_cces, the reference's) cannot place the 8 netsim
 # C-RNTIs 0x146-0x14d in every subframe
-NET_PRB, NET_UES, NET_CFI, STEADY_TTIS = 100, 8, 3, 60
+NET_PRB, NET_UES, NET_CFI, NET_PATHLOSS, STEADY_TTIS = 100, 8, 3, 80.0, 60
 
 
-def waveform_network():
+def waveform_network(pathloss=NET_PATHLOSS, **kw):
     """apps/netsim.py:run_waveform_full's network: 8 UEs with IMSIs
     0010100000000xx and preambles (7 + i) % 64, pathloss 80 dB, seed 0, at
-    cfi NET_CFI, on the card (the entry point's default)."""
+    cfi NET_CFI, on the card (the entry point's default); `kw` are netsim's
+    other WaveformNetwork options."""
     from srslte_emane_tpu_torch.epc import hss as hss_mod, mme as mme_mod, spgw as spgw_mod
     from srslte_emane_tpu_torch.runtime import wavenet
     from srslte_emane_tpu_torch.stack import enb_stack, security, ue_stack
@@ -1990,8 +2007,9 @@ def waveform_network():
         hss.add(hss_mod.Subscriber(imsi=imsi, key=key))
         opc = security.milenage_opc(key, b"\x00" * 16)
         ues.append(ue_stack.UeStack(ue_stack.Usim(imsi, key, opc), preamble=(7 + i) % 64))
-    net = wavenet.WaveformNetwork(enb, ues, pathloss_db=np.full(NET_UES, 80.0),
-                                  n_prb=NET_PRB, seed=0, cfi=NET_CFI)
+    net = wavenet.WaveformNetwork(enb, ues, pathloss_db=np.full(NET_UES, pathloss),
+                                  n_prb=NET_PRB, seed=0, cfi=NET_CFI, **kw)
+    assert net.device.type == "cuda" and net.medium._gen.device.type == "cuda"
     return net, ues, spgw, spgw_mod
 
 
@@ -2006,6 +2024,121 @@ def network_stages():
             (wn.WaveUePhy, "_camp_rx_row"), (wn._CellKernels, "pdsch_rx"),
             (wn._CellKernels, "pusch_rx"), (wn.WaveUePhy, "_tx"),
             (turbodecoder, "turbo_decode"))
+
+
+class NetworkRun:
+    """Drives one waveform network through the steps that phases 12 and 13
+    share, keeping every turbo_map launch's (K, rows, narrow) in `logs`."""
+
+    def __init__(self, name, card, logs):
+        self.name, self.card, self.logs = name, card, logs
+
+    @contextlib.contextmanager
+    def launch_seen(self):
+        with launch_log() as seen:
+            yield
+        self.logs.extend(seen)
+
+    def attach(self, net, ues, expect=None):
+        """Attach in 10-TTI slabs (netsim's loop): every UE of `expect` (by
+        default all) REGISTERED, RRC CONNECTED, with an IP address, each
+        after a PRACH detection.  Returns each UE's attach TTI."""
+        import torch
+
+        from srslte_emane_tpu_torch.ops.fec import turbodecoder_cuda as tdc
+
+        expect = range(len(ues)) if expect is None else expect
+        attach_tti = {}
+        limit = 200 + 100 * NET_UES
+        tdc.launches = 0
+        t0 = time.perf_counter()
+        with self.launch_seen():
+            while net.tti < limit:
+                net.run(10)
+                for i, u in enumerate(ues):
+                    if i not in attach_tti and u.emm_state == "REGISTERED":
+                        attach_tti[i] = net.tti
+                if set(expect) <= set(attach_tti):
+                    break
+        torch.cuda.synchronize()
+        attach_s = time.perf_counter() - t0
+        bad = [(i, u.emm_state, u.rrc_state, u.ip_addr) for i, u in enumerate(ues)
+               if i in expect and not (u.emm_state == "REGISTERED"
+                                       and u.rrc_state == "CONNECTED" and u.ip_addr)]
+        assert not bad, f"{self.name}: UEs not attached after {net.tti} TTIs: {bad}"
+        assert net.enb.metrics["prach_det"] >= len(expect), net.enb.metrics
+        log(f"{self.name}: {NET_PRB} PRB, cfi {NET_CFI}, {NET_UES} UEs at "
+            f"{float(net.medium.pathloss_db[0]):.0f} dB: all REGISTERED, RRC CONNECTED, with an "
+            f"IP address; attach TTI per UE {json.dumps(attach_tti)}; {net.tti} TTIs in "
+            f"{attach_s:.1f} s ({net.tti / attach_s:.1f} sf/s during the attach, compiles none: "
+            f"first calls' host tables included); {tdc.launches} turbo_map launches; eNB "
+            f"{json.dumps(net.enb.metrics)}; UE 0 {json.dumps(net.ues[0].metrics)}; {self.card}")
+        return attach_tti
+
+    @staticmethod
+    def traffic(ues, spgw, spgw_mod, size=120, n_dl=4):
+        """netsim's IP traffic: n_dl DL packets of `size` bytes + 1 UL packet
+        of 120 per UE.  Returns each UE's DL packet."""
+        pkts = []
+        for u in ues:
+            pkt = spgw_mod.make_ipv4("8.8.8.8", u.ip_addr, b"d" * size)
+            for _ in range(n_dl):
+                spgw.handle_sgi_pdu(pkt)
+            u.gw_send(spgw_mod.make_ipv4(u.ip_addr, "8.8.8.8", b"u" * 120))
+            pkts.append(pkt)
+        return pkts
+
+    def paced(self, net, ues, spgw, offers, ttis=STEADY_TTIS):
+        """`ttis` host-paced TTIs after the offers ((packet per UE, count)
+        pairs): every DL packet delivered, UL bytes grown; sf/s, CUDA-event
+        time and turbo_map launches per TTI.  Returns the launches."""
+        import torch
+
+        from srslte_emane_tpu_torch.ops.fec import turbodecoder_cuda as tdc
+
+        before = [[u.gw_rx.count(pkt) for u, pkt in zip(ues, pkts)] for pkts, _ in offers]
+        ul_before = spgw.metrics["ul_bytes"]
+        tdc.launches = tdc.launches_v1 = 0
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        with self.launch_seen():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            start.record()
+            net.run(ttis)
+            end.record()
+            torch.cuda.synchronize()
+            steady_s = time.perf_counter() - t0
+        launches = tdc.launches
+        assert launches > 0 and tdc.launches_v1 == 0, (self.name, launches, tdc.launches_v1)
+        missing = [(i, k) for k, ((pkts, n), b) in enumerate(zip(offers, before))
+                   for i, (u, pkt) in enumerate(zip(ues, pkts)) if u.gw_rx.count(pkt) - b[i] != n]
+        assert not missing, f"{self.name}: DL packets missing at (UE, offer) {missing}"
+        assert spgw.metrics["ul_bytes"] > ul_before, spgw.metrics
+        log(f"{self.name} steady state: {ttis} host-paced TTIs with "
+            f"{' + '.join(f'{n} x {len(pkts[0])} B' for pkts, n in offers)} DL + 1 UL packets "
+            f"per UE, every DL packet delivered, UL bytes {ul_before} -> "
+            f"{spgw.metrics['ul_bytes']}; steady_sf_per_sec {ttis / steady_s:.1f}; CUDA-event "
+            f"time per TTI {start.elapsed_time(end) / ttis:.2f} ms; turbo_map launches per TTI "
+            f"{launches / ttis:.2f}; {self.card}")
+        return launches
+
+    def stages_and_profile(self, net, offer, extra_stages=()):
+        """Where a host-paced TTI with traffic goes (synchronised at every
+        stage: a breakdown, not a rate; nested calls count in both), then
+        the device profile of 5 such TTIs; `offer` queues the traffic."""
+        offer()
+        with timed_calls(network_stages() + tuple(extra_stages)) as totals:
+            net.run(10)
+        per_tti = {k: {"calls_per_tti": n_ / 10, "ms_per_tti": round(1e2 * t, 3),
+                       "share": round(t / totals["WaveformNetwork.run"][1], 3)}
+                   for k, (n_, t) in totals.items()}
+        log(f"{self.name} by stage, per host-paced TTI (traffic offered just before): "
+            f"{json.dumps(per_tti)}")
+        offer()
+        prof = profile_block(lambda: net.run(5))  # the profiler's summary costs seconds per TTI
+        log(f"{self.name} profile of 5 host-paced TTIs with traffic: {json.dumps(prof)}; per "
+            f"TTI: device {prof['device_ms'] / 5:.3f} ms, {prof['kernel_launches'] / 5:.0f} "
+            f"kernel launches, busy share {prof['busy_share']:.4f}; {self.card}")
 
 
 def run_runner(runner, launch_seen):
@@ -2028,106 +2161,37 @@ def run_runner(runner, launch_seen):
     return rate_, per_block
 
 
+def map_cases_logged(logs, known, dev, phase, card):
+    """turbo_map against its plain version at every shape of `logs` not in
+    `known`, each with its launches in the phase."""
+    cases = map_cases(new_map_shapes(logs, known), dev)
+    for c in cases:
+        n_launch = sum(1 for k, r, nw in logs if (k, r, nw) == (c["K"], c["B"], c["narrow"]))
+        log(f"turbo_map at {c['B']} x K={c['K']} {'bf16' if c['narrow'] else 'f32'}: "
+            f"{1e3 * c['ms']:.1f} us (L2-flushed {1e3 * c['flushed_ms']:.1f} us, wrapper "
+            f"{1e3 * c['wrapper_ms']:.1f} us, plain {1e3 * c['plain_ms']:.1f} us), bound "
+            f"{1e3 * c['bound_ms']:.3f} us ({c['bound_by']}), share {c['share']:.4f}, bit for "
+            f"bit; launches at this shape in phase {phase}: {n_launch}; {card}")
+    return cases
+
+
 def phase_network(dev, card):
     """Phase 12.  Returns (the turbo_map cases at its new shapes, its
     launches: the host-paced steady state plus one block of each runner)."""
-    import torch
-
-    from srslte_emane_tpu_torch.ops.fec import turbodecoder_cuda as tdc
     from srslte_emane_tpu_torch.runtime import waveblock, waveblock_dyn
 
     t_phase = time.perf_counter()
     net, ues, spgw, spgw_mod = waveform_network()
-    assert net.device.type == "cuda" and net.medium._gen.device.type == "cuda"
     logs = []
-
-    @contextlib.contextmanager
-    def launch_seen():
-        with launch_log() as seen:
-            yield
-        logs.extend(seen)
-
-    # attach in 10-TTI slabs (netsim's loop), each UE's registration TTI
-    attach_tti = {}
-    limit = 200 + 100 * NET_UES
-    tdc.launches = 0
-    t0 = time.perf_counter()
-    with launch_seen():
-        while net.tti < limit:
-            net.run(10)
-            for i, u in enumerate(ues):
-                if i not in attach_tti and u.emm_state == "REGISTERED":
-                    attach_tti[i] = net.tti
-            if len(attach_tti) == NET_UES:
-                break
-    torch.cuda.synchronize()
-    attach_s = time.perf_counter() - t0
-    attach_launches = tdc.launches
-    bad = [(i, u.emm_state, u.rrc_state, u.ip_addr) for i, u in enumerate(ues)
-           if not (u.emm_state == "REGISTERED" and u.rrc_state == "CONNECTED" and u.ip_addr)]
-    assert not bad, f"network: UEs not attached after {net.tti} TTIs: {bad}"
-    assert net.enb.metrics["prach_det"] >= NET_UES, net.enb.metrics
-    log(f"network: {NET_PRB} PRB, cfi {NET_CFI}, {NET_UES} UEs at 80 dB: all REGISTERED, RRC "
-        f"CONNECTED, with an IP address; attach TTI per UE {json.dumps(attach_tti)}; "
-        f"{net.tti} TTIs in {attach_s:.1f} s ({net.tti / attach_s:.1f} sf/s during the attach, "
-        f"compiles none: first calls' host tables included); {attach_launches} turbo_map "
-        f"launches; eNB {json.dumps(net.enb.metrics)}; UE 0 {json.dumps(net.ues[0].metrics)}; "
-        f"{card}")
-
-    def traffic():
-        """netsim's IP traffic: 4 DL + 1 UL packets per UE."""
-        pkts = []
-        for u in ues:
-            pkt = spgw_mod.make_ipv4("8.8.8.8", u.ip_addr, b"d" * 120)
-            for _ in range(4):
-                spgw.handle_sgi_pdu(pkt)
-            u.gw_send(spgw_mod.make_ipv4(u.ip_addr, "8.8.8.8", b"u" * 120))
-            pkts.append(pkt)
-        return pkts
-
-    pkts = traffic()
-    ul_before = spgw.metrics["ul_bytes"]
-    tdc.launches = tdc.launches_v1 = 0
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    with launch_seen():
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        start.record()
-        net.run(STEADY_TTIS)
-        end.record()
-        torch.cuda.synchronize()
-        steady_s = time.perf_counter() - t0
-    steady_launches = tdc.launches
-    assert steady_launches > 0 and tdc.launches_v1 == 0, (steady_launches, tdc.launches_v1)
-    missing = [i for i, (u, pkt) in enumerate(zip(ues, pkts)) if u.gw_rx.count(pkt) != 4]
-    assert not missing, f"network: DL packets missing at UEs {missing}"
-    assert spgw.metrics["ul_bytes"] > ul_before, spgw.metrics
-    log(f"network steady state: {STEADY_TTIS} host-paced TTIs with 4 DL + 1 UL packets per UE, "
-        f"every DL packet delivered, UL bytes {ul_before} -> {spgw.metrics['ul_bytes']}; "
-        f"steady_sf_per_sec {STEADY_TTIS / steady_s:.1f}; CUDA-event time per TTI "
-        f"{start.elapsed_time(end) / STEADY_TTIS:.2f} ms; turbo_map launches per TTI "
-        f"{steady_launches / STEADY_TTIS:.2f}; {card}")
-
-    # where a host-paced TTI with traffic goes (synchronised at every stage:
-    # a breakdown, not a rate; nested calls count in both), then the device
-    # profile of such TTIs
-    traffic()
-    with timed_calls(network_stages()) as totals:
-        net.run(10)
-    per_tti = {k: {"calls_per_tti": n_ / 10, "ms_per_tti": round(1e2 * t, 3),
-                   "share": round(t / totals["WaveformNetwork.run"][1], 3)}
-               for k, (n_, t) in totals.items()}
-    log(f"network by stage, per host-paced TTI (4 DL + 1 UL packets per UE offered just "
-        f"before): {json.dumps(per_tti)}")
-    traffic()
-    prof = profile_block(lambda: net.run(10))
-    log(f"network profile of 10 host-paced TTIs with traffic: {json.dumps(prof)}; per TTI: device "
-        f"{prof['device_ms'] / 10:.3f} ms, {prof['kernel_launches'] / 10:.0f} kernel launches, "
-        f"busy share {prof['busy_share']:.4f}; {card}")
+    run = NetworkRun("network", card, logs)
+    run.attach(net, ues)
+    pkts = run.traffic(ues, spgw, spgw_mod)
+    steady_launches = run.paced(net, ues, spgw, [(pkts, 4)])
+    run.stages_and_profile(net, lambda: run.traffic(ues, spgw, spgw_mod))
 
     # the block runners on the attached network
     sps = waveblock.SpsBlockRunner(net, T=SPS_T)
-    sps_rate, sps_launches = run_runner(sps, launch_seen)
+    sps_rate, sps_launches = run_runner(sps, run.launch_seen)
     m = sps.metrics
     assert m["blocks"] == 3 and m["dl_ok"] == m["dl_tb"] and m["ul_ok"] == m["ul_tb"] \
         and m["ack_det"] == m["dl_tb"], m
@@ -2136,7 +2200,7 @@ def phase_network(dev, card):
         f"{json.dumps(m)}; DL {sps.cfg.dl_l_crbs} PRB MCS {sps.cfg.dl_mcs} (TBS "
         f"{sps.cfg.dl_tbs}), UL {sps.cfg.ul_l_prb} PRB (TBS {sps.cfg.ul_tbs}); {card}")
     dyn = waveblock_dyn.DynBlockRunner(net, R=DYN_R)
-    dyn_rate, dyn_launches = run_runner(dyn, launch_seen)
+    dyn_rate, dyn_launches = run_runner(dyn, run.launch_seen)
     m = dyn.metrics
     assert m["blocks"] == 3 and m["dl_ok"] == m["dl_tb"] and m["ul_ok"] == m["ul_tb"], m
     log(f"DynBlockRunner R={DYN_R}: {dyn_rate:.1f} TTIs/s over 2 blocks (host mux and "
@@ -2145,16 +2209,235 @@ def phase_network(dev, card):
         f"{dyn.cfg.ul_l_prb} PRB (TBS {dyn.cfg.ul_tbs}); {card}")
     assert all(u.emm_state == "REGISTERED" for u in ues)
 
-    cases = map_cases(new_map_shapes(logs, ()), dev)
-    for c in cases:
-        n_launch = sum(1 for k, r, nw in logs if (k, r, nw) == (c["K"], c["B"], c["narrow"]))
-        log(f"turbo_map at {c['B']} x K={c['K']} {'bf16' if c['narrow'] else 'f32'}: "
-            f"{1e3 * c['ms']:.1f} us (L2-flushed {1e3 * c['flushed_ms']:.1f} us, wrapper "
-            f"{1e3 * c['wrapper_ms']:.1f} us, plain {1e3 * c['plain_ms']:.1f} us), bound "
-            f"{1e3 * c['bound_ms']:.3f} us ({c['bound_by']}), share {c['share']:.4f}, bit for "
-            f"bit; launches at this shape in phase 12: {n_launch}; {card}")
+    cases = map_cases_logged(logs, (), dev, 12, card)
     log(f"phase 12: {time.perf_counter() - t_phase:.1f} s")
     return cases, steady_launches + sps_launches + dyn_launches
+
+
+# phase 13: the waveform network's slice-13c options on phase 12's network
+# (netsim --waveform-full at 100 PRB, 8 UEs, cfi 3): the impaired FDD network
+# (netsim's --fading epa --dyn-delay 0.2,1.5,1.0 --hst 40), TDD (configuration
+# 1, special subframe 4), the 2x2 TM3 downlink (UEs 0-5 well conditioned,
+# 6-7 at singular-value ratio 0.05, 70 dB), then the dynamic block across 2
+# cells at phase 11's configuration
+TDD_CFG, TM3_COND, TM3_PATHLOSS, N_CELLS = 1, (1.0,) * 6 + (0.05,) * 2, 70.0, 2
+IMPAIRMENTS = dict(fading_profile="epa", doppler_hz=5.0, dyn_delay=(0.2, 1.5, 1.0),
+                   hst_fd_hz=40.0)
+
+
+@contextlib.contextmanager
+def wrapped(obj, name, before=None, after=None):
+    """obj.name called with before(*args) first and after(out, *args) on its
+    result; restored on exit."""
+    fn = getattr(obj, name)
+
+    def call(*a, **kw):
+        if before is not None:
+            before(*a, **kw)
+        out = fn(*a, **kw)
+        if after is not None:
+            after(out, *a, **kw)
+        return out
+
+    setattr(obj, name, call)
+    try:
+        yield
+    finally:
+        setattr(obj, name, fn)
+
+
+def step_net_impaired(card, logs):
+    """Phase 13a.  Returns its turbo_map launches."""
+    from srslte_emane_tpu_torch.ops import fading
+    from srslte_emane_tpu_torch.runtime import wavenet as wn
+
+    net, ues, spgw, spgw_mod = waveform_network(**IMPAIRMENTS)
+    run = NetworkRun("impaired network (EPA 5 Hz, dynamic delay 0.2-1.5 us, HST 40 Hz)", card,
+                     logs)
+    run.attach(net, ues)
+    pkts = run.traffic(ues, spgw, spgw_mod)
+    launches = run.paced(net, ues, spgw, [(pkts, 4)])
+    run.stages_and_profile(net, lambda: run.traffic(ues, spgw, spgw_mod),
+                           ((wn.WaveMedium, "_impair"), (fading, "apply_fading")))
+    return launches
+
+
+def step_net_tdd(card, logs):
+    """Phase 13b.  Returns its turbo_map launches."""
+    from srslte_emane_tpu_torch.phch import tdd
+
+    net, ues, spgw, spgw_mod = waveform_network(tdd_config=TDD_CFG, ss_config=4)
+    run = NetworkRun(f"TDD network (configuration {TDD_CFG}, special subframe 4)", card, logs)
+    off_u, s_ok = [], [0]
+
+    def ul_put(tti, ue_idx, samples, is_prach=False):
+        if tdd.sf_type(TDD_CFG, tti % 10) != "U":
+            off_u.append((tti, ue_idx))
+
+    def tb_decoded(tti, payload, *a, **kw):
+        s_ok[0] += payload is not None and tdd.sf_type(TDD_CFG, tti % 10) == "S"
+
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(wrapped(net.medium, "ul_put", before=ul_put))
+        for u in ues:
+            stack.enter_context(wrapped(u, "tb_decoded", before=tb_decoded))
+        run.attach(net, ues)
+        pkts = run.traffic(ues, spgw, spgw_mod)
+        launches = run.paced(net, ues, spgw, [(pkts, 4)])
+    assert not off_u, f"TDD: UE transmissions off U subframes (tti, UE): {off_u[:8]}"
+    assert s_ok[0] >= 1, "TDD: no TB decoded in a special subframe"
+    log(f"TDD network: no UE transmission off a U subframe; {s_ok[0]} TBs decoded in S "
+        f"subframes (DwPTS 12 symbols) over the attach and the steady state; eNB "
+        f"{json.dumps(net.enb.metrics)}; {card}")
+    run.stages_and_profile(net, lambda: run.traffic(ues, spgw, spgw_mod))
+    return launches
+
+
+def mib_decodable(net):
+    """Per UE of a MIMO network: does its antenna 0 decode the MIB of a
+    noise-free subframe 0 through its 2x2 matrix?  The eNB sends the PBCH
+    from port 0 alone with the 2-port CRC mask, which the UE checks on its
+    SFBC (ports 0 and 1) hypothesis only (the reference's pbch.encode and
+    decode): where the antenna hears port 1 well above port 0 that
+    combination fails and the UE never leaves SFN_SYNC."""
+    import torch
+
+    from srslte_emane_tpu_torch.ops import cplx, ofdm
+    from srslte_emane_tpu_torch.phch import pbch
+
+    k = net.kern
+    mib = np.asarray(pbch.pack_mib(NET_PRB, 0))[None].astype(np.int8)
+    tx = k.modulate(torch.cat([k.base_grid(0, 0, mib), k.base_grid_p1(0)]))  # (2 ports, T, 2)
+    y = cplx.mul(net.medium.mimo_h[:, 0, :, None, :], tx[None]).sum(1)  # each UE's antenna 0
+    return [bool(x) for x in k.pbch_rx(ofdm.demodulate(y, NET_PRB))[3].cpu()]
+
+
+def step_net_tm3(card, logs):
+    """Phase 13c.  Returns its turbo_map launches."""
+    from srslte_emane_tpu_torch.runtime import wavenet as wn
+
+    net, ues, spgw, spgw_mod = waveform_network(pathloss=TM3_PATHLOSS, mimo=True,
+                                                mimo_cond=list(TM3_COND))
+    run = NetworkRun(f"TM3 network (2x2, ratio {TM3_COND[0]} for UEs 0-5, {TM3_COND[-1]} for "
+                     f"6-7)", card, logs)
+    can = [i for i, ok in enumerate(mib_decodable(net)) if ok]
+    h = net.medium.mimo_h.cpu().numpy()
+    gain = lambda p: [round(float(10 * np.log10((h[u, 0, p] ** 2).sum())), 1) for u in range(NET_UES)]
+    log(f"TM3 network: antenna 0's gain from port 0 by UE {gain(0)} dB, from port 1 {gain(1)} "
+        f"dB; UEs that decode a noise-free MIB (the PBCH rides port 0 alone): {can}; {card}")
+    assert len(can) >= NET_UES - 2, can
+    cws = collections.Counter()
+
+    def tm3_rx(out, *a, **kw):
+        cws["grants"] += 1
+        cws["both"] += bool(out[2][0]) and bool(out[3][0])
+
+    camped = [ues[i] for i in can]
+    enb = net.enb.mac
+    ri_of = lambda: {r: getattr(u, "ri", None) for r, u in sorted(enb.ues.items())}
+    with wrapped(wn._CellKernels, "pdsch_rx_tm3", after=tm3_rx):
+        run.attach(net, ues, expect=can)
+        assert [i for i, u in enumerate(net.ues) if u.state == "CAMP"] == can
+        net.run(wn.WaveUePhy.RI_PERIOD)  # every camped UE probes its rank once
+        ri_ue = {net.ues[i].stack.crnti: net.ues[i]._ri for i in can}
+        want = {net.ues[i].stack.crnti: 2 if TM3_COND[i] > 0.3 else 1 for i in can}
+        assert ri_ue == want, f"TM3: RI probes {ri_ue}, want {want}"
+        assert enb.metrics.get("ri_reports", 0) > 0, enb.metrics
+        ri_shared = ri_of()
+        # the eNB reads each format-2 report on every UE's resource of the
+        # PRB pair, so the last report of an RI window sets every UE's rank
+        # (the reference's adjudication); for the traffic each RI report
+        # reaches the MAC with its own UE's rank, as a per-UE read would
+        cqi_info = enb.cqi_info
+        enb.cqi_info = lambda tti, rnti, cqi, ri=None, **kw: cqi_info(
+            tti, rnti, cqi, ri=None if ri is None else ri_ue.get(rnti, ri), **kw)
+        try:
+            for rnti, ri in ri_ue.items():
+                enb.cqi_info(net.tti, rnti, None, ri=ri)
+            # phase 12's packets, then a burst that one TB (1,500 bytes at
+            # most) cannot carry, so that the scheduler opens a second codeword
+            pkts = run.traffic(camped, spgw, spgw_mod)
+            burst = run.traffic(camped, spgw, spgw_mod, size=1000, n_dl=3)
+            launches = run.paced(net, camped, spgw, [(pkts, 4), (burst, 3)])
+        finally:
+            del enb.cqi_info
+    n_tm3 = net.enb.metrics.get("tm3_tx", 0)
+    assert ri_of() == ri_ue, (ri_of(), ri_ue)
+    assert n_tm3 > 0 and cws["grants"] > 0 and cws["both"] > 0, (n_tm3, dict(cws))
+    log(f"TM3 network: RI probed by each camped UE (by RNTI) {json.dumps(ri_ue)}; eNB RI reports "
+        f"{enb.metrics['ri_reports']}; the eNB's RI per RNTI after the shared format-2 reads "
+        f"{json.dumps(ri_shared)}, with per-UE RI reports {json.dumps(ri_of())}; rank-2 grants "
+        f"sent {n_tm3}, decoded {cws['grants']}, both codewords right {cws['both']}; eNB "
+        f"{json.dumps(net.enb.metrics)}; {card}")
+    run.stages_and_profile(net, lambda: run.traffic(camped, spgw, spgw_mod, size=1000, n_dl=3),
+                           ((wn._CellKernels, "blind_all2"), (wn._CellKernels, "pdsch_rx_tm3"),
+                            (wn._CellKernels, "ri_probe")))
+    return launches
+
+
+def step_cells(dev, card, logs):
+    """Phase 13d: make_bench_step(n_cells=2) at phase 11's dynamic
+    configuration against n_cells=1.  Returns its turbo_map launches."""
+    import torch
+
+    from srslte_emane_tpu_torch.ops.fec import turbodecoder_cuda as tdc
+    from srslte_emane_tpu_torch.runtime import waveblock_dyn as wbd
+
+    cfg = dyn_config(DYN_R)
+    n, T = cfg.n_ues, cfg.T
+    rng = np.random.default_rng(1)
+    dl_q = torch.from_numpy(rng.integers(0, 2, (N_CELLS, T, n, cfg.dl_tbs), dtype=np.int8)).to(dev)
+    ul_q = torch.from_numpy(rng.integers(0, 2, (N_CELLS, T, n, cfg.ul_tbs), dtype=np.int8)).to(dev)
+    rb = [wbd.make_schedule(cfg, seed=3 + c) for c in range(N_CELLS)]
+    rb_dl, rb_ul = (torch.from_numpy(np.stack([r[k] for r in rb])).to(dev) for k in (0, 1))
+    gens = []
+    for c in range(N_CELLS):
+        gens.append(torch.Generator(device=dev))
+        gens[-1].manual_seed(c)
+    results = {}
+    for cells in (1, N_CELLS):
+        bench = wbd.make_bench_step(cfg, n_cells=cells)  # the card: the entry point's default
+        args = ((dl_q, ul_q, rb_dl, rb_ul, gens, 0) if cells > 1
+                else (dl_q[0], ul_q[0], rb_dl[0], rb_ul[0], gens[0], 0))
+        want = [cells * T * n] * 3 + [0, 0, 0]
+        with launch_log() as seen:
+            tdc.launches = 0
+            counts = [int(x) for x in bench(*args)]
+            launches = tdc.launches
+        assert counts == want, f"dynamic block x {cells} cells: counts {counts}, want {want}"
+        med, spread, rates = rate(lambda: bench(*args), per_call=cells * T, iters=1)
+        prof = profile_block(lambda: bench(*args))
+        results[cells] = dict(launches=launches, seen=seen, med=med, prof=prof)
+        log(f"dynamic block x {cells} cell(s) (R={DYN_R}, {n} UEs per cell): every CRC and ACK in "
+            f"every cell, no DCI miss; {fmt_rate('block', med, spread, rates, unit='cell-TTIs/s')}; "
+            f"{launches} turbo_map launches per block {sorted(set(seen))}; profile of one block "
+            f"{json.dumps(prof)}; {card}")
+    one, two = results[1], results[N_CELLS]
+    logs.extend(two["seen"])
+    log(f"dynamic block across cells: {N_CELLS} cells vs 1: cell-TTIs/s x "
+        f"{two['med'] / one['med']:.2f}, kernel launches per block x "
+        f"{two['prof']['kernel_launches'] / one['prof']['kernel_launches']:.3f}, turbo_map "
+        f"launches per block x {two['launches'] / one['launches']:.3f}, device time per block x "
+        f"{two['prof']['device_ms'] / one['prof']['device_ms']:.2f}; {card}")
+    return two["launches"]
+
+
+def phase_slice13c(dev, card, known):
+    """Phase 13.  Returns (the turbo_map cases at its shapes not in `known`,
+    its launches: the three networks' host-paced steady states and one
+    two-cell block)."""
+    t_phase = time.perf_counter()
+    logs, launches, seconds = [], [], []
+    for step in (lambda: step_net_impaired(card, logs), lambda: step_net_tdd(card, logs),
+                 lambda: step_net_tm3(card, logs), lambda: step_cells(dev, card, logs),
+                 lambda: map_cases_logged(logs, known, dev, 13, card)):
+        t0 = time.perf_counter()
+        launches.append(step())
+        seconds.append(round(time.perf_counter() - t0, 1))
+    cases = launches.pop()
+    log(f"phase 13: {time.perf_counter() - t_phase:.1f} s (13a, 13b, 13c, 13d, the kernel "
+        f"checks: {seconds} s); turbo_map launches by sub-phase {launches}")
+    return cases, sum(launches)
 
 
 def main():
@@ -2193,6 +2476,9 @@ def main():
     sync_cases, sync_launches = phase_sync(dev, card)
     block_cases, block_launches = phase_blocks(dev, card)
     net_cases, net_launches = phase_network(dev, card)
+    known = tuple((c["K"], c["B"], (c["narrow"],)) for c in (
+        cases + mimo_cases + sync_cases + block_cases + net_cases))
+    c13_cases, c13_launches = phase_slice13c(dev, card, known)
     bench = next(c for c in cases if (c["K"], c["B"], c["narrow"]) == (5504, 768, True))
     odd = next(c for c in v1_cases if (c["K"], c["B"]) == (1040, 768))
     print(json.dumps({"kernels": [{
@@ -2200,11 +2486,11 @@ def main():
         "route": "cuda",
         "source": "srslte_emane_tpu_torch/csrc/turbo_map.cu",
         "replaces": "srslte_emane_tpu/ops/fec/turbodecoder_pallas2.py:70",
-        # PDSCH link, uplink, DL subframe, TM3 cell, phase 10's, 11's and 12's paths
+        # PDSCH link, uplink, DL subframe, TM3 cell, phase 10's, 11's, 12's and 13's paths
         "launches": (dl_launches + ul_launches + sf_launches + tm3_launches + sync_launches
-                     + block_launches + net_launches),
+                     + block_launches + net_launches + c13_launches),
         "max_abs_err": max(c["max_abs_err"] for c in cases + mimo_cases + sync_cases
-                           + block_cases + net_cases),
+                           + block_cases + net_cases + c13_cases),
         "ms": bench["ms"],
         "wrapper_ms": bench["wrapper_ms"],
         "plain_ms": bench["plain_ms"],

@@ -484,7 +484,7 @@ def _take_rows(tbl: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 # the block
 # ---------------------------------------------------------------------------
 
-def make_dyn_block_step(cfg: DynBlockConfig, device="cuda"):
+def make_dyn_block_step(cfg: DynBlockConfig, device="cuda", n_cells: int = 1):
     """Build the R-round dynamic block on `device` (the card by default;
     raises where there is none).
 
@@ -497,6 +497,14 @@ def make_dyn_block_step(cfg: DynBlockConfig, device="cuda"):
          rb_ue/rv_dl (R, 8, n) int, scalar counters (dl_retx_tx, dl_drop,
          ul_retx_tx, ul_drop, dci_dl_miss, dci_ul_miss) and
          dl_consumed/ul_consumed (n,).
+    n_cells > 1 runs that many independent cells in one block (the
+    reference's vmap of the block): the queues and schedules take a leading
+    cells axis, `gen` is a sequence of one generator per cell, tti0 is
+    shared, and every output gains a leading cells axis.  The cells ride
+    the TTI-row axis of every tensor (C x 8 rows), so a block of C cells
+    launches the kernels of one; they share nothing else: each row's grid,
+    PUCCH and UL superposition hold its own cell's UEs only, and each cell
+    draws its noise from its own generator as a block of one would.
     Array arguments may be numpy arrays or tensors; they are moved to the
     device.
     """
@@ -512,7 +520,9 @@ def make_dyn_block_step(cfg: DynBlockConfig, device="cuda"):
     m_sc = 12 * cfg.ul_l_prb
     cfg_u = sch.SchConfig(tbs=cfg.ul_tbs, G=m_sc * 12 * qm_u, Qm=qm_u, Nl=1)
     S = grid_mod.N_SYM * cell.nre
-    B = N_PID * n
+    C = n_cells
+    T8 = C * N_PID  # TTI rows: cell-major, 8 HARQ processes per cell
+    B = T8 * n
     dci_len = dci_mod.format0_1a_len(cell.n_prb)
     rl = dci_mod.riv_len(cell.n_prb)
     ngrp = c["ph_re"].shape[0]
@@ -521,11 +531,33 @@ def make_dyn_block_step(cfg: DynBlockConfig, device="cuda"):
     n_cand = c["cand"].shape[2]
     rvseq = torch.from_numpy(RV_SEQ).long().to(dev)
     uidx = torch.arange(n, device=dev)
-    rows8 = torch.arange(N_PID, device=dev)[:, None]
+    rows8 = torch.arange(T8, device=dev)[:, None]
+    cells = torch.arange(C, device=dev)[:, None, None]
     syms14 = torch.arange(grid_mod.N_SYM, device=dev)
     sdt = torch.bfloat16 if cfg.llr_bits <= 16 else torch.float32
     decode = dict(use_kernel=cfg.use_kernel, llr_bits=cfg.llr_bits)
-    randn = lambda gen, shape: waveblock._randn(gen, shape, dev)
+
+    def randn(gens, shape):
+        """(T8, ...) noise: each cell's (8, ...) rows from its own generator,
+        in the order a one-cell block draws them."""
+        tail = tuple(shape)
+        if C == 1:
+            return waveblock._randn(gens[0], (N_PID,) + tail, dev)
+        return torch.cat([waveblock._randn(g, (N_PID,) + tail, dev) for g in gens])
+
+    def per_cell(x):
+        """(T8, n) -> (C, 8, n)."""
+        return x.reshape(C, N_PID, n)
+
+    def from_queue(q, ptr, take):
+        """Each (cell, process, UE)'s next queue entry: the cells' queues q
+        (C, Q, n, tbs) read from ptr (C, n) on, one entry per process that
+        takes one ((T8, n) mask), as the reference's cumsum over the 8
+        processes; returns the (T8, n, tbs) entries and the new pointers."""
+        tk = per_cell(take.long())
+        idx = ptr[:, None, :] + torch.cumsum(tk, 1) - tk
+        fresh = q[cells, _clamped(idx, q.shape[1]), uidx[None, None, :]]
+        return fresh.reshape(T8, n, -1), ptr + tk.sum(1)
     W = int(c["dl_W"])
 
     def _win_cols(rb, w_sc):
@@ -590,20 +622,18 @@ def make_dyn_block_step(cfg: DynBlockConfig, device="cuda"):
         return rows.reshape(T8, n * l * 36), syms.reshape(T8, n * l * 36, 2)
 
     def round_body(st, rb_dl_r, rb_ul_r, tti_r, dl_q, ul_q, gen):
-        """One HARQ round of 8 TTIs: updates the state dict `st` in place
-        (rebinding its entries) and returns the round's outputs."""
-        sfs = (tti_r + torch.arange(N_PID, device=dev)) % 10
-        pid = torch.arange(N_PID, device=dev)[:, None].expand(N_PID, n)
+        """One HARQ round of 8 TTIs in each cell: updates the state dict
+        `st` in place (rebinding its entries) and returns the round's
+        outputs, (T8, n) rows."""
+        sfs = ((tti_r + torch.arange(N_PID, device=dev)) % 10).repeat(C)
+        pid = torch.arange(N_PID, device=dev).repeat(C)[:, None].expand(T8, n)
 
         # ------------- eNB scheduling decisions -------------
         new_dl = ~st["dl_pend"]
-        take = new_dl.long()
-        idx_q = st["dl_ptr"][None, :] + torch.cumsum(take, 0) - take
-        fresh = dl_q[_clamped(idx_q, dl_q.shape[0]), uidx[None, :]]  # (8, n, tbs)
+        fresh, st["dl_ptr"] = from_queue(dl_q, st["dl_ptr"], new_dl)
         st["dl_tb"] = torch.where(new_dl[..., None], fresh, st["dl_tb"])
         st["dl_ndi"] = st["dl_ndi"] ^ new_dl
         rv_dl = torch.where(new_dl, 0, rvseq[st["dl_retx"].clamp(max=3)])
-        st["dl_ptr"] = st["dl_ptr"] + take.sum(0)
 
         new_ul = ~st["enb_pend"]
         st["enb_ndi_ul"] = st["enb_ndi_ul"] ^ new_ul
@@ -621,34 +651,34 @@ def make_dyn_block_step(cfg: DynBlockConfig, device="cuda"):
         cinit_d = ((rntis[None, :] << 14) + (sfs[:, None] << 9) + cell.cell_id).reshape(-1)
         cw = sch.encode_tb(st["dl_tb"].reshape(B, cfg.dl_tbs), cfg_d, rv_b=rv_dl.reshape(B))
         syms_d = modem.modulate(scrambling.scramble_bits(cw, cinit_d), modem.MOD_FROM_QM[qm_d])
-        flat = c["base10"][sfs].reshape(N_PID, S, 2)
+        flat = c["base10"][sfs].reshape(T8, S, 2)
         flat = _scatter_rows(flat, i1, s1)
         flat = _scatter_rows(flat, i0, s0)
         # PDSCH onto the grid as per-(t, u) windows (data REs are zero in
         # the base grid, so add == set)
         wd_sc = 12 * cfg.dl_l_crbs
-        wc = torch.zeros((N_PID, n, grid_mod.N_SYM * wd_sc, 2), device=dev)
-        wc[:, :, c["dl_win_idx"]] = syms_d.reshape(N_PID, n, n_re_d, 2)
+        wc = torch.zeros((T8, n, grid_mod.N_SYM * wd_sc, 2), device=dev)
+        wc[:, :, c["dl_win_idx"]] = syms_d.reshape(T8, n, n_re_d, 2)
         flat = _win_add(flat, rb_dl_r, wc, wd_sc)
         # PHICH: previous round's UL CRCs at (group, seq) from the previous
         # round's PRBs + n_dmrs = u (36.213 §9.1.2)
         g_ph = (st["enb_rb_prev"] + uidx[None]) % ngrp
         s_ph = (st["enb_rb_prev"] // ngrp + uidx[None]) % (2 * phich_mod.NSF)
-        ph = torch.zeros((N_PID, ngrp, 8), device=dev)
+        ph = torch.zeros((T8, ngrp, 8), device=dev)
         val = torch.where(st["phich_tx"], 1.0, -1.0)
-        ph.index_put_((rows8.expand(N_PID, n), g_ph, s_ph), val, accumulate=True)
+        ph.index_put_((rows8.expand(T8, n), g_ph, s_ph), val, accumulate=True)
         sm = c["ph_sm"][sfs]
         phs = torch.einsum("tgs,tsic->tgic", ph, sm)
-        flat = _scatter_rows(flat, c["ph_re"].reshape(1, -1).expand(N_PID, ngrp * 12),
-                             phs.reshape(N_PID, -1, 2))
-        tx = ofdm.modulate(flat.reshape(N_PID, grid_mod.N_SYM, cell.nre, 2), cell.n_prb)
+        flat = _scatter_rows(flat, c["ph_re"].reshape(1, -1).expand(T8, ngrp * 12),
+                             phs.reshape(T8, -1, 2))
+        tx = ofdm.modulate(flat.reshape(T8, grid_mod.N_SYM, cell.nre, 2), cell.n_prb)
 
         # ------------- DL channel + UE receive (RE-sparse) -------
-        rg_tx = ofdm.demodulate(tx, cell.n_prb).reshape(N_PID, S, 2)
+        rg_tx = ofdm.demodulate(tx, cell.n_prb).reshape(T8, S, 2)
         a2 = amp / np.sqrt(2)
         p_tx = rg_tx[:, c["pidx"].reshape(-1)]
-        y_p = (p_tx.reshape(N_PID, 1, S_pil, P, 2)
-               + a2[None, :, None, None, None] * randn(gen, (N_PID, n, S_pil, P, 2)))
+        y_p = (p_tx.reshape(T8, 1, S_pil, P, 2)
+               + a2[None, :, None, None, None] * randn(gen, (n, S_pil, P, 2)))
         r_p = c["ch_vals10"][sfs]
         h_ls = cplx.mul_conj(y_p, r_p[:, None])
 
@@ -656,39 +686,39 @@ def make_dyn_block_step(cfg: DynBlockConfig, device="cuda"):
         # flattened tap tables (_cand_taps)
         cre = c["cand_re"][sfs]
         npos = n_cand * 36 * l
-        y_c = (rg_tx[rows8, cre.reshape(N_PID, -1)].reshape(N_PID, n, npos, 2)
-               + a2[None, :, None, None] * randn(gen, (N_PID, n, npos, 2)))
+        y_c = (rg_tx[rows8, cre.reshape(T8, -1)].reshape(T8, n, npos, 2)
+               + a2[None, :, None, None] * randn(gen, (n, npos, 2)))
         cti = c["ct_idx"][sfs]
         ctw = c["ct_w"][sfs]
-        hflat = h_ls.reshape(N_PID, n, S_pil * P, 2)
-        g_c = hflat[rows8[:, :, None], uidx[None, :, None], cti.reshape(N_PID, n, -1)]
-        h_c = (g_c.reshape(N_PID, n, npos, -1, 2) * ctw[..., None]).sum(-2)
+        hflat = h_ls.reshape(T8, n, S_pil * P, 2)
+        g_c = hflat[rows8[:, :, None], uidx[None, :, None], cti.reshape(T8, n, -1)]
+        h_c = (g_c.reshape(T8, n, npos, -1, 2) * ctw[..., None]).sum(-2)
         x_eq, csi = chest.equalize_zf(y_c, h_c)
         llr_c = modem.demod_soft(x_eq.reshape(-1, npos, 2), modem.QPSK)
-        llr_c = (llr_c.reshape(N_PID, n, npos * 2)
-                 * torch.repeat_interleave(csi.reshape(N_PID, n, npos), 2, dim=-1))
+        llr_c = (llr_c.reshape(T8, n, npos * 2)
+                 * torch.repeat_interleave(csi.reshape(T8, n, npos), 2, dim=-1))
         cnd = c["cand"][sfs]
         e = 72 * l
         coff = (cnd * 72)[..., None] + torch.arange(e, device=dev)
         call = c["c_all10"][sfs]
         cseq = call[rows8[:, :, None, None], coff]  # (8, n, n_cand, e)
         sgn = 1.0 - 2.0 * cseq.float()
-        llr_c = llr_c.reshape(N_PID, n, n_cand, e) * sgn
+        llr_c = llr_c.reshape(T8, n, n_cand, e) * sgn
         streams = convcoder.rate_unmatch_cc(llr_c.reshape(-1, e), dci_len + 16)
         bits_c = viterbi.viterbi_decode(streams)
         calc = crc_mod.crc_bits(bits_c[:, :dci_len], crc_mod.LTE_CRC16)
         resid = (calc ^ bits_c[:, dci_len:]).long()
         w16 = 1 << torch.arange(15, -1, -1, device=dev)
-        resid = (resid * w16).sum(-1).reshape(N_PID, n, n_cand)
+        resid = (resid * w16).sum(-1).reshape(T8, n, n_cand)
         ok_c = resid == rntis[None, :, None]
-        bits_c = bits_c[:, :dci_len].reshape(N_PID, n, n_cand, dci_len)
+        bits_c = bits_c[:, :dci_len].reshape(T8, n, n_cand, dci_len)
 
         def pick(hit):
             # first passing candidate: argmax over an int copy (bool argmax
             # is not supported on every backend); torch.argmax returns the
             # first maximum, as jnp.argmax does
             i = torch.argmax(hit.to(torch.int32), dim=-1)
-            b = bits_c.gather(2, i[..., None, None].expand(N_PID, n, 1, dci_len))[:, :, 0]
+            b = bits_c.gather(2, i[..., None, None].expand(T8, n, 1, dci_len))[:, :, 0]
             cpos = cnd.gather(2, i[..., None])[..., 0]
             return hit.any(-1), b, cpos
 
@@ -704,8 +734,8 @@ def make_dyn_block_step(cfg: DynBlockConfig, device="cuda"):
 
         # UE PHICH decode from the waveform (previous round's feedback)
         php = c["ph_re"][(st["ue_rb_prev"] + uidx[None]) % ngrp]  # (8, n, 12)
-        y_ph = (rg_tx[rows8, php.reshape(N_PID, -1)].reshape(N_PID, n, 12, 2)
-                + a2[None, :, None, None] * randn(gen, (N_PID, n, 12, 2)))
+        y_ph = (rg_tx[rows8, php.reshape(T8, -1)].reshape(T8, n, 12, 2)
+                + a2[None, :, None, None] * randn(gen, (n, 12, 2)))
         h_ph = _chest_at(h_ls, php % cell.nre, php // cell.nre)
         x_ph, csi_ph = chest.equalize_zf(y_ph, h_ph)
         x_ph = x_ph * csi_ph[..., None]
@@ -718,10 +748,10 @@ def make_dyn_block_step(cfg: DynBlockConfig, device="cuda"):
         # via the padded-pilot window (_dl_window_taps)
         dwin = _win_slice(rg_tx, rb_ue, 12 * cfg.dl_l_crbs)
         y_d = (dwin[:, :, c["dl_win_idx"]]
-               + a2[None, :, None, None] * randn(gen, (N_PID, n, n_re_d, 2)))
+               + a2[None, :, None, None] * randn(gen, (n, n_re_d, 2)))
         h_pad = torch.cat([h_ls[..., :1, :], h_ls, h_ls[..., -1:, :]], dim=-2)
         widx = (2 * rb_ue)[..., None] + torch.arange(W, device=dev)  # (8, n, W)
-        win = h_pad.gather(3, widx[:, :, None, :, None].expand(N_PID, n, S_pil, W, 2))
+        win = h_pad.gather(3, widx[:, :, None, :, None].expand(T8, n, S_pil, W, 2))
         h_f = torch.stack([
             (win[:, :, i][:, :, c["dl_tap_idx"][i]] * c["dl_tap_w"][i][:, :, None]).sum(-2)
             for i in range(S_pil)], dim=2)  # (8, n, S_pil, n_re, 2)
@@ -738,18 +768,15 @@ def make_dyn_block_step(cfg: DynBlockConfig, device="cuda"):
         llr = llr * dl_found.reshape(B, 1)  # a missed DCI adds nothing
         dl_out, dl_ok, st["ue_soft"], _ = sch.decode_tb(
             llr, cfg_d, softbuf=ue_soft, rv_b=rv_d_ue.reshape(B), **decode)
-        dl_ok = dl_ok.reshape(N_PID, n) & dl_found
+        dl_ok = dl_ok.reshape(T8, n) & dl_found
 
         # ------------- UE transmit -------------
         is_new_ul = ul_found & (ndi_u != st["ue_ndi_ul"])
         st["ue_ndi_ul"] = torch.where(ul_found, ndi_u, st["ue_ndi_ul"])
         retx_now = (st["ue_pend"] & (~phich_ack_ue) & (~is_new_ul)
                     & (st["ue_retx"] < MAX_TX))
-        take_u = is_new_ul.long()
-        idx_qu = st["ul_ptr"][None, :] + torch.cumsum(take_u, 0) - take_u
-        fresh_u = ul_q[_clamped(idx_qu, ul_q.shape[0]), uidx[None, :]]
+        fresh_u, st["ul_ptr"] = from_queue(ul_q, st["ul_ptr"], is_new_ul)
         st["ul_tb_ue"] = torch.where(is_new_ul[..., None], fresh_u, st["ul_tb_ue"])
-        st["ul_ptr"] = st["ul_ptr"] + take_u.sum(0)
         tx_ul = is_new_ul | retx_now
         rv_ue = torch.where(is_new_ul, 0, rvseq[st["ue_retx"].clamp(max=3)])
         st["ue_retx"] = torch.where(is_new_ul, 1,
@@ -769,14 +796,14 @@ def make_dyn_block_step(cfg: DynBlockConfig, device="cuda"):
         gain = amp.min() / amp  # (n,)
         gtx = tx_ul * gain[None]  # 0 = DTX without a grant
         x_u = x_u * gtx.reshape(B, 1, 1, 1)
-        ug = torch.zeros((N_PID, S, 2), device=dev)
+        ug = torch.zeros((T8, S, 2), device=dev)
         # data + DMRS as one per-(t, u) window add; a DTX UE's gain gate
         # zeroes its window, so its stale rb adds nothing
         dv = c["ul_dmrs10"][sfs]
         dvb = dv[:, None] * gtx[..., None, None, None]
-        uwc = torch.zeros((N_PID, n, grid_mod.N_SYM * m_sc, 2), device=dev)
-        uwc[:, :, c["ul_d_win"]] = x_u.reshape(N_PID, n, -1, 2)
-        uwc[:, :, c["ul_m_win"]] = dvb.reshape(N_PID, n, -1, 2)
+        uwc = torch.zeros((T8, n, grid_mod.N_SYM * m_sc, 2), device=dev)
+        uwc[:, :, c["ul_d_win"]] = x_u.reshape(T8, n, -1, 2)
+        uwc[:, :, c["ul_m_win"]] = dvb.reshape(T8, n, -1, 2)
         ug = _win_add(ug, rb_ul_ue, uwc, m_sc)
         # PUCCH HARQ-ACK at n1 = nCCE of the decoded DL DCI (N1 = 0)
         pvals = c["p_vals"][sfs]
@@ -788,27 +815,27 @@ def make_dyn_block_step(cfg: DynBlockConfig, device="cuda"):
                 * (dl_found * gain[None])[..., None, None, None, None])
         ppos = c["p_pos"][dl_cce_ue]
         for u in range(n):  # one UE per add: a fixed summation order on any device
-            ug = _scatter_rows(ug, ppos[:, u].reshape(N_PID, -1),
-                               pcon[:, u].reshape(N_PID, -1, 2), add=True)
-        utx = ofdm.modulate(ug.reshape(N_PID, grid_mod.N_SYM, cell.nre, 2), cell.n_prb)
-        urx = utx + amp.min() * randn(gen, utx.shape) / np.sqrt(2)
+            ug = _scatter_rows(ug, ppos[:, u].reshape(T8, -1),
+                               pcon[:, u].reshape(T8, -1, 2), add=True)
+        utx = ofdm.modulate(ug.reshape(T8, grid_mod.N_SYM, cell.nre, 2), cell.n_prb)
+        urx = utx + amp.min() * randn(gen, utx.shape[1:]) / np.sqrt(2)
 
         # ------------- eNB receive -------------
-        urg = ofdm.demodulate(urx, cell.n_prb).reshape(N_PID, S, 2)
+        urg = ofdm.demodulate(urx, cell.n_prb).reshape(T8, S, 2)
         uwin = _win_slice(urg, rb_enb, m_sc)
-        yd = uwin[:, :, c["ul_m_win"]].reshape(N_PID, n, 2, m_sc, 2)
+        yd = uwin[:, :, c["ul_m_win"]].reshape(T8, n, 2, m_sc, 2)
         rref = c["ul_dmrs10"][sfs]
         ce_u, noise_u = waveblock._ul_estimate(yd, rref[:, None])
-        yu = uwin[:, :, c["ul_d_win"]].reshape(N_PID, n, 12, m_sc, 2)
+        yu = uwin[:, :, c["ul_d_win"]].reshape(T8, n, 12, m_sc, 2)
         llr_u = waveblock._ul_llrs(yu, ce_u, noise_u, qm_u, cinit_u)
         enb_soft = [sb * (~new_ul).reshape(B, 1) for sb in st["enb_soft"]]
         ul_out, ul_ok, st["enb_soft"], _ = sch.decode_tb(
             llr_u, cfg_u, softbuf=enb_soft, rv_b=rv_ul_enb.reshape(B), **decode)
-        ul_ok = ul_ok.reshape(N_PID, n)
+        ul_ok = ul_ok.reshape(T8, n)
 
         # PUCCH ACK matched filter at the eNB's own CCE (DTX-aware)
         pv_e = _take_rows(pvals, cce_d)
-        yp = urg[rows8, c["p_pos"][cce_d].reshape(N_PID, -1)].reshape(N_PID, n, 2, 7, 12, 2)
+        yp = urg[rows8, c["p_pos"][cce_d].reshape(T8, -1)].reshape(T8, n, 2, 7, 12, 2)
         # normalize by the known per-UE power-control gain so one DTX
         # threshold serves every link budget
         corr = waveblock._pucch_corr(yp, pv_e, dmask) / gain[None, :, None]
@@ -831,39 +858,50 @@ def make_dyn_block_step(cfg: DynBlockConfig, device="cuda"):
         for name, x in (("dl_retx_tx", ~new_dl), ("dl_drop", dl_drop),
                         ("ul_retx_tx", retx_now), ("ul_drop", ul_drop),
                         ("dci_dl_miss", ~dl_found), ("dci_ul_miss", ~ul_found)):
-            cnt[name] = cnt[name] + x.sum()
-        return dict(dl_ok=dl_ok, dl_out=dl_out.reshape(N_PID, n, -1),
+            cnt[name] = cnt[name] + x.reshape(C, -1).sum(1)
+        return dict(dl_ok=dl_ok, dl_out=dl_out.reshape(T8, n, -1),
                     dl_new=new_dl, dl_found=dl_found, ack_det=ack_det,
-                    ul_ok=ul_ok, ul_out=ul_out.reshape(N_PID, n, -1),
+                    ul_ok=ul_ok, ul_out=ul_out.reshape(T8, n, -1),
                     ul_new=is_new_ul, ul_tx=tx_ul, rb_ue=rb_ue, rv_dl=rv_dl)
 
     def step(dl_q, ul_q, rb_dl, rb_ul, gen, tti0):
         dl_q, ul_q, rb_dl, rb_ul = (torch.as_tensor(a, device=dev)
                                     for a in (dl_q, ul_q, rb_dl, rb_ul))
-        rb_dl, rb_ul = rb_dl.long(), rb_ul.long()
-        z8n = torch.zeros((N_PID, n), dtype=torch.int64, device=dev)
-        f8n = torch.zeros((N_PID, n), dtype=torch.bool, device=dev)
-        zc = torch.zeros((), dtype=torch.int64, device=dev)
+        gens = list(gen) if C > 1 else [gen]
+        assert len(gens) == C, "one generator per cell"
+        if C == 1:  # the cells axis, of one cell
+            dl_q, ul_q, rb_dl, rb_ul = (a[None] for a in (dl_q, ul_q, rb_dl, rb_ul))
+        # (C, R, 8, n) -> (R, T8, n): round r's rows of every cell
+        rb_dl, rb_ul = (a.long().transpose(0, 1).reshape(R, T8, n) for a in (rb_dl, rb_ul))
+        z8n = torch.zeros((T8, n), dtype=torch.int64, device=dev)
+        f8n = torch.zeros((T8, n), dtype=torch.bool, device=dev)
+        zc = torch.zeros((C,), dtype=torch.int64, device=dev)
+        zn = torch.zeros((C, n), dtype=torch.int64, device=dev)
         st = dict(
-            dl_tb=torch.zeros((N_PID, n, cfg.dl_tbs), dtype=torch.int8, device=dev),
+            dl_tb=torch.zeros((T8, n, cfg.dl_tbs), dtype=torch.int8, device=dev),
             dl_pend=f8n, dl_retx=z8n, dl_ndi=f8n, ue_ndi=z8n,
             ue_soft=sch.init_softbuffer(B, cfg_d, sdt, dev),
-            dl_ptr=torch.zeros((n,), dtype=torch.int64, device=dev),
-            ul_tb_ue=torch.zeros((N_PID, n, cfg.ul_tbs), dtype=torch.int8, device=dev),
+            dl_ptr=zn,
+            ul_tb_ue=torch.zeros((T8, n, cfg.ul_tbs), dtype=torch.int8, device=dev),
             ue_pend=f8n, ue_retx=z8n, ue_ndi_ul=z8n,
-            ul_ptr=torch.zeros((n,), dtype=torch.int64, device=dev), ue_rb_prev=z8n,
+            ul_ptr=zn, ue_rb_prev=z8n,
             enb_pend=f8n, enb_retx=z8n, enb_ndi_ul=f8n, enb_rb_prev=z8n,
             enb_soft=sch.init_softbuffer(B, cfg_u, sdt, dev),
-            phich_tx=torch.ones((N_PID, n), dtype=torch.bool, device=dev),
+            phich_tx=torch.ones((T8, n), dtype=torch.bool, device=dev),
             counters=dict(dl_retx_tx=zc, dl_drop=zc, ul_retx_tx=zc, ul_drop=zc,
                           dci_dl_miss=zc, dci_ul_miss=zc),
         )
-        rounds = [round_body(st, rb_dl[r], rb_ul[r], int(tti0) + N_PID * r, dl_q, ul_q, gen)
+        rounds = [round_body(st, rb_dl[r], rb_ul[r], int(tti0) + N_PID * r, dl_q, ul_q, gens)
                   for r in range(R)]
-        outs = {k: torch.stack([o[k] for o in rounds]) for k in rounds[0]}
+        # (R, T8, n, ...) -> (C, R, 8, n, ...)
+        outs = {k: torch.stack([o[k] for o in rounds]).reshape((R, C, N_PID)
+                                                               + rounds[0][k].shape[1:])
+                .transpose(0, 1) for k in rounds[0]}
         outs.update(st["counters"])
         outs["dl_consumed"] = st["dl_ptr"]
         outs["ul_consumed"] = st["ul_ptr"]
+        if C == 1:
+            outs = {k: v[0] for k, v in outs.items()}
         return outs
 
     return step
@@ -957,16 +995,19 @@ class DynBlockRunner:
         return out
 
 
-def make_bench_step(cfg: DynBlockConfig, device="cuda"):
+def make_bench_step(cfg: DynBlockConfig, n_cells: int = 1, device="cuda"):
     """The dynamic block reduced on the device to six counts: (DL CRCs
     passed, UL CRCs passed, ACKs detected, DL retransmissions, UL
-    retransmissions, DCI misses).  One cell; the reference's vmap over
-    cells (n_cells > 1) is not ported yet."""
-    step = make_dyn_block_step(cfg, device)
+    retransmissions, DCI misses).  n_cells > 1 runs that many independent
+    cells in one block (make_dyn_block_step's cells axis: leading cells
+    axis on the queues and schedules, one generator per cell, one tti0) and
+    sums each count over them, on the device."""
+    step = make_dyn_block_step(cfg, device, n_cells)
 
     def bench(dl_q, ul_q, rb_dl, rb_ul, gen, tti0):
         o = step(dl_q, ul_q, rb_dl, rb_ul, gen, tti0)
         return (o["dl_ok"].sum(), o["ul_ok"].sum(), o["ack_det"].sum(),
-                o["dl_retx_tx"], o["ul_retx_tx"], o["dci_dl_miss"] + o["dci_ul_miss"])
+                o["dl_retx_tx"].sum(), o["ul_retx_tx"].sum(),
+                (o["dci_dl_miss"] + o["dci_ul_miss"]).sum())
 
     return bench

@@ -1,7 +1,6 @@
 """Waveform-native network: the FULL UE life cycle through the device PHY.
 
-Twin of the reference's `runtime/wavenet.py`, in SISO FDD over AWGN links.
-No message bus below RRC: cell search -> PSS/SSS/CP detect -> MIB ->
+Twin of the reference's `runtime/wavenet.py`.  No message bus below RRC: cell search -> PSS/SSS/CP detect -> MIB ->
 SIB1/SIB2 -> PRACH (detected by eNB root-sequence correlation) -> RAR ->
 Msg3/contention resolution -> RRC + NAS attach -> IP traffic, every step
 carried as OFDM waveforms through per-link pathloss + AWGN channels.
@@ -42,10 +41,12 @@ phich.c:131-134).  The UE's subframe/SFN timing comes from SSS + the
 decoded MIB through an SFN_SYNC state (sync.cc:408), never from the
 network loop's tick counter.
 
-Not ported yet (they raise NotImplementedError): the 2x2 TM3 downlink
-(`mimo=`, `mimo_cond=`), TDD frames (`tdd_config=`) and the medium's
-fading, dynamic delay, high-speed-train Doppler and radio-link-failure
-impairments.
+Options, as the reference's: the 2x2 TM3 downlink (`mimo=`, `mimo_cond=`:
+two port waveforms, RI reports on PUCCH format 2, rank-2 grants on DCI
+format 2A), TDD frames (`tdd_config=`, `ss_config=`: DwPTS-truncated PDSCH
+in the special subframe, UL only on U subframes, bundled HARQ-ACKs) and the
+medium's impairments (`fading_profile=`, `doppler_hz=`, `dyn_delay=`,
+`hst_fd_hz=`, `rlf=`), which may also be set on `net.medium` later.
 """
 
 from __future__ import annotations
@@ -55,12 +56,13 @@ import functools
 import numpy as np
 import torch
 
-from ..ops import cplx, modem, ofdm
+from ..ops import cplx, fading as fading_mod, modem, ofdm
 from ..phch import chest, dci as dci_mod, grid as grid_mod, pbch as pbch_mod
 from ..phch import pcfich as pcfich_mod, pdcch as pdcch_mod
 from ..phch import pdsch as pdsch_mod, phich as phich_mod, prach as prach_mod
 from ..phch import pucch as pucch_mod, pusch as pusch_mod, ra
-from ..phch import refsignal_ul, sch, sync as sync_mod, uci as uci_mod
+from ..phch import refsignal_ul, sch, sync as sync_mod, tdd as tdd_mod
+from ..phch import uci as uci_mod
 from ..utils.devices import resolve
 from .waveblock import _randn
 
@@ -68,7 +70,15 @@ from .waveblock import _randn
 PRACH_SF = 1  # PRACH occasion subframe (prach-ConfigIndex 3 role)
 PRACH_K0 = 12  # first PRACH bin (prach-FreqOffset 1 PRB at 1.25 kHz x12)
 N1_PUCCH = 0  # SIB2 n1-PUCCH-AN: dynamic ACK region starts at resource 0
-_LATER = "not ported yet (slice 13c of the port: TM3, TDD and the medium's impairments)"
+FADING_SEED = 77  # the fading's sinusoids are drawn anew every TTI from (77, tti)
+
+
+def _dwpts(tdd_config, ss_config: int, sf: int) -> int:
+    """DwPTS symbols of subframe sf when it is a TDD special subframe, else
+    0 (no truncation)."""
+    if tdd_config is None or tdd_mod.sf_type(tdd_config, sf) != "S":
+        return 0
+    return tdd_mod.nof_dw(ss_config)
 
 
 def _srate_div(n_prb: int) -> int:
@@ -206,23 +216,52 @@ class _CellKernels:
             g = pbch_mod.encode(self._t(mib_bits), self.cell, with_pbch, g)
         return g
 
-    def _dl_cfg(self, sf: int, rb_start: int, l_crbs: int, mcs: int):
-        """(PRB mask, SchConfig) of a type-2 DL alloc."""
+    @_per_instance
+    def base_grid_p1(self, sf_idx: int) -> torch.Tensor:
+        """Port-1 base grid: CRS on antenna port 1 only (the MIMO mode's
+        second transmit waveform; control stays on port 0)."""
+        g = cplx.zeros((1, grid_mod.N_SYM, self.cell.nre), device=self.device)
+        return pdsch_mod.put_crs(g, self.cell, sf_idx, port=1)
+
+    def _dl_cfg(self, sf: int, rb_start: int, l_crbs: int, mcs: int,
+                max_sym: int = 0):
+        """(PRB mask, SchConfig) of a type-2 DL alloc; max_sym > 0
+        truncates it to the TDD DwPTS symbol range."""
         mask = ra.type2_to_prb_mask(rb_start, l_crbs, self.cell.n_prb)
         qm = ra.dl_mcs_to_qm(mcs)
-        g = grid_mod.nof_re(self.cell, sf, mask) * qm
+        g = grid_mod.nof_re(self.cell, sf, mask, max_sym) * qm
         return mask, sch.SchConfig(tbs=ra.dl_tbs(mcs, l_crbs), G=g, Qm=qm, Nl=1)
 
     def add_dl_grant(self, grid, sf: int, rb_start: int, l_crbs: int, mcs: int,
                      l_aggr: int, dci_bits, payload_bits, rnti: int,
-                     cce_start: int):
+                     cce_start: int, max_sym: int = 0):
         """Place one DCI-1A + its PDSCH into the grid."""
         cell = self.cell
-        mask, cfg = self._dl_cfg(sf, rb_start, l_crbs, mcs)
+        mask, cfg = self._dl_cfg(sf, rb_start, l_crbs, mcs, max_sym)
         g = pdcch_mod.encode(self._t(dci_bits), rnti, l_aggr, cce_start, cell,
                              sf, grid)
         return pdsch_mod.encode(self._t(payload_bits), cfg, cell, sf, rnti,
-                                mask, grid=g)
+                                mask, grid=g, max_sym=max_sym)
+
+    def _tm3_cfgs(self, sf: int, rb_start: int, l_crbs: int, mcs1: int, mcs2: int):
+        """(PRB mask, [SchConfig of each codeword]) of a rank-2 grant."""
+        cfgs = [self._dl_cfg(sf, rb_start, l_crbs, m)[1] for m in (mcs1, mcs2)]
+        return ra.type2_to_prb_mask(rb_start, l_crbs, self.cell.n_prb), cfgs
+
+    def add_dl_grant_tm3(self, grid, grid_p1, sf: int, rb_start: int, l_crbs: int,
+                         mcs1: int, mcs2: int, l_aggr: int, dci_bits, tb1, tb2,
+                         rnti: int, cce_start: int):
+        """Rank-2 TM3 grant: DCI format 2A on the port-0 PDCCH + both
+        codewords large-delay-CDD precoded onto the two port grids
+        (lib/src/phy/mimo/precoding.c tm3; pdsch.encode_tm)."""
+        cell = self.cell
+        mask, cfgs = self._tm3_cfgs(sf, rb_start, l_crbs, mcs1, mcs2)
+        g0 = pdcch_mod.encode(self._t(dci_bits), rnti, l_aggr, cce_start, cell,
+                              sf, grid)
+        grids = pdsch_mod.encode_tm([self._t(tb1), self._t(tb2)], cfgs, cell, sf,
+                                    rnti, mask, "tm3",
+                                    grids=torch.stack([g0, grid_p1], dim=1))
+        return grids[:, 0], grids[:, 1]
 
     def add_ul_dci(self, grid, sf_idx: int, l_aggr: int, dci_bits, rnti: int,
                    cce_start: int):
@@ -234,6 +273,13 @@ class _CellKernels:
 
     def modulate(self, grid):
         return ofdm.modulate(grid, self.cell.n_prb)
+
+    @staticmethod
+    def mask_dwpts(grid, dw_sym: int):
+        """Zero GP/UpPTS symbols of a TDD special subframe's grid."""
+        g = grid.clone()
+        g[:, dw_sym:] = 0.0
+        return g
 
     # ---- UE side ----
 
@@ -267,11 +313,41 @@ class _CellKernels:
         positions), whatever the number of RNTIs watched."""
         return pdcch_mod.blind_search_all(rg, ce, self.cell, sf_idx, self.dci_len)
 
+    def blind_all2(self, rg, ce, sf_idx: int):
+        """blind_all for the DCI format-2A length (rank-2 grants)."""
+        return pdcch_mod.blind_search_all(rg, ce, self.cell, sf_idx,
+                                          dci_mod.format2_len(self.cell.n_prb, "2A"))
+
     def pdsch_rx(self, rg, sf: int, rb_start: int, l_crbs: int, mcs: int,
-                 rnti: int):
-        mask, cfg = self._dl_cfg(sf, rb_start, l_crbs, mcs)
-        payload, ok, _, _ = pdsch_mod.decode(rg, cfg, self.cell, sf, rnti, mask)
+                 rnti: int, max_sym: int = 0):
+        mask, cfg = self._dl_cfg(sf, rb_start, l_crbs, mcs, max_sym)
+        payload, ok, _, _ = pdsch_mod.decode(rg, cfg, self.cell, sf, rnti, mask,
+                                             max_sym=max_sym)
         return payload, ok
+
+    def pdsch_rx_tm3(self, rx_grids, sf: int, rb_start: int, l_crbs: int,
+                     mcs1: int, mcs2: int, rnti: int):
+        """UE-side TM3 decode from the (1, 2_rx, 14, NRE, 2) grids.  Returns
+        (payload 1, payload 2, ok 1, ok 2)."""
+        mask, cfgs = self._tm3_cfgs(sf, rb_start, l_crbs, mcs1, mcs2)
+        pls, oks, _ = pdsch_mod.decode_tm(rx_grids, cfgs, self.cell, sf, rnti,
+                                          mask, "tm3")
+        return pls[0], pls[1], oks[0], oks[1]
+
+    def ri_probe(self, rx_grids, sf_idx: int):
+        """Wideband rank probe from the per-(rx, tx) channel estimates of
+        the (1, 2, 14, NRE, 2) grids: the 2x2 singular-value ratio decides
+        RI (cqi.c RI report role).  Returns (s2 / s1, s1)."""
+        ce, _ = pdsch_mod.estimate_mimo(rx_grids, self.cell, sf_idx, 2)
+        h = ce[0].mean(dim=(2, 3))  # (2rx, 2tx, 2) wideband
+        hc = torch.complex(h[..., 0], h[..., 1])
+        g = hc.conj().T @ hc  # 2x2 Gram
+        tr = (g[0, 0] + g[1, 1]).real
+        det = (g[0, 0] * g[1, 1] - g[0, 1] * g[1, 0]).real
+        disc = torch.sqrt(torch.clamp(tr * tr - 4.0 * det, min=0.0))
+        s1 = torch.sqrt(torch.clamp((tr + disc) / 2.0, min=1e-12))
+        s2 = torch.sqrt(torch.clamp((tr - disc) / 2.0, min=0.0))
+        return s2 / s1, s1
 
     def phich_rx(self, rg, ce, sf_idx: int):
         return phich_mod.decode(rg, ce, self.cell, sf_idx)
@@ -450,11 +526,16 @@ class WaveEnbPhy:
     F2_DETECT = 4.0
 
     def __init__(self, medium: "WaveMedium", cell: grid_mod.CellConfig,
-                 mac, kern: _CellKernels, pcap=None):
+                 mac, kern: _CellKernels, pcap=None, mimo: bool = False,
+                 tdd_config: int = None, ss_config: int = 4):
         self.medium = medium
         self.cell = cell
         self.mac = mac
         self.k = kern
+        self.mimo = mimo
+        self.tdd = tdd_config
+        self.ss = ss_config
+        self._silence = None  # cached zero waveform for U subframes
         self.pcap = pcap  # utils.pcap.MacPcap: DL+UL TB wire images
         self._pending_ul = {}  # tti -> [(UlGrant, tbs)]
         # tti -> [(rnti, n_pucch)]: where each DL grant's HARQ-ACK will
@@ -475,9 +556,12 @@ class WaveEnbPhy:
             return
         samples, had_prach, prev_tti = rx
         sf = prev_tti % 10
+        if self.tdd is not None and tdd_mod.sf_type(self.tdd, sf) != "U":
+            return  # TDD: uplink arrives only on U subframes
         n_prb = self.cell.n_prb
         div = _srate_div(n_prb)
-        if had_prach and sf == PRACH_SF:
+        prach_sf = 2 if self.tdd is not None else PRACH_SF
+        if had_prach and sf == prach_sf:
             freq = prach_mod.rx_waveform_to_freq(
                 samples[:, : prach_mod.waveform_len(0, div)],
                 k0=PRACH_K0, srate_div=div)
@@ -539,7 +623,14 @@ class WaveEnbPhy:
                     continue
                 val = int("".join(str(int(b)) for b in f2_bits[rel]), 2)
                 if hasattr(self.mac, "cqi_info"):
-                    self.mac.cqi_info(tti, rnti, val)
+                    if self.mimo and (prev_tti % WaveUePhy.RI_PERIOD
+                                      ) < WaveUePhy.RI_WIN:
+                        # RI reporting instance: the 4-bit field is the
+                        # rank (WaveUePhy RI schedule, both ends by TTI)
+                        self.mac.cqi_info(tti, rnti, None,
+                                          ri=min(2, val + 1))
+                    else:
+                        self.mac.cqi_info(tti, rnti, val)
                 self.metrics["pucch_det"] += 1
                 if rnti in expect_rntis:
                     # format 2a: the HARQ bit rides the second DMRS
@@ -576,31 +667,56 @@ class WaveEnbPhy:
                 except TypeError:
                     self.mac.ack_info(tti, rnti, ack)
 
+    def _next_u(self, tti: int) -> int:
+        """First TTI > tti whose subframe is uplink (ACK arrival slot)."""
+        for d in range(1, 11):
+            if tdd_mod.sf_type(self.tdd, (tti + d) % 10) == "U":
+                return tti + d
+        raise AssertionError("TDD config without uplink subframes")
+
     # ---- downlink ----
     def _tx(self, tti: int):
         sf = tti % 10
         n_prb = self.cell.n_prb
+        if self.tdd is not None and tdd_mod.sf_type(self.tdd, sf) == "U":
+            # uplink subframe: the eNB radiates nothing (phy_adapter.cc
+            # TDD gate); the medium still rotates on a silent waveform
+            if self._silence is None:
+                sf_len = ofdm.params(n_prb)["sf_len"]
+                self._silence = torch.zeros((1, sf_len, 2), device=self.k.device)
+            self.medium.dl_put(tti, self._silence)
+            return
         sfn = (tti // 10) % 1024
         dl_grants = self.mac.get_dl_sched(tti)
-        ul_grants = self.mac.get_ul_sched(tti)
+        if self.tdd is not None and sf not in tdd_mod.UL_GRANT_K[self.tdd]:
+            # DCI-0 only on subframes with a PUSCH k-association
+            # (36.213 Table 8-2); others defer the UL scheduling pass
+            ul_grants = []
+        else:
+            ul_grants = self.mac.get_ul_sched(tti)
         phich = self.mac.get_phich(tti)
+        dw_sym = _dwpts(self.tdd, self.ss, sf)
         mib = np.zeros((1, 24), np.int8)
         with_pbch = sfn % 4 if sf == 0 else -1
         if sf == 0:
             mib = np.asarray(pbch_mod.pack_mib(n_prb, sfn))[None].astype(np.int8)
         grid = self.k.base_grid(sf, with_pbch, mib)
+        grid_p1 = self.k.base_grid_p1(sf) if self.mimo else None
         for g in dl_grants:
             prbs = [i for i, on in enumerate(g.prb_mask) if on]
             rb_start, l_crbs = prbs[0], len(prbs)
-            if getattr(g, "tm", "1") == "tm3":
-                raise NotImplementedError(f"TM3 grants: {_LATER}")
+            if getattr(g, "tm", "1") == "tm3" and self.mimo:
+                grid, grid_p1 = self._tx_tm3(tti, g, rb_start, l_crbs, grid,
+                                             grid_p1)
+                continue
             # honor the MAC's CQI-driven link adaptation (scheduler_ue.cc
             # MCS selection, fed by the waveform PUCCH format-2 reports):
             # its MCS rounded to even, floored at whatever fits the payload
             # + padding headers and capped at a legal code rate over the
             # grant's TRUE RE count
             n_re = grid_mod.nof_re(self.cell, sf,
-                                   ra.type2_to_prb_mask(rb_start, l_crbs, n_prb))
+                                   ra.type2_to_prb_mask(rb_start, l_crbs, n_prb),
+                                   dw_sym)
             pref = min(g.mcs, 27) + 1
             sb = getattr(self.mac.ues.get(g.rnti),
                          "sb_cqi", None) if getattr(
@@ -624,11 +740,14 @@ class WaveEnbPhy:
             bits = dci_mod.pack_dl(d, n_prb)[None]
             tb = _frame(g.payload, tbs)
             grid = self.k.add_dl_grant(grid, sf, rb_start, l_crbs, mcs,
-                                       g.l_aggr, bits, tb, g.rnti, g.cce_start)
+                                       g.l_aggr, bits, tb, g.rnti, g.cce_start,
+                                       dw_sym)
             self.metrics["dl_tx"] += 1
             if g.rnti in getattr(self.mac, "ues", {}):
-                # C-RNTI TB: its HARQ-ACK will arrive on n_CCE + N1
-                self._ack_expect.setdefault(tti, []).append(
+                # C-RNTI TB: its HARQ-ACK will arrive on n_CCE + N1, on
+                # the next UPLINK subframe in TDD (bundled per 36.213)
+                arr = tti if self.tdd is None else self._next_u(tti)
+                self._ack_expect.setdefault(arr, []).append(
                     (g.rnti, N1_PUCCH + g.cce_start))
             if self.pcap is not None:
                 self.pcap.write_pdu(np.packbits(tb[0]).tobytes(),
@@ -646,7 +765,10 @@ class WaveEnbPhy:
             grid = self.k.add_ul_dci(grid, sf, g.l_aggr, bits, g.rnti,
                                      g.cce_start)
             tbs = ra.ul_tbs(min(g.mcs, 28), max(1, g.l_prb))
-            self._pending_ul.setdefault(tti, []).append((g, tbs))
+            # TDD: the UE drains the grant queue on its next UPLINK
+            # subframe, so that is where this PUSCH will arrive
+            arr_ul = tti if self.tdd is None else self._next_u(tti)
+            self._pending_ul.setdefault(arr_ul, []).append((g, tbs))
         if phich:
             ngrp = phich_mod.n_groups(n_prb)
             acks = np.zeros((1, ngrp, 8), np.float32)
@@ -660,7 +782,56 @@ class WaveEnbPhy:
         if len(self._ack_expect) > 16:
             self._ack_expect = {t: v for t, v in self._ack_expect.items()
                                 if t >= tti - 8}
+        if dw_sym:
+            # special subframe: silence everything past DwPTS (GP/UpPTS
+            # guard honored at IQ level, phy_common.c:90-163)
+            grid = self.k.mask_dwpts(grid, dw_sym)
+            if self.mimo:
+                grid_p1 = self.k.mask_dwpts(grid_p1, dw_sym)
+        if self.mimo:
+            grid = torch.cat([grid, grid_p1], dim=0)  # (2 ports, ...)
         self.medium.dl_put(tti, self.k.modulate(grid))
+
+    def _tx_tm3(self, tti, g, rb_start, l_crbs, grid, grid_p1):
+        """Rank-2 TM3 grant: DCI 2A (RA type 0 must express the PRB mask
+        exactly: the scheduler aligns rank-2 allocations to RBG boundaries,
+        asserted here) + both codewords."""
+        sf = tti % 10
+        n_prb = self.cell.n_prb
+        p = ra.rbg_size(n_prb)
+        n_rbg = -(-n_prb // p)
+        bitmap = 0
+        for gi in range(n_rbg):
+            span = range(gi * p, min((gi + 1) * p, n_prb))
+            if all(g.prb_mask[i] for i in span):
+                bitmap |= 1 << (n_rbg - 1 - gi)
+        assert ra.type0_to_prb_mask(bitmap, n_prb) == \
+            tuple(g.prb_mask), "rank-2 allocation not RBG-aligned"
+        n_re = grid_mod.nof_re(self.cell, sf,
+                               ra.type2_to_prb_mask(rb_start, l_crbs, n_prb))
+        mcs1 = _dl_mcs_clamp(min(g.mcs, 27) + 1, len(g.payload),
+                             l_crbs, n_re)
+        mcs2 = _dl_mcs_clamp(min(g.mcs2, 27) + 1, len(g.payload2),
+                             l_crbs, n_re)
+        d = dci_mod.DciDl2("2A", rbg_bitmap=bitmap,
+                           harq_pid=g.harq_pid & 7, mcs1=mcs1,
+                           ndi1=g.ndi & 1, rv1=g.rv & 3, mcs2=mcs2)
+        bits = dci_mod.pack_dl_2(d, n_prb)[None]
+        tb1 = _frame(g.payload, ra.dl_tbs(mcs1, l_crbs))
+        tb2 = _frame(g.payload2, ra.dl_tbs(mcs2, l_crbs))
+        grid, grid_p1 = self.k.add_dl_grant_tm3(
+            grid, grid_p1, sf, rb_start, l_crbs, mcs1, mcs2, g.l_aggr, bits,
+            tb1, tb2, g.rnti, g.cce_start)
+        self.metrics["dl_tx"] += 1
+        self.metrics["tm3_tx"] = self.metrics.get("tm3_tx", 0) + 1
+        if g.rnti in getattr(self.mac, "ues", {}):
+            self._ack_expect.setdefault(tti, []).append(
+                (g.rnti, N1_PUCCH + g.cce_start))
+        if self.pcap is not None:
+            for tb in (tb1, tb2):
+                self.pcap.write_pdu(np.packbits(tb[0]).tobytes(), g.rnti,
+                                    tti, is_dl=True)
+        return grid, grid_p1
 
 
 class WaveUePhy:
@@ -672,13 +843,23 @@ class WaveUePhy:
     the decoded MIB (8 MSBs) + the PBCH segment offset (2 LSBs) — the
     sync.cc:408 SFN_SYNC role.  Nothing below trusts the network loop's tick."""
 
+    RI_PERIOD = 40  # RI reporting instances: tti % 40 < 8 (36.213 §7.2.2)
+    RI_WIN = 8
+
     def __init__(self, medium: "WaveMedium", cell: grid_mod.CellConfig,
-                 stack, kern: _CellKernels, ue_idx: int):
+                 stack, kern: _CellKernels, ue_idx: int, mimo: bool = False,
+                 tdd_config: int = None, ss_config: int = 4):
         self.medium = medium
         self.cell = cell
         self.stack = stack
         self.k = kern
         self.ue_idx = ue_idx
+        self.mimo = mimo
+        self.tdd = tdd_config
+        self.ss = ss_config
+        self._ri = 1
+        self._rg_mimo = None  # this TTI's (1, 2, 14, NRE, 2) for TM3
+        self._ack_bundle = None  # spatially-bundled 2-codeword HARQ bit
         self.state = "CELL_SEARCH"
         self.tti = None  # known only after SFN_SYNC
         self._sf_local = None  # subframe phase, known after CELL_SEARCH
@@ -690,7 +871,8 @@ class WaveUePhy:
             stack.serving_pci = cell.cell_id
 
     def run_tti(self, samples, batch, search):
-        """samples: this UE's (1, sf_len, 2) row; batch: the network's
+        """samples: this UE's (1, sf_len, 2) row (antenna 0's in MIMO mode);
+        batch: the network's
         shared per-TTI front-end products (rg/ce/snr/resid for ALL UEs,
         computed in one device call; given while any UE camps); search:
         this UE's (quality, cell_id, sf_idx) row of the shared batched cell
@@ -702,14 +884,18 @@ class WaveUePhy:
             self._sf_local = (self._sf_local + 1) % 10
             if self.tti is not None:
                 self.tti += 1
+            sft = (tdd_mod.sf_type(self.tdd, self._sf_local)
+                   if self.tdd is not None else "D")
             if self.state == "SFN_SYNC":
                 if self._sf_local == 0:
                     self._sfn_sync(samples)
-            else:
+            elif sft != "U":  # TDD uplink subframe: nothing to receive
                 self._camp_rx_row(batch)
         if getattr(self.stack, "tick", None) is not None:
             self.stack.tick()
-        if self.state == "CAMP":
+        # TDD: the UE transmits only on uplink subframes
+        if self.state == "CAMP" and (
+                self.tdd is None or tdd_mod.sf_type(self.tdd, self.tti % 10) == "U"):
             self._tx()
 
     def _cell_search(self, search):
@@ -788,6 +974,28 @@ class WaveUePhy:
                     self.metrics["dci_hit"] += 1
                     self._handle_dci(rg_row, rnti, bits[ci], snr_db,
                                      batch["positions"][ci][1])
+        # rank-2 grants ride DCI format 2A (a second blind-search length,
+        # computed once for the whole network in mimo mode)
+        crnti = getattr(self.stack, "crnti", None)
+        if self.mimo and crnti is not None and "resid2" in batch:
+            resid2 = batch["resid2"][row]
+            pos_idx2 = {p: i for i, p in enumerate(batch["positions2"])}
+            hit2 = [i for c in pdcch_mod.candidates(self.cell, crnti, sf)
+                    if (i := pos_idx2.get(c)) is not None
+                    and resid2[i] == crnti]
+            if hit2:
+                if batch["bits2"] is None:
+                    batch["bits2"] = _host(batch["bits2_dev"])
+                seen2 = set()
+                for ci in hit2:
+                    b = batch["bits2"][row][ci]
+                    key = b.tobytes()
+                    if key in seen2:
+                        continue
+                    seen2.add(key)
+                    self.metrics["dci_hit"] += 1
+                    self._handle_dci2(crnti, b, snr_db,
+                                      batch["positions2"][ci][1])
         # PHICH (UL HARQ feedback) on the (n_group, n_seq) derived from
         # our last PUSCH's lowest PRB (36.213 §9.1.2)
         if self._phich_wait is not None and \
@@ -826,7 +1034,7 @@ class WaveUePhy:
             # eNB never sends 29-31; the reference fails in ra.dl_tbs there)
             return
         payload_bits, ok = self.k.pdsch_rx(rg, tti % 10, d.rb_start, d.l_crbs,
-                                           d.mcs, rnti)
+                                           d.mcs, rnti, _dwpts(self.tdd, self.ss, tti % 10))
         ok = bool(_host(ok)[0])
         payload = _unframe(_host(payload_bits)[0]) if ok else None
         self.metrics["tb_ok" if ok else "tb_err"] += 1
@@ -838,6 +1046,33 @@ class WaveUePhy:
         except TypeError:
             self.stack.tb_decoded(tti, payload, snr_db)
 
+    def _handle_dci2(self, rnti, bits, snr_db, cce_start):
+        """Rank-2 TM3 grant (DCI format 2A): decode both codewords from
+        the 2-antenna grids; the HARQ-ACK is spatially bundled."""
+        tti = self.tti
+        d = dci_mod.unpack_dl_2(bits, self.cell.n_prb, "2A")
+        mask = ra.type0_to_prb_mask(d.rbg_bitmap, self.cell.n_prb)
+        prbs = [i for i, on in enumerate(mask) if on]
+        if not prbs or prbs != list(range(prbs[0], prbs[0] + len(prbs))):
+            return  # CRC alias: non-contiguous mask we never schedule
+        if max(d.mcs1, d.mcs2) > 28:
+            return  # CRC alias: an MCS without a TBS, as in _handle_dci
+        if self._rg_mimo is None:
+            return
+        p1, p2, ok1, ok2 = self.k.pdsch_rx_tm3(self._rg_mimo, tti % 10, prbs[0],
+                                               len(prbs), d.mcs1, d.mcs2, rnti)
+        ok1 = bool(_host(ok1)[0])
+        ok2 = bool(_host(ok2)[0])
+        self._ack_cce = cce_start
+        self._ack_bundle = ok1 and ok2  # spatial HARQ-ACK bundling
+        for ok, pl in ((ok1, p1), (ok2, p2)):
+            self.metrics["tb_ok" if ok else "tb_err"] += 1
+            payload = _unframe(_host(pl)[0]) if ok else None
+            try:
+                self.stack.tb_decoded(tti, payload, snr_db, rnti=rnti)
+            except TypeError:
+                self.stack.tb_decoded(tti, payload, snr_db)
+
     def _tx(self):
         tti = self.tti
         sf = tti % 10
@@ -846,7 +1081,8 @@ class WaveUePhy:
         sf_len = ofdm.params(n_prb)["sf_len"]
         out = None
         prach_idx = None
-        if sf == PRACH_SF:
+        prach_sf = 2 if self.tdd is not None else PRACH_SF
+        if sf == prach_sf:
             # get_prach consumes the pending preamble and records the
             # occasion TTI (RA-RNTI epoch) — only probe ON the occasion
             prach_idx = self.stack.get_prach(tti)
@@ -876,9 +1112,24 @@ class WaveUePhy:
             # where the eNB will answer: 36.213 §9.1.2 from our lowest PRB
             self._phich_wait = phich_mod.alloc(
                 g.rb_start, 0, phich_mod.n_groups(n_prb))
+        # periodic RI probe + report instances (36.213 §7.2.2 role): the
+        # wideband 2x2 singular-value ratio picks the transmission rank
+        ri_window = self.mimo and (tti % self.RI_PERIOD) < self.RI_WIN
+        if (self.mimo and self._rg_mimo is not None
+                and tti % self.RI_PERIOD == 0):
+            ratio, _ = self.k.ri_probe(self._rg_mimo, sf)
+            self._ri = 2 if float(ratio) > 0.3 else 1
         pucch = self.stack.get_pucch(tti)
         if pucch:
             acks = pucch.get("ack", [])
+            if self.mimo and len(acks) >= 2:
+                # spatial HARQ-ACK bundling: one bit for both codewords
+                acks = [self._ack_bundle if self._ack_bundle is not None
+                        else (acks[0] and acks[1])]
+            elif self.tdd is not None and len(acks) >= 2:
+                # TDD HARQ-ACK bundling: the D/S subframes since the
+                # last U slot share one AND-bundled bit (36.213 §10.1)
+                acks = [all(acks)]
             sr = bool(pucch.get("sr"))
             sr_res = getattr(self.stack, "sr_pucch_res", None)
             cqi = pucch.get("cqi")
@@ -891,9 +1142,12 @@ class WaveUePhy:
                 # dedicated resource; a pending HARQ bit upgrades it to
                 # format 2a (ACK on the second DMRS, 36.211 §5.4.2).
                 # SR+CQI in one TTI: SR wins, the CQI is dropped
-                # (36.213 §7.2.2 collision rule)
+                # (36.213 §7.2.2 collision rule).  On RI instances the
+                # 4-bit field carries the rank instead (both ends know
+                # the reporting schedule from the TTI).
+                rpt = (self._ri - 1) if ri_window else cqi
                 cqi_bits = np.asarray(
-                    [[(cqi >> (3 - i)) & 1 for i in range(4)]], np.int8)
+                    [[(rpt >> (3 - i)) & 1 for i in range(4)]], np.int8)
                 ab = None
                 if acks:
                     ab = np.asarray([[0 if acks[0] else 1]], np.int8)
@@ -923,29 +1177,64 @@ class WaveUePhy:
                 out = s if out is None else out + s
                 self.metrics["pucch_tx"] += 1
         self._ack_cce = None
+        self._ack_bundle = None
         if out is not None:
             self.medium.ul_put(tti, self.ue_idx, out,
                                is_prach=prach_idx is not None)
 
 
 class WaveMedium:
-    """Per-link pathloss + AWGN; UL superposes at the eNB with one TTI of
-    latency (the eNB decodes TTI n-1's uplink while building TTI n).
+    """Per-link pathloss + AWGN, optionally through a 36.101 Annex B.2
+    tapped-delay-line fading profile (EPA/EVA/ETU, block fading per
+    subframe, the role of the reference's `lib/src/phy/channel/fading.c`
+    over its ZMQ path); UL superposes at the eNB with one TTI of latency
+    (the eNB decodes TTI n-1's uplink while building TTI n).
 
     Every noise draw goes through `_randn` with one torch.Generator on the
-    device, seeded from `seed` (the reference's PRNG key)."""
+    device, seeded from `seed` (the reference's PRNG key).  The fading's
+    sinusoids are drawn anew every TTI (`fading.draw_phases`) from a
+    generator seeded from (FADING_SEED, tti), as the reference draws them
+    from fold_in(PRNGKey(77), tti): only the DL is faded."""
 
     def __init__(self, n_ues: int, pathloss_db, tx_power_dbm: float = 30.0,
                  ue_power_dbm: float = 23.0, noise_floor_dbm: float = -104.0,
-                 seed: int = 0, device="cuda"):
+                 seed: int = 0, fading_profile: str = None,
+                 doppler_hz: float = 5.0, srate_hz: float = None,
+                 dyn_delay: tuple = None, hst_fd_hz: float = None,
+                 rlf: tuple = None, mimo_h=None, device="cuda"):
+        """Dynamic impairments (the reference's channel plugin stack,
+        lib/src/phy/channel/{delay,hst,rlf}.c over its ZMQ path):
+        dyn_delay=(min_us, max_us, period_s) sweeps the path delay
+        sinusoidally; hst_fd_hz enables the 36.101 B.3 high-speed-train
+        Doppler trajectory; rlf=(period_s, outage_s) zeroes the signal
+        during periodic outage windows (both directions — the UE loses
+        sync, the eNB loses PUSCH).  Each is read at every TTI, so it may
+        be set on the medium after construction."""
         self.n_ues = n_ues
         self.pathloss_db = np.asarray(pathloss_db, np.float32)
         self.tx_power_dbm = tx_power_dbm
         self.ue_power_dbm = ue_power_dbm
         self.noise_floor_dbm = noise_floor_dbm
+        self.fading_profile = fading_profile
+        self.doppler_hz = doppler_hz
+        self.srate_hz = srate_hz
+        self.dyn_delay = dyn_delay
+        self.hst_fd_hz = hst_fd_hz
+        self.rlf = rlf
         self.device = torch.device(device)
+        # 2x2 MIMO downlink: per-UE channel matrices (n_ues, 2, 2, 2); the
+        # eNB transmits 2 port waveforms, each UE receives y[a] = sum_p
+        # H[a, p] x[p] + noise on 2 antennas (the role of lib/src/phy/mimo
+        # + channel over the reference's ZMQ path)
+        self.mimo_h = None
+        if mimo_h is not None:
+            assert fading_profile is None, "mimo + TDL fading not combined"
+            h = np.asarray(mimo_h, np.complex64)
+            assert h.shape == (n_ues, 2, 2), h.shape
+            self.mimo_h = cplx.from_numpy(h, self.device)
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(seed)
+        self._fading_gen = torch.Generator(device=self.device)
         self._dl = None  # (tti, samples)
         self._ul_acc = None
         self._ul_meta = None  # (tti, had_prach)
@@ -953,6 +1242,34 @@ class WaveMedium:
 
     def _noise(self, shape) -> torch.Tensor:
         return _randn(self._gen, shape, self.device) / np.sqrt(2.0)
+
+    def _dl_amp(self) -> torch.Tensor:
+        """(n_ues,) noise amplitude of each link against the unit-power DL."""
+        snr_db = (self.tx_power_dbm - self.pathloss_db
+                  - self.noise_floor_dbm)  # (n_ues,)
+        return torch.from_numpy(np.asarray(10.0 ** (-snr_db / 20.0))).to(self.device)
+
+    def _impair(self, x, tti: int):
+        """Dynamic per-TTI impairments on a (B, T, 2) signal."""
+        t_s = tti * 1e-3
+        if self.dyn_delay is not None:
+            mn, mx, period = self.dyn_delay
+            d = fading_mod.dynamic_delay_samples(
+                t_s, mn * 1e-6 * self.srate_hz, mx * 1e-6 * self.srate_hz,
+                period)
+            x = fading_mod.apply_delay_dyn(x, int(round(d)))
+        if self.hst_fd_hz is not None:
+            fd = float(fading_mod.hst_doppler_hz(t_s, self.hst_fd_hz))
+            x = fading_mod.apply_cfo_dyn(x, fd, self.srate_hz)
+        if self.in_outage(tti):
+            x = x * 0.0
+        return x
+
+    def in_outage(self, tti: int) -> bool:
+        if self.rlf is None:
+            return False
+        period, outage = self.rlf
+        return (tti * 1e-3 % period) < outage
 
     # eNB -> UEs
     def dl_put(self, tti: int, samples):
@@ -966,13 +1283,23 @@ class WaveMedium:
         """(n_ues, sf_len, 2): every UE's receive samples in ONE batch —
         one noise draw, per-link amplitudes broadcast down the batch
         axis.  The whole network's downlink front-end then runs as a
-        single call per TTI."""
-        _, tx = self._dl
-        snr_db = (self.tx_power_dbm - self.pathloss_db
-                  - self.noise_floor_dbm)  # (n_ues,)
-        amp = torch.from_numpy(np.asarray(10.0 ** (-snr_db / 20.0))).to(self.device)
+        single call per TTI.  MIMO mode: tx is the (2, T, 2) port pair
+        and the return is (n_ues, 2_rx, T, 2) through each link's 2x2
+        matrix (no fading or impairment, as in the reference)."""
+        tti, tx = self._dl
+        if self.mimo_h is not None:
+            # y[u, a] = sum_p h[u, a, p] * x[p]
+            y = cplx.mul(self.mimo_h[:, :, :, None, :], tx[None, None]).sum(2)
+            return y + self._dl_amp()[:, None, None, None] * self._noise(tuple(y.shape))
+        if self.fading_profile is not None:
+            x = tx.expand((self.n_ues,) + tuple(tx.shape[1:]))
+            self._fading_gen.manual_seed((FADING_SEED << 32) + tti)
+            tx, _ = fading_mod.apply_fading(
+                x, self._fading_gen, self.fading_profile, self.srate_hz,
+                doppler_hz=self.doppler_hz, sf_time_s=tti * 1e-3)
+        tx = self._impair(tx, tti)
         noise = self._noise((self.n_ues,) + tuple(tx.shape[-2:]))
-        return tx + amp[:, None, None] * noise
+        return tx + self._dl_amp()[:, None, None] * noise
 
     # UEs -> eNB
     def ul_put(self, tti: int, ue_idx: int, samples, is_prach: bool = False):
@@ -988,6 +1315,8 @@ class WaveMedium:
             return None
         acc, (tti, had_prach) = self._ul_ready
         self._ul_ready = None
+        if self.in_outage(tti):
+            acc = acc * 0.0  # outage is reciprocal: the eNB hears nothing
         return acc + self._noise(acc.shape), had_prach, tti
 
 
@@ -1005,19 +1334,22 @@ class WaveformNetwork:
 
     def __init__(self, enb_mac, ue_stacks, pathloss_db, n_prb: int = 6,
                  cell_id: int = 1, seed: int = 0, cfi: int = 2,
-                 fading_profile: str = None, start_tti: int = 0, pcap=None,
-                 dyn_delay: tuple = None, hst_fd_hz: float = None,
-                 rlf: tuple = None, mimo: bool = False, mimo_cond=None,
-                 tdd_config: int = None, device="cuda"):
-        for name, val in (("mimo", mimo or None), ("mimo_cond", mimo_cond),
-                          ("tdd_config", tdd_config),
-                          ("fading_profile", fading_profile),
-                          ("dyn_delay", dyn_delay), ("hst_fd_hz", hst_fd_hz),
-                          ("rlf", rlf)):
-            if val is not None:
-                raise NotImplementedError(f"WaveformNetwork {name}=: {_LATER}")
+                 fading_profile: str = None, doppler_hz: float = 5.0,
+                 start_tti: int = 0, pcap=None, dyn_delay: tuple = None,
+                 hst_fd_hz: float = None, rlf: tuple = None,
+                 mimo: bool = False, mimo_cond=None,
+                 tdd_config: int = None, ss_config: int = 4, device="cuda"):
+        """mimo=True: 2x2 downlink spatial multiplexing (TM3) — the eNB
+        transmits two port waveforms (control stays on port 0), each UE
+        receives through its own 2x2 matrix on 2 antennas, reports RI,
+        and rank-2 grants carry two codewords on DCI format 2A.
+        mimo_cond: per-UE singular-value ratio sigma2/sigma1 of the link
+        matrix (1.0 well-conditioned, ~0 rank-deficient -> RI falls back
+        to 1); default 1.0 everywhere."""
         self.device = resolve(device, "WaveformNetwork")
-        self.cell = grid_mod.CellConfig(n_prb=n_prb, cell_id=cell_id, cfi=cfi)
+        self.mimo = mimo
+        self.cell = grid_mod.CellConfig(n_prb=n_prb, cell_id=cell_id, cfi=cfi,
+                                        n_ports=2 if mimo else 1)
         # the waveform grid runs at ONE cfi, so the MAC's CCE search
         # spaces must be computed at the same one: pin it (message mode
         # instead escalates CFI with demand, enb_stack.get_dl_sched)
@@ -1026,6 +1358,17 @@ class WaveformNetwork:
         # capacity-aware grant sizing: the scheduler bounds TBs by the
         # subframe's true RE count (enb_stack._dl_cap_bytes)
         enb_mac.phy_cell = self.cell
+        self.tdd = tdd_config
+        if tdd_config is not None:
+            # DwPTS-truncated capacity for special subframes; a chest
+            # with all four pilot symbols needs DwPTS >= 12 (ss 4)
+            assert tdd_mod.nof_dw(ss_config) >= 12, \
+                "waveform TDD supports special-subframe configs with " \
+                "DwPTS covering the pilot symbols (ss_config 4)"
+            enb_mac.phy_max_sym = {
+                s: tdd_mod.nof_dw(ss_config) for s in range(10)
+                if tdd_mod.sf_type(tdd_config, s) == "S"}
+            enb_mac.tdd_config = tdd_config
         # PUCCH format-1 region: [0, n_cce) dynamic HARQ-ACK (36.213
         # §10.1, N1=0 as broadcast in SIB2), then the dedicated SR pool.
         # Edge PRB pairs carrying the region are reserved from PUSCH.
@@ -1051,11 +1394,39 @@ class WaveformNetwork:
             enb_mac.sr_res_pool = sr_pool
             enb_mac.ul_prb_lo = n_edge
             enb_mac.ul_prb_hi = n_prb - n_edge
-        self.medium = WaveMedium(len(ue_stacks), pathloss_db, seed=seed,
-                                 device=self.device)
+        mimo_h = None
+        if mimo:
+            enb_mac.mimo = True
+            rng = np.random.default_rng(seed + 13)
+            n = len(ue_stacks)
+            cond = np.ones(n) if mimo_cond is None \
+                else np.asarray(mimo_cond, np.float64)
+            mimo_h = np.zeros((n, 2, 2), np.complex64)
+            for u in range(n):
+                # H = U diag(1, cond) V*: random unitaries, controlled
+                # singular-value ratio, Frobenius norm fixed at 2 so the
+                # per-element mean gain stays ~1 (SNR bookkeeping intact)
+                a = (rng.normal(size=(2, 2))
+                     + 1j * rng.normal(size=(2, 2)))
+                uq, _ = np.linalg.qr(a)
+                b = (rng.normal(size=(2, 2))
+                     + 1j * rng.normal(size=(2, 2)))
+                vq, _ = np.linalg.qr(b)
+                s = np.array([1.0, cond[u]])
+                s *= np.sqrt(2.0 / (s ** 2).sum())
+                mimo_h[u] = (uq * s) @ vq.conj().T
+        self.medium = WaveMedium(
+            len(ue_stacks), pathloss_db, seed=seed,
+            fading_profile=fading_profile, doppler_hz=doppler_hz,
+            srate_hz=ofdm.params(n_prb)["sf_len"] * 1e3,
+            dyn_delay=dyn_delay, hst_fd_hz=hst_fd_hz, rlf=rlf,
+            mimo_h=mimo_h, device=self.device)
         self.enb = WaveEnbPhy(self.medium, self.cell, enb_mac, self.kern,
-                              pcap=pcap)
-        self.ues = [WaveUePhy(self.medium, self.cell, st, self.kern, i)
+                              pcap=pcap, mimo=mimo, tdd_config=tdd_config,
+                              ss_config=ss_config)
+        self.ues = [WaveUePhy(self.medium, self.cell, st, self.kern, i,
+                              mimo=mimo, tdd_config=tdd_config,
+                              ss_config=ss_config)
                     for i, st in enumerate(ue_stacks)]
         self.tti = start_tti
 
@@ -1067,24 +1438,42 @@ class WaveformNetwork:
             # whole UE population: the batch axis replaces the per-UE
             # receive loop
             samples = self.medium.dl_take_all()
+            n = len(self.ues)
             batch = None
             search = None
             if any(ue.state == "CAMP" for ue in self.ues):
-                rg, ce, snr, sb = self.kern.rx_front(samples, sf)
+                if self.mimo:
+                    # (n, 2, T, 2): both antennas ride the front-end batch;
+                    # control decodes use the antenna-0 rows, TM3 uses both
+                    flat = samples.reshape((2 * n,) + tuple(samples.shape[2:]))
+                    rg2, ce2, snr2, sb2 = self.kern.rx_front(flat, sf)
+                    rg_mimo = rg2.reshape((n, 2) + tuple(rg2.shape[1:]))
+                    rg, ce, snr, sb = rg2[0::2], ce2[0::2], snr2[0::2], sb2[0::2]
+                else:
+                    rg, ce, snr, sb = self.kern.rx_front(samples, sf)
                 bits_dev, resid, positions = self.kern.blind_all(rg, ce, sf)
                 batch = dict(rg=rg, ce=ce, snr=_host(snr), resid=_host(resid),
                              bits_dev=bits_dev, bits=None, positions=positions,
                              sb=_host(sb))
+                if self.mimo and any(getattr(u.stack, "crnti", None)
+                                     for u in self.ues):
+                    bits2_dev, resid2, positions2 = self.kern.blind_all2(rg, ce, sf)
+                    batch.update(bits2_dev=bits2_dev, bits2=None,
+                                 resid2=_host(resid2), positions2=positions2)
             if any(ue.state == "CELL_SEARCH" for ue in self.ues):
                 # one batched PSS/SSS search for every still-searching UE
-                search = tuple(_host(v) for v in self.kern.cell_search(samples))
+                ss = samples[:, 0] if self.mimo else samples
+                search = tuple(_host(v) for v in self.kern.cell_search(ss))
             for i, ue in enumerate(self.ues):
                 if batch is not None:
                     ue.stack.last_sb_snr_db = batch["sb"][i]
+                    if self.mimo:
+                        ue._rg_mimo = rg_mimo[i : i + 1]
                 srow = None
                 if search is not None and ue.state == "CELL_SEARCH":
                     srow = (search[0][i], search[1][i], search[2][i])
                 # the UEs share `batch`: the first that needs the DCI bits
                 # on the host copies them for all
-                ue.run_tti(samples[i : i + 1], batch, srow)
+                ue.run_tti(samples[i, 0:1] if self.mimo else samples[i : i + 1],
+                           batch, srow)
             self.tti += 1

@@ -778,3 +778,90 @@ def _pcap_offsets(data):
         out.append((off, n))
         off += 16 + n
     return out
+
+
+# ---------------- slice 13c (chip_smoke.py phase 13) ----------------
+
+@pytest.mark.parametrize("k,B,narrow", [(3136, 256, True), (4288, 128, True), (1248, 1, False),
+                                         (4736, 3, False), (4928, 6, False), (6144, 2, False)])
+def test_kernel_equals_plain_at_the_phase_13_shapes(dev, k, B, narrow):
+    """turbo_map bit for bit at shapes chip_smoke.py phase 13 launches: the
+    two-cell dynamic block's DL 256 x K=3136 (2 code blocks x 8 TTIs x 8
+    UEs x 2 cells) and UL 128 x K=4288 per round in bf16 mode, and the
+    networks' few-row f32 decodes (1 x K=1248, 3 x K=4736 and 6 x K=4928
+    of rank-2 grants, 2 x K=6144)."""
+    args = _inputs(k, B, dev)
+    w = turbodecoder._pick_windows(k)
+    got = turbodecoder_cuda.map_decode_cuda(*args, w, narrow)
+    assert torch.equal(got, turbodecoder_cuda.map_decode_ref(*args, w, narrow))
+
+
+def test_rlf_outage_reestablishment_on_the_card(dev):
+    """tests/test_wavenet.py::test_waveform_rlf_outage_reestablishment on
+    the port, on the card: 15 PRB, 1 UE, seed 23; after the attach a 1.6 s
+    outage every 4 s (rlf=(4.0, 1.6), set on the medium) trips N310 and RLF,
+    RRC reestablishment recovers the connection once the link is back, and
+    the user plane carries packets again."""
+    from srslte_emane_tpu_torch.epc import hss as hss_mod, mme as mme_mod, spgw as spgw_mod
+    from srslte_emane_tpu_torch.runtime import wavenet
+    from srslte_emane_tpu_torch.stack import enb_stack, security, ue_stack
+
+    hss = hss_mod.Hss()
+    spgw = spgw_mod.Spgw()
+    enb = enb_stack.EnbStack(mme_mod.Mme(hss, spgw), enb_id=1, n_prb=15)
+    imsi, key = "001010000000000", bytes(range(16))
+    hss.add(hss_mod.Subscriber(imsi=imsi, key=key))
+    ue = ue_stack.UeStack(ue_stack.Usim(imsi, key, security.milenage_opc(key, b"\x00" * 16)),
+                          preamble=7)
+    net = wavenet.WaveformNetwork(enb, [ue], pathloss_db=np.full(1, 80.0), n_prb=15, seed=23)
+    assert net.device.type == "cuda"
+    for _ in range(8):
+        net.run(50)
+        if ue.emm_state == "REGISTERED":
+            break
+    assert ue.emm_state == "REGISTERED"
+    net.medium.rlf = (4.0, 1.6)
+    pkt = spgw_mod.make_ipv4("8.8.8.8", ue.ip_addr, b"rlf" * 20)
+    for _ in range(40):
+        spgw.handle_sgi_pdu(pkt)
+        net.run(100)
+        if ue.metrics.get("rlf", 0) >= 1 and ue.rrc_state == "CONNECTED" \
+                and not net.medium.in_outage(net.tti):
+            break
+    assert ue.metrics.get("rlf", 0) >= 1, dict(ue.metrics)
+    assert ue.rrc_state == "CONNECTED", (ue.rrc_state, dict(ue.metrics))
+    n_before = len(ue.gw_rx)
+    spgw.handle_sgi_pdu(pkt)
+    net.run(40)
+    assert len(ue.gw_rx) > n_before
+
+
+def test_dyn_bench_step_across_cells_on_the_card(dev):
+    """make_bench_step(n_cells=2) on the card (its default) from numpy
+    inputs with a leading cells axis and one generator per cell: the six
+    counts come back on the card and equal the sums of the two one-cell
+    blocks with the same generators' seeds (15 PRB, 2 UEs, R=2)."""
+    from srslte_emane_tpu_torch.phch import grid
+    from srslte_emane_tpu_torch.runtime import waveblock_dyn
+
+    cfg = waveblock_dyn.DynBlockConfig(
+        cell=grid.CellConfig(n_prb=15, cell_id=1, cfi=2), rntis=(70, 71), dl_l_crbs=3,
+        dl_mcs=8, ul_l_prb=2, ul_mcs=8, snr_db=(30.0, 28.0), R=2)
+    rng = np.random.default_rng(4)
+    sched = [waveblock_dyn.make_schedule(cfg, seed=1 + c) for c in range(2)]
+    ins = (rng.integers(0, 2, (2, cfg.T, 2, cfg.dl_tbs), dtype=np.int8),
+           rng.integers(0, 2, (2, cfg.T, 2, cfg.ul_tbs), dtype=np.int8),
+           np.stack([s[0] for s in sched]), np.stack([s[1] for s in sched]))
+
+    def gens(*seeds):
+        out = [torch.Generator(device=dev) for _ in seeds]
+        for g, s in zip(out, seeds):
+            g.manual_seed(s)
+        return out
+
+    counts = waveblock_dyn.make_bench_step(cfg, n_cells=2)(*ins, gens(5, 6), 0)
+    assert all(c.device.type == "cuda" for c in counts)
+    one = waveblock_dyn.make_bench_step(cfg)
+    singles = [one(*(a[c] for a in ins), gens(s)[0], 0) for c, s in enumerate((5, 6))]
+    assert [int(x) for x in counts] == [int(a) + int(b) for a, b in zip(*singles)]
+    assert [int(x) for x in counts] == [2 * cfg.T * 2] * 3 + [0, 0, 0]

@@ -52,7 +52,9 @@ from srslte_emane_tpu_torch.utils import pcap as p_pcap
 
 torch.set_num_threads(1)  # one intra-op thread per pytest-xdist worker
 
-NET = dict(n_ues=2, n_prb=15, pathloss=80.0, seed=3)
+# the network: UE i has IMSI imsi + f"{i:02d}" and preamble preamble + step * i
+NET = dict(n_ues=2, n_prb=15, pathloss=80.0, seed=3, imsi="00101000000002", preamble=11,
+           step=5)
 MAX_ATTACH = 400  # TTIs
 # the two packages' f32 FFTs: 1.20e-7 and 1.8e-4 dB the most over the run
 REL = 1e-5  # relative RMS of the DL samples
@@ -71,25 +73,27 @@ def _dft_f32(x, n=None, inverse=False, ortho=True):
     return jnp.stack([jnp.real(y), jnp.imag(y)], axis=-1)
 
 
-def _build(pkg, pcap_path, **kw):
-    """tests/test_waveblock.py's network from one parameter set."""
+def _build(pkg, pcap_path, net=NET, **kw):
+    """One package's network from the parameter set `net` (by default
+    tests/test_waveblock.py's)."""
     hss_mod, mme_mod, spgw_mod, enb_stack, security, ue_stack, pcap_mod, wavenet = pkg
-    n_ues = NET["n_ues"]
+    n_ues = net["n_ues"]
     hss = hss_mod.Hss()
     spgw = spgw_mod.Spgw()
     mme = mme_mod.Mme(hss, spgw)
-    enb = enb_stack.EnbStack(mme, enb_id=1, n_prb=NET["n_prb"])
+    enb = enb_stack.EnbStack(mme, enb_id=1, n_prb=net["n_prb"])
     ues = []
     for i in range(n_ues):
-        imsi = f"00101000000002{i:02d}"
+        imsi = f"{net['imsi']}{i:02d}"
         key = bytes(range(16))
         hss.add(hss_mod.Subscriber(imsi=imsi, key=key))
         opc = security.milenage_opc(key, b"\x00" * 16)
-        ues.append(ue_stack.UeStack(ue_stack.Usim(imsi, key, opc), preamble=11 + 5 * i))
-    net = wavenet.WaveformNetwork(
-        enb, ues, pathloss_db=np.full(n_ues, NET["pathloss"]), n_prb=NET["n_prb"],
-        seed=NET["seed"], pcap=pcap_mod.MacPcap(str(pcap_path)), **kw)
-    return types.SimpleNamespace(net=net, ues=ues, spgw=spgw, spgw_mod=spgw_mod)
+        ues.append(ue_stack.UeStack(ue_stack.Usim(imsi, key, opc),
+                                    preamble=net["preamble"] + net["step"] * i))
+    net_ = wavenet.WaveformNetwork(
+        enb, ues, pathloss_db=np.full(n_ues, net["pathloss"]), n_prb=net["n_prb"],
+        seed=net["seed"], pcap=pcap_mod.MacPcap(str(pcap_path)), **kw)
+    return types.SimpleNamespace(net=net_, ues=ues, spgw=spgw, spgw_mod=spgw_mod, enb=enb)
 
 
 def _fake_os(seed):
@@ -133,15 +137,22 @@ class BlockDraws(Noise):
 
 
 def _state(side):
+    """What must be equal every TTI: the UEs' sync states, their stacks'
+    EMM/RRC/MAC states and out-of-sync counters, the eNB MAC's RI per UE,
+    and every PHY metrics dict."""
     return dict(
         sync=[u.state for u in side.net.ues],
-        stack=[(u.emm_state, u.rrc_state, u.mac_state) for u in side.ues],
+        stack=[(u.emm_state, u.rrc_state, u.mac_state, u._consec_err, u.metrics["rlf"])
+               for u in side.ues],
+        ri={r: getattr(u, "ri", None) for r, u in side.enb.ues.items()},
         enb_metrics=dict(side.net.enb.metrics),
         ue_metrics=[dict(u.metrics) for u in side.net.ues])
 
 
 def _rel_rms(got, ref):
     got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    if not ref.any():  # a silent subframe (TDD U): the port's must be silent too
+        return 0.0 if not got.any() else float("inf")
     return float(np.sqrt(np.mean((got - ref) ** 2) / np.mean(ref ** 2)))
 
 
@@ -156,56 +167,90 @@ def _pcap_records(path):
     return out
 
 
-@pytest.fixture(scope="module")
-def lockstep(tmp_path_factory):
-    """Run both networks TTI by TTI; returns the record the tests read."""
-    tmp = tmp_path_factory.mktemp("wavenet")
-    rec = dict(mismatch=[], rel_rms=[], snr=[], attach_tti=None, paced=0)
-    noise = Noise(5)
-    with pytest.MonkeyPatch.context() as m:
-        m.setattr(j_dft, "dft", _dft_f32)
+class Lockstep:
+    """Both packages' networks from one parameter set, run TTI by TTI.
+
+    Inside `patch` (a pytest.MonkeyPatch, undone by its owner) the reference
+    runs with `_dft_f32`, each HSS draws its RAND from a seeded stream and
+    the port's `wavenet._randn` replays the numpy draws that the patched
+    `jax.random.normal` hands the reference.  Each step records the TTIs
+    whose `_state` differs, the relative RMS of the eNB's DL samples and of
+    whatever `probes` return ((jax, port) sample pairs), and the UEs' SNR
+    estimates."""
+
+    def __init__(self, tmp, patch, net=NET, **kw):
+        self.noise = Noise(5)
+        self.tmp = tmp
+        patch.setattr(j_dft, "dft", _dft_f32)
         jax.clear_caches()  # nothing traced with the bf16 dft may be reused
-        m.setattr(j_hss, "os", _fake_os(9))
-        m.setattr(p_hss, "os", _fake_os(9))
-        m.setattr(p_wn, "_randn", noise.port_randn)
-        j = _build(JAX, tmp / "jax.pcap")
-        p = _build(PORT, tmp / "port.pcap", device="cpu")
+        patch.setattr(j_hss, "os", _fake_os(9))
+        patch.setattr(p_hss, "os", _fake_os(9))
+        patch.setattr(p_wn, "_randn", self.noise.port_randn)
+        self.j = _build(JAX, tmp / "jax.pcap", net, **kw)
+        self.p = _build(PORT, tmp / "port.pcap", net, device="cpu", **kw)
+        self.probes = []
+        self.rec = dict(mismatch=[], rel_rms=[], probe_rms=[], snr=[], paced=0)
 
-        def step(n):
-            for _ in range(n):
-                rec["paced"] += 1
-                with pytest.MonkeyPatch.context() as mj:
-                    mj.setattr(jax.random, "normal", noise.jax_normal)
-                    j.net.run(1)
-                p.net.run(1)
-                assert not noise.queue, "the port drew less noise than the reference"
-                sj, sp = _state(j), _state(p)
-                for key in sj:
-                    if sj[key] != sp[key]:
-                        rec["mismatch"].append((j.net.tti, key, sj[key], sp[key]))
-                rec["rel_rms"].append(_rel_rms(p.net.medium._dl[1].numpy(),
-                                               np.asarray(j.net.medium._dl[1])))
-                rec["snr"].append([[getattr(u, "last_rsrp_snr", None) for u in s.ues]
-                                   for s in (j, p)])
+    def step(self, n=1):
+        j, p, rec = self.j, self.p, self.rec
+        for _ in range(n):
+            rec["paced"] += 1
+            with pytest.MonkeyPatch.context() as mj:
+                mj.setattr(jax.random, "normal", self.noise.jax_normal)
+                j.net.run(1)
+            p.net.run(1)
+            assert not self.noise.queue, "the port drew less noise than the reference"
+            sj, sp = _state(j), _state(p)
+            for key in sj:
+                if sj[key] != sp[key]:
+                    rec["mismatch"].append((j.net.tti, key, sj[key], sp[key]))
+            rec["rel_rms"].append(_rel_rms(p.net.medium._dl[1].numpy(),
+                                           np.asarray(j.net.medium._dl[1])))
+            rec["probe_rms"].append([_rel_rms(b, a) for probe in self.probes
+                                     for a, b in probe()])
+            rec["snr"].append([[getattr(u, "last_rsrp_snr", None) for u in s.ues]
+                               for s in (j, p)])
 
-        while j.net.tti < MAX_ATTACH and not all(
+    def attach(self, max_tti=MAX_ATTACH):
+        """Step until every UE of both networks is REGISTERED."""
+        j, p = self.j, self.p
+        while j.net.tti < max_tti and not all(
                 u.emm_state == "REGISTERED" for u in j.ues + p.ues):
-            step(1)
-        rec["attach_tti"] = j.net.tti
-        rec["registered"] = [[u.emm_state == "REGISTERED" and u.rrc_state == "CONNECTED"
-                              and bool(u.ip_addr) for u in s.ues] for s in (j, p)]
-        # tests/test_waveblock.py's IP packets, then 30 host-paced TTIs
-        rec["pkts"] = []
-        for s in (j, p):
+            self.step(1)
+        self.rec["attach_tti"] = j.net.tti
+        self.rec["registered"] = [[u.emm_state == "REGISTERED" and u.rrc_state == "CONNECTED"
+                                   and bool(u.ip_addr) for u in s.ues] for s in (j, p)]
+
+    def offer(self, dl=b"blk" * 40, n_dl=1, ul=b"ul" * 30):
+        """Offer each UE n_dl DL packets and one UL packet in both networks;
+        records ((the port's DL packets), the port's UL bytes before)."""
+        out = []
+        for s in (self.j, self.p):
             ul_before = s.spgw.metrics["ul_bytes"]
             pkts = []
             for u in s.ues:
-                pkt = s.spgw_mod.make_ipv4("8.8.8.8", u.ip_addr, b"blk" * 40)
-                assert s.spgw.handle_sgi_pdu(pkt)
+                pkt = s.spgw_mod.make_ipv4("8.8.8.8", u.ip_addr, dl)
+                for _ in range(n_dl):
+                    assert s.spgw.handle_sgi_pdu(pkt)
                 pkts.append(pkt)
-                u.gw_send(s.spgw_mod.make_ipv4(u.ip_addr, "8.8.8.8", b"ul" * 30))
-            rec["pkts"].append((pkts, ul_before))
-        step(30)
+                u.gw_send(s.spgw_mod.make_ipv4(u.ip_addr, "8.8.8.8", ul))
+            out.append((pkts, ul_before))
+        return out
+
+    def pcaps(self):
+        return [_pcap_records(self.tmp / f"{s}.pcap") for s in ("jax", "port")]
+
+
+@pytest.fixture(scope="module")
+def lockstep(tmp_path_factory):
+    """Run both networks TTI by TTI; returns the record the tests read."""
+    with pytest.MonkeyPatch.context() as m:
+        ls = Lockstep(tmp_path_factory.mktemp("wavenet"), m)
+        j, p, rec = ls.j, ls.p, ls.rec
+        ls.attach()
+        # tests/test_waveblock.py's IP packets, then 30 host-paced TTIs
+        rec["pkts"] = ls.offer()
+        ls.step(30)
         rec["gw_rx_paced"] = [[list(u.gw_rx) for u in s.ues] for s in (j, p)]
         rec["spgw_paced"] = [dict(s.spgw.metrics) for s in (j, p)]
 
@@ -228,7 +273,7 @@ def lockstep(tmp_path_factory):
                BlockDraws(21))
         blocks("dyn", j_wbd.DynBlockRunner(j.net, R=2), p_wbd.DynBlockRunner(p.net, R=2), 1,
                BlockDraws(23))
-        rec["pcaps"] = [_pcap_records(tmp / f"{s}.pcap") for s in ("jax", "port")]
+        rec["pcaps"] = ls.pcaps()
     yield rec
     jax.clear_caches()
 
@@ -287,16 +332,6 @@ def test_network_needs_a_card_by_default(tmp_path):
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         _build(PORT, tmp_path / "x.pcap")
-
-
-@pytest.mark.parametrize("opt", [dict(mimo=True), dict(mimo_cond=[0.5, 0.5]),
-                                 dict(tdd_config=1), dict(fading_profile="EPA"),
-                                 dict(dyn_delay=(1.0, 2.0, 1.0)), dict(hst_fd_hz=750.0),
-                                 dict(rlf=(1.0, 0.1))],
-                         ids=lambda o: next(iter(o)))
-def test_unported_options_name_slice_13c(tmp_path, opt):
-    with pytest.raises(NotImplementedError, match="slice 13c"):
-        _build(PORT, tmp_path / "x.pcap", device="cpu", **opt)
 
 
 def _snr_reading(links_db, n_draws=16, sf=1):
@@ -362,7 +397,7 @@ def _ue_phy_at_100_prb():
     kern = p_wn._CellKernels(cell, device="cpu")
     decodes = []
 
-    def pdsch_rx(rg, sf, rb_start, l_crbs, mcs, rnti):
+    def pdsch_rx(rg, sf, rb_start, l_crbs, mcs, rnti, max_sym=0):
         decodes.append((rb_start, l_crbs, mcs))
         return torch.zeros(1, 8, dtype=torch.uint8), torch.zeros(1, dtype=torch.bool)
 
