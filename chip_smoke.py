@@ -134,7 +134,28 @@ Phases (any failure raises; the exit code is then non-zero):
      phase 11 (R=20) across 2 cells (make_bench_step(n_cells=2)) against 1:
      every CRC and ACK in every cell, cell-TTIs/s, kernel and turbo_map
      launches per block; then turbo_map against its plain version at every
-     shape of the phase not checked before.
+     shape of the phase not checked before;
+ 14. the multi-device layer on one card (a 1-device mesh, no scaling claim):
+     (a) pdsch_link.make_link_step_sharded at the bench cell (100 PRB, 64QAM,
+     rate 0.55, llr_bits=16, batch 128) through turbo_map: every CRC, the
+     payload bit-exact, equal bit for bit to make_link_step on the same
+     noise, 0 cross-device transfers, sf/s; then parallel/dryrun.py on 1
+     device (its JSON lines); (b) ota_mix_sharded and total_rx_power_psum
+     of 8 nodes on the card against the dense mix (atol 1e-4), also with
+     noise against one dense draw from an equally seeded generator, and
+     network_scan over 64 cells with the mesh and without: the same PCIs,
+     cells/s; (c) waveblock.make_block_step_sharded for 1 cell at phase 11's
+     SPS block against make_block_step on the same draws: every CRC, ACK
+     and output equal, TTIs/s; (d) the module
+     srslte_emane_tpu_torch.apps.netsim run as `-m` runs it, in four
+     subprocesses started together, each with a time limit: the
+     message-level run (--ues 20 --ttis 800 --prb 50), --waveform-full with
+     8 UEs at 100 PRB, --waveform-block with 8 UEs (T=20) and --waveform-dyn
+     with 6 UEs (R=2), each JSON line checked as phase 12 checks its network
+     (attach, every DL and UL packet, every block CRC), each process
+     reporting its turbo_map launches and their shapes (every waveform run
+     must launch it); (e) turbo_map against its plain version at every
+     shape of the phase not checked before, the netsim processes' included.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -1119,25 +1140,26 @@ def noise_like(gen, x, snr_db):
 
 
 @contextlib.contextmanager
-def replaying_awgn(record=None, replay=None):
-    """channel.awgn recording the first two rows of each call's input and
-    output into `record`, or answering each call with the next recorded
-    output of `replay` (and checking its input against the recorded one),
-    so that a run on the CPU sees the card's noise."""
+def replaying_awgn(record=None, replay=None, rows=slice(0, 2)):
+    """channel.awgn recording `rows` (the first two by default) of each
+    call's input and output into `record`, or answering each call with the
+    next recorded output of `replay` on the caller's device (and checking
+    its input against the recorded one), so that a run on the CPU sees the
+    card's noise."""
     from srslte_emane_tpu_torch.ops import channel
 
     awgn, it = channel.awgn, iter(replay or ())
 
     def recording(gen, x, snr_db, signal_power=None):
         y = awgn(gen, x, snr_db, signal_power)
-        record.append((x[:2].cpu(), y[:2].cpu()))
+        record.append((x[rows].cpu(), y[rows].cpu()))
         return y
 
     def replaying(gen, x, snr_db, signal_power=None):
         x_card, y_card = next(it)
-        rel = ((x - x_card).square().mean() / x_card.square().mean()).sqrt().item()
+        rel = ((x.cpu() - x_card).square().mean() / x_card.square().mean()).sqrt().item()
         assert rel < 1e-5, f"card vs CPU transmit samples: relative RMS {rel}"
-        return y_card
+        return y_card.to(x.device)
 
     channel.awgn = recording if record is not None else replaying
     try:
@@ -1593,6 +1615,21 @@ def step_nbiot(dev, card):
             f"; Viterbi share of a decode {share:.3f}; {card}")
 
 
+def scan_case(dev):
+    """The 64-cell scan: (its rng, n, cell ids, the (n, n) link matrix with
+    one dominant neighbour per observer and the others at 0.05, the PCIs
+    each observer must find)."""
+    import torch
+
+    rng = np.random.default_rng(17)
+    n = 64
+    scan_ids = torch.from_numpy(rng.choice(504, n, replace=False)).to(dev)
+    gm = 0.05 * (rng.normal(size=(n, n)) + 1j * rng.normal(size=(n, n)))
+    gm[np.arange(n), (np.arange(n) + 1) % n] = 1.0  # one dominant neighbour per observer
+    want = scan_ids[(torch.arange(n, device=dev) + 1) % n].to(torch.int32)
+    return rng, n, scan_ids, gm.astype(np.complex64), want
+
+
 def step_scan(dev, card):
     """Phase 10.8-9: the beacon scan and neighbour measurement."""
     import torch
@@ -1607,15 +1644,9 @@ def step_scan(dev, card):
         c = grid.CellConfig(n_prb=6, cell_id=cid)
         ref = pdsch.put_crs(sync.put_pss_sss(cplx.zeros((1, 14, 72), device=dev), c, 0), c, 0)
         assert torch.equal(beacons[cid], ref[0]), f"beacon of cell {cid}"
-    rng = np.random.default_rng(17)
-    n = 64
-    scan_ids = torch.from_numpy(rng.choice(504, n, replace=False)).to(dev)
-    gm = 0.05 * (rng.normal(size=(n, n)) + 1j * rng.normal(size=(n, n)))
-    gm[np.arange(n), (np.arange(n) + 1) % n] = 1.0  # one dominant neighbour per observer
-    gm = gm.astype(np.complex64)
+    rng, n, scan_ids, gm, want = scan_case(dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(17)
-    want = scan_ids[(torch.arange(n, device=dev) + 1) % n].to(torch.int32)
     scan = lambda: netscan.network_scan(None, scan_ids, gm, gen=gen, noise_std=0.02)
     right = lambda res: torch.equal(res["cell_id"], want)
     assert right(scan()), "network scan: an observer missed its dominant neighbour"
@@ -2440,6 +2471,278 @@ def phase_slice13c(dev, card, known):
     return cases, sum(launches)
 
 
+# phase 14: the multi-device layer on one card (a 1-device mesh: one card
+# makes no scaling claim): the sharded link at the bench cell, the OTA
+# collective and the scan over the mesh, the sharded block at phase 11's
+# SPS configuration, then netsim through its entry point in subprocesses
+NETSIM_TIMEOUT_S = 900
+# (label, netsim arguments): the message-level run of the verify recipe,
+# then phase 12's network through the three waveform modes at netsim's own
+# cfi (2).  --waveform-dyn runs 6 UEs: at cfi 2 and 100 PRB the reference's
+# CCE allocator (waveblock_dyn._alloc_cces) places netsim's C-RNTIs
+# 0x146-0x14b and not 0x14c-0x14d
+NETSIM_RUNS = (
+    ("message level", ("--ues", "20", "--ttis", "800", "--prb", "50")),
+    ("waveform-full", ("--waveform-full", "--ues", "8", "--prb", "100")),
+    ("waveform-block", ("--waveform-block", "--ues", "8", "--prb", "100", "--ttis", "40",
+                        "--block-ttis", "20")),
+    ("waveform-dyn", ("--waveform-dyn", "--ues", "6", "--prb", "100", "--ttis", "32",
+                      "--block-ttis", "16")),
+)
+NETSIM_IP_BYTES = 140  # netsim's IP packets: 120 bytes of payload in IPv4/UDP
+# `python -c` body that runs the port's netsim as `-m` would, with every
+# turbo_map launch logged as launch_log does; its last line, after netsim's
+# JSON, is {"launches": the wrapper's count, "shapes": [[K, rows, narrow], ...]}
+NETSIM_LOGGED = """
+import json, runpy
+from srslte_emane_tpu_torch.ops.fec import turbodecoder_cuda as tdc
+seen, launch = [], tdc.launch
+def logged(*a, **kw):
+    seen.append((a[0].shape[1], a[0].shape[0], bool(a[4])))
+    return launch(*a, **kw)
+tdc.launch = logged
+try:
+    runpy.run_module("srslte_emane_tpu_torch.apps.netsim", run_name="__main__", alter_sys=True)
+finally:
+    print(json.dumps({"launches": tdc.launches, "shapes": seen}), flush=True)
+"""
+
+
+def step_link_sharded(dev, card, logs):
+    """Phase 14a: make_link_step_sharded on a 1-device mesh at the bench
+    cell, batch 128, against make_link_step on the same noise; then the dry
+    run.  Returns its turbo_map launches."""
+    import torch
+
+    from srslte_emane_tpu_torch.models import pdsch_link
+    from srslte_emane_tpu_torch.ops.fec import turbodecoder_cuda as tdc
+    from srslte_emane_tpu_torch.parallel import dryrun, mesh as mesh_mod
+
+    mesh = mesh_mod.make_mesh(1)  # the card: the entry point's default
+    assert mesh.devices == [dev] and mesh.shape == {"node": 1, "sf": 1}, mesh
+    cfg = dryrun.bench_config()
+    rng = np.random.default_rng(14)
+    payload = torch.from_numpy(rng.integers(0, 2, (BATCH, cfg.tbs), dtype=np.int8)).to(dev)
+    step = pdsch_link.make_link_step_sharded(cfg, mesh)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(14)
+    record = []
+    with launch_log() as seen, replaying_awgn(record=record, rows=slice(None)):
+        tdc.launches = 0
+        out, ok, snr = step(payload, gen)
+        torch.cuda.synchronize()
+        launches = tdc.launches
+    logs.extend(seen)
+    assert launches > 0 and all(narrow for _, _, narrow in seen), seen
+    assert bool(ok.all()) and torch.equal(out, payload), \
+        f"sharded link: {int(ok.sum())} of {BATCH} CRCs, or a payload bit"
+    with replaying_awgn(replay=record, rows=slice(None)):
+        ref = pdsch_link.make_link_step(cfg)(payload, gen)
+    assert torch.equal(ref[0], out) and torch.equal(ref[1], ok) and torch.equal(ref[2], snr), \
+        "sharded link differs from make_link_step on the same noise"
+    right = lambda o: bool(o[1].all()) and torch.equal(o[0], payload)
+    r = rate(lambda: step(payload, gen), check=right)
+    assert mesh.transfers == 0, f"sharded link moved {mesh.transfers} tensors between devices"
+    log(f"sharded link: make_link_step_sharded on a 1-device mesh {mesh.shape}, bench cell "
+        f"(100 PRB, 64QAM, rate 0.55, llr_bits=16, TBS {cfg.tbs}), batch {BATCH}: every CRC "
+        f"passes, payload bit-exact, equal to make_link_step on the same noise bit for bit "
+        f"(bits, CRCs, SNR estimates); {launches} turbo_map launches {sorted(set(seen))}; "
+        f"cross-device transfers {mesh.transfers}; {fmt_rate('sharded link', *r)}; {card}")
+    with launch_log() as seen:
+        tdc.launches = 0
+        dryrun.dryrun(1)  # prints its JSON lines
+        launches += tdc.launches
+    logs.extend(seen)
+    return launches
+
+
+def step_ota_scan(dev, card):
+    """Phase 14b: ota_mix_sharded and total_rx_power_psum on the card against
+    the dense mix, then network_scan over 64 cells with the mesh and
+    without."""
+    import torch
+
+    from srslte_emane_tpu_torch.models import netscan
+    from srslte_emane_tpu_torch.parallel import mesh as mesh_mod, ota_collective
+
+    mesh = mesh_mod.make_mesh(1)
+    n, B, S = 8, 2, 30720  # 8 nodes, 2 subframes of 20 MHz samples each
+    rng = np.random.default_rng(15)
+    tx = rng.normal(size=(n, B, S, 2)).astype(np.float32)
+    g = (0.1 * (rng.normal(size=(n, n)) + 1j * rng.normal(size=(n, n)))).astype(np.complex64)
+    shards = mesh_mod.node_sharding(mesh, tx)
+    rx = mesh_mod.gather(ota_collective.ota_mix_sharded(mesh, shards, g))
+    p = ota_collective.total_rx_power_psum(mesh, shards)
+    assert rx.device == dev and p.device == dev
+    gd = g * (1.0 - np.eye(n, dtype=np.float32))
+    want = np.einsum("mn,nbs->mbs", gd.astype(np.complex128), tx[..., 0] + 1j * tx[..., 1])
+    err = np.abs(rx.cpu().numpy() - np.stack([want.real, want.imag], -1)).max()
+    assert err <= 1e-4, f"OTA mix on the card: max abs error {err}"
+    p_want = sum(float(np.mean(np.sum(tx[i].astype(np.float64) ** 2, -1))) for i in range(n))
+    assert abs(float(p) - p_want) <= 1e-5 * p_want, (float(p), p_want)
+    # with noise: each device draws from a copy of gen's state, so the sharded
+    # medium adds what one dense draw from an equally seeded generator adds
+    gen, dense = (torch.Generator(device=dev).manual_seed(18) for _ in range(2))
+    noisy = mesh_mod.gather(ota_collective.ota_mix_sharded(mesh, shards, g, gen=gen,
+                                                           noise_std=0.1))
+    noise = 0.1 * torch.randn((n, B, S, 2), generator=dense, device=dev) / np.sqrt(2.0)
+    n_err = (noisy - rx - noise).abs().max().item()
+    assert n_err <= 1e-4, f"OTA mix noise on the card: max abs error {n_err}"
+    assert torch.equal(torch.randn(4, generator=gen, device=dev),
+                       torch.randn(4, generator=dense, device=dev)), "gen did not advance as one draw"
+    mix_ms = cuda_ms(lambda: ota_collective.ota_mix_sharded(mesh, shards, g), 20)
+    log(f"OTA collective: ota_mix_sharded of {n} nodes x {B} x {S} samples on the card equals the "
+        f"dense mix (max abs error {err:.2e}, bound 1e-4), with noise_std 0.1 the dense mix plus "
+        f"one draw from an equally seeded generator (max abs error {n_err:.2e}, bound 1e-4), "
+        f"total_rx_power_psum {float(p):.6f} against {p_want:.6f}; mix {mix_ms:.4f} ms (CUDA "
+        f"events, median of 20); cross-device transfers {mesh.transfers}; {card}")
+
+    _, n_cells, ids, gm, want_ids = scan_case(dev)  # phase 10's scan
+
+    def scan(m):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(17)
+        return netscan.network_scan(m, ids, gm, gen=gen, noise_std=0.02)
+
+    sharded, plain = scan(mesh), scan(None)
+    assert torch.equal(sharded["cell_id"], plain["cell_id"]), "scan: mesh and no mesh differ"
+    assert torch.equal(sharded["cell_id"], want_ids), "scan: an observer missed its neighbour"
+    right = lambda res: torch.equal(res["cell_id"], want_ids)
+    r_mesh = rate(lambda: scan(mesh), check=right, per_call=n_cells)
+    r_plain = rate(lambda: scan(None), check=right, per_call=n_cells)
+    log(f"network scan over {n_cells} cells (phase 10's) with the mesh: the PCIs equal those without it "
+        f"and every row finds its neighbour; {fmt_rate('mesh', *r_mesh, unit='cells/s')}; "
+        f"{fmt_rate('no mesh', *r_plain, unit='cells/s')}; {card}")
+
+
+def step_block_sharded(dev, card, logs):
+    """Phase 14c: make_block_step_sharded for 1 cell at phase 11's SPS
+    configuration against make_block_step on the same draws.  Returns its
+    turbo_map launches."""
+    import torch
+
+    from srslte_emane_tpu_torch.ops.fec import turbodecoder_cuda as tdc
+    from srslte_emane_tpu_torch.parallel import mesh as mesh_mod
+    from srslte_emane_tpu_torch.runtime import waveblock
+
+    cfg = sps_config(SPS_T)
+    n, T = cfg.n_ues, cfg.T
+    mesh = mesh_mod.make_mesh(1)
+    step, consts = waveblock.make_block_step_sharded(cfg, mesh, (cfg.cell.cell_id,), sfn0=4)
+    assert all(v.device == dev for v in consts[0].values())
+    rng = np.random.default_rng(16)
+    dl = torch.from_numpy(rng.integers(0, 2, (1, T, n, cfg.dl_tbs), dtype=np.int8)).to(dev)
+    ul = torch.from_numpy(rng.integers(0, 2, (1, T, n, cfg.ul_tbs), dtype=np.int8)).to(dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(16)
+
+    def right(out):
+        return (bool(out["dl_ok"].all()) and bool(out["ul_ok"].all())
+                and int((out["ack_energy"] > 1e-2).sum()) == T * n
+                and torch.equal(out["dl_out"], dl) and torch.equal(out["ul_out"], ul))
+
+    record = []
+    with launch_log() as seen, recorded_noise(record=record):
+        tdc.launches = 0
+        out = step(dl, ul, [gen], 0)
+        torch.cuda.synchronize()
+        launches = tdc.launches
+    logs.extend(seen)
+    assert launches > 0 and right(out), (
+        f"sharded block: DL {int(out['dl_ok'].sum())}, UL {int(out['ul_ok'].sum())}, ACK "
+        f"{int((out['ack_energy'] > 1e-2).sum())} of {T * n}, or a payload")
+    with recorded_noise(replay=record):
+        ref = waveblock.make_block_step(cfg, sfn0=4)(dl[0], ul[0], gen, 0)
+    for k, v in ref.items():
+        assert torch.equal(out[k][0], v), f"sharded block differs from make_block_step at {k}"
+    (med, spread, rates), event_ms = block_timing(lambda: step(dl, ul, [gen], 0), T)
+    assert mesh.transfers == 0
+    log(f"sharded block: make_block_step_sharded, 1 cell on a 1-device mesh, phase 11's SPS "
+        f"block (100 PRB, 8 UEs, T={T}): every DL and UL CRC passes, {T * n} ACKs, payloads "
+        f"bit-exact, every output equal to make_block_step on the same draws; {launches} "
+        f"turbo_map launches {sorted(set(seen))}; cross-device transfers {mesh.transfers}; "
+        f"{fmt_rate('block', med, spread, rates, unit='TTIs/s')}; CUDA-event time per block "
+        f"{event_ms:.2f} ms; {card}")
+    return launches
+
+
+def netsim_checks(label, ues, out):
+    """What phase 12 checks of a network, on netsim's JSON line."""
+    assert out["attached"] == ues, f"netsim {label}: {out['attached']} of {ues} attached"
+    if label == "message level":
+        assert out["dl_ip_bytes"] > 0, out
+        return
+    # netsim's 4 DL packets and 1 UL packet per UE, every one delivered
+    assert out["dl_ip_bytes"] == 4 * NETSIM_IP_BYTES * ues, out
+    assert out["ul_ip_bytes"] == NETSIM_IP_BYTES * ues, out
+    if label == "waveform-full":
+        assert out["enb_phy"]["prach_det"] >= ues, out
+    else:
+        m = out["block_metrics"]
+        assert m["dl_ok"] == m["dl_tb"] > 0 and m["ul_ok"] == m["ul_tb"] > 0, m
+        assert m.get("ack_det", m["dl_tb"]) == m["dl_tb"] and m.get("dci_miss", 0) == 0, m
+
+
+def step_netsim(card, logs):
+    """Phase 14d: the port's netsim module, one process per run of
+    NETSIM_RUNS, all started together (the host's cores and the card are
+    shared, so their rates are lower bounds), each with a time limit, run
+    as `-m` runs it through NETSIM_LOGGED so that each reports its turbo_map
+    launches.  Returns the launches of the waveform runs, each of which must
+    have launched the kernel; their shapes go to `logs`."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, OMP_NUM_THREADS="2")
+    procs, launches = [], 0
+    t0 = time.perf_counter()
+    try:
+        for label, args in NETSIM_RUNS:
+            cmd = [sys.executable, "-c", NETSIM_LOGGED, *args]
+            procs.append((label, args, subprocess.Popen(
+                cmd, cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+        for label, args, proc in procs:
+            out, err = proc.communicate(timeout=max(1.0, NETSIM_TIMEOUT_S - (time.perf_counter() - t0)))
+            wall = time.perf_counter() - t0
+            assert proc.returncode == 0, f"netsim {label} exited {proc.returncode}: {err[-3000:]}"
+            line, seen = out.strip().splitlines()[-2:]
+            netsim_checks(label, int(args[args.index("--ues") + 1]), json.loads(line))
+            seen = json.loads(seen)
+            shapes = [(k, r, bool(nw)) for k, r, nw in seen["shapes"]]
+            assert seen["launches"] == len(shapes), seen["launches"]
+            if label != "message level":  # the message level has no PHY
+                assert shapes, f"netsim {label}: no turbo_map launch"
+                launches += len(shapes)
+                logs.extend(shapes)
+            log(f"netsim {label} ({' '.join(args)}): done after {wall:.1f} s wall: {line}; "
+                f"turbo_map launches {len(shapes)} at {len(set(shapes))} shapes "
+                f"{sorted(set(shapes))[:12]}; {card}")
+    finally:
+        for _, _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    return launches
+
+
+def phase_slice14(dev, card, known):
+    """Phase 14.  Returns (the turbo_map cases at its shapes not in `known`,
+    its launches: the sharded link and the dry run, the sharded block, the
+    netsim waveform runs)."""
+    t_phase = time.perf_counter()
+    logs, launches, seconds = [], [], []
+    for step in (lambda: step_link_sharded(dev, card, logs), lambda: step_ota_scan(dev, card),
+                 lambda: step_block_sharded(dev, card, logs), lambda: step_netsim(card, logs),
+                 lambda: map_cases_logged(logs, known, dev, 14, card)):
+        t0 = time.perf_counter()
+        launches.append(step())
+        seconds.append(round(time.perf_counter() - t0, 1))
+    cases = launches.pop()
+    launches = [launches[0], launches[2], launches[3]]
+    log(f"phase 14: {time.perf_counter() - t_phase:.1f} s (14a, 14b, 14c, 14d, the kernel "
+        f"checks: {seconds} s); turbo_map launches of 14a, 14c and 14d {launches}")
+    return cases, sum(launches)
+
+
 def main():
     import torch
 
@@ -2479,6 +2782,8 @@ def main():
     known = tuple((c["K"], c["B"], (c["narrow"],)) for c in (
         cases + mimo_cases + sync_cases + block_cases + net_cases))
     c13_cases, c13_launches = phase_slice13c(dev, card, known)
+    known += tuple((c["K"], c["B"], (c["narrow"],)) for c in c13_cases)
+    c14_cases, c14_launches = phase_slice14(dev, card, known)
     bench = next(c for c in cases if (c["K"], c["B"], c["narrow"]) == (5504, 768, True))
     odd = next(c for c in v1_cases if (c["K"], c["B"]) == (1040, 768))
     print(json.dumps({"kernels": [{
@@ -2486,11 +2791,11 @@ def main():
         "route": "cuda",
         "source": "srslte_emane_tpu_torch/csrc/turbo_map.cu",
         "replaces": "srslte_emane_tpu/ops/fec/turbodecoder_pallas2.py:70",
-        # PDSCH link, uplink, DL subframe, TM3 cell, phase 10's, 11's, 12's and 13's paths
+        # PDSCH link, uplink, DL subframe, TM3 cell, phase 10's to 14's paths
         "launches": (dl_launches + ul_launches + sf_launches + tm3_launches + sync_launches
-                     + block_launches + net_launches + c13_launches),
+                     + block_launches + net_launches + c13_launches + c14_launches),
         "max_abs_err": max(c["max_abs_err"] for c in cases + mimo_cases + sync_cases
-                           + block_cases + net_cases + c13_cases),
+                           + block_cases + net_cases + c13_cases + c14_cases),
         "ms": bench["ms"],
         "wrapper_ms": bench["wrapper_ms"],
         "plain_ms": bench["plain_ms"],

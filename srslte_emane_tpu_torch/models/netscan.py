@@ -96,21 +96,29 @@ def beacon_waveforms(cell_ids, n_prb: int = 6, sf_idx: int = 0, device="cuda") -
 
 def network_scan(mesh, cell_ids, gains, gen: torch.Generator = None,
                  noise_std: float = 0.0, n_prb: int = 6, device="cuda"):
-    """Scan: synthesize all cells' beacons, superpose them through the link
-    matrix, and run a batched cell search on every observation point's
-    capture.
+    """Deployment-scale scan: synthesize all cells' beacons, superpose them
+    through the link matrix, and run a batched cell search on every
+    observation point's capture.
 
-    cell_ids: (N,) ints (array or tensor); the scan runs on `device`
-    ("cuda" by default: it raises where there is no card); gains:
-    (N, N) complex rx-by-tx link matrix (diagonal ignored).  Returns the
-    `sync.cell_search` dict per row: observation point i sees the
-    gain-weighted sum of all OTHER cells, plus noise_std complex white noise
-    from `gen`.  mesh must be None: the sharded medium
-    (parallel/ota_collective.py) is not in the port yet."""
+    cell_ids: (N,) ints (array or tensor); gains: (N, N) complex rx-by-tx
+    link matrix (diagonal ignored).  Returns the `sync.cell_search` dict per
+    row: observation point i sees the gain-weighted sum of all OTHER cells,
+    plus noise_std complex white noise from `gen`.  With a device mesh
+    (parallel/mesh.py) the cells are node-sharded: each node row builds its
+    cells' beacons on its device, the superposition is the sharded OTA medium
+    (parallel/ota_collective.py), each row searches its own captures, and the
+    rows come back in cell order (mesh.gather: on the card for a 1-card
+    mesh, on the host for several); gen is on the mesh's device type, and
+    the noise is what mesh=None adds with the same gen.  With mesh=None everything
+    runs on `device` ("cuda" by default: it raises where there is no card)."""
     if mesh is not None:
-        raise NotImplementedError(
-            "network_scan over a device mesh needs parallel/ota_collective.py, which the "
-            "port does not have yet (ROADMAP.md slice 14); pass mesh=None")
+        from ..parallel import mesh as mesh_mod, ota_collective
+
+        ids = mesh_mod.node_sharding(mesh, torch.as_tensor(cell_ids).to(torch.int64))
+        tx = [beacon_waveforms(i, n_prb, device=i.device)[:, None] for i in ids]  # (N_i, 1, T, 2)
+        rx = ota_collective.ota_mix_sharded(mesh, tx, gains, gen=gen, noise_std=noise_std)
+        found = [sync.cell_search(r[:, 0]) for r in rx]
+        return {k: mesh_mod.gather([f[k] for f in found]) for k in found[0]}
     tx = beacon_waveforms(cell_ids, n_prb, device=device)  # (N, T, 2)
     g = np.asarray(gains, np.complex64) * (1.0 - np.eye(tx.shape[0], dtype=np.float32))
     gr = torch.from_numpy(np.ascontiguousarray(g.real)).to(tx.device)

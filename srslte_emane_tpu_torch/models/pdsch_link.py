@@ -13,6 +13,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 
+import numpy as np
 import torch
 
 from ..ops import channel, ofdm
@@ -105,5 +106,40 @@ def make_ca_link_step(cfg: LinkConfig, n_cc: int, use_kernel: bool | None = None
             outs.append(out)
             oks.append(ok)
         return torch.stack(outs), torch.stack(oks)
+
+    return step
+
+
+def _device_seed(base: int, node: int, sf: int) -> int:
+    """The seed of mesh position (node, sf)'s generator for a step whose
+    `gen` drew `base` (the reference folds the device coordinates into its
+    key)."""
+    return int(np.random.SeedSequence([base, node, sf]).generate_state(1, np.uint64)[0])
+
+
+def make_link_step_sharded(cfg: LinkConfig, mesh, use_kernel: bool | None = None):
+    """link_step over a device mesh (parallel/mesh.py): each device runs the
+    whole pipeline on its slice of the batch (split over the flattened
+    ('node', 'sf') axes), so a step moves nothing between devices: it is
+    collective-free by construction, since subframes are independent.
+
+    step(payload (B, tbs), gen) -> (out (B, tbs), ok (B,), snr_db (B,)), in
+    batch order (mesh.gather: on the card for a 1-card mesh, on the host for
+    several).  `gen` draws one seed per step; position
+    (node, sf) draws its channel noise from a generator on its own device
+    seeded from that seed and its coordinates."""
+    from ..parallel import mesh as mesh_mod
+
+    n_sf = mesh.shape["sf"]
+
+    def step(payload, gen: torch.Generator):
+        shards = mesh_mod.batch_sharding(mesh, payload)
+        base = int(torch.randint(0, 2 ** 62, (1,), generator=gen, device=gen.device))
+        outs = []
+        for pos, (p, dev) in enumerate(zip(shards, mesh.devices)):
+            g = torch.Generator(device=dev)
+            g.manual_seed(_device_seed(base, *divmod(pos, n_sf)))
+            outs.append(link_step(p, g, cfg, use_kernel=use_kernel))
+        return tuple(mesh_mod.gather([o[i] for o in outs]) for i in range(3))
 
     return step

@@ -14,10 +14,11 @@ The whole network's TTI is adjudicated at once:
 
 then per-channel pass/fail by comparing mean SINR over the channel's PRBs
 against a per-modulation threshold curve (the BLER-knee table EMANE's model
-uses).  The host side (`per_rb_sinr`, `SinrTester`, `adjudicate`) is NumPy
-and serves the message bus (`otabus.py`) TTI by TTI; `per_rb_sinr_device`
-batches many TTIs on tensors.  The reference's C++ bus (`native_bus.py`)
-has no twin here yet, so `per_rb_sinr` always takes the NumPy path.
+uses).  The host side (`per_rb_sinr`, `SinrTester`, `adjudicate`) serves
+the message bus (`otabus.py`) TTI by TTI; `per_rb_sinr_device` batches many
+TTIs on tensors.  `per_rb_sinr` takes the C++ path of
+`native_bus.py` when its library builds and loads (g++ at first use), and
+NumPy otherwise, as the reference does.
 """
 
 from __future__ import annotations
@@ -99,6 +100,11 @@ def per_rb_sinr(tx_power_dbm, prb_used, pathloss_db, noise_floor_dbm,
     interfere with each other — they are code/resource-multiplexed in LTE
     (PRACH Zadoff-Chu preambles, PUCCH cyclic shifts/OCC, scheduler-disjoint
     PUSCH); only other-cell energy plus noise degrades them."""
+    from . import native_bus
+
+    if native_bus.available():
+        return native_bus.sinr_per_rb_native(
+            tx_power_dbm, prb_used, pathloss_db, noise_floor_dbm, cells)
     tx_mw = 10.0 ** (np.asarray(tx_power_dbm, np.float64) / 10.0)
     pl = 10.0 ** (-np.asarray(pathloss_db, np.float64) / 10.0)  # (T, R)
     used = np.asarray(prb_used, np.float64)  # (T, P)

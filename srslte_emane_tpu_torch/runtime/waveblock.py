@@ -33,6 +33,7 @@ Noise is drawn through `_randn`, in the reference's order, from the
 
 from __future__ import annotations
 
+import dataclasses
 import typing
 
 import numpy as np
@@ -470,6 +471,38 @@ def make_block_step(cfg: BlockConfig, sfn0: int = 0, device="cuda"):
                           torch.as_tensor(ul_bits, device=dev), gen, tti0)
 
     return step
+
+
+def make_block_step_sharded(cfg: BlockConfig, mesh, cell_ids, sfn0: int = 0):
+    """MULTI-CELL block step: one cell per mesh device (parallel/mesh.py),
+    over the flattened ('node', 'sf') axes, the waveform network's scaling
+    path (SURVEY §2.8: 'node' shards emulated cells).  Each device holds its
+    own cell's tables (the reference passes them as sharded arguments), so
+    a step moves nothing between devices: cells do not talk (inter-cell
+    interference would be the one communicating phase, as in
+    parallel/ota_collective.py).  This is one cell per device; a cells axis
+    on one device is waveblock_dyn's `n_cells`.
+
+    Returns (fn(dl (C, T, n, dl_tbs), ul (C, T, n, ul_tbs), gens (C
+             torch.Generators, gens[c] on device c), tti0) -> dict with
+             leading C, in cell order (mesh.gather: on the card for a
+             1-card mesh, on the host for several),
+             consts: the C cells' tables, each on its device)
+    where C = number of devices in the mesh.
+    """
+    from ..parallel import mesh as mesh_mod
+
+    assert len(cell_ids) == mesh.size, (len(cell_ids), mesh.size)
+    cfgs = [cfg._replace(cell=dataclasses.replace(cfg.cell, cell_id=int(cid))) for cid in cell_ids]
+    consts = [_on(_cell_consts(c, sfn0), dev) for c, dev in zip(cfgs, mesh.devices)]
+
+    def step(dl, ul, gens, tti0):
+        outs = [_step_body(cfgs[k], consts[k], torch.as_tensor(dl[k]).to(dev),
+                           torch.as_tensor(ul[k]).to(dev), gens[k], tti0)
+                for k, dev in enumerate(mesh.devices)]
+        return {key: mesh_mod.gather([o[key][None] for o in outs]) for key in outs[0]}
+
+    return step, consts
 
 
 def _pack_segments(n_prb: int, n: int, segments) -> tuple:

@@ -865,3 +865,83 @@ def test_dyn_bench_step_across_cells_on_the_card(dev):
     singles = [one(*(a[c] for a in ins), gens(s)[0], 0) for c, s in enumerate((5, 6))]
     assert [int(x) for x in counts] == [int(a) + int(b) for a, b in zip(*singles)]
     assert [int(x) for x in counts] == [2 * cfg.T * 2] * 3 + [0, 0, 0]
+
+
+def test_mesh_defaults_to_the_cards(dev):
+    """make_mesh takes the cards by default; a 1-device mesh is (1, 1)."""
+    from srslte_emane_tpu_torch.parallel import mesh as mesh_mod
+
+    m = mesh_mod.make_mesh()
+    assert m.size == torch.cuda.device_count() and all(d.type == "cuda" for d in m.devices)
+    one = mesh_mod.make_mesh(1)
+    assert one.devices == [dev] and one.shape == {"node": 1, "sf": 1}
+
+
+def test_sharded_link_on_the_card_equals_the_unsharded_step(dev):
+    """make_link_step_sharded on a 1-device mesh (15 PRB, 64QAM, llr_bits=16,
+    batch 8) through turbo_map: every CRC, the payload, 0 cross-device
+    transfers, and the same outputs as make_link_step given the noise the
+    sharded step drew (its generator's seed for position (0, 0))."""
+    from srslte_emane_tpu_torch.models import pdsch_link
+    from srslte_emane_tpu_torch.parallel import mesh as mesh_mod
+    from srslte_emane_tpu_torch.phch import grid
+
+    cfg = pdsch_link.LinkConfig(cell=grid.CellConfig(n_prb=15, cell_id=1, cfi=1), qm=6,
+                                code_rate=0.55, snr_db=20.0, llr_bits=16)
+    mesh = mesh_mod.make_mesh(1)
+    payload = torch.from_numpy(
+        np.random.default_rng(6).integers(0, 2, (8, cfg.tbs), dtype=np.int8)).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    before = turbodecoder_cuda.launches
+    out, ok, snr = pdsch_link.make_link_step_sharded(cfg, mesh)(payload, gen)
+    assert turbodecoder_cuda.launches > before
+    assert bool(ok.all()) and torch.equal(out, payload) and mesh.transfers == 0
+    base = int(torch.randint(0, 2 ** 62, (1,), generator=torch.Generator(device=dev).manual_seed(6),
+                             device=dev))
+    g0 = torch.Generator(device=dev).manual_seed(pdsch_link._device_seed(base, 0, 0))
+    ref = pdsch_link.make_link_step(cfg)(payload, g0)
+    assert torch.equal(ref[0], out) and torch.equal(ref[1], ok) and torch.equal(ref[2], snr)
+
+
+def test_ota_collective_on_the_card(dev):
+    from srslte_emane_tpu_torch.parallel import mesh as mesh_mod, ota_collective
+
+    mesh = mesh_mod.make_mesh(1)
+    rng = np.random.default_rng(7)
+    tx = rng.normal(size=(4, 2, 256, 2)).astype(np.float32)
+    g = (rng.normal(size=(4, 4)) + 1j * rng.normal(size=(4, 4))).astype(np.complex64)
+    rx = mesh_mod.gather(ota_collective.ota_mix_sharded(mesh, tx, g))
+    assert rx.device == dev
+    gd = g * (1 - np.eye(4, dtype=np.float32))
+    want = np.einsum("mn,nbs->mbs", gd, tx[..., 0] + 1j * tx[..., 1])
+    np.testing.assert_allclose(rx.cpu().numpy(), np.stack([want.real, want.imag], -1), atol=1e-4)
+    p = ota_collective.total_rx_power_psum(mesh, tx)
+    assert p.device == dev
+    np.testing.assert_allclose(float(p), sum(np.mean(np.sum(tx[i] ** 2, -1)) for i in range(4)),
+                               rtol=1e-5)
+
+
+def test_sharded_block_on_the_card(dev):
+    """make_block_step_sharded, 1 cell on a 1-device mesh (15 PRB, 2 UEs,
+    T=2): every CRC and payload, its tables on the card, 0 transfers."""
+    from srslte_emane_tpu_torch.parallel import mesh as mesh_mod
+    from srslte_emane_tpu_torch.phch import grid, pdcch
+    from srslte_emane_tpu_torch.runtime import waveblock
+
+    cell = grid.CellConfig(n_prb=15, cell_id=1, cfi=2)
+    n_cce = pdcch.n_cce(cell)
+    c0, c1 = waveblock.centre_prbs(15)
+    starts, w = waveblock._pack_segments(15, 2, [(0, c0), (c1, 15)])
+    cfg = waveblock.BlockConfig(cell=cell, rntis=(70, 71), dl_rb_start=starts, dl_l_crbs=w,
+                                dl_mcs=8, ul_rb_start=(1, 5), ul_l_prb=4, ul_mcs=8,
+                                ack_res=(n_cce, n_cce + 1), snr_db=(30.0, 28.0), T=2)
+    mesh = mesh_mod.make_mesh(1)
+    step, consts = waveblock.make_block_step_sharded(cfg, mesh, (5,))
+    assert all(v.device == dev for v in consts[0].values())
+    rng = np.random.default_rng(8)
+    dl = rng.integers(0, 2, (1, 2, 2, cfg.dl_tbs), dtype=np.int8)
+    ul = rng.integers(0, 2, (1, 2, 2, cfg.ul_tbs), dtype=np.int8)
+    out = step(dl, ul, [torch.Generator(device=dev).manual_seed(8)], 20)
+    assert all(v.device == dev for v in out.values())
+    assert bool(out["dl_ok"].all()) and bool(out["ul_ok"].all())
+    assert np.array_equal(out["dl_out"].cpu().numpy(), dl) and mesh.transfers == 0

@@ -2,13 +2,13 @@
 (Propagation, per_rb_sinr, SinrTester, adjudicate), on the inputs of the
 reference's own tests (tests/test_native_bus.py, tests/test_runtime_emulation.py).
 
-The port's `per_rb_sinr` always takes the NumPy path, and is held to the
-reference's NumPy path exactly (the reference's C++ bus switched off); where
-the reference takes its native path, to tests/test_native_bus.py's tolerance
-(rtol 2e-3, atol 1e-2).  The message-level network of
-tests/test_runtime_emulation.py runs on the port's copies of the bus, PHY
-adapters and MAC, driven by the reference's jax-free TTI loop, beside the
-reference's own.
+Both packages' `per_rb_sinr` take their C++ path (`runtime/native_bus.py`,
+built with g++ at first use) when it loads.  With both C++ paths switched
+off, the port is held to the reference's NumPy path exactly; as they run,
+to tests/test_native_bus.py's tolerance (rtol 2e-3, atol 1e-2).  The
+message-level network of tests/test_runtime_emulation.py runs on the port's
+copies of the bus, PHY adapters, MAC and TTI loop beside the reference's
+own.
 """
 
 import numpy as np
@@ -18,8 +18,9 @@ from srslte_emane_tpu.runtime import native_bus as j_native
 from srslte_emane_tpu.runtime import otabus as j_otabus, otamsg as j_msg
 from srslte_emane_tpu.runtime import phy_adapter as j_phy, sinr as j_sinr, ttiloop
 from srslte_emane_tpu.stack import mac as j_mac
-from srslte_emane_tpu_torch.runtime import otabus as p_otabus, otamsg as p_msg
-from srslte_emane_tpu_torch.runtime import phy_adapter as p_phy, sinr as p_sinr
+from srslte_emane_tpu_torch.runtime import native_bus as p_native, otabus as p_otabus
+from srslte_emane_tpu_torch.runtime import otamsg as p_msg, phy_adapter as p_phy
+from srslte_emane_tpu_torch.runtime import sinr as p_sinr, ttiloop as p_ttiloop
 from srslte_emane_tpu_torch.stack import mac as p_mac
 
 NATIVE = dict(rtol=2e-3, atol=1e-2)  # tests/test_native_bus.py:20
@@ -27,8 +28,9 @@ NATIVE = dict(rtol=2e-3, atol=1e-2)  # tests/test_native_bus.py:20
 
 @pytest.fixture
 def numpy_ref(monkeypatch):
-    """The reference with its C++ path switched off."""
+    """Both packages with their C++ paths switched off."""
     monkeypatch.setattr(j_native, "available", lambda: False)
+    monkeypatch.setattr(p_native, "available", lambda: False)
 
 
 def _sinr_cases():
@@ -165,7 +167,7 @@ def test_adjudicate_near_native_reference(how):
 def _emulation(pkg, pathloss, cells, traffic):
     """tests/test_runtime_emulation.py's network: eNB adapters at the first
     len(cells) nodes, one UE adapter last; returns what its asserts read."""
-    sinr_mod, otabus, phy, mac = pkg
+    sinr_mod, otabus, phy, mac, ttiloop = pkg
     n = len(pathloss)
     prop = sinr_mod.Propagation(pathloss_db=np.asarray(pathloss, np.float32))
     bus = otabus.OtaBus(prop, node_ids=list(range(n)), n_prb=25)
@@ -198,7 +200,7 @@ EMULATIONS = {"attach_and_data_flow": ([[0, 80], [80, 0]], [1], True),
 @pytest.mark.parametrize("name", list(EMULATIONS))
 def test_message_level_network_equals_reference(name, numpy_ref):
     pl, cells, traffic = EMULATIONS[name]
-    got = _emulation((p_sinr, p_otabus, p_phy, p_mac), pl, cells, traffic)
-    ref = _emulation((j_sinr, j_otabus, j_phy, j_mac), pl, cells, traffic)
+    got = _emulation((p_sinr, p_otabus, p_phy, p_mac, p_ttiloop), pl, cells, traffic)
+    ref = _emulation((j_sinr, j_otabus, j_phy, j_mac, ttiloop), pl, cells, traffic)
     assert got == ref
     assert (got["state"][0] == "CONNECTED") == (name != "far_ue_fails_sinr")

@@ -1,13 +1,19 @@
 """The port's copies of the host-only layers: the L2/L3 stack, the EPC, the
-message bus and the PHY adapter, and their helpers.
+message bus and the PHY adapter, the host runtime, the utilities, the C++
+bus and hub sources and the multi-process apps, and their helpers; and the
+port's layout: every file of the JAX package has its twin.
 
 They are byte-identical copies of the JAX package's files (their relative
-imports land on the port's own modules), except `stack/security.py`, whose
-AES lines call the port's plain-Python `stack/aes.py` instead of the
-`cryptography` package: the card's machine has no such package.  `aes.py`
-is held byte for byte against the reference's OpenSSL-backed functions,
-and the port's stack, EPC and waveform network import with `cryptography`
-blocked.
+imports land on the port's own modules), except:
+- `stack/security.py`, whose AES lines call the port's plain-Python
+  `stack/aes.py` instead of the `cryptography` package: the card's machine
+  has no such package.  `aes.py` is held byte for byte against the
+  reference's OpenSSL-backed functions, and the port's stack, EPC and
+  waveform network import with `cryptography` blocked;
+- `utils/wire.py`, whose restricted unpickler admits the port's modules
+  (and no module of the JAX package) on its one module-check line;
+- `apps/{enb_app,epc_app,hub_app,rpc,ue_app}.py`, whose usage strings name
+  `srslte_emane_tpu_torch.apps`.
 """
 
 import difflib
@@ -31,7 +37,18 @@ COPIED = sorted(
      for f in (REF / d).iterdir() if f.suffix in (".py", ".npz")
      and f.name != "security.py"]
     + ["runtime/otamsg.py", "runtime/otabus.py", "runtime/phy_adapter.py",
-       "utils/timers.py", "utils/pcap.py"])
+       "utils/timers.py", "utils/pcap.py"]
+    + [f"runtime/{m}.py" for m in ("checkpoint", "distrib", "native_bus", "syssim", "ttiloop")]
+    + [f"utils/{m}.py" for m in ("config", "crash_handler", "iq_io", "logging_util", "metrics",
+                                 "tun")]
+    + ["native/emanelte_bus.cpp", "native/ota_hub.cpp", "apps/__init__.py",
+       "parallel/__init__.py"])
+# the apps copied with their usage strings naming the port
+APPS = ["enb_app", "epc_app", "hub_app", "rpc", "ue_app"]
+# the files of the JAX package whose twin has another name: the Pallas MAP
+# kernels, ported as hand-written CUDA kernels
+RENAMED = {"ops/fec/turbodecoder_pallas2.py": "csrc/turbo_map.cu",
+           "ops/fec/turbodecoder_pallas.py": "csrc/turbo_map_v1.cu"}
 # reference security.py lines (1-based) that the port changes: the docstring's
 # AES line, the cryptography imports, and the bodies of _aes_ecb, eea2's CTR
 # and eia2's CMAC
@@ -39,10 +56,40 @@ SECURITY_LINES = {9, 18, 19, 20, 27, 28, 42, 43, 71, 72, 73}
 
 
 def test_copy_list_is_complete():
-    assert len(COPIED) == 39
+    assert len(COPIED) == 54
     names = {pathlib.Path(c).name for c in COPIED}
     assert {"enb_stack.py", "ue_stack.py", "rrc36331.py", "mme.py", "snow3g_tables.npz",
-            "zuc_tables.npz"} <= names
+            "zuc_tables.npz", "distrib.py", "ttiloop.py", "metrics.py",
+            "ota_hub.cpp"} <= names
+
+
+def test_every_reference_file_has_a_twin():
+    """Each .py / .cpp file of the JAX package has its twin at the same
+    relative path in the port, but for the two Pallas kernel files."""
+    ref = sorted(str(f.relative_to(REF)) for f in REF.rglob("*")
+                 if f.suffix in (".py", ".cpp") and "__pycache__" not in f.parts)
+    assert len(ref) > 100
+    missing = [r for r in ref if not (PORT / RENAMED.get(r, r)).is_file()]
+    assert not missing, missing
+    assert set(RENAMED) <= set(ref)
+
+
+def test_wire_differs_only_on_its_module_check():
+    ref = (REF / "utils/wire.py").read_text().splitlines()
+    port = (PORT / "utils/wire.py").read_text().splitlines()
+    assert len(ref) == len(port)
+    changed = [i + 1 for i, (a, b) in enumerate(zip(ref, port)) if a != b]
+    assert changed == [42], changed
+    assert port[41].strip() == ('if module == "srslte_emane_tpu_torch" or '
+                                'module.startswith("srslte_emane_tpu_torch."):')
+
+
+@pytest.mark.parametrize("name", APPS)
+def test_app_is_a_copy_naming_the_port(name):
+    ref = (REF / f"apps/{name}.py").read_text()
+    port = (PORT / f"apps/{name}.py").read_text()
+    assert port == ref.replace("srslte_emane_tpu.apps.", "srslte_emane_tpu_torch.apps.")
+    assert "srslte_emane_tpu." not in port
 
 
 @pytest.mark.parametrize("rel", COPIED)
@@ -127,8 +174,8 @@ def test_milenage_35208_test_set_1():
 
 
 def test_port_host_layers_import_without_cryptography():
-    """The stack, the EPC and the waveform network import (and run the AKA's
-    Milenage) with every `cryptography` import refused."""
+    """The stack, the EPC, the waveform network and the apps import (and run
+    the AKA's Milenage) with every `cryptography` import refused."""
     code = """
 import sys
 
@@ -145,6 +192,10 @@ import srslte_emane_tpu_torch.stack.enb_stack, srslte_emane_tpu_torch.stack.ue_s
 import srslte_emane_tpu_torch.epc.hss, srslte_emane_tpu_torch.epc.mme
 import srslte_emane_tpu_torch.epc.spgw, srslte_emane_tpu_torch.epc.s1ap_wire
 import srslte_emane_tpu_torch.runtime.wavenet, srslte_emane_tpu_torch.runtime.otabus
+import srslte_emane_tpu_torch.apps.netsim, srslte_emane_tpu_torch.apps.enb_app
+import srslte_emane_tpu_torch.apps.ue_app, srslte_emane_tpu_torch.apps.epc_app
+import srslte_emane_tpu_torch.apps.netscan_app, srslte_emane_tpu_torch.parallel.dryrun
+import srslte_emane_tpu_torch.runtime.syssim, srslte_emane_tpu_torch.utils.radio
 from srslte_emane_tpu_torch.stack import security
 opc = security.milenage_opc(bytes(range(16)), bytes(16))
 assert len(security.milenage_f2345(bytes(range(16)), opc, bytes(16))[0]) == 8

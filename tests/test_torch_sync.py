@@ -432,8 +432,12 @@ def test_network_scan_unsharded_path():
     for k in ("n_id_2", "pss_pos", "n_id_1", "sf_idx", "cell_id"):
         np.testing.assert_array_equal(res[k].numpy(), np.asarray(ref[k]), err_msg=k)
     assert (res["cell_id"].numpy() == ids[(np.arange(N) + 3) % N]).all()
-    with pytest.raises(NotImplementedError, match="mesh"):
-        p_netscan.network_scan(object(), ids, g, device="cpu")
+    # the mesh branch gives the same rows
+    from srslte_emane_tpu_torch.parallel import mesh as p_mesh
+
+    sharded = p_netscan.network_scan(p_mesh.make_mesh(2, device="cpu"), ids, g)
+    for k in res:
+        assert torch.equal(sharded[k], res[k]), k
 
 
 @pytest.mark.parametrize("call", [
