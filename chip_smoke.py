@@ -155,7 +155,21 @@ Phases (any failure raises; the exit code is then non-zero):
      (attach, every DL and UL packet, every block CRC), each process
      reporting its turbo_map launches and their shapes (every waveform run
      must launch it); (e) turbo_map against its plain version at every
-     shape of the phase not checked before, the netsim processes' included.
+     shape of the phase not checked before, the netsim processes' included;
+ 15. the measuring entry points at their JAX twins' defaults, each run as
+     `python -m` runs it in a subprocess through MODULE_LOGGED (its
+     turbo_map launches and their shapes): srslte_emane_tpu_torch.bench (the
+     number of record, alone: every CRC and bit, decode sf/s, CUDA-event ms
+     per call, a warm kernel library), then together the scripts' snr_sweep
+     (BLER and sf/s at 8-20 dB, no failure at 20 dB), bench_extra (cell
+     search, TM3, PUSCH, 2-carrier CA), bench_waveform_tpu (T=20),
+     bench_waveblock_dyn (R=20), profile_stages and wavenet_smoke (both UEs
+     registered), then bench_waveform_paced alone (T=40, 100 blocks: the
+     deadline misses); each process's own gates must pass and its JSON line
+     name the card; then turbo_map against its plain version at every shape
+     of the phase not checked before, at every row count (the sweep's
+     straggler stages).  Any cut of the scripts' defaults is logged as the
+     phase's `reduced` list.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -2192,10 +2206,17 @@ def run_runner(runner, launch_seen):
     return rate_, per_block
 
 
-def map_cases_logged(logs, known, dev, phase, card):
-    """turbo_map against its plain version at every shape of `logs` not in
-    `known`, each with its launches in the phase."""
-    cases = map_cases(new_map_shapes(logs, known), dev)
+def every_map_shape(logs, known):
+    """The (K, rows, modes) of every turbo_map launch in `logs` not already
+    in `known`, at every row count (the decoder's straggler stages too)."""
+    seen = {(k, b, n) for k, b, modes in known for n in modes}
+    return tuple((k, r, (n,)) for k, r, n in sorted(set(logs)) if (k, r, n) not in seen)
+
+
+def map_cases_logged(logs, known, dev, phase, card, select=new_map_shapes):
+    """turbo_map against its plain version at every shape that `select`
+    picks from `logs` and `known`, each with its launches in the phase."""
+    cases = map_cases(select(logs, known), dev)
     for c in cases:
         n_launch = sum(1 for k, r, nw in logs if (k, r, nw) == (c["K"], c["B"], c["narrow"]))
         log(f"turbo_map at {c['B']} x K={c['K']} {'bf16' if c['narrow'] else 'f32'}: "
@@ -2490,22 +2511,25 @@ NETSIM_RUNS = (
                       "--block-ttis", "16")),
 )
 NETSIM_IP_BYTES = 140  # netsim's IP packets: 120 bytes of payload in IPv4/UDP
-# `python -c` body that runs the port's netsim as `-m` would, with every
-# turbo_map launch logged as launch_log does; its last line, after netsim's
-# JSON, is {"launches": the wrapper's count, "shapes": [[K, rows, narrow], ...]}
-NETSIM_LOGGED = """
-import json, runpy
+# `python -c` body that runs the module named by its first argument as `-m`
+# would (with the arguments after it), with every turbo_map launch logged as
+# launch_log does; its last line, after the module's own output, is
+# {"launches": the wrapper's count, "shapes": [[K, rows, narrow], ...]}
+MODULE_LOGGED = """
+import json, runpy, sys
 from srslte_emane_tpu_torch.ops.fec import turbodecoder_cuda as tdc
 seen, launch = [], tdc.launch
 def logged(*a, **kw):
     seen.append((a[0].shape[1], a[0].shape[0], bool(a[4])))
     return launch(*a, **kw)
 tdc.launch = logged
+module = sys.argv.pop(1)
 try:
-    runpy.run_module("srslte_emane_tpu_torch.apps.netsim", run_name="__main__", alter_sys=True)
+    runpy.run_module(module, run_name="__main__", alter_sys=True)
 finally:
     print(json.dumps({"launches": tdc.launches, "shapes": seen}), flush=True)
 """
+NETSIM_MODULE = "srslte_emane_tpu_torch.apps.netsim"
 
 
 def step_link_sharded(dev, card, logs):
@@ -2683,44 +2707,59 @@ def netsim_checks(label, ues, out):
         assert m.get("ack_det", m["dl_tb"]) == m["dl_tb"] and m.get("dci_miss", 0) == 0, m
 
 
-def step_netsim(card, logs):
-    """Phase 14d: the port's netsim module, one process per run of
-    NETSIM_RUNS, all started together (the host's cores and the card are
-    shared, so their rates are lower bounds), each with a time limit, run
-    as `-m` runs it through NETSIM_LOGGED so that each reports its turbo_map
-    launches.  Returns the launches of the waveform runs, each of which must
-    have launched the kernel; their shapes go to `logs`."""
+def run_logged(group, timeout_s):
+    """Each (label, module, arguments) of `group` in its own subprocess
+    through MODULE_LOGGED, all started together (the host's cores and the
+    card are shared), each within what is left of `timeout_s`.  Returns
+    {label: (its JSON lines, then {"launches", "shapes"}; its stderr lines
+    that start with "#"; wall seconds)}; a process that exits non-zero
+    fails the phase."""
     root = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ, OMP_NUM_THREADS="2")
-    procs, launches = [], 0
+    procs, results = [], {}
     t0 = time.perf_counter()
     try:
-        for label, args in NETSIM_RUNS:
-            cmd = [sys.executable, "-c", NETSIM_LOGGED, *args]
-            procs.append((label, args, subprocess.Popen(
-                cmd, cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                text=True)))
-        for label, args, proc in procs:
-            out, err = proc.communicate(timeout=max(1.0, NETSIM_TIMEOUT_S - (time.perf_counter() - t0)))
-            wall = time.perf_counter() - t0
-            assert proc.returncode == 0, f"netsim {label} exited {proc.returncode}: {err[-3000:]}"
-            line, seen = out.strip().splitlines()[-2:]
-            netsim_checks(label, int(args[args.index("--ues") + 1]), json.loads(line))
-            seen = json.loads(seen)
-            shapes = [(k, r, bool(nw)) for k, r, nw in seen["shapes"]]
-            assert seen["launches"] == len(shapes), seen["launches"]
-            if label != "message level":  # the message level has no PHY
-                assert shapes, f"netsim {label}: no turbo_map launch"
-                launches += len(shapes)
-                logs.extend(shapes)
-            log(f"netsim {label} ({' '.join(args)}): done after {wall:.1f} s wall: {line}; "
-                f"turbo_map launches {len(shapes)} at {len(set(shapes))} shapes "
-                f"{sorted(set(shapes))[:12]}; {card}")
+        for label, module, args in group:
+            procs.append((label, subprocess.Popen(
+                [sys.executable, "-c", MODULE_LOGGED, module, *args], cwd=root, env=env,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        for label, proc in procs:
+            out, err = proc.communicate(timeout=max(1.0, timeout_s - (time.perf_counter() - t0)))
+            assert proc.returncode == 0, f"{label} exited {proc.returncode}: {err[-3000:]}"
+            results[label] = ([json.loads(x) for x in out.splitlines() if x.startswith("{")],
+                              [x for x in err.splitlines() if x.startswith("#")],
+                              time.perf_counter() - t0)
     finally:
-        for _, _, proc in procs:
+        for _, proc in procs:
             if proc.poll() is None:
                 proc.kill()
                 proc.communicate()
+    return results
+
+
+def step_netsim(card, logs):
+    """Phase 14d: the port's netsim module, one process per run of
+    NETSIM_RUNS, all started together (so their rates are lower bounds),
+    each within NETSIM_TIMEOUT_S, run as `-m` runs it through MODULE_LOGGED
+    so that each reports its turbo_map launches.  Returns the launches of
+    the waveform runs, each of which must have launched the kernel; their
+    shapes go to `logs`."""
+    results = run_logged([(label, NETSIM_MODULE, args) for label, args in NETSIM_RUNS],
+                         NETSIM_TIMEOUT_S)
+    launches = 0
+    for label, args in NETSIM_RUNS:
+        lines, _, wall = results[label]
+        *_, line, seen = lines
+        netsim_checks(label, int(args[args.index("--ues") + 1]), line)
+        shapes = [(k, r, bool(nw)) for k, r, nw in seen["shapes"]]
+        assert seen["launches"] == len(shapes), seen["launches"]
+        if label != "message level":  # the message level has no PHY
+            assert shapes, f"netsim {label}: no turbo_map launch"
+            launches += len(shapes)
+            logs.extend(shapes)
+        log(f"netsim {label} ({' '.join(args)}): done after {wall:.1f} s wall: "
+            f"{json.dumps(line)}; turbo_map launches {len(shapes)} at {len(set(shapes))} "
+            f"shapes {sorted(set(shapes))[:12]}; {card}")
     return launches
 
 
@@ -2741,6 +2780,87 @@ def phase_slice14(dev, card, known):
     log(f"phase 14: {time.perf_counter() - t_phase:.1f} s (14a, 14b, 14c, 14d, the kernel "
         f"checks: {seconds} s); turbo_map launches of 14a, 14c and 14d {launches}")
     return cases, sum(launches)
+
+
+# phase 15: the port's measuring entry points, srslte_emane_tpu_torch.bench
+# and srslte_emane_tpu_torch.scripts.*, each run as `python -m` runs it in a
+# subprocess on the card through MODULE_LOGGED, at its JAX twin's defaults.
+# The number of record runs alone, then six processes at once (the host's
+# cores and the card are shared, so their rates are lower bounds), then the
+# paced run alone (its deadlines need the host to itself)
+ENTRY_TIMEOUT_S = 600
+ENTRY_GROUPS = (
+    (("bench", "srslte_emane_tpu_torch.bench", ()),),
+    tuple((name, f"srslte_emane_tpu_torch.scripts.{name}", ()) for name in (
+        "snr_sweep", "bench_extra", "bench_waveform_tpu", "bench_waveblock_dyn", "profile_stages",
+        "wavenet_smoke")),
+    (("bench_waveform_paced", "srslte_emane_tpu_torch.scripts.bench_waveform_paced", ()),),
+)
+# what phase 15 cuts from the JAX scripts' defaults (nothing yet)
+ENTRY_REDUCED = ()
+SWEEP_SNRS_DB = (8.0, 9.0, 10.0, 11.0, 12.0, 14.0, 20.0)  # scripts/snr_sweep.py:29-30
+
+
+def entry_checks(label, lines, card_name):
+    """What phase 15 checks of an entry point's JSON lines, beyond its own
+    gates (a failed gate exits non-zero)."""
+    out = lines[-1]
+    assert out["backend"] == "cuda" and out["device"] == card_name, out
+    if label == "bench":
+        assert out["metric"] == "pdsch_20mhz_decode_subframes_per_sec_per_chip", out
+        assert out["value"] > 0 and out["device_ms"] > 0 and out["cache_state"] == "warm", out
+    elif label == "snr_sweep":
+        rows = out["snr_sweep"]
+        assert rows == lines[:-1] and [r["snr_db"] for r in rows] == list(SWEEP_SNRS_DB), rows
+        assert all(0.0 <= r["bler"] <= 1.0 and r["sf_per_s"] > 0 for r in rows), rows
+        assert rows[-1]["bler"] == 0.0, f"the sweep lost CRCs at 20 dB: {rows[-1]}"
+    elif label == "bench_extra":
+        assert all(out[k] > 0 for k in ("cell_search", "mimo_tm3_decode", "pusch_decode",
+                                        "ca_2cc_link")), out
+    elif label == "profile_stages":
+        assert all(v["ms"] > 0 for v in out["stages"].values()), out
+    elif label == "wavenet_smoke":
+        assert out["registered"] == out["n_ues"], out
+    else:  # the block benches
+        assert out["value"] > 0 and out["compile_s"] >= 0, out
+
+
+def phase_entry_points(dev, card, known):
+    """Phase 15.  Returns (the turbo_map cases at its shapes not in `known`,
+    at every row count, its launches)."""
+    import torch
+
+    t_phase = time.perf_counter()
+    log(f"phase 15: reduced {list(ENTRY_REDUCED)}")
+    logs, launches, results = [], {}, {}
+    for group in ENTRY_GROUPS:
+        results.update(run_logged(group, ENTRY_TIMEOUT_S))
+    for label, (lines, notes, wall) in results.items():
+        *lines, seen = lines
+        log(f"{label}: done after {wall:.1f} s wall: {json.dumps(lines[-1])}; "
+            f"{' '.join(notes)[-1500:]}; {card}")
+        results[label] = lines
+        entry_checks(label, lines, torch.cuda.get_device_name(0))
+        shapes = [(k, r, bool(nw)) for k, r, nw in seen["shapes"]]
+        assert seen["launches"] == len(shapes) > 0, f"{label}: {seen['launches']} launches"
+        launches[label] = len(shapes)
+        logs.extend(shapes)
+    rec = results["bench"][-1]
+    log(f"number of record: {rec['value']} sf/s decode (median of {rec['median_of']}, spread "
+        f"{rec['spread_pct']} %), device {rec['device_ms']} ms per call (CUDA events), "
+        f"compile {rec['compile_s']} s ({rec['cache_state']}); {card}")
+    log("SNR sweep (batch 128, 10 calls each; beside five other processes): " + json.dumps(
+        results["snr_sweep"][-1]["snr_sweep"]))
+    paced = results["bench_waveform_paced"][-1]
+    log(f"paced: headroom {paced['value']}x, {paced['deadline_misses']} deadline misses in "
+        f"{paced['blocks']} blocks of T={paced['block_ttis']}, compute {paced['compute_ms']} ms "
+        f"per block; {card}")
+    log(f"phase 15 turbo_map launches by entry point {json.dumps(launches)}")
+    t0 = time.perf_counter()
+    cases = map_cases_logged(logs, known, dev, 15, card, select=every_map_shape)
+    log(f"phase 15: {time.perf_counter() - t_phase:.1f} s (the kernel checks "
+        f"{time.perf_counter() - t0:.1f} s, {len(cases)} new shapes)")
+    return cases, sum(launches.values())
 
 
 def main():
@@ -2784,6 +2904,8 @@ def main():
     c13_cases, c13_launches = phase_slice13c(dev, card, known)
     known += tuple((c["K"], c["B"], (c["narrow"],)) for c in c13_cases)
     c14_cases, c14_launches = phase_slice14(dev, card, known)
+    known += tuple((c["K"], c["B"], (c["narrow"],)) for c in c14_cases)
+    c15_cases, c15_launches = phase_entry_points(dev, card, known)
     bench = next(c for c in cases if (c["K"], c["B"], c["narrow"]) == (5504, 768, True))
     odd = next(c for c in v1_cases if (c["K"], c["B"]) == (1040, 768))
     print(json.dumps({"kernels": [{
@@ -2791,11 +2913,12 @@ def main():
         "route": "cuda",
         "source": "srslte_emane_tpu_torch/csrc/turbo_map.cu",
         "replaces": "srslte_emane_tpu/ops/fec/turbodecoder_pallas2.py:70",
-        # PDSCH link, uplink, DL subframe, TM3 cell, phase 10's to 14's paths
+        # PDSCH link, uplink, DL subframe, TM3 cell, phase 10's to 15's paths
         "launches": (dl_launches + ul_launches + sf_launches + tm3_launches + sync_launches
-                     + block_launches + net_launches + c13_launches + c14_launches),
+                     + block_launches + net_launches + c13_launches + c14_launches
+                     + c15_launches),
         "max_abs_err": max(c["max_abs_err"] for c in cases + mimo_cases + sync_cases
-                           + block_cases + net_cases + c13_cases + c14_cases),
+                           + block_cases + net_cases + c13_cases + c14_cases + c15_cases),
         "ms": bench["ms"],
         "wrapper_ms": bench["wrapper_ms"],
         "plain_ms": bench["plain_ms"],

@@ -90,7 +90,14 @@ def test_port_never_imports_jax():
             "srslte_emane_tpu_torch.phch.sync, srslte_emane_tpu_torch.models.enb_dl, "
             "srslte_emane_tpu_torch.models.ue_dl, srslte_emane_tpu_torch.runtime.wavesim, "
             "srslte_emane_tpu_torch.phch.pmch, srslte_emane_tpu_torch.phch.pdsch, "
-            "srslte_emane_tpu_torch.ops.channel, srslte_emane_tpu_torch.phch.chest; "
+            "srslte_emane_tpu_torch.ops.channel, srslte_emane_tpu_torch.phch.chest, "
+            "srslte_emane_tpu_torch.bench, srslte_emane_tpu_torch.scripts.snr_sweep, "
+            "srslte_emane_tpu_torch.scripts.bench_extra, "
+            "srslte_emane_tpu_torch.scripts.bench_waveform_tpu, "
+            "srslte_emane_tpu_torch.scripts.bench_waveblock_dyn, "
+            "srslte_emane_tpu_torch.scripts.bench_waveform_paced, "
+            "srslte_emane_tpu_torch.scripts.profile_stages, "
+            "srslte_emane_tpu_torch.scripts.wavenet_smoke; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', "
             "'srslte_emane_tpu')]; assert not bad, bad")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,

@@ -49,6 +49,13 @@ APPS = ["enb_app", "epc_app", "hub_app", "rpc", "ue_app"]
 # kernels, ported as hand-written CUDA kernels
 RENAMED = {"ops/fec/turbodecoder_pallas2.py": "csrc/turbo_map.cu",
            "ops/fec/turbodecoder_pallas.py": "csrc/turbo_map_v1.cu"}
+# the JAX repository's measuring entry points (relative to its root) and
+# their twins in the port's package
+ENTRY_POINTS = {"bench.py": "bench.py",
+                **{f"scripts/{m}.py": f"scripts/{m}.py"
+                   for m in ("snr_sweep", "bench_extra", "bench_waveform_tpu",
+                             "bench_waveblock_dyn", "bench_waveform_paced", "profile_stages",
+                             "wavenet_smoke")}}
 # reference security.py lines (1-based) that the port changes: the docstring's
 # AES line, the cryptography imports, and the bodies of _aes_ecb, eea2's CTR
 # and eia2's CMAC
@@ -72,6 +79,16 @@ def test_every_reference_file_has_a_twin():
     missing = [r for r in ref if not (PORT / RENAMED.get(r, r)).is_file()]
     assert not missing, missing
     assert set(RENAMED) <= set(ref)
+
+
+@pytest.mark.parametrize("ref", sorted(ENTRY_POINTS))
+def test_every_entry_point_has_a_twin(ref):
+    """bench.py and the scripts that measure the JAX package each have a
+    twin under srslte_emane_tpu_torch/, run as `python -m`."""
+    assert (REF.parent / ref).is_file()
+    twin = PORT / ENTRY_POINTS[ref]
+    assert twin.is_file(), twin
+    assert "def main(argv=None)" in twin.read_text()
 
 
 def test_wire_differs_only_on_its_module_check():
