@@ -169,7 +169,28 @@ Phases (any failure raises; the exit code is then non-zero):
      name the card; then turbo_map against its plain version at every shape
      of the phase not checked before, at every row count (the sweep's
      straggler stages).  Any cut of the scripts' defaults is logged as the
-     phase's `reduced` list.
+     phase's `reduced` list;
+ 16. slice 17: (a) the profiling twins at their JAX scripts' defaults, each
+     as `python -m` through MODULE_LOGGED (now logging turbo_map_v1 too):
+     profile_turbo alone (1024 x K=5568 f32, W=32, L=174: turbo_map_v1
+     and turbo_map one launch per half-iteration call, the plain MAP none,
+     turbo_decode 2 / 4 / 16 launches at 1 / 2 / early-stop iterations),
+     then profile_mimo (the TM3 cell at batch 32, every CRC) and
+     profile_dynblock (R=2, full and the four ablations) together, each
+     JSON line naming the card; meanwhile feasible_rntis for the dynamic
+     cell at PDCCH aggregation 2, 4 and 8; (b) phase 11's SPS TM3 block
+     (T=20) at mimo_cond_db 0 (every codeword and ACK) and 60 (every
+     codeword fails, each PUCCH carries a NACK with energy above 0.25); (c)
+     phase 11's dynamic block (R=2) at l_aggr 2, 4 and 8 with those RNTIs
+     (every CRC and ACK, no DCI miss), then with UE 7 at -6 dB under
+     max_tx 4 (no drop) and 2 (its processes drop); (d) a 15 PRB, 2-UE
+     network attached on the card, then 10 TTIs of WaveUePhy.run_tti with
+     no samples and no batch (dl_take, _camp_rx), each UE's front end and
+     blind search held against the batched ones on the same samples, TBs
+     decoded and every offered packet delivered; (e) turbo_map against its
+     plain version at every shape of the phase not checked before, at
+     every row count, and turbo_map_v1 at profile_turbo's 1024 x K=5568
+     on its draws, each with its launches.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -494,6 +515,41 @@ def host_ms(fn, n):
     return statistics.median(times)
 
 
+def v1_case(args, w, flush, plain_n=3):
+    """turbo_map_v1 against map_decode_v1_ref on `args` (ls, lp, tail_x,
+    tail_z on the card) in w windows, bit for bit unless SRSLTE_TPU_LOGMAP
+    is set, with the kernel's time warm and L2-flushed, the wrapper's and
+    the plain version's (plain_n calls), its bound, share and occupancy."""
+    import torch
+
+    from srslte_emane_tpu_torch.ops.fec import turbodecoder, turbodecoder_cuda as tdc
+
+    batch, k = args[0].shape
+    what = f"v1 K={k} B={batch} W={w}"
+    got = tdc.map_decode_v1_cuda(*args, w)
+    ref = tdc.map_decode_v1_ref(*args, w)
+    if tdc.LOGMAP:  # the card's log and exp round differently from torch's
+        err = check_close(got, ref, what)
+    else:
+        assert torch.equal(got, ref), f"{what}: not bit-exact"
+        err = (got - ref).abs().max().item()
+    cols, blocks = tdc.occupancy_v1(k, w)
+    # the kernel alone (warm, and L2 flushed), the whole wrapper, the plain version
+    beta_k = turbodecoder.beta_tail(*args[2:]).contiguous()
+    kernel = lambda: tdc.launch_v1(args[0], args[1], beta_k, w)
+    ms = cuda_ms(kernel, 20)
+    flushed_ms = cuda_ms(kernel, 20, flush)
+    wrapper_ms = cuda_ms(lambda: tdc.map_decode_v1_cuda(*args, w), 20)
+    plain_ms = cuda_ms(lambda: tdc.map_decode_v1_ref(*args, w), plain_n)
+    bound_ms, bound_by = v1_bound(k, batch, w)
+    case = dict(K=k, B=batch, W=w, L=k // w, max_abs_err=err, ms=ms, flushed_ms=flushed_ms,
+                wrapper_ms=wrapper_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, share=bound_ms / ms, cols_per_block=cols,
+                blocks_per_sm=blocks)
+    log(f"v1 kernel vs plain {json.dumps(case)}")
+    return case
+
+
 def phase_v1(dev):
     """The v1 kernel against its plain version, then the odd-window path
     through the decoder.  Returns (cases, launches of the path)."""
@@ -504,33 +560,11 @@ def phase_v1(dev):
     flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
     cases = []
     for k, batch, w in V1_SHAPES + V1_EDGE_SHAPES:
-        edge = (k, batch, w) in V1_EDGE_SHAPES
         args = random_llrs(k, batch, dev, k + w)
-        what = f"v1 K={k} B={batch} W={w}"
-        got = tdc.map_decode_v1_cuda(*args, w)
-        ref = tdc.map_decode_v1_ref(*args, w)
-        if tdc.LOGMAP:  # the card's log and exp round differently from torch's
-            err = check_close(got, ref, what)
-        else:
-            assert torch.equal(got, ref), f"{what}: not bit-exact"
-            err = (got - ref).abs().max().item()
-        cols, blocks = tdc.occupancy_v1(k, w)
+        case = v1_case(args, w, flush, 1 if (k, batch, w) in V1_EDGE_SHAPES else 3)
         if (k, batch) == (1040, 5):
-            assert (batch * w) % cols, f"{what}: the last block is full"
-        assert (cols == 1) == ((k, w) == (6144, 1)), f"{what}: {cols} columns per block"
-        # the kernel alone (warm, and L2 flushed), the whole wrapper, the plain version
-        beta_k = turbodecoder.beta_tail(*args[2:]).contiguous()
-        kernel = lambda: tdc.launch_v1(args[0], args[1], beta_k, w)
-        ms = cuda_ms(kernel, 20)
-        flushed_ms = cuda_ms(kernel, 20, flush)
-        wrapper_ms = cuda_ms(lambda: tdc.map_decode_v1_cuda(*args, w), 20)
-        plain_ms = cuda_ms(lambda: tdc.map_decode_v1_ref(*args, w), 1 if edge else 3)
-        bound_ms, bound_by = v1_bound(k, batch, w)
-        case = dict(K=k, B=batch, W=w, L=k // w, max_abs_err=err, ms=ms, flushed_ms=flushed_ms,
-                    wrapper_ms=wrapper_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                    bound_by=bound_by, share=bound_ms / ms, cols_per_block=cols,
-                    blocks_per_sm=blocks)
-        log(f"v1 kernel vs plain {json.dumps(case)}")
+            assert (batch * w) % case["cols_per_block"], f"v1 K={k} B={batch}: the last block is full"
+        assert (case["cols_per_block"] == 1) == ((k, w) == (6144, 1)), case
         cases.append(case)
 
     # the odd-window path: the decoder's entry point with a window count
@@ -1907,6 +1941,25 @@ def step_sps(dev, card, tm3):
     return launches, seen
 
 
+def dyn_block_right(o, dl_q, ul_q, rb_dl):
+    """A clean-channel dynamic block's gate: every DL and UL CRC and ACK, no
+    DCI miss, the UE followed every RIV, the delivered TBs equal the queues
+    in order."""
+    import torch
+
+    T, n = dl_q.shape[:2]
+    if not (int(o["dl_ok"].sum()) == int(o["ul_ok"].sum()) == int(o["ack_det"].sum()) == T * n
+            and int(o["dci_dl_miss"]) == int(o["dci_ul_miss"]) == 0
+            and torch.equal(o["rb_ue"], rb_dl.long())):
+        return False
+    for new, outs, q in (("dl_new", "dl_out", dl_q), ("ul_new", "ul_out", ul_q)):
+        for u in range(n):  # delivered TBs equal the queue, in order
+            sent = o[outs][:, :, u][o[new][:, :, u]]
+            if not torch.equal(sent, q[: sent.shape[0], u]) or sent.shape[0] != T:
+                return False
+    return True
+
+
 def step_dyn(dev, card):
     """Phase 11.3: the dynamic block at R=20.  Returns (turbo_map launches
     of one block, launch log)."""
@@ -1932,17 +1985,7 @@ def step_dyn(dev, card):
     build_s = time.perf_counter() - t0
     args = (dl_q, ul_q, rb_dl, rb_ul)
 
-    def right(o):
-        if not (int(o["dl_ok"].sum()) == int(o["ul_ok"].sum()) == int(o["ack_det"].sum()) == T * n
-                and int(o["dci_dl_miss"]) == int(o["dci_ul_miss"]) == 0
-                and torch.equal(o["rb_ue"], rb_dl.long())):
-            return False
-        for new, outs, q in (("dl_new", "dl_out", dl_q), ("ul_new", "ul_out", ul_q)):
-            for u in range(n):  # delivered TBs equal the queue, in order
-                sent = o[outs][:, :, u][o[new][:, :, u]]
-                if not torch.equal(sent, q[: sent.shape[0], u]) or sent.shape[0] != T:
-                    return False
-        return True
+    right = lambda o: dyn_block_right(o, dl_q, ul_q, rb_dl)
 
     record = []
     torch.cuda.reset_peak_memory_stats()
@@ -2032,7 +2075,7 @@ def phase_blocks(dev, card):
 NET_PRB, NET_UES, NET_CFI, NET_PATHLOSS, STEADY_TTIS = 100, 8, 3, 80.0, 60
 
 
-def waveform_network(pathloss=NET_PATHLOSS, **kw):
+def waveform_network(pathloss=NET_PATHLOSS, n_prb=NET_PRB, n_ues=NET_UES, cfi=NET_CFI, **kw):
     """apps/netsim.py:run_waveform_full's network: 8 UEs with IMSIs
     0010100000000xx and preambles (7 + i) % 64, pathloss 80 dB, seed 0, at
     cfi NET_CFI, on the card (the entry point's default); `kw` are netsim's
@@ -2044,16 +2087,16 @@ def waveform_network(pathloss=NET_PATHLOSS, **kw):
     hss = hss_mod.Hss()
     spgw = spgw_mod.Spgw()
     mme = mme_mod.Mme(hss, spgw)
-    enb = enb_stack.EnbStack(mme, enb_id=1, n_prb=NET_PRB)
+    enb = enb_stack.EnbStack(mme, enb_id=1, n_prb=n_prb)
     ues = []
-    for i in range(NET_UES):
+    for i in range(n_ues):
         imsi = f"0010100000000{i:02d}"
         key = bytes(range(16))
         hss.add(hss_mod.Subscriber(imsi=imsi, key=key))
         opc = security.milenage_opc(key, b"\x00" * 16)
         ues.append(ue_stack.UeStack(ue_stack.Usim(imsi, key, opc), preamble=(7 + i) % 64))
-    net = wavenet.WaveformNetwork(enb, ues, pathloss_db=np.full(NET_UES, pathloss),
-                                  n_prb=NET_PRB, seed=0, cfi=NET_CFI, **kw)
+    net = wavenet.WaveformNetwork(enb, ues, pathloss_db=np.full(n_ues, pathloss),
+                                  n_prb=n_prb, seed=0, cfi=cfi, **kw)
     assert net.device.type == "cuda" and net.medium._gen.device.type == "cuda"
     return net, ues, spgw, spgw_mod
 
@@ -2512,22 +2555,28 @@ NETSIM_RUNS = (
 )
 NETSIM_IP_BYTES = 140  # netsim's IP packets: 120 bytes of payload in IPv4/UDP
 # `python -c` body that runs the module named by its first argument as `-m`
-# would (with the arguments after it), with every turbo_map launch logged as
-# launch_log does; its last line, after the module's own output, is
-# {"launches": the wrapper's count, "shapes": [[K, rows, narrow], ...]}
+# would (with the arguments after it), with every turbo_map and turbo_map_v1
+# launch logged as launch_log does; its last line, after the module's own
+# output, is {"launches": the wrapper's count, "shapes": [[K, rows, narrow],
+# ...], "v1_launches": v1's wrapper's count, "v1_shapes": [[K, rows, W],
+# ...]} (a module that resets the counts itself leaves the shapes whole)
 MODULE_LOGGED = """
 import json, runpy, sys
 from srslte_emane_tpu_torch.ops.fec import turbodecoder_cuda as tdc
-seen, launch = [], tdc.launch
+seen, seen_v1, launch, launch_v1 = [], [], tdc.launch, tdc.launch_v1
 def logged(*a, **kw):
     seen.append((a[0].shape[1], a[0].shape[0], bool(a[4])))
     return launch(*a, **kw)
-tdc.launch = logged
+def logged_v1(*a, **kw):
+    seen_v1.append((a[0].shape[1], a[0].shape[0], int(a[3])))
+    return launch_v1(*a, **kw)
+tdc.launch, tdc.launch_v1 = logged, logged_v1
 module = sys.argv.pop(1)
 try:
     runpy.run_module(module, run_name="__main__", alter_sys=True)
 finally:
-    print(json.dumps({"launches": tdc.launches, "shapes": seen}), flush=True)
+    print(json.dumps({"launches": tdc.launches, "shapes": seen,
+                      "v1_launches": tdc.launches_v1, "v1_shapes": seen_v1}), flush=True)
 """
 NETSIM_MODULE = "srslte_emane_tpu_torch.apps.netsim"
 
@@ -2863,6 +2912,302 @@ def phase_entry_points(dev, card, known):
     return cases, sum(launches.values())
 
 
+# phase 16 (slice 17): the three profiling entry points at their JAX twins'
+# defaults, each as `python -m` through MODULE_LOGGED (profile_turbo alone,
+# since it times both kernels; then profile_mimo and profile_dynblock
+# together), the options the port had folded into constants, and
+# WaveUePhy's per-UE fallback
+PROFILE_TIMEOUT_S = 300
+PROFILE_GROUPS = (
+    (("profile_turbo", "srslte_emane_tpu_torch.scripts.profile_turbo", ()),),
+    tuple((name, f"srslte_emane_tpu_torch.scripts.{name}", ())
+          for name in ("profile_mimo", "profile_dynblock")),
+)
+# the UEs of phase 11's dynamic cell (100 PRB, cfi 2: 50 CCEs) that
+# feasible_rntis places at each PDCCH aggregation level: the most of 8, 6,
+# 4, 2 for which the greedy search found a set (8 at L=2 takes ~36 s of
+# host time, so it runs beside the profiling processes)
+DYN_L_UES = {2: 8, 4: 4, 8: 2}
+SPS_TM3_T, DYN_OPT_R = 20, 2
+PER_UE_PRB, PER_UE_UES, PER_UE_TTIS = 15, 2, 10
+
+
+def profile_checks(label, out, card_name):
+    """What phase 16 checks of a profiling twin's JSON line, beyond its own
+    gates (profile_mimo's CRCs, for one)."""
+    from srslte_emane_tpu_torch.scripts import profile_turbo
+
+    assert out["backend"] == "cuda" and out["device"] == card_name, out
+    if label == "profile_turbo":
+        st = out["stages"]
+        assert (out["n_cb"], out["k"], out["n_windows"]) == (1024, 5568, 32), out
+        per_call = {k: (v["turbo_map_launches"], v["turbo_map_v1_launches"]) for k, v in st.items()}
+        assert per_call[profile_turbo.MAP_V1] == (0, 1) and per_call[profile_turbo.MAP] == (1, 0)
+        assert per_call[profile_turbo.PLAIN] == (0, 0), per_call
+        assert per_call[profile_turbo.fixed(1)] == (2, 0), per_call
+        assert per_call[profile_turbo.fixed(2)] == (4, 0), per_call
+        assert per_call[profile_turbo.EARLY] == (16, 0), per_call  # random LLRs: no CRC passes
+        assert all(v["ms"] > 0 for v in st.values()), st
+    elif label == "profile_mimo":
+        assert len(out["stages"]) == 6 and all(v["ms"] > 0 for v in out["stages"].values()), out
+        assert out["sf_per_s"] > 0 and out["batch"] == 32, out
+    else:
+        var = out["variants"]
+        assert list(out["ms_per_round"]) == ["full", "-viterbi", "-turbodec", "-turboenc",
+                                             "-all-fec"], out
+        assert all(v > 0 for v in out["ms_per_round"].values()), out
+        assert var["full"]["turbo_map_launches"] > 0, var
+        assert var["-turbodec"]["turbo_map_launches"] == var["-all-fec"]["turbo_map_launches"] == 0
+
+
+def step_profiles(card, logs, v1_logs):
+    """16a: the profiling twins.  Returns their turbo_map launches; the
+    shapes go to `logs` and `v1_logs`."""
+    import torch
+
+    results = {}
+    for group in PROFILE_GROUPS:
+        results.update(run_logged(group, PROFILE_TIMEOUT_S))
+    launches = {}
+    for label, (lines, notes, wall) in results.items():
+        *lines, seen = lines
+        out = lines[-1]
+        profile_checks(label, out, torch.cuda.get_device_name(0))
+        shapes = [(k, r, bool(nw)) for k, r, nw in seen["shapes"]]
+        v1_shapes = [tuple(x) for x in seen["v1_shapes"]]
+        assert shapes, f"{label}: no turbo_map launch"
+        assert bool(v1_shapes) == (label == "profile_turbo"), (label, len(v1_shapes))
+        launches[label] = (len(shapes), len(v1_shapes))
+        logs.extend(shapes)
+        v1_logs.extend(v1_shapes)
+        if label == "profile_turbo":
+            assert set(v1_shapes) == {(5568, 1024, 32)}, set(v1_shapes)
+            assert {(k, r) for k, r, _ in shapes} == {(5568, 1024)}, set(shapes)
+        log(f"{label} (python -m, its defaults): done after {wall:.1f} s wall: "
+            f"{json.dumps(out)}; {' '.join(notes)[-800:]}; turbo_map launches {len(shapes)} at "
+            f"{len(set(shapes))} shapes, turbo_map_v1 launches {len(v1_shapes)}; {card}")
+    return launches
+
+
+def step_tm3_condition(dev, card, logs):
+    """16b: the SPS TM3 block (phase 11's, T=SPS_TM3_T) through a unitary
+    channel and through the reference's rank-1 one (mimo_cond_db 60).
+    Returns the turbo_map launches of both blocks."""
+    import torch
+
+    from srslte_emane_tpu_torch.ops.fec import turbodecoder_cuda as tdc
+    from srslte_emane_tpu_torch.runtime import waveblock
+
+    launches = 0
+    for cond in (0.0, 60.0):
+        cfg = sps_config(SPS_TM3_T, tm3=True)._replace(mimo_cond_db=cond)
+        n, T = cfg.n_ues, cfg.T
+        rng = np.random.default_rng(0)
+        dl = torch.from_numpy(rng.integers(0, 2, (T, n, 2, cfg.dl_tbs), dtype=np.int8)).to(dev)
+        ul = torch.from_numpy(rng.integers(0, 2, (T, n, cfg.ul_tbs), dtype=np.int8)).to(dev)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        step = waveblock.make_block_step(cfg, sfn0=4)
+        with launch_log() as seen:
+            tdc.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step(dl, ul, gen, 0)
+            torch.cuda.synchronize()
+            block_s = time.perf_counter() - t0
+        launches += tdc.launches
+        logs.extend(seen)
+        energy, val = out["ack_energy"], out["ack_val"]
+        assert bool(out["ul_ok"].all()) and bool((energy > 0.25).all()), (cond, out["ul_ok"], energy)
+        if cond == 0.0:
+            assert bool(out["dl_ok_cw"].all()) and bool((val > 0).all()), cond
+            assert torch.equal(out["dl_out"], dl.reshape(T, n, -1)), cond
+        else:  # every codeword fails; the bundled NACK rides the PUCCH
+            assert not bool(out["dl_ok_cw"].any()) and bool((val < 0).all()), cond
+        log(f"SPS block TM3 at mimo_cond_db {cond:g} (100 PRB, 8 UEs, T={T}): codewords "
+            f"passing {int(out['dl_ok_cw'].sum())} of {2 * T * n}, UL {int(out['ul_ok'].sum())} "
+            f"of {T * n}, ACK energy min {energy.min().item():.3f}, ACK value range "
+            f"[{val.min().item():.3f}, {val.max().item():.3f}]; {tdc.launches} turbo_map launches "
+            f"{sorted(set(seen))}; {block_s:.2f} s for the block (host tables included); {card}")
+    return launches
+
+
+def step_dyn_options(dev, card, logs, rntis):
+    """16c: the dynamic block (phase 11's, R=DYN_OPT_R) at PDCCH
+    aggregation 2, 4 and 8 with the RNTIs feasible_rntis gave, then at L=1
+    with UE 7 at -6 dB (it misses every DCI) under max_tx 4 and 2.  Returns
+    the turbo_map launches."""
+    import torch
+
+    from srslte_emane_tpu_torch.ops.fec import turbodecoder_cuda as tdc
+    from srslte_emane_tpu_torch.runtime import waveblock_dyn as wbd
+
+    base = dyn_config(DYN_OPT_R)
+    cases = [(f"l_aggr {l}", base._replace(l_aggr=l, rntis=rntis[l],
+                                         snr_db=(30.0,) * len(rntis[l]))) for l in DYN_L_UES]
+    weak = base.snr_db[:7] + (-6.0,)
+    cases += [(f"max_tx {m}", base._replace(max_tx=m, snr_db=weak)) for m in (4, 2)]
+    launches, drops = 0, {}
+    for name, cfg in cases:
+        n, T = cfg.n_ues, cfg.T
+        rng = np.random.default_rng(0)
+        dl_q = torch.from_numpy(rng.integers(0, 2, (T, n, cfg.dl_tbs), dtype=np.int8)).to(dev)
+        ul_q = torch.from_numpy(rng.integers(0, 2, (T, n, cfg.ul_tbs), dtype=np.int8)).to(dev)
+        rb_dl, rb_ul = (torch.from_numpy(a).to(dev) for a in wbd.make_schedule(cfg, seed=3))
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        step = wbd.make_dyn_block_step(cfg)
+        with launch_log() as seen:
+            tdc.launches = 0
+            out = step(dl_q, ul_q, rb_dl, rb_ul, gen, 0)
+            torch.cuda.synchronize()
+        launches += tdc.launches
+        logs.extend(seen)
+        if name.startswith("l_aggr"):
+            assert dyn_block_right(out, dl_q, ul_q, rb_dl), (
+                f"dynamic block at {name}: DL {int(out['dl_ok'].sum())}, UL "
+                f"{int(out['ul_ok'].sum())}, ACK {int(out['ack_det'].sum())} of {T * n}, DCI misses "
+                f"{int(out['dci_dl_miss'])} + {int(out['dci_ul_miss'])}")
+        else:
+            dl_ok = out["dl_ok"]
+            assert bool(dl_ok[:, :, :7].all()) and not bool(out["dl_found"][:, :, 7].any()), name
+            drops[name] = int(out["dl_drop"])
+        log(f"dynamic block at {name} (100 PRB, cfi 2, {n} UEs, RNTIs {list(cfg.rntis)}, R="
+            f"{cfg.R}): DL {int(out['dl_ok'].sum())}, UL {int(out['ul_ok'].sum())}, ACK "
+            f"{int(out['ack_det'].sum())} of {T * n}; DCI misses {int(out['dci_dl_miss'])} + "
+            f"{int(out['dci_ul_miss'])}; DL retransmissions {int(out['dl_retx_tx'])}, drops "
+            f"{int(out['dl_drop'])}; {tdc.launches} turbo_map launches; {card}")
+    # UE 7's processes: no drop within 2 rounds at max_tx 4, dropped after 2
+    # transmissions at max_tx 2
+    assert drops["max_tx 4"] == 0 < drops["max_tx 2"], drops
+    return launches
+
+
+def step_per_ue(dev, card, logs):
+    """16d: a 15 PRB, 2-UE network attached on the card, then PER_UE_TTIS
+    TTIs with traffic in which every UE runs run_tti alone (its own
+    dl_take and _camp_rx); each TTI the batched front end (one rx_front and
+    one blind_all over both UEs' samples, as WaveformNetwork.run calls them)
+    runs on the same samples and is held against each UE's own.  Returns
+    the turbo_map launches of those TTIs."""
+    import torch
+
+    from srslte_emane_tpu_torch.ops.fec import turbodecoder_cuda as tdc
+
+    net, ues, spgw, spgw_mod = waveform_network(n_prb=PER_UE_PRB, n_ues=PER_UE_UES, cfi=2)
+    while net.tti < 400 and not all(u.emm_state == "REGISTERED" for u in ues):
+        net.run(10)
+    assert all(u.emm_state == "REGISTERED" and u.ip_addr for u in ues), net.tti
+    pkts = NetworkRun.traffic(ues, spgw, spgw_mod)
+    rx_before = [u.gw_rx.count(pkt) for u, pkt in zip(ues, pkts)]
+    tb_before = [u.metrics["tb_ok"] for u in net.ues]
+    taken, fronts, blinds = [], [], []
+    take, front, blind = net.medium.dl_take, net.kern.rx_front, net.kern.blind_all
+
+    def record(fn, into):
+        def rec(*a):
+            out = fn(*a)
+            into.append((a, out))
+            return out
+        return rec
+
+    net.medium.dl_take = record(take, taken)
+    net.kern.rx_front = record(front, fronts)
+    net.kern.blind_all = record(blind, blinds)
+    checked, max_err = 0, 0.0
+    try:
+        with launch_log() as seen:
+            tdc.launches = 0
+            for _ in range(PER_UE_TTIS):
+                taken.clear(), fronts.clear(), blinds.clear()
+                net.enb.run_tti(net.tti)
+                for ue in net.ues:
+                    ue.run_tti(net.tti)
+                net.tti += 1
+                assert len(taken) == PER_UE_UES == len(fronts) == len(blinds), len(fronts)
+                # the batched front end on the same samples
+                sf = fronts[0][0][1]
+                assert all(a[1] == sf for a, _ in fronts), [a[1] for a, _ in fronts]
+                rg, ce, snr, sb = front(torch.cat([s for _, s in taken]), sf)
+                bits, resid, pos = blind(rg, ce, sf)
+                for i, ((_, own), (_, own_blind)) in enumerate(zip(fronts, blinds)):
+                    for a, b in zip(own, (rg, ce, snr, sb)):
+                        torch.testing.assert_close(a, b[i:i + 1], rtol=1e-5, atol=1e-5)
+                        max_err = max(max_err, (a - b[i:i + 1]).abs().max().item())
+                    assert own_blind[2] == pos and torch.equal(own_blind[1], resid[i:i + 1])
+                    assert torch.equal(own_blind[0], bits[i:i + 1])
+                    checked += 1
+            torch.cuda.synchronize()
+            launches = tdc.launches
+    finally:
+        del net.medium.dl_take, net.kern.rx_front, net.kern.blind_all
+    logs.extend(seen)
+    tb = [u.metrics["tb_ok"] - b for u, b in zip(net.ues, tb_before)]
+    assert min(tb) > 0 and launches > 0, (tb, launches)
+    net.run(40)  # the rest of the offered packets, on the batched path
+    got = [u.gw_rx.count(pkt) - b for u, pkt, b in zip(ues, pkts, rx_before)]
+    assert got == [4] * PER_UE_UES, got
+    log(f"per-UE fallback ({PER_UE_PRB} PRB, {PER_UE_UES} UEs): {PER_UE_TTIS} TTIs of "
+        f"WaveUePhy.run_tti with no samples and no batch, {checked} UE-TTIs whose own front end "
+        f"and blind search equal the batched one on the same samples (max abs err {max_err:.3e}, "
+        f"DCI bits and RNTI residues equal); TBs decoded per UE {tb}, {launches} turbo_map "
+        f"launches; every offered DL packet delivered; {card}")
+    return launches
+
+
+def phase_slice17(dev, card, known):
+    """Phase 16.  Returns (the turbo_map cases at its shapes not in `known`,
+    at every row count; the turbo_map_v1 cases at its shapes; its turbo_map
+    launches; its turbo_map_v1 launches)."""
+    import torch
+
+    from srslte_emane_tpu_torch.phch import grid
+    from srslte_emane_tpu_torch.runtime import waveblock_dyn as wbd
+    from srslte_emane_tpu_torch.scripts import profile_turbo
+
+    t_phase = time.perf_counter()
+    logs, v1_logs, launches, seconds = [], [], {}, {}
+    cell = grid.CellConfig(n_prb=100, cell_id=1, cfi=2)
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        searches = {l: pool.submit(wbd.feasible_rntis, cell, n, l_aggr=l)
+                    for l, n in DYN_L_UES.items()}
+        t0 = time.perf_counter()
+        profiles = step_profiles(card, logs, v1_logs)
+        seconds["16a"] = time.perf_counter() - t0
+        rntis = {l: f.result() for l, f in searches.items()}
+    log(f"feasible_rntis at 100 PRB, cfi 2 by aggregation level: {json.dumps(rntis)} "
+        f"({time.perf_counter() - t0:.1f} s with 16a)")
+    steps = (("16b", lambda: step_tm3_condition(dev, card, logs)),
+             ("16c", lambda: step_dyn_options(dev, card, logs, rntis)),
+             ("16d", lambda: step_per_ue(dev, card, logs)))
+    for name, step in steps:
+        t0 = time.perf_counter()
+        launches[name] = step()
+        seconds[name] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cases = map_cases_logged(logs, known, dev, 16, card, select=every_map_shape)
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
+    v1_cases = []
+    for k, rows, w in sorted(set(v1_logs)):
+        inp = profile_turbo.inputs(rows, k, dev)
+        case = v1_case((inp["ls"], inp["lp"], *inp["tails"]), w, flush)
+        n_launch = v1_logs.count((k, rows, w))
+        log(f"turbo_map_v1 at {rows} x K={k} (W={w}, L={k // w}): {1e3 * case['ms']:.1f} us "
+            f"(L2-flushed {1e3 * case['flushed_ms']:.1f} us, wrapper {1e3 * case['wrapper_ms']:.1f} "
+            f"us, plain {1e3 * case['plain_ms']:.1f} us), bound {1e3 * case['bound_ms']:.3f} us "
+            f"({case['bound_by']}), share {case['share']:.4f}, bit for bit, {case['cols_per_block']} "
+            f"columns per block; launches at this shape in phase 16: {n_launch} (1 per call); {card}")
+        v1_cases.append(case)
+    seconds["kernel checks"] = time.perf_counter() - t0
+    c16 = sum(n for n, _ in profiles.values()) + sum(launches.values())
+    v1 = sum(n for _, n in profiles.values())
+    log(f"phase 16: {time.perf_counter() - t_phase:.1f} s "
+        f"({json.dumps({k: round(v, 1) for k, v in seconds.items()})}); turbo_map launches "
+        f"{json.dumps({**{k: n for k, (n, _) in profiles.items()}, **launches})}, turbo_map_v1 "
+        f"launches {v1}; {len(cases)} new turbo_map shapes, {len(v1_cases)} turbo_map_v1")
+    return cases, v1_cases, c16, v1
+
+
 def main():
     import torch
 
@@ -2906,6 +3251,8 @@ def main():
     c14_cases, c14_launches = phase_slice14(dev, card, known)
     known += tuple((c["K"], c["B"], (c["narrow"],)) for c in c14_cases)
     c15_cases, c15_launches = phase_entry_points(dev, card, known)
+    known += tuple((c["K"], c["B"], (c["narrow"],)) for c in c15_cases)
+    c16_cases, c16_v1_cases, c16_launches, c16_v1_launches = phase_slice17(dev, card, known)
     bench = next(c for c in cases if (c["K"], c["B"], c["narrow"]) == (5504, 768, True))
     odd = next(c for c in v1_cases if (c["K"], c["B"]) == (1040, 768))
     print(json.dumps({"kernels": [{
@@ -2913,12 +3260,13 @@ def main():
         "route": "cuda",
         "source": "srslte_emane_tpu_torch/csrc/turbo_map.cu",
         "replaces": "srslte_emane_tpu/ops/fec/turbodecoder_pallas2.py:70",
-        # PDSCH link, uplink, DL subframe, TM3 cell, phase 10's to 15's paths
+        # PDSCH link, uplink, DL subframe, TM3 cell, phase 10's to 16's paths
         "launches": (dl_launches + ul_launches + sf_launches + tm3_launches + sync_launches
                      + block_launches + net_launches + c13_launches + c14_launches
-                     + c15_launches),
+                     + c15_launches + c16_launches),
         "max_abs_err": max(c["max_abs_err"] for c in cases + mimo_cases + sync_cases
-                           + block_cases + net_cases + c13_cases + c14_cases + c15_cases),
+                           + block_cases + net_cases + c13_cases + c14_cases + c15_cases
+                           + c16_cases),
         "ms": bench["ms"],
         "wrapper_ms": bench["wrapper_ms"],
         "plain_ms": bench["plain_ms"],
@@ -2931,8 +3279,8 @@ def main():
         "route": "cuda",
         "source": "srslte_emane_tpu_torch/csrc/turbo_map_v1.cu",
         "replaces": "srslte_emane_tpu/ops/fec/turbodecoder_pallas.py:53",
-        "launches": v1_launches,  # the odd-window path
-        "max_abs_err": max(c["max_abs_err"] for c in v1_cases),
+        "launches": v1_launches + c16_v1_launches,  # the odd-window path, profile_turbo
+        "max_abs_err": max(c["max_abs_err"] for c in v1_cases + c16_v1_cases),
         "ms": odd["ms"],
         "wrapper_ms": odd["wrapper_ms"],
         "plain_ms": odd["plain_ms"],

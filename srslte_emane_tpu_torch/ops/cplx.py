@@ -2,8 +2,7 @@
 re/im axis of size 2 (the convention of every module boundary in the port,
 as in the reference package).  Inside a function the port may use torch's
 complex dtypes (cuFFT in ops/dft.py); at the boundaries tensors are "cf
-tensors".  Only the helpers the ported slice uses are here; the
-reference module's others come with the slices that need them."""
+tensors"."""
 
 from __future__ import annotations
 
@@ -31,6 +30,14 @@ def zeros(shape, dtype=torch.float32, device=None) -> torch.Tensor:
     return torch.zeros(tuple(shape) + (2,), dtype=dtype, device=device)
 
 
+def re(x):
+    return x[..., 0]
+
+
+def im(x):
+    return x[..., 1]
+
+
 def conj(x):
     return make(x[..., 0], -x[..., 1])
 
@@ -51,6 +58,17 @@ def mul_conj(a, b):
 
 def abs2(x):
     return x[..., 0] ** 2 + x[..., 1] ** 2
+
+
+def scale(x, s):
+    """Multiply by a real scalar/array (broadcast against the non-cplx dims)."""
+    return x * torch.as_tensor(s, dtype=x.dtype, device=x.device)[..., None]
+
+
+def div(a, b, eps: float = 0.0):
+    """Elementwise complex division a / b."""
+    d = abs2(b) + eps
+    return mul_conj(a, b) / d[..., None]
 
 
 def matmul(a, w_re, w_im):

@@ -16,18 +16,30 @@ reference, not to equality.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 OFDM_SYMBOL_SZ = {6: 128, 15: 256, 25: 512, 50: 1024, 75: 1536, 100: 2048}
 
 
-def dft(x: torch.Tensor, inverse: bool = False) -> torch.Tensor:
-    """cf tensor (..., N, 2) -> DFT along axis -2, scaled 1/sqrt(N) both ways
-    (keeps grid/time powers equal)."""
+def dft(x: torch.Tensor, n: int = None, inverse: bool = False,
+        ortho: bool = True) -> torch.Tensor:
+    """cf tensor (..., N, 2) -> DFT along axis -2.  ortho: 1/sqrt(N) both ways
+    (keeps grid/time powers equal); else forward unscaled, inverse 1/N.  n,
+    where given, is the transform size and must equal N."""
+    if n is not None and n != x.shape[-2]:
+        raise ValueError(f"DFT size {n} does not match the input's {x.shape[-2]} points")
     xc = torch.view_as_complex(x.to(torch.float32).contiguous())
     fn = torch.fft.ifft if inverse else torch.fft.fft
-    return torch.view_as_real(fn(xc, dim=-1, norm="ortho"))
+    return torch.view_as_real(fn(xc, dim=-1, norm="ortho" if ortho else "backward"))
 
 
-def idft(x: torch.Tensor) -> torch.Tensor:
-    return dft(x, inverse=True)
+def idft(x: torch.Tensor, n: int = None, ortho: bool = True) -> torch.Tensor:
+    return dft(x, n, inverse=True, ortho=ortho)
+
+
+def dft_host(x: np.ndarray, inverse: bool = False, ortho: bool = True) -> np.ndarray:
+    """NumPy oracle via np.fft."""
+    norm = "ortho" if ortho else None
+    fn = np.fft.ifft if inverse else np.fft.fft
+    return fn(x, axis=-1, norm=norm).astype(np.complex64)

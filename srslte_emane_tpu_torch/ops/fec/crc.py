@@ -60,3 +60,20 @@ def crc_attach(bits: torch.Tensor, crc=LTE_CRC24A) -> torch.Tensor:
 def crc_ok(bits_with_crc: torch.Tensor, crc=LTE_CRC24A) -> torch.Tensor:
     """True where crc(m || crc(m)) == 0, over (..., L+order)."""
     return (crc_bits(bits_with_crc, crc) == 0).all(dim=-1)
+
+
+def crc_host(bits: np.ndarray, crc=LTE_CRC24A) -> np.ndarray:
+    """NumPy oracle: bit-serial LFSR CRC (the reference algorithm)."""
+    poly, order = crc
+    reg = 0
+    for b in np.asarray(bits).astype(np.int64):
+        reg = (reg << 1) | int(b)
+        if (reg >> order) & 1:
+            reg ^= poly
+    # flush `order` zero bits
+    for _ in range(order):
+        reg <<= 1
+        if (reg >> order) & 1:
+            reg ^= poly
+    reg &= (1 << order) - 1
+    return np.array([(reg >> (order - 1 - i)) & 1 for i in range(order)], dtype=np.int8)

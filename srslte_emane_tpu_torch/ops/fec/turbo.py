@@ -180,3 +180,37 @@ def turbo_encode(u: torch.Tensor, chunk: int = 512):
     d1 = torch.cat([z1, t1[:, 1:2], t1[:, 4:5], t2[:, 1:2], t2[:, 4:5]], dim=1)
     d2 = torch.cat([z2, t1[:, 2:3], t1[:, 5:6], t2[:, 2:3], t2[:, 5:6]], dim=1)
     return d0.to(torch.int8), d1.to(torch.int8), d2.to(torch.int8)
+
+
+def turbo_encode_host(u: np.ndarray) -> tuple:
+    """NumPy oracle: bit-serial encoder (reference algorithm,
+    turbocoder.c:105-186). u: (K,) bits -> (d0, d1, d2) each (K+4,)."""
+    u = np.asarray(u, dtype=np.int64)
+    K = len(u)
+    perm = qpp_interleaver(K)
+
+    def rsc(bits):
+        s = np.zeros(3, dtype=np.int64)
+        z = np.zeros(len(bits), dtype=np.int64)
+        for t, ub in enumerate(bits):
+            z[t] = (ub + s[0] + s[1]) & 1
+            a = (ub + s[1] + s[2]) & 1
+            s = np.array([a, s[0], s[1]])
+        return z, s
+
+    def tail(s):
+        out = []
+        for _ in range(3):
+            u_t = (s[1] + s[2]) & 1
+            z_t = (s[0] + s[2]) & 1
+            out += [u_t, z_t]
+            s = np.array([0, s[0], s[1]])
+        return np.array(out)
+
+    z1, s1 = rsc(u)
+    z2, s2 = rsc(u[perm])
+    t1, t2 = tail(s1), tail(s2)
+    d0 = np.concatenate([u, [t1[0], t1[3], t2[0], t2[3]]])
+    d1 = np.concatenate([z1, [t1[1], t1[4], t2[1], t2[4]]])
+    d2 = np.concatenate([z2, [t1[2], t1[5], t2[2], t2[5]]])
+    return d0.astype(np.int8), d1.astype(np.int8), d2.astype(np.int8)

@@ -7,12 +7,44 @@ framework's sign convention (positive LLR <=> bit 0).
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
 BPSK, QPSK, QAM16, QAM64, QAM256 = "bpsk", "qpsk", "16qam", "64qam", "256qam"
 BITS_PER_SYMBOL = {BPSK: 1, QPSK: 2, QAM16: 4, QAM64: 6, QAM256: 8}
 MOD_FROM_QM = {1: BPSK, 2: QPSK, 4: QAM16, 6: QAM64, 8: QAM256}
+
+
+@functools.lru_cache(maxsize=None)
+def constellation(mod: str) -> np.ndarray:
+    """Complex LUT indexed by the bit-group value (b0 = MSB of the index,
+    matching transmission order b(i), b(i+1), ...)."""
+    qm = BITS_PER_SYMBOL[mod]
+    n = 1 << qm
+    pts = np.zeros(n, dtype=np.complex64)
+    for v in range(n):
+        b = [(v >> (qm - 1 - i)) & 1 for i in range(qm)]
+        if mod == BPSK:
+            # 36.211 Table 7.1.1-1: b=0 -> (1+j)/sqrt(2), b=1 -> -(1+j)/sqrt(2)
+            s = (1 - 2 * b[0]) / np.sqrt(2)
+            pts[v] = s + 1j * s
+        elif mod == QPSK:
+            pts[v] = ((1 - 2 * b[0]) + 1j * (1 - 2 * b[1])) / np.sqrt(2)
+        elif mod == QAM16:
+            i = (1 - 2 * b[0]) * (1 + 2 * b[2])
+            q = (1 - 2 * b[1]) * (1 + 2 * b[3])
+            pts[v] = (i + 1j * q) / np.sqrt(10)
+        elif mod == QAM64:
+            i = (1 - 2 * b[0]) * (4 - (1 - 2 * b[2]) * (2 - (1 - 2 * b[4])))
+            q = (1 - 2 * b[1]) * (4 - (1 - 2 * b[3]) * (2 - (1 - 2 * b[5])))
+            pts[v] = (i + 1j * q) / np.sqrt(42)
+        elif mod == QAM256:
+            i = (1 - 2 * b[0]) * (8 - (1 - 2 * b[2]) * (4 - (1 - 2 * b[4]) * (2 - (1 - 2 * b[6]))))
+            q = (1 - 2 * b[1]) * (8 - (1 - 2 * b[3]) * (4 - (1 - 2 * b[5]) * (2 - (1 - 2 * b[7]))))
+            pts[v] = (i + 1j * q) / np.sqrt(170)
+    return pts
 
 
 def modulate(bits: torch.Tensor, mod: str) -> torch.Tensor:

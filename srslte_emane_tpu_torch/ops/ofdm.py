@@ -19,6 +19,8 @@ import torch
 
 from . import dft
 
+N_SYM_SF = 14  # normal CP
+
 
 @functools.lru_cache(maxsize=None)
 def params(n_prb: int, n_fft: int = None, cp: str = "normal"):

@@ -45,12 +45,14 @@ def _sequence(c_init, n: int, device) -> torch.Tensor:
     return sequence.gold_sequence(c_init, n, device)
 
 
-def scramble_bits(bits: torch.Tensor, c_init) -> torch.Tensor:
+def scramble_bits(bits: torch.Tensor, c_init, n: int = None) -> torch.Tensor:
     """bits (..., E) ^ c(n).  c_init may be batched (leading dims must agree)."""
-    return bits ^ _sequence(c_init, bits.shape[-1], bits.device).to(bits.dtype)
+    n = bits.shape[-1] if n is None else n
+    return bits ^ _sequence(c_init, n, bits.device).to(bits.dtype)
 
 
-def scramble_llrs(llrs: torch.Tensor, c_init) -> torch.Tensor:
+def scramble_llrs(llrs: torch.Tensor, c_init, n: int = None) -> torch.Tensor:
     """Descramble soft values: flip sign where c(n)==1 (scrambling.c float path)."""
-    c = _sequence(c_init, llrs.shape[-1], llrs.device)
+    n = llrs.shape[-1] if n is None else n
+    c = _sequence(c_init, n, llrs.device)
     return llrs * (1.0 - 2.0 * c.to(llrs.dtype))

@@ -98,9 +98,11 @@ def crs_k(cell_id: int, n_prb: int, port: int, cp: str = "normal") -> np.ndarray
 
 
 @functools.lru_cache(maxsize=None)
-def reserved_mask(cell: CellConfig, sf_idx: int) -> np.ndarray:
+def reserved_mask(cell: CellConfig, sf_idx: int, has_pss_sss: bool = True,
+                  has_pbch: bool = True) -> np.ndarray:
     """(14, NRE) bool mask of REs NOT available to PDSCH: control region,
-    own-cell CRS of all configured ports, PSS/SSS (sf 0/5), PBCH (sf 0)."""
+    own-cell CRS of all configured ports, PSS/SSS (sf 0/5, where
+    has_pss_sss), PBCH (sf 0, where has_pbch)."""
     m = np.zeros((cell.n_sym, cell.nre), dtype=bool)
     m[: n_ctrl_symbols(cell.cfi, cell.n_prb), :] = True  # control region
     assert cell.n_ports in (1, 2, 4)
@@ -110,11 +112,11 @@ def reserved_mask(cell: CellConfig, sf_idx: int) -> np.ndarray:
             m[sym, ks[i]] = True
     center = cell.nre // 2
     n_slot_sym = cell.n_sym // 2
-    if sf_idx in (0, 5):
+    if has_pss_sss and sf_idx in (0, 5):
         # PSS on the last, SSS on the second-to-last symbol of slot 0
         m[n_slot_sym - 2, center - 36 : center + 36] = True  # SSS
         m[n_slot_sym - 1, center - 36 : center + 36] = True  # PSS
-    if sf_idx == 0:
+    if has_pbch and sf_idx == 0:
         for sym in range(n_slot_sym, n_slot_sym + 4):
             m[sym, center - 36 : center + 36] = True
     return m

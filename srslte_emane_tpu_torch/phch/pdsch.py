@@ -71,19 +71,28 @@ def assemble_grid(syms: torch.Tensor, cell: grid_mod.CellConfig, sf_idx: int,
 
 def encode(tb_bits: torch.Tensor, cfg: sch.SchConfig, cell: grid_mod.CellConfig,
            sf_idx: int, rnti: int, prb_mask: tuple, grid=None,
-           max_sym: int = 0) -> torch.Tensor:
+           max_sym: int = 0, codeword_q: int = 0, re_idx=None) -> torch.Tensor:
     """Encode one PDSCH grant into a subframe grid.
 
     tb_bits: (B, tbs).  Returns grid (B, 14, NRE, 2) with CRS + PDSCH placed
     (into a copy of `grid` if given); max_sym truncates the PDSCH symbols
-    (TDD DwPTS)."""
-    re_idx = _re_table(cell, sf_idx, prb_mask, tb_bits.device, max_sym)
+    (TDD DwPTS); codeword_q picks the scrambling c_init of codeword q;
+    re_idx, an optional (n_re,) RE index tensor, overrides prb_mask's
+    table."""
+    static_idx = re_idx is None
+    if static_idx:
+        re_idx = _re_table(cell, sf_idx, prb_mask, tb_bits.device, max_sym)
+    else:
+        re_idx = torch.as_tensor(re_idx, dtype=torch.int64, device=tb_bits.device)
     assert cfg.G == len(re_idx) * cfg.Qm, (cfg.G, len(re_idx), cfg.Qm)
-    syms = _codeword_symbols([tb_bits], [cfg], cell, sf_idx, rnti)[0]  # (B, n_re, 2)
-    if grid is None:
+    syms = _codeword_syms(tb_bits, cfg, codeword_q, cell, sf_idx, rnti)  # (B, n_re, 2)
+    if grid is None and static_idx:
         return assemble_grid(syms, cell, sf_idx, prb_mask, 0, max_sym)
     B = syms.shape[0]
-    flat = grid.reshape(B, cell.n_sym * cell.nre, 2).clone()
+    if grid is None:
+        flat = cplx.zeros((B, cell.n_sym * cell.nre), device=syms.device)
+    else:
+        flat = grid.reshape(B, cell.n_sym * cell.nre, 2).clone()
     flat[:, re_idx, :] = syms
     return put_crs(flat.reshape(B, cell.n_sym, cell.nre, 2), cell, sf_idx)
 
@@ -91,12 +100,18 @@ def encode(tb_bits: torch.Tensor, cfg: sch.SchConfig, cell: grid_mod.CellConfig,
 def decode(rx_grid: torch.Tensor, cfg: sch.SchConfig, cell: grid_mod.CellConfig,
            sf_idx: int, rnti: int, prb_mask: tuple, softbuf=None, max_iter: int = 8,
            use_kernel: bool | None = None, llr_bits: int = 32, max_sym: int = 0,
-           equalizer: str = "zf"):
+           equalizer: str = "zf", codeword_q: int = 0, use_csi: bool = True,
+           re_idx=None):
     """Decode one PDSCH grant from a received subframe grid (B, 14, NRE, 2).
-    equalizer: "zf" or "mmse" (with the estimate's noise variance).
+    equalizer: "zf" or "mmse" (with the estimate's noise variance);
+    codeword_q: the scrambling c_init of codeword q; use_csi: weight the
+    LLRs by the equalizer's CSI; re_idx: as in `encode`.
 
     Returns (payload bits (B, tbs), crc ok (B,), softbuf', ChestResult)."""
-    re_idx = _re_table(cell, sf_idx, prb_mask, rx_grid.device, max_sym)
+    if re_idx is None:
+        re_idx = _re_table(cell, sf_idx, prb_mask, rx_grid.device, max_sym)
+    else:
+        re_idx = torch.as_tensor(re_idx, dtype=torch.int64, device=rx_grid.device)
     ch = chest.estimate(rx_grid, cell, sf_idx)
     flat_rx = rx_grid.reshape(rx_grid.shape[:-3] + (cell.n_sym * cell.nre, 2))
     flat_ce = ch.ce.reshape(flat_rx.shape)
@@ -107,12 +122,13 @@ def decode(rx_grid: torch.Tensor, cfg: sch.SchConfig, cell: grid_mod.CellConfig,
     else:
         x_eq, csi = chest.equalize_zf(y, h)
     llr = modem.demod_soft(x_eq, modem.MOD_FROM_QM[cfg.Qm])  # (B, G)
-    llr = llr * torch.repeat_interleave(csi, cfg.Qm, dim=-1)
+    if use_csi:
+        llr = llr * torch.repeat_interleave(csi, cfg.Qm, dim=-1)
     if _td.LOGMAP:
         # log-MAP needs true natural-log LLRs: the 2/sigma^2 term the
         # scale-invariant max-log default never needed (pdsch.py:303-308)
         llr = llr * (2.0 / torch.clamp(ch.noise_est, min=1e-9))[..., None]
-    c_init = scrambling.pdsch_cinit(rnti, 0, sf_idx, cell.cell_id)
+    c_init = scrambling.pdsch_cinit(rnti, codeword_q, sf_idx, cell.cell_id)
     llr = scrambling.scramble_llrs(llr, c_init)
     payload, ok, softbuf, _ = sch.decode_tb(llr, cfg, softbuf, max_iter,
                                             use_kernel=use_kernel, llr_bits=llr_bits)
@@ -121,15 +137,19 @@ def decode(rx_grid: torch.Tensor, cfg: sch.SchConfig, cell: grid_mod.CellConfig,
 
 # ---------------- multi-antenna transmission modes (TM2-TM6) ----------------
 
+def _codeword_syms(tb: torch.Tensor, cfg: sch.SchConfig, q: int, cell: grid_mod.CellConfig,
+                   sf_idx: int, rnti: int) -> torch.Tensor:
+    """Codeword q: encode, scramble with c_init(q), modulate -> (B, M_q, 2)."""
+    cw = sch.encode_tb(tb, cfg)
+    scr = scrambling.scramble_bits(cw, scrambling.pdsch_cinit(rnti, q, sf_idx, cell.cell_id))
+    return modem.modulate(scr, modem.MOD_FROM_QM[cfg.Qm])
+
+
 def _codeword_symbols(tb_list, cfg_list, cell: grid_mod.CellConfig, sf_idx: int,
                       rnti: int) -> list:
-    """Per codeword q: encode, scramble with c_init(q), modulate -> (B, M_q, 2)."""
-    syms = []
-    for q, (tb, cfg) in enumerate(zip(tb_list, cfg_list)):
-        cw = sch.encode_tb(tb, cfg)
-        scr = scrambling.scramble_bits(cw, scrambling.pdsch_cinit(rnti, q, sf_idx, cell.cell_id))
-        syms.append(modem.modulate(scr, modem.MOD_FROM_QM[cfg.Qm]))
-    return syms
+    """Per codeword q: `_codeword_syms`."""
+    return [_codeword_syms(tb, cfg, q, cell, sf_idx, rnti)
+            for q, (tb, cfg) in enumerate(zip(tb_list, cfg_list))]
 
 
 def _codeword_llrs(stream, csi, cfg: sch.SchConfig, q: int, cell: grid_mod.CellConfig,

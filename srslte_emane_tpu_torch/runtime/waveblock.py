@@ -47,8 +47,6 @@ from ..phch import sch, sync as sync_mod
 from ..utils.devices import resolve
 
 
-MIMO_SEED = 1  # the TM3 channel's draw (the reference's mimo_seed default)
-
 
 class BlockConfig(typing.NamedTuple):
     """Static SPS steady-state description."""
@@ -69,9 +67,13 @@ class BlockConfig(typing.NamedTuple):
     use_kernel: bool | None = None
     llr_bits: int = 32
     # TM3 large-delay-CDD 2x2 downlink: two codewords, one per layer,
-    # through a fixed unitary per-UE 2x2 channel (MIMO_SEED).  Requires
-    # cell.n_ports == 2.  Sync/PBCH/PCFICH stay on port 0.  UL stays SISO.
+    # through a fixed per-UE 2x2 channel drawn from mimo_seed with
+    # condition number mimo_cond_db (0 = unitary; ~60 dB ~= rank 1, the
+    # rank-fallback control).  Requires cell.n_ports == 2.
+    # Sync/PBCH/PCFICH stay on port 0.  UL stays SISO.
     tm3: bool = False
+    mimo_cond_db: float = 0.0
+    mimo_seed: int = 1
 
     @property
     def n_ues(self) -> int:
@@ -217,14 +219,14 @@ def _cell_consts(cfg: BlockConfig, sfn0: int = 0) -> dict:
     extra = {}
     if cfg.tm3:
         assert cell.n_ports == 2, "tm3 requires CellConfig(n_ports=2)"
-        # fixed per-UE 2x2 channel: unitary x unitary (the reference's
-        # default condition number, 0 dB), mean |h|^2 normalized to 1
-        rng = np.random.default_rng(MIMO_SEED)
+        # fixed per-UE 2x2 channel: unitary x diag(1, 10^(-cond/20)) x
+        # unitary, mean |h|^2 normalized to 1
+        rng = np.random.default_rng(cfg.mimo_seed)
         h2 = np.zeros((cfg.n_ues, 2, 2, 2), np.float32)
         for u in range(cfg.n_ues):
             q1 = np.linalg.qr(rng.normal(size=(2, 2)) + 1j * rng.normal(size=(2, 2)))[0]
             q2 = np.linalg.qr(rng.normal(size=(2, 2)) + 1j * rng.normal(size=(2, 2)))[0]
-            h = q1 @ q2.conj().T
+            h = q1 @ np.diag([1.0, 10.0 ** (-cfg.mimo_cond_db / 20.0)]) @ q2.conj().T
             h = h / np.sqrt((np.abs(h) ** 2).mean())
             h2[u, ..., 0], h2[u, ..., 1] = h.real, h.imag
         extra["h2"] = h2

@@ -19,7 +19,7 @@ grants as DCI on PDCCH, 8-process HARQ with IR soft combining,
         DCI was missed), PUSCH with synchronous non-adaptive UL HARQ.
     eNB rx: PUSCH decode with per-(ue, pid) soft buffers + RV cycling,
         PUCCH ACK matched filter with DTX detection -> the next round's
-        retransmission / NDI / drop decisions (MAX_TX cap).
+        retransmission / NDI / drop decisions (max_tx cap).
 
 A round is 8 TTIs, one per HARQ process; they run as one batch.  The rounds
 run as a Python loop (the reference's `lax.scan`) carrying the protocol's
@@ -54,9 +54,6 @@ from . import waveblock
 
 RV_SEQ = np.array([0, 2, 3, 1], np.int32)  # scheduler_harq.cc RV cycle
 N_PID = 8
-L_AGGR = 1  # the PDCCH aggregation level of every DCI
-MAX_TX = 4  # transmissions before drop (mac max-harq-tx)
-ACK_THRESH = 0.25  # PUCCH energy DTX threshold
 
 
 class DynBlockConfig(typing.NamedTuple):
@@ -70,6 +67,9 @@ class DynBlockConfig(typing.NamedTuple):
     ul_mcs: int
     snr_db: tuple  # per-UE link SNR
     R: int  # HARQ rounds (T = 8*R TTIs)
+    l_aggr: int = 1  # the PDCCH aggregation level of every DCI
+    max_tx: int = 4  # transmissions before drop (mac max-harq-tx)
+    ack_thresh: float = 0.25  # PUCCH energy DTX threshold
     # the MAP kernel: None follows the inputs' device, False the plain version
     use_kernel: bool | None = None
     llr_bits: int = 32
@@ -101,7 +101,7 @@ def _alloc_cces(cfg) -> tuple:
     per-sf collision-free CCE choices for both grants from each UE's 36.213
     search space at the block's aggregation level, plus the candidate lists
     the UE blind-decodes."""
-    cell, l = cfg.cell, L_AGGR
+    cell, l = cfg.cell, cfg.l_aggr
     cands_per = {}
     for sf in range(10):
         for rnti in cfg.rntis:
@@ -152,7 +152,8 @@ def _alloc_cces(cfg) -> tuple:
     return cce_dl, cce_ul, cand
 
 
-def feasible_rntis(cell: grid_mod.CellConfig, n: int, start: int = 64) -> tuple:
+def feasible_rntis(cell: grid_mod.CellConfig, n: int, l_aggr: int = 1,
+                   start: int = 64) -> tuple:
     """First RNTI set whose 36.213 Y_k candidate positions admit 2 disjoint
     grants per UE in every subframe (a static block needs an all-sf-feasible
     set: the eNB's RNTI-assignment freedom)."""
@@ -161,7 +162,8 @@ def feasible_rntis(cell: grid_mod.CellConfig, n: int, start: int = 64) -> tuple:
     while len(picked) < n:
         assert rnti < start + 4096, "no feasible RNTI set found"
         trial = picked + [rnti]
-        shim = types.SimpleNamespace(cell=cell, rntis=tuple(trial), n_ues=len(trial))
+        shim = types.SimpleNamespace(cell=cell, rntis=tuple(trial), l_aggr=l_aggr,
+                                     n_ues=len(trial))
         try:
             _alloc_cces(shim)
             picked = trial
@@ -295,7 +297,7 @@ def _consts(cfg: DynBlockConfig) -> dict:
         sequence.gold_sequence_host(scrambling.pdcch_cinit(sf, cell.cell_id), 72 * ncce)
         for sf in range(10)]).astype(np.int8)
     cce_re = pdcch_mod.cce_re_indices(cell)  # (ncce, 36)
-    l = L_AGGR
+    l = cfg.l_aggr
     cand_re = np.zeros((10, n, cand.shape[2], 36 * l), np.int32)
     for sf in range(10):
         for u in range(n):
@@ -512,7 +514,7 @@ def make_dyn_block_step(cfg: DynBlockConfig, device="cuda", n_cells: int = 1):
     c = waveblock._on(_consts(cfg), dev)
     c = {k: (v.long() if v.dtype == torch.int32 else v) for k, v in c.items()}
     cell = cfg.cell
-    n, R, l = cfg.n_ues, cfg.R, L_AGGR
+    n, R, l = cfg.n_ues, cfg.R, cfg.l_aggr
     qm_d = ra.dl_mcs_to_qm(cfg.dl_mcs)
     qm_u = ra.ul_mcs_to_qm(cfg.ul_mcs)
     n_re_d = c["base_idx"].shape[0]
@@ -774,7 +776,7 @@ def make_dyn_block_step(cfg: DynBlockConfig, device="cuda", n_cells: int = 1):
         is_new_ul = ul_found & (ndi_u != st["ue_ndi_ul"])
         st["ue_ndi_ul"] = torch.where(ul_found, ndi_u, st["ue_ndi_ul"])
         retx_now = (st["ue_pend"] & (~phich_ack_ue) & (~is_new_ul)
-                    & (st["ue_retx"] < MAX_TX))
+                    & (st["ue_retx"] < cfg.max_tx))
         fresh_u, st["ul_ptr"] = from_queue(ul_q, st["ul_ptr"], is_new_ul)
         st["ul_tb_ue"] = torch.where(is_new_ul[..., None], fresh_u, st["ul_tb_ue"])
         tx_ul = is_new_ul | retx_now
@@ -839,16 +841,16 @@ def make_dyn_block_step(cfg: DynBlockConfig, device="cuda", n_cells: int = 1):
         # normalize by the known per-UE power-control gain so one DTX
         # threshold serves every link budget
         corr = waveblock._pucch_corr(yp, pv_e, dmask) / gain[None, :, None]
-        ack_det = (cplx.abs2(corr) > ACK_THRESH) & (corr[..., 0] > 0)
+        ack_det = (cplx.abs2(corr) > cfg.ack_thresh) & (corr[..., 0] > 0)
 
         # ------------- HARQ state updates -------------
         dl_txs = torch.where(new_dl, 1, st["dl_retx"] + 1)
-        dl_drop = (~ack_det) & (dl_txs >= MAX_TX)
+        dl_drop = (~ack_det) & (dl_txs >= cfg.max_tx)
         st["dl_pend"] = (~ack_det) & (~dl_drop)
         st["dl_retx"] = torch.where(st["dl_pend"], dl_txs, 0)
 
         ul_txs = torch.where(new_ul, 1, st["enb_retx"] + 1)
-        ul_drop = (~ul_ok) & (ul_txs >= MAX_TX)
+        ul_drop = (~ul_ok) & (ul_txs >= cfg.max_tx)
         st["enb_pend"] = (~ul_ok) & (~ul_drop)
         st["enb_retx"] = torch.where(st["enb_pend"], ul_txs, 0)
         st["enb_rb_prev"] = rb_enb

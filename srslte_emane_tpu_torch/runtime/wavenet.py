@@ -870,16 +870,19 @@ class WaveUePhy:
         if getattr(stack, "serving_pci", None) is None:
             stack.serving_pci = cell.cell_id
 
-    def run_tti(self, samples, batch, search):
+    def run_tti(self, tti_hint: int, samples=None, batch=None, search=None):
         """samples: this UE's (1, sf_len, 2) row (antenna 0's in MIMO mode);
-        batch: the network's
-        shared per-TTI front-end products (rg/ce/snr/resid for ALL UEs,
-        computed in one device call; given while any UE camps); search:
-        this UE's (quality, cell_id, sf_idx) row of the shared batched cell
-        search (given while it searches).  Protocol time is self.tti, never
-        the network loop's clock."""
+        None takes the UE's own impaired DL from the medium (`dl_take`).
+        batch: the network's shared per-TTI front-end products
+        (rg/ce/snr/resid for ALL UEs, computed in one device call); None
+        falls back to this UE's own front end (`_camp_rx`).  search: this
+        UE's (quality, cell_id, sf_idx) row of the shared batched cell
+        search; None searches `samples`.  tti_hint is the network loop's
+        clock and is not read: protocol time is self.tti."""
+        if samples is None:
+            samples = self.medium.dl_take(self.ue_idx)
         if self.state == "CELL_SEARCH":
-            self._cell_search(search)
+            self._cell_search(samples, search)
         else:
             self._sf_local = (self._sf_local + 1) % 10
             if self.tti is not None:
@@ -889,8 +892,12 @@ class WaveUePhy:
             if self.state == "SFN_SYNC":
                 if self._sf_local == 0:
                     self._sfn_sync(samples)
-            elif sft != "U":  # TDD uplink subframe: nothing to receive
+            elif sft == "U":
+                pass  # TDD uplink subframe: nothing to receive
+            elif batch is not None:
                 self._camp_rx_row(batch)
+            else:
+                self._camp_rx(samples)
         if getattr(self.stack, "tick", None) is not None:
             self.stack.tick()
         # TDD: the UE transmits only on uplink subframes
@@ -898,11 +905,14 @@ class WaveUePhy:
                 self.tdd is None or tdd_mod.sf_type(self.tdd, self.tti % 10) == "U"):
             self._tx()
 
-    def _cell_search(self, search):
+    def _cell_search(self, samples, search=None):
         """PSS/SSS + CP detection (sync.cc CELL_SEARCH via ue_cell_search).
         The SSS hypothesis fixes the subframe phase (PSS rides sf 0 AND 5;
         only the SSS word differs), seeding the local subframe counter."""
-        q, cid, sfi = search
+        if search is None:
+            q, cid, sfi = (_host(v)[0] for v in self.k.cell_search(self._port0(samples)))
+        else:
+            q, cid, sfi = search
         if float(q) > 10.0 and int(cid) == self.cell.cell_id:
             self._sf_local = int(sfi)
             self.state = "SFN_SYNC"
@@ -911,7 +921,7 @@ class WaveUePhy:
         """PBCH decode fixes the SFN: 8 MSBs ride the MIB payload, the
         2 LSBs are the blind-decoded 40 ms segment offset
         (srsue/src/phy/sync.cc:408 SFN_SYNC)."""
-        rg = ofdm.demodulate(samples, self.cell.n_prb)
+        rg = ofdm.demodulate(self._port0(samples), self.cell.n_prb)
         mib, ports, off, ok = (_host(v) for v in self.k.pbch_rx(rg))
         if bool(ok[0]):
             info = pbch_mod.unpack_mib(mib[0])
@@ -923,12 +933,37 @@ class WaveUePhy:
                 phich_length=info.get("phich_dur", 0)))
             self.state = "CAMP"
 
+    def _port0(self, samples):
+        """Antenna 0's (1, sf_len, 2) row of a MIMO UE's own (2, sf_len, 2)
+        samples, which sync and the PBCH read."""
+        return samples[0:1] if self.mimo and samples.shape[0] == 2 else samples
+
+    def _camp_rx(self, samples):
+        """This UE's own front end and blind searches (no shared batch),
+        then `_camp_rx_row` on its one-row batch."""
+        sf = self.tti % 10
+        if self.mimo:
+            rg2, ce2, snr2, sb2 = self.k.rx_front(samples, sf)
+            self._rg_mimo = rg2[None]  # (1, 2, 14, NRE, 2)
+            rg, ce, snr, sb = rg2[0:1], ce2[0:1], snr2[0:1], sb2[0:1]
+        else:
+            rg, ce, snr, sb = self.k.rx_front(samples, sf)
+        self.stack.last_sb_snr_db = _host(sb)[0]
+        bits_dev, resid, positions = self.k.blind_all(rg, ce, sf)
+        batch = dict(rg=rg, ce=ce, snr=_host(snr), resid=_host(resid),
+                     bits_dev=bits_dev, bits=None, positions=positions, row=0)
+        if self.mimo and getattr(self.stack, "crnti", None):
+            bits2_dev, resid2, positions2 = self.k.blind_all2(rg, ce, sf)
+            batch.update(bits2_dev=bits2_dev, bits2=None, resid2=_host(resid2),
+                         positions2=positions2)
+        self._camp_rx_row(batch)
+
     def _camp_rx_row(self, batch):
-        """Consume this UE's row of the shared batched front-end
-        (rg/ce/resid computed once for every UE)."""
+        """Consume row `batch['row']` (else this UE's row) of the shared
+        batched front-end (rg/ce/resid computed once for every UE)."""
         tti = self.tti
         sf = tti % 10
-        row = self.ue_idx
+        row = batch.get("row", self.ue_idx)
         rg = batch["rg"]
         snr_db = float(batch["snr"][row])
         resid = batch["resid"][row]
@@ -1301,6 +1336,17 @@ class WaveMedium:
         noise = self._noise((self.n_ues,) + tuple(tx.shape[-2:]))
         return tx + self._dl_amp()[:, None, None] * noise
 
+    def dl_take(self, ue_idx: int):
+        """One UE's impaired DL samples, noise scaled to its link SNR (no
+        fading and no MIMO channel, as in the reference's per-UE path)."""
+        tti, tx = self._dl
+        tx = self._impair(tx, tti)
+        snr_db = (self.tx_power_dbm - float(self.pathloss_db[ue_idx])
+                  - self.noise_floor_dbm)
+        # unit-power signal + noise scaled for the link SNR
+        noise_amp = 10.0 ** (-snr_db / 20.0)
+        return tx + noise_amp * _randn(self._gen, tuple(tx.shape), self.device) / np.sqrt(2.0)
+
     # UEs -> eNB
     def ul_put(self, tti: int, ue_idx: int, samples, is_prach: bool = False):
         snr_db = (self.ue_power_dbm - float(self.pathloss_db[ue_idx])
@@ -1474,6 +1520,6 @@ class WaveformNetwork:
                     srow = (search[0][i], search[1][i], search[2][i])
                 # the UEs share `batch`: the first that needs the DCI bits
                 # on the host copies them for all
-                ue.run_tti(samples[i, 0:1] if self.mimo else samples[i : i + 1],
+                ue.run_tti(self.tti, samples[i, 0:1] if self.mimo else samples[i : i + 1],
                            batch, srow)
             self.tti += 1

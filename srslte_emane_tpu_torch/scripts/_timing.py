@@ -125,3 +125,23 @@ def kernel_time(fn, dev: torch.device):
                if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
     return (sum(e.self_device_time_total for e in kernels) / 1e3,
             sum(e.count for e in kernels))
+
+
+def profile_stage(fn, n: int, dev: torch.device):
+    """One untimed call of fn, then `per_call_ms` over n calls with the MAP
+    kernels' launches counted: (the untimed call's output, {"ms" (CUDA
+    events, None on the CPU), "host_ms", "turbo_map_launches",
+    "turbo_map_v1_launches"}, all per call)."""
+    from ..ops.fec import turbodecoder_cuda as tdc
+
+    out = fn()
+    tdc.launches = tdc.launches_v1 = 0
+    host_ms, event_ms = per_call_ms(fn, n, dev)
+    return out, dict(ms=event_ms, host_ms=host_ms, turbo_map_launches=tdc.launches / n,
+                     turbo_map_v1_launches=tdc.launches_v1 / n)
+
+
+def stage_ms(rec: dict) -> float:
+    """A `profile_stage` record's time: CUDA events on the card, the host
+    clock on the CPU."""
+    return rec["host_ms"] if rec["ms"] is None else rec["ms"]

@@ -10,6 +10,14 @@ from __future__ import annotations
 
 import numpy as np
 
+__all__ = [
+    "gf2_matmul",
+    "gf2_matpow",
+    "lfsr_transition_matrix",
+    "lfsr_output_response",
+    "poly_to_taps",
+]
+
 
 def gf2_matmul(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     """Matrix product over GF(2). Inputs are 0/1 integer arrays."""
@@ -27,6 +35,12 @@ def gf2_matpow(a: np.ndarray, n: int) -> np.ndarray:
         base = gf2_matmul(base, base)
         n >>= 1
     return result
+
+
+def poly_to_taps(poly: int, degree: int) -> np.ndarray:
+    """Binary coefficient vector [c_0 .. c_degree] of a polynomial given as an
+    integer bitmask (bit i == coefficient of x^i)."""
+    return np.array([(poly >> i) & 1 for i in range(degree + 1)], dtype=np.int64)
 
 
 def lfsr_transition_matrix(taps: np.ndarray) -> np.ndarray:

@@ -46,8 +46,8 @@ SWEEP_BATCH = 16
 # scripts/bench_extra.py:118 (its `timed` names), and the JSON lines of
 # scripts/bench_waveform_tpu.py:110, bench_waveblock_dyn.py:110 and
 # bench_waveform_paced.py:149.
-# profile_stages.py and wavenet_smoke.py print no JSON; their twins' keys
-# are the port's own.
+# profile_stages.py, wavenet_smoke.py and profile_{turbo,mimo,dynblock}.py
+# print no JSON; their twins' keys are the port's own.
 BLOCK_KEYS = {"metric", "value", "unit", "vs_baseline", "n_prb", "n_ues", "block_ttis",
               "dl_mbps", "ul_mbps", "median_of", "spread_pct", "compile_s", "device"}
 JAX_KEYS = {
@@ -62,6 +62,11 @@ JAX_KEYS = {
                              "serialized_rtt_ms", "per_tti_us", "compile_s", "device"},
     "profile_stages": {"stages", "decode_sf_per_s", "encode_sf_per_s", "batch", "tbs"},
     "wavenet_smoke": {"registered", "n_ues", "tti", "seconds"},
+    "profile_turbo": {"stages", "glue_ms", "kernels_ms", "n_cb", "k", "n_windows", "iters",
+                      "launches"},
+    "profile_mimo": {"stages", "sf_per_s", "mb_per_s", "stage_sum_ms", "full_ms", "batch",
+                     "tbs", "G", "C", "n_re"},
+    "profile_dynblock": {"ms_per_round", "variants", "R", "n_ues"},
 }
 SWEEP_ROW_KEYS = {"snr_db", "bler", "sf_per_s", "goodput_mbps"}
 # (module under srslte_emane_tpu_torch, --cpu arguments at a tiny size)
@@ -76,6 +81,9 @@ RUNS = [
     ("scripts.bench_waveform_paced", ["15", "2", "2", "3"]),
     ("scripts.profile_stages", ["1", "1"]),
     ("scripts.wavenet_smoke", ["200"]),
+    ("scripts.profile_turbo", ["4", "512", "1"]),
+    ("scripts.profile_mimo", ["1", "1"]),
+    ("scripts.profile_dynblock", ["1", "1"]),
 ]
 MODULES = sorted({m for m, _ in RUNS})
 
@@ -139,6 +147,11 @@ def test_entry_point_on_the_cpu(module, args, capsys, monkeypatch):
         assert [(r["bler"], r["turbo_map_launches"]) for r in rows] == [(0.0, 0.0)]  # 20 dB
     if name == "wavenet_smoke":
         assert last["registered"] == last["n_ues"] == 2
+    if name in ("profile_turbo", "profile_mimo", "profile_dynblock"):  # no launch on the CPU
+        stages = last["variants" if name == "profile_dynblock" else "stages"]
+        assert all(r["ms"] is None and r["turbo_map_launches"] == r["turbo_map_v1_launches"] == 0
+                   for r in stages.values())
+        assert len(stages) == {"profile_turbo": 6, "profile_mimo": 6, "profile_dynblock": 5}[name]
 
 
 @pytest.mark.parametrize("module", MODULES)

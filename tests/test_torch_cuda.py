@@ -945,3 +945,64 @@ def test_sharded_block_on_the_card(dev):
     assert all(v.device == dev for v in out.values())
     assert bool(out["dl_ok"].all()) and bool(out["ul_ok"].all())
     assert np.array_equal(out["dl_out"].cpu().numpy(), dl) and mesh.transfers == 0
+
+
+def test_both_kernels_equal_plain_at_the_profile_turbo_shape(dev):
+    """scripts/profile_turbo.py's defaults: 1024 x K=5568 in f32 on its
+    draws (W=32, L=174): turbo_map and turbo_map_v1 each one launch, bit for
+    bit with their plain versions; L=174 fits v1's shared memory."""
+    from srslte_emane_tpu_torch.scripts import profile_turbo
+
+    inp = profile_turbo.inputs(1024, 5568, dev)
+    args = (inp["ls"], inp["lp"], *inp["tails"])
+    w = turbodecoder._pick_windows(5568)
+    assert w == 32
+    cols, blocks = turbodecoder_cuda.occupancy_v1(5568, w)
+    assert cols > 1 and blocks > 0
+    before = (turbodecoder_cuda.launches, turbodecoder_cuda.launches_v1)
+    got = turbodecoder_cuda.map_decode_cuda(*args, w)
+    got_v1 = turbodecoder_cuda.map_decode_v1_cuda(*args, w)
+    torch.cuda.synchronize()
+    assert (turbodecoder_cuda.launches, turbodecoder_cuda.launches_v1) == (before[0] + 1,
+                                                                           before[1] + 1)
+    assert torch.equal(got, turbodecoder_cuda.map_decode_ref(*args, w))
+    assert torch.equal(got_v1, turbodecoder_cuda.map_decode_v1_ref(*args, w))
+
+
+def test_rank1_tm3_block_on_the_card_equals_the_cpu(dev):
+    """The reference's rank-1 scenario (tests/test_waveblock_tm3.py:93-98,
+    mimo_cond_db=60) at 15 PRB, 2 UEs, T=2 on the card, against the CPU on
+    the card's noise: every codeword fails on both, so the decoders run
+    every iteration; CRC flags and the UL bits equal, the bundled NACK
+    (energy above 0.25, value negative) within 1e-4."""
+    from srslte_emane_tpu_torch.phch import grid, pdcch
+    from srslte_emane_tpu_torch.runtime import waveblock
+
+    smoke = _chip_smoke()
+    cell = grid.CellConfig(n_prb=15, cell_id=1, cfi=2, n_ports=2)
+    n_cce = pdcch.n_cce(cell)
+    c0, c1 = waveblock.centre_prbs(15)
+    starts, w = waveblock._pack_segments(15, 2, [(0, c0), (c1, 15)])
+    cfg = waveblock.BlockConfig(cell=cell, rntis=(70, 71), dl_rb_start=starts, dl_l_crbs=w,
+                                dl_mcs=10, ul_rb_start=(1, 5), ul_l_prb=4, ul_mcs=10,
+                                ack_res=(n_cce, n_cce + 1), snr_db=(30.0, 29.0), T=2, tm3=True,
+                                mimo_cond_db=60.0)
+    rng = np.random.default_rng(0)
+    dl = rng.integers(0, 2, (2, 2, 2, cfg.dl_tbs), dtype=np.int8)
+    ul = rng.integers(0, 2, (2, 2, cfg.ul_tbs), dtype=np.int8)
+    record = []
+    with smoke.recorded_noise(record=record):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(1)
+        before = turbodecoder_cuda.launches
+        out = waveblock.make_block_step(cfg, sfn0=8)(dl, ul, gen, 40)
+        assert turbodecoder_cuda.launches > before
+    with smoke.recorded_noise(replay=record):
+        cpu = waveblock.make_block_step(cfg, sfn0=8, device="cpu")(dl, ul, torch.Generator(), 40)
+    for o in (out, cpu):
+        assert not bool(o["dl_ok_cw"].any()) and bool(o["ul_ok"].all())
+        assert bool((o["ack_energy"] > 0.25).all()) and bool((o["ack_val"] < 0).all())
+    for k in ("dl_ok", "dl_ok_cw", "ul_ok", "ul_out"):
+        assert torch.equal(out[k].cpu(), cpu[k]), k
+    for k in ("ack_val", "ack_energy"):
+        torch.testing.assert_close(out[k].cpu(), cpu[k], rtol=1e-4, atol=1e-5)

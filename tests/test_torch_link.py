@@ -97,7 +97,10 @@ def test_port_never_imports_jax():
             "srslte_emane_tpu_torch.scripts.bench_waveblock_dyn, "
             "srslte_emane_tpu_torch.scripts.bench_waveform_paced, "
             "srslte_emane_tpu_torch.scripts.profile_stages, "
-            "srslte_emane_tpu_torch.scripts.wavenet_smoke; "
+            "srslte_emane_tpu_torch.scripts.wavenet_smoke, "
+            "srslte_emane_tpu_torch.scripts.profile_turbo, "
+            "srslte_emane_tpu_torch.scripts.profile_mimo, "
+            "srslte_emane_tpu_torch.scripts.profile_dynblock; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', "
             "'srslte_emane_tpu')]; assert not bad, bad")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,

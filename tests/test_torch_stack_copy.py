@@ -55,7 +55,8 @@ ENTRY_POINTS = {"bench.py": "bench.py",
                 **{f"scripts/{m}.py": f"scripts/{m}.py"
                    for m in ("snr_sweep", "bench_extra", "bench_waveform_tpu",
                              "bench_waveblock_dyn", "bench_waveform_paced", "profile_stages",
-                             "wavenet_smoke")}}
+                             "wavenet_smoke", "profile_turbo", "profile_mimo",
+                             "profile_dynblock")}}
 # reference security.py lines (1-based) that the port changes: the docstring's
 # AES line, the cryptography imports, and the bodies of _aes_ecb, eea2's CTR
 # and eia2's CMAC

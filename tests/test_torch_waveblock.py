@@ -404,7 +404,7 @@ def _run_dyn(cfg, seed=0, gen_seed=7):
 # is the NDI toggles and queue pointers.  harq: UE 0 at 8 dB fails its
 # MCS-16 first transmissions and IR-combines retransmissions at rv 2, 3, 1;
 # UE 1 at -6 dB misses every DCI (garbage RBs clamped, DTX on PUCCH, its UL
-# soft buffers fed from missed grants), so its DL processes reach MAX_TX and
+# soft buffers fed from missed grants), so its DL processes reach max_tx and
 # drop in round 4, and round 5 sends new data.
 DYN_CASES = {"clean": dict(R=2),
              "harq": dict(R=5, dl_mcs=16, snr_db=(8.0, -6.0))}

@@ -20,7 +20,11 @@ are held byte for byte through the two pcaps (timestamps dropped).  After the
 attach, IP packets ride 30 TTIs of the host-paced network, then two SPS
 blocks (T=10) and one dynamic block (R=2), whose draws are replayed as in
 tests/test_torch_waveblock.py: the JAX blocks are jitted, so the draws
-made while they trace serve every later call.  The whole run is one
+made while they trace serve every later call.  Between the paced TTIs and
+the blocks, more IP packets ride PER_UE_TTIS TTIs through
+`WaveUePhy.run_tti`'s per-UE fallback (no shared front end: each UE takes
+its own DL from the medium, `dl_take`, and runs its own receive chain,
+`_camp_rx`), held TTI by TTI as before.  The whole run is one
 module-scoped fixture; the tests read its record.
 """
 
@@ -56,6 +60,7 @@ torch.set_num_threads(1)  # one intra-op thread per pytest-xdist worker
 NET = dict(n_ues=2, n_prb=15, pathloss=80.0, seed=3, imsi="00101000000002", preamble=11,
            step=5)
 MAX_ATTACH = 400  # TTIs
+PER_UE_TTIS = 6  # TTIs through the per-UE fallback (each JAX subframe compiles anew)
 # the two packages' f32 FFTs: 1.20e-7 and 1.8e-4 dB the most over the run
 REL = 1e-5  # relative RMS of the DL samples
 SNR_TOL_DB = 0.01  # the UEs' chest SNR estimates (dB)
@@ -149,6 +154,15 @@ def _state(side):
         ue_metrics=[dict(u.metrics) for u in side.net.ues])
 
 
+def _run_per_ue(net):
+    """One TTI of WaveformNetwork.run without the shared front end: every UE
+    runs `run_tti` with no samples, batch or search (its fallback)."""
+    net.enb.run_tti(net.tti)
+    for ue in net.ues:
+        ue.run_tti(net.tti)
+    net.tti += 1
+
+
 def _rel_rms(got, ref):
     got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
     if not ref.any():  # a silent subframe (TDD U): the port's must be silent too
@@ -191,14 +205,15 @@ class Lockstep:
         self.probes = []
         self.rec = dict(mismatch=[], rel_rms=[], probe_rms=[], snr=[], paced=0)
 
-    def step(self, n=1):
+    def step(self, n=1, per_ue=False):
+        """n TTIs of both networks; per_ue: through `_run_per_ue`."""
         j, p, rec = self.j, self.p, self.rec
         for _ in range(n):
             rec["paced"] += 1
             with pytest.MonkeyPatch.context() as mj:
                 mj.setattr(jax.random, "normal", self.noise.jax_normal)
-                j.net.run(1)
-            p.net.run(1)
+                _run_per_ue(j.net) if per_ue else j.net.run(1)
+            _run_per_ue(p.net) if per_ue else p.net.run(1)
             assert not self.noise.queue, "the port drew less noise than the reference"
             sj, sp = _state(j), _state(p)
             for key in sj:
@@ -254,6 +269,24 @@ def lockstep(tmp_path_factory):
         rec["gw_rx_paced"] = [[list(u.gw_rx) for u in s.ues] for s in (j, p)]
         rec["spgw_paced"] = [dict(s.spgw.metrics) for s in (j, p)]
 
+        # the per-UE fallback, its calls counted on both sides
+        calls = {"take": [0, 0], "camp": [0, 0]}
+        with pytest.MonkeyPatch.context() as mc:
+            for i, wn in enumerate((j_wn, p_wn)):
+                for key, cls, name in (("take", wn.WaveMedium, "dl_take"),
+                                       ("camp", wn.WaveUePhy, "_camp_rx")):
+                    def counted(*a, _f=getattr(cls, name), _k=key, _i=i):
+                        calls[_k][_i] += 1
+                        return _f(*a)
+                    mc.setattr(cls, name, counted)
+            tb_before = [[u.metrics["tb_ok"] for u in s.net.ues] for s in (j, p)]
+            rec["pkts_per_ue"] = ls.offer(n_dl=2)
+            ls.step(PER_UE_TTIS, per_ue=True)
+        rec["per_ue"] = dict(calls=calls, tb_ok=[[u.metrics["tb_ok"] - b for u, b in
+                                                  zip(s.net.ues, before)]
+                                                 for s, before in zip((j, p), tb_before)],
+                             gw_rx=[[list(u.gw_rx) for u in s.ues] for s in (j, p)])
+
         # the runners, block by block
         rec["runners"] = []
 
@@ -273,6 +306,7 @@ def lockstep(tmp_path_factory):
                BlockDraws(21))
         blocks("dyn", j_wbd.DynBlockRunner(j.net, R=2), p_wbd.DynBlockRunner(p.net, R=2), 1,
                BlockDraws(23))
+
         rec["pcaps"] = ls.pcaps()
     yield rec
     jax.clear_caches()
@@ -325,6 +359,18 @@ def test_runner_blocks_equal(lockstep, block):
     assert mp["dl_ok"] == mp["dl_tb"] > 0 and mp["ul_ok"] == mp["ul_tb"] > 0
     if name == "sps":
         assert mp["ack_det"] == mp["dl_tb"]
+
+
+def test_per_ue_fallback_equal(lockstep):
+    """WaveUePhy.run_tti with no samples and no batch: every UE took its own
+    DL and ran its own front end every TTI on both sides, decoded TBs, and
+    stayed in lockstep (states, samples and pcaps are held by the tests
+    above, which cover these TTIs too)."""
+    rec = lockstep["per_ue"]
+    n = NET["n_ues"] * PER_UE_TTIS
+    assert rec["calls"] == {"take": [n, n], "camp": [n, n]}
+    assert rec["tb_ok"][0] == rec["tb_ok"][1] and min(rec["tb_ok"][1]) > 0, rec["tb_ok"]
+    assert rec["gw_rx"][0] == rec["gw_rx"][1]
 
 
 def test_network_needs_a_card_by_default(tmp_path):
