@@ -6,8 +6,9 @@ Run from the repository root:  python3 chip_smoke.py
 Phases (any failure raises; the exit code is then non-zero):
   1. device: needs torch.cuda; prints the card's name and power limit;
   2. build: compiles both MAP kernels (srslte_emane_tpu_torch/csrc/
-     turbo_map.cu and turbo_map_v1.cu), one nvcc each, started together,
-     into build/ unless these sources were built before;
+     turbo_map.cu and turbo_map_v1.cu) and the Viterbi (csrc/viterbi.cu),
+     one nvcc each, started together, into build/ unless these sources
+     were built before;
   3. kernel vs plain: the CUDA MAP kernel against map_decode_ref on the card,
      bit for bit, at the downlink cell's shapes (768 x K=5504, 384 x
      K=5568), f32 and bf16-storage modes, and the uplink cell's (128 x
@@ -190,7 +191,24 @@ Phases (any failure raises; the exit code is then non-zero):
      decoded and every offered packet delivered; (e) turbo_map against its
      plain version at every shape of the phase not checked before, at
      every row count, and turbo_map_v1 at profile_turbo's 1024 x K=5568
-     on its draws, each with its launches.
+     on its draws, each with its launches;
+ 17. the Viterbi kernel: every call of phases 4-16 went through it (the
+     callers reach it through viterbi.viterbi_decode; its launches are
+     counted and each call's (rows, K, tb_iter) logged with its first LLRs,
+     in this process by ViterbiLog and in the subprocesses of 14d, 15 and
+     16a by MODULE_LOGGED; phases 8 and 10-16 each with at least one, and
+     each subprocess that decodes control channels, VIT_PROCESSES); phases
+     8, 11, 12 and 13 print their stage tables a second time with
+     viterbi_decode_ref forced, beside the Viterbi's time and share with
+     the kernel, and each device profile of a path that decodes control
+     must hold a Viterbi kernel; then the
+     kernel against viterbi_decode_ref, bit for bit, at every (rows, K,
+     tb_iter) logged, on the path's own LLRs and on threshold LLRs with an
+     all-zero row (every decision a tie), with the kernel's time warm and
+     L2-flushed, the wrapper's, the plain loop's, the bound and share;
+     then one row at each caller's K (28, 38, 40, 44, 50, 55, 64: the
+     dependent-step latency) and tb_iter 1 and 5; a K beyond the block's
+     shared memory must raise ValueError.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -794,6 +812,91 @@ def launch_log():
         tdc.launch = launch
 
 
+@contextlib.contextmanager
+def plain_viterbi():
+    """viterbi.viterbi_decode forced to its plain loop (viterbi_decode_ref)
+    on the card inside the block, for a stage table beside the kernel's."""
+    from srslte_emane_tpu_torch.ops.fec import viterbi
+
+    decode = viterbi.viterbi_decode
+    viterbi.viterbi_decode = viterbi.viterbi_decode_ref
+    try:
+        yield
+    finally:
+        viterbi.viterbi_decode = decode
+
+
+def viterbi_beside(label, kernel, plain, whole, per, unit, card):
+    """Logs the stage table of timed_calls' `plain` totals (viterbi_decode_ref
+    forced) per `unit` (`per` units in the run), then the whole and the
+    Viterbi's time and share with the kernel (`kernel` totals) and with the
+    plain loop."""
+    table = {k: {f"calls_per_{unit}": n / per, f"ms_per_{unit}": round(1e3 * t / per, 3),
+                 "share": round(t / plain[whole][1], 3)} for k, (n, t) in plain.items()}
+    log(f"{label} by stage with viterbi_decode_ref forced, per {unit} (host clock, "
+        f"synchronised at every stage): {json.dumps(table)}")
+    vit = "viterbi.viterbi_decode"
+    row = lambda tot: dict(whole_ms=round(1e3 * tot[whole][1] / per, 3),
+                           viterbi_ms=round(1e3 * tot[vit][1] / per, 3),
+                           viterbi_calls=tot[vit][0] / per,
+                           viterbi_share=round(tot[vit][1] / tot[whole][1], 4))
+    log(f"{label}: Viterbi kernel vs plain loop, per {unit}: {json.dumps(row(kernel))} vs "
+        f"{json.dumps(row(plain))} ({whole}); {card}")
+
+
+class ViterbiLog:
+    """Wraps viterbi_cuda.viterbi_decode_cuda inside `with`: counts each
+    call's (rows, K, tb_iter) under the phase in `phase`, and keeps a copy of
+    the first LLRs of each shape for phase 17.  The subprocesses' calls
+    come in through `add_process` (run_logged reaches the log as
+    `ViterbiLog.active`); their launches are counted apart, in
+    `process_launches`."""
+
+    active = None
+
+    def __init__(self, dev):
+        self.dev, self.phase, self.seen, self.inputs = dev, 0, collections.Counter(), {}
+        self.process_launches = collections.Counter()
+
+    def add_process(self, label, logged, llr_dir):
+        """One MODULE_LOGGED process's Viterbi calls: its summary line
+        `logged` and the LLRs it saved in `llr_dir`."""
+        import torch
+
+        calls = 0
+        for rows, k, tb, n in logged["vit_shapes"]:
+            self.seen[(self.phase, rows, k, tb)] += n
+            calls += n
+            if (rows, k, tb) not in self.inputs:
+                self.inputs[(rows, k, tb)] = torch.load(
+                    os.path.join(llr_dir, f"{rows}_{k}_{tb}.pt"), weights_only=True).to(self.dev)
+        assert logged["vit_launches"] == calls - sum(
+            n for rows, _, _, n in logged["vit_shapes"] if rows == 0), (label, logged)
+        self.process_launches[label] += logged["vit_launches"]
+
+    def __enter__(self):
+        from srslte_emane_tpu_torch.ops.fec import viterbi_cuda
+
+        self._decode = decode = viterbi_cuda.viterbi_decode_cuda
+
+        def logged(llrs, tb_iter=viterbi_cuda.TB_ITER):
+            key = (llrs.shape[0], llrs.shape[2], tb_iter)
+            self.seen[(self.phase, *key)] += 1
+            if key not in self.inputs:
+                self.inputs[key] = llrs.detach().clone()
+            return decode(llrs, tb_iter)
+
+        viterbi_cuda.viterbi_decode_cuda = logged
+        ViterbiLog.active = self
+        return self
+
+    def __exit__(self, *exc):
+        from srslte_emane_tpu_torch.ops.fec import viterbi_cuda
+
+        viterbi_cuda.viterbi_decode_cuda = self._decode
+        ViterbiLog.active = None
+
+
 def phase_dl_subframe(dev, card):
     """The full downlink subframe (phase 8).  Returns the turbo_map
     launches of its first decode."""
@@ -860,6 +963,9 @@ def phase_dl_subframe(dev, card):
     log("DL subframe decode by stage (host clock, synchronised; nested stages count in "
         "their callers too): " + json.dumps({k: {"calls": n, "ms": 1e3 * t, "share": t / whole}
                                               for k, (n, t) in totals.items()}))
+    with plain_viterbi(), timed_calls(stages) as plain:
+        ue_dl.decode_subframe(rx, cfg)
+    viterbi_beside("DL subframe decode", totals, plain, "ue_dl.decode_subframe", 1, "decode", card)
 
     dec = rate(lambda: ue_dl.decode_subframe(rx, cfg)[0],
                check=lambda r: decoded_right(r, payloads))
@@ -1814,11 +1920,13 @@ def recorded_noise(record=None, replay=None, rows=slice(None)):
         waveblock._randn = randn
 
 
-def profile_block(fn):
+def profile_block(fn, control=False):
     """One call of fn under torch.profiler (after a synchronise): the
     device time (the CUDA kernels' own time), the kernel launches, the busy
     share (device time over the profiled wall time, which includes the
-    profiler's overhead: a lower bound) and turbo_map's device time."""
+    profiler's overhead: a lower bound), turbo_map's and the Viterbi
+    kernel's device time.  Fails if the profiler recorded no device kernel,
+    or, where fn decodes control channels (`control`), no Viterbi kernel."""
     import torch
     from torch.profiler import ProfilerActivity, profile as tprofile
 
@@ -1830,12 +1938,17 @@ def profile_block(fn):
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    assert kernels, "torch.profiler recorded no device kernel"
+    vit = [e for e in kernels if "viterbi_kernel" in e.key]
+    assert vit or not control, "torch.profiler recorded no Viterbi kernel"
     device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     map_ms = sum(e.self_device_time_total for e in kernels if "map_kernel" in e.key) / 1e3
+    vit_ms = sum(e.self_device_time_total for e in vit) / 1e3
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
     return dict(profiled_wall_ms=round(wall_ms, 3), device_ms=round(device_ms, 3),
                 busy_share=round(device_ms / wall_ms, 4),
                 kernel_launches=sum(e.count for e in kernels), turbo_map_ms=round(map_ms, 3),
+                viterbi_ms=round(vit_ms, 3),
                 top=[(e.key[:50], round(e.self_device_time_total / 1e3, 3), e.count)
                      for e in top])
 
@@ -2036,13 +2149,20 @@ def step_dyn(dev, card):
         totals[whole] = [1, time.perf_counter() - t0]
     per_round = {k: {"calls_per_round": n_ / DYN_R, "ms_per_round": round(1e3 * t / DYN_R, 3),
                      "share": round(t / totals[whole][1], 3)} for k, (n_, t) in totals.items()}
-    prof = profile_block(lambda: step(*args, gen, 0))
+    with plain_viterbi(), timed_calls(stages) as plain:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(*args, gen, 0)
+        torch.cuda.synchronize()
+        plain[whole] = [1, time.perf_counter() - t0]
+    prof = profile_block(lambda: step(*args, gen, 0), control=True)
     log(f"dynamic block: {fmt_rate('block', med, spread, rates, unit='TTIs/s')}; DL "
         f"{med * n * cfg.dl_tbs / 1e6:.1f} Mb/s + UL {med * n * cfg.ul_tbs / 1e6:.1f} Mb/s; "
         f"CUDA-event time per block {event_ms:.2f} ms; profile of one block {json.dumps(prof)}; {card}")
     log(f"dynamic block by stage, per round (host clock, synchronised at every stage: a "
         f"breakdown, not a rate; the Viterbi's share is viterbi.viterbi_decode's): "
         f"{json.dumps(per_round)}")
+    viterbi_beside("dynamic block", totals, plain, whole, DYN_R, "round", card)
     return launches, seen
 
 
@@ -2213,7 +2333,8 @@ class NetworkRun:
     def stages_and_profile(self, net, offer, extra_stages=()):
         """Where a host-paced TTI with traffic goes (synchronised at every
         stage: a breakdown, not a rate; nested calls count in both), then
-        the device profile of 5 such TTIs; `offer` queues the traffic."""
+        the same with viterbi_decode_ref forced, then the device profile of
+        5 such TTIs; `offer` queues the traffic before each."""
         offer()
         with timed_calls(network_stages() + tuple(extra_stages)) as totals:
             net.run(10)
@@ -2223,7 +2344,12 @@ class NetworkRun:
         log(f"{self.name} by stage, per host-paced TTI (traffic offered just before): "
             f"{json.dumps(per_tti)}")
         offer()
-        prof = profile_block(lambda: net.run(5))  # the profiler's summary costs seconds per TTI
+        with plain_viterbi(), timed_calls(network_stages() + tuple(extra_stages)) as plain:
+            net.run(10)
+        viterbi_beside(self.name, totals, plain, "WaveformNetwork.run", 10, "TTI", self.card)
+        offer()
+        # the profiler's summary costs seconds per TTI
+        prof = profile_block(lambda: net.run(5), control=True)
         log(f"{self.name} profile of 5 host-paced TTIs with traffic: {json.dumps(prof)}; per "
             f"TTI: device {prof['device_ms'] / 5:.3f} ms, {prof['kernel_launches'] / 5:.0f} "
             f"kernel launches, busy share {prof['busy_share']:.4f}; {self.card}")
@@ -2501,7 +2627,7 @@ def step_cells(dev, card, logs):
             launches = tdc.launches
         assert counts == want, f"dynamic block x {cells} cells: counts {counts}, want {want}"
         med, spread, rates = rate(lambda: bench(*args), per_call=cells * T, iters=1)
-        prof = profile_block(lambda: bench(*args))
+        prof = profile_block(lambda: bench(*args), control=True)
         results[cells] = dict(launches=launches, seen=seen, med=med, prof=prof)
         log(f"dynamic block x {cells} cell(s) (R={DYN_R}, {n} UEs per cell): every CRC and ACK in "
             f"every cell, no DCI miss; {fmt_rate('block', med, spread, rates, unit='cell-TTIs/s')}; "
@@ -2556,27 +2682,41 @@ NETSIM_RUNS = (
 NETSIM_IP_BYTES = 140  # netsim's IP packets: 120 bytes of payload in IPv4/UDP
 # `python -c` body that runs the module named by its first argument as `-m`
 # would (with the arguments after it), with every turbo_map and turbo_map_v1
-# launch logged as launch_log does; its last line, after the module's own
-# output, is {"launches": the wrapper's count, "shapes": [[K, rows, narrow],
-# ...], "v1_launches": v1's wrapper's count, "v1_shapes": [[K, rows, W],
-# ...]} (a module that resets the counts itself leaves the shapes whole)
+# launch logged as launch_log does and every Viterbi call as ViterbiLog
+# does (the first LLRs of each (rows, K, tb_iter) saved to the directory in
+# $VITERBI_LLR_DIR); its last line, after the module's own output, is
+# {"launches": the wrapper's count, "shapes": [[K, rows, narrow], ...],
+# "v1_launches": v1's wrapper's count, "v1_shapes": [[K, rows, W], ...],
+# "vit_launches": viterbi_cuda's count, "vit_shapes": [[rows, K, tb_iter,
+# calls], ...]} (a module that resets the counts itself leaves the shapes
+# whole)
 MODULE_LOGGED = """
-import json, runpy, sys
-from srslte_emane_tpu_torch.ops.fec import turbodecoder_cuda as tdc
-seen, seen_v1, launch, launch_v1 = [], [], tdc.launch, tdc.launch_v1
+import collections, json, os, runpy, sys
+import torch
+from srslte_emane_tpu_torch.ops.fec import turbodecoder_cuda as tdc, viterbi_cuda
+seen, seen_v1, seen_vit = [], [], collections.Counter()
+launch, launch_v1, decode_vit = tdc.launch, tdc.launch_v1, viterbi_cuda.viterbi_decode_cuda
 def logged(*a, **kw):
     seen.append((a[0].shape[1], a[0].shape[0], bool(a[4])))
     return launch(*a, **kw)
 def logged_v1(*a, **kw):
     seen_v1.append((a[0].shape[1], a[0].shape[0], int(a[3])))
     return launch_v1(*a, **kw)
-tdc.launch, tdc.launch_v1 = logged, logged_v1
+def logged_vit(llrs, tb_iter=viterbi_cuda.TB_ITER):
+    key = (llrs.shape[0], llrs.shape[2], tb_iter)
+    if key not in seen_vit:
+        torch.save(llrs.cpu(), os.path.join(os.environ["VITERBI_LLR_DIR"], "%d_%d_%d.pt" % key))
+    seen_vit[key] += 1
+    return decode_vit(llrs, tb_iter)
+tdc.launch, tdc.launch_v1, viterbi_cuda.viterbi_decode_cuda = logged, logged_v1, logged_vit
 module = sys.argv.pop(1)
 try:
     runpy.run_module(module, run_name="__main__", alter_sys=True)
 finally:
     print(json.dumps({"launches": tdc.launches, "shapes": seen,
-                      "v1_launches": tdc.launches_v1, "v1_shapes": seen_v1}), flush=True)
+                      "v1_launches": tdc.launches_v1, "v1_shapes": seen_v1,
+                      "vit_launches": viterbi_cuda.launches,
+                      "vit_shapes": [[*k, n] for k, n in seen_vit.items()]}), flush=True)
 """
 NETSIM_MODULE = "srslte_emane_tpu_torch.apps.netsim"
 
@@ -2760,29 +2900,37 @@ def run_logged(group, timeout_s):
     """Each (label, module, arguments) of `group` in its own subprocess
     through MODULE_LOGGED, all started together (the host's cores and the
     card are shared), each within what is left of `timeout_s`.  Returns
-    {label: (its JSON lines, then {"launches", "shapes"}; its stderr lines
-    that start with "#"; wall seconds)}; a process that exits non-zero
-    fails the phase."""
+    {label: (its JSON lines, then MODULE_LOGGED's; its stderr lines that
+    start with "#"; wall seconds)}; a process that exits non-zero fails the
+    phase.  Its Viterbi calls, with their first LLRs, go to the active
+    ViterbiLog, under the phase being run."""
+    import tempfile
+
     root = os.path.dirname(os.path.abspath(__file__))
-    env = dict(os.environ, OMP_NUM_THREADS="2")
     procs, results = [], {}
     t0 = time.perf_counter()
-    try:
-        for label, module, args in group:
-            procs.append((label, subprocess.Popen(
-                [sys.executable, "-c", MODULE_LOGGED, module, *args], cwd=root, env=env,
-                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
-        for label, proc in procs:
-            out, err = proc.communicate(timeout=max(1.0, timeout_s - (time.perf_counter() - t0)))
-            assert proc.returncode == 0, f"{label} exited {proc.returncode}: {err[-3000:]}"
-            results[label] = ([json.loads(x) for x in out.splitlines() if x.startswith("{")],
-                              [x for x in err.splitlines() if x.startswith("#")],
-                              time.perf_counter() - t0)
-    finally:
-        for _, proc in procs:
-            if proc.poll() is None:
-                proc.kill()
-                proc.communicate()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_llrs_") as tmp:
+        try:
+            for label, module, args in group:
+                llr_dir = os.path.join(tmp, str(len(procs)))
+                os.mkdir(llr_dir)
+                env = dict(os.environ, OMP_NUM_THREADS="2", VITERBI_LLR_DIR=llr_dir)
+                procs.append((label, llr_dir, subprocess.Popen(
+                    [sys.executable, "-c", MODULE_LOGGED, module, *args], cwd=root, env=env,
+                    stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+            for label, llr_dir, proc in procs:
+                left = max(1.0, timeout_s - (time.perf_counter() - t0))
+                out, err = proc.communicate(timeout=left)
+                assert proc.returncode == 0, f"{label} exited {proc.returncode}: {err[-3000:]}"
+                lines = [json.loads(x) for x in out.splitlines() if x.startswith("{")]
+                ViterbiLog.active.add_process(label, lines[-1], llr_dir)
+                results[label] = (lines, [x for x in err.splitlines() if x.startswith("#")],
+                                  time.perf_counter() - t0)
+        finally:
+            for _, _, proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.communicate()
     return results
 
 
@@ -3208,6 +3356,124 @@ def phase_slice17(dev, card, known):
     return cases, v1_cases, c16, v1
 
 
+# phase 17: the Viterbi kernel (csrc/viterbi.cu) against its plain loop at
+# every shape the run's in-process phases gave it; the callers' K (UCI's 28
+# and 38, PBCH 40, DCI 1A / 1 / 2A at 100 PRB 44 / 55 / 64, NPBCH 50) one
+# row at a time for the dependent-step latency; tb_iter 1 and 5 beside the
+# callers' 3
+VIT_KS = (28, 38, 40, 44, 50, 55, 64)
+# the subprocesses of phases 14-16 that decode control channels on the card
+VIT_PROCESSES = ("waveform-full", "waveform-block", "waveform-dyn", "wavenet_smoke",
+                 "bench_waveblock_dyn", "profile_dynblock")
+VIT_TB_ITERS = (1, 5)
+
+
+def viterbi_bound(rows, k, tb_iter):
+    """The Viterbi's bound: read bm (R, K, 8) f32 and write the bits (R, K)
+    int8; per row and trellis step 64 x (2 adds, 1 compare, 1 subtract) and
+    63 max for the maximum over the states."""
+    return bound(rows * k * (8 * 4 + 1), rows * tb_iter * k * (64 * 4 + 63))
+
+
+def viterbi_inputs(rows, k, dev, seed):
+    """(rows, 3, K) f32 stream LLRs at the decision threshold: BPSK of
+    convolutionally encoded random bits at noise sigma 1.4, rounded to
+    quarters (equal metrics), row 0 all zero (every decision a tie)."""
+    import torch
+
+    from srslte_emane_tpu_torch.ops.fec import convcoder
+
+    rng = np.random.default_rng(seed)
+    bits = torch.from_numpy(rng.integers(0, 2, (rows, k), dtype=np.int8)).to(dev)
+    x = 1.0 - 2.0 * convcoder.conv_encode(bits).float()
+    noise = torch.from_numpy(rng.normal(0, 1.4, x.shape).astype(np.float32)).to(dev)
+    x = torch.round(4 * (x + noise)) / 4
+    x[0] = 0.0
+    return x.contiguous()
+
+
+def viterbi_case(inputs, tb_iter, flush, plain_n=3):
+    """The kernel (through viterbi_decode) against viterbi_decode_ref on
+    each LLR tensor of `inputs` (one shape), bit for bit, then on the first:
+    the kernel's time warm and L2-flushed, the wrapper's and the plain
+    loop's, the bound and share, blocks per SM."""
+    import torch
+
+    from srslte_emane_tpu_torch.ops.fec import viterbi, viterbi_cuda
+
+    bad = err = 0
+    for x in inputs:
+        n0 = viterbi_cuda.launches
+        got = viterbi.viterbi_decode(x, tb_iter)
+        ref = viterbi.viterbi_decode_ref(x, tb_iter)
+        assert viterbi_cuda.launches == n0 + 1, "viterbi_decode did not launch the kernel once"
+        assert got.dtype == torch.int8 and got.shape == ref.shape == (x.shape[0], x.shape[2])
+        bad += int((got != ref).sum())
+        err = max(err, int((got.int() - ref.int()).abs().max()))
+    rows, _, k = inputs[0].shape
+    assert bad == 0, f"viterbi at {rows} x K={k}, tb_iter {tb_iter}: {bad} bits differ"
+    x = inputs[0]
+    bm = viterbi.branch_metrics(x).contiguous()
+    kernel = lambda: viterbi_cuda.launch(bm, tb_iter)
+    bound_ms, bound_by = viterbi_bound(rows, k, tb_iter)
+    ms = cuda_ms(kernel, 20)
+    return dict(rows=rows, K=k, tb_iter=tb_iter, mismatched_bits=bad, max_abs_err=float(err),
+                ms=ms, flushed_ms=cuda_ms(kernel, 20, flush),
+                wrapper_ms=cuda_ms(lambda: viterbi.viterbi_decode(x, tb_iter), 20),
+                plain_ms=cuda_ms(lambda: viterbi.viterbi_decode_ref(x, tb_iter), plain_n),
+                bound_ms=bound_ms, bound_by=bound_by, share=bound_ms / ms,
+                ns_per_step=1e6 * ms / (tb_iter * k),
+                blocks_per_sm=viterbi_cuda.occupancy(k, tb_iter))
+
+
+def phase_viterbi(dev, card, vlog):
+    """Phase 17.  Returns the Viterbi cases at every (rows, K, tb_iter) the
+    in-process phases met (`vlog`), each bit for bit on the path's own LLRs
+    and on tie and threshold LLRs."""
+    import torch
+
+    from srslte_emane_tpu_torch.ops.fec import viterbi, viterbi_cuda
+
+    t0 = time.perf_counter()
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
+    by_shape = collections.defaultdict(dict)
+    for (phase, *key), n in vlog.seen.items():
+        by_shape[tuple(key)][phase] = by_shape[tuple(key)].get(phase, 0) + n
+    assert any(p in range(8, 14) for d in by_shape.values() for p in d), \
+        "phases 8-13 made no Viterbi call on the card"
+    cases = []
+    for (rows, k, tb), per_phase in sorted(by_shape.items()):
+        if rows == 0:  # no candidate: an empty result and no launch
+            n0 = viterbi_cuda.launches
+            out = viterbi.viterbi_decode(vlog.inputs[(rows, k, tb)], tb)
+            assert tuple(out.shape) == (0, k) and viterbi_cuda.launches == n0
+            log(f"viterbi at 0 x K={k}: empty result, no launch; calls by phase "
+                f"{json.dumps(per_phase)}")
+            continue
+        synth = viterbi_inputs(rows, k, dev, rows * 1000 + k)
+        case = viterbi_case([vlog.inputs[(rows, k, tb)], synth], tb, flush)
+        case["calls_by_phase"] = per_phase
+        log(f"viterbi kernel vs plain {json.dumps(case)}; {card}")
+        cases.append(case)
+    extra = []
+    for k in VIT_KS:  # one row: the latency of the dependent chain
+        extra.append(viterbi_case([viterbi_inputs(1, k, dev, k)], viterbi.TB_ITER, flush))
+    for tb in VIT_TB_ITERS:
+        extra.append(viterbi_case([viterbi_inputs(128, 44, dev, tb)], tb, flush))
+    for c in extra:
+        log(f"viterbi kernel vs plain {json.dumps(c)}; {card}")
+    # a K beyond what a block's shared memory holds is refused, not launched
+    try:
+        viterbi.viterbi_decode(torch.zeros((2, 3, 4000), device=dev))
+    except ValueError as e:
+        log(f"viterbi at K=4000: refused ({e})")
+    else:
+        raise AssertionError("viterbi took a K beyond its shared memory")
+    log(f"phase 17: {time.perf_counter() - t0:.1f} s; {len(cases)} shapes of the run, "
+        f"{len(extra)} more, every bit equal")
+    return cases + extra
+
+
 def main():
     import torch
 
@@ -3222,37 +3488,69 @@ def main():
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
 
-    from srslte_emane_tpu_torch.ops.fec import turbodecoder_cuda as tdc
+    from srslte_emane_tpu_torch.ops.fec import turbodecoder_cuda as tdc, viterbi_cuda
 
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:  # one nvcc per source, together
-        builds = list(pool.map(tdc.build, (tdc.SOURCE, tdc.SOURCE_V1)))
-    log(f"build: {time.perf_counter() - t0:.1f} s wall for both")
+    sources = (tdc.SOURCE, tdc.SOURCE_V1, viterbi_cuda.SOURCE)
+    with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source
+        builds = list(pool.map(tdc.build, sources))
+    log(f"build: {time.perf_counter() - t0:.1f} s wall for all three")
     for b in builds:
         log(f"build: {b.seconds:.1f} s -> {b.path}")
         for line in b.log.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"ptxas: {line.strip()}")
 
+    t_run = time.perf_counter()
     cases = phase_kernel(dev)
-    dl_launches = phase_main_path(dev)
-    v1_cases, v1_launches = phase_v1(dev)
-    ul_launches = phase_uplink(dev)
-    phase_cascade(dev)
-    sf_launches = phase_dl_subframe(dev, card)
-    mimo_cases, tm3_launches = phase_mimo(dev, card)
-    sync_cases, sync_launches = phase_sync(dev, card)
-    block_cases, block_launches = phase_blocks(dev, card)
-    net_cases, net_launches = phase_network(dev, card)
-    known = tuple((c["K"], c["B"], (c["narrow"],)) for c in (
-        cases + mimo_cases + sync_cases + block_cases + net_cases))
-    c13_cases, c13_launches = phase_slice13c(dev, card, known)
-    known += tuple((c["K"], c["B"], (c["narrow"],)) for c in c13_cases)
-    c14_cases, c14_launches = phase_slice14(dev, card, known)
-    known += tuple((c["K"], c["B"], (c["narrow"],)) for c in c14_cases)
-    c15_cases, c15_launches = phase_entry_points(dev, card, known)
-    known += tuple((c["K"], c["B"], (c["narrow"],)) for c in c15_cases)
-    c16_cases, c16_v1_cases, c16_launches, c16_v1_launches = phase_slice17(dev, card, known)
+    # the main paths, every call of the Viterbi counted and its shape kept
+    viterbi_cuda.launches = 0
+    with ViterbiLog(dev) as vlog:
+        vlog.phase = 4
+        dl_launches = phase_main_path(dev)
+        vlog.phase = 5
+        v1_cases, v1_launches = phase_v1(dev)
+        vlog.phase = 6
+        ul_launches = phase_uplink(dev)
+        vlog.phase = 7
+        phase_cascade(dev)
+        vlog.phase = 8
+        sf_launches = phase_dl_subframe(dev, card)
+        vlog.phase = 9
+        mimo_cases, tm3_launches = phase_mimo(dev, card)
+        vlog.phase = 10
+        sync_cases, sync_launches = phase_sync(dev, card)
+        vlog.phase = 11
+        block_cases, block_launches = phase_blocks(dev, card)
+        vlog.phase = 12
+        net_cases, net_launches = phase_network(dev, card)
+        known = tuple((c["K"], c["B"], (c["narrow"],)) for c in (
+            cases + mimo_cases + sync_cases + block_cases + net_cases))
+        vlog.phase = 13
+        c13_cases, c13_launches = phase_slice13c(dev, card, known)
+        known += tuple((c["K"], c["B"], (c["narrow"],)) for c in c13_cases)
+        vlog.phase = 14
+        c14_cases, c14_launches = phase_slice14(dev, card, known)
+        known += tuple((c["K"], c["B"], (c["narrow"],)) for c in c14_cases)
+        vlog.phase = 15
+        c15_cases, c15_launches = phase_entry_points(dev, card, known)
+        known += tuple((c["K"], c["B"], (c["narrow"],)) for c in c15_cases)
+        vlog.phase = 16
+        c16_cases, c16_v1_cases, c16_launches, c16_v1_launches = phase_slice17(dev, card, known)
+    vit_launches = viterbi_cuda.launches
+    by_phase = collections.Counter()
+    for (phase, *_), n in vlog.seen.items():
+        by_phase[phase] += n
+    sub = vlog.process_launches
+    log(f"viterbi: {vit_launches} kernel launches in phases 4-16 in this process, "
+        f"{sum(sub.values())} in the subprocesses of phases 14-16 {json.dumps(dict(sub))}; "
+        f"calls by phase {json.dumps(dict(sorted(by_phase.items())))}")
+    assert all(by_phase[p] > 0 for p in (8, 10, 11, 12, 13, 14, 15, 16)), by_phase
+    assert all(sub[label] > 0 for label in VIT_PROCESSES), sub
+    vit_cases = phase_viterbi(dev, card, vlog)
+    sf_vit = max((c for c in vit_cases if 8 in c.get("calls_by_phase", {})),
+                 key=lambda c: c["rows"])  # phase 8's blind search
+    log(f"chip_smoke: {time.perf_counter() - t_run:.1f} s after the build")
     bench = next(c for c in cases if (c["K"], c["B"], c["narrow"]) == (5504, 768, True))
     odd = next(c for c in v1_cases if (c["K"], c["B"]) == (1040, 768))
     print(json.dumps({"kernels": [{
@@ -3288,6 +3586,23 @@ def main():
         "bound_by": odd["bound_by"],
         "share": odd["share"],
         "library_ms": None,
+    }, {
+        "name": "viterbi",
+        "route": "cuda",
+        "source": "srslte_emane_tpu_torch/csrc/viterbi.cu",
+        "replaces": "srslte_emane_tpu/ops/fec/viterbi.py:53",
+        "launches": vit_launches + sum(sub.values()),  # phases 4-16, subprocesses too
+        "max_abs_err": max(c["max_abs_err"] for c in vit_cases),  # bits: 0 is bit for bit
+        "mismatched_bits": sum(c["mismatched_bits"] for c in vit_cases),
+        "ms": sf_vit["ms"],
+        "wrapper_ms": sf_vit["wrapper_ms"],
+        "plain_ms": sf_vit["plain_ms"],
+        "bound_ms": sf_vit["bound_ms"],
+        "bound_by": sf_vit["bound_by"],
+        "share": sf_vit["share"],
+        "rows": sf_vit["rows"],
+        "K": sf_vit["K"],
+        "library_ms": None,  # no PyTorch call computes a Viterbi decode
     }]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -75,6 +75,11 @@ _ENTRY_POINTS = {
         "turbo_map_v1_blocks_per_sm": [ctypes.c_int] * 3,
         "turbo_map_v1_cols": [ctypes.c_int] * 2,
     },
+    "viterbi": {  # ops/fec/viterbi_cuda.py's kernel
+        "viterbi_launch": [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+        "viterbi_fits": [ctypes.c_int] * 2,
+        "viterbi_blocks_per_sm": [ctypes.c_int] * 2,
+    },
 }
 
 
@@ -179,8 +184,13 @@ def time_major(x: torch.Tensor, n_windows: int, narrow: bool) -> torch.Tensor:
     return spans.permute(2, 0, 1).contiguous().view(L + 2 * H, B * n_windows)
 
 
+def _on_card(t: torch.Tensor, device: torch.device) -> bool:
+    return t.device.type == "cuda" and t.device == device
+
+
 def _require(name: str, t: torch.Tensor, device: torch.device, dtypes: tuple, shape: tuple):
-    if t.device.type != "cuda" or t.device != device:
+    """The checks every kernel wrapper makes of an input before it launches."""
+    if not _on_card(t, device):
         raise ValueError(f"{name} must lie on CUDA device {device}, not {t.device}")
     if t.dtype not in dtypes:
         raise TypeError(f"{name} must be {' or '.join(map(str, dtypes))}, not {t.dtype}")

@@ -7,6 +7,14 @@ over trellis steps with the batch and the states as tensor axes; branch
 metrics for the 8 output combos come from one product; the traceback is a
 second loop over the stored decisions.  A decision prefers the first
 predecessor on a tie, as the reference's argmax does.
+
+`viterbi_decode` is the one name every caller reaches.  On a CUDA tensor it
+runs the kernel of `csrc/viterbi.cu` (`viterbi_cuda.viterbi_decode_cuda`:
+the branch metrics here, then one launch for the ACS and the traceback,
+as the reference's two scans are one compiled program) or raises; on a CPU
+tensor it runs `viterbi_decode_ref`, the plain PyTorch loop of the same
+function.  Nothing here loads the kernel library until a CUDA tensor asks
+for it.
 """
 
 from __future__ import annotations
@@ -47,15 +55,27 @@ def _tables():
     return preds, pred_combo, signs
 
 
-def viterbi_decode(llrs: torch.Tensor, tb_iter: int = TB_ITER) -> torch.Tensor:
-    """llrs: (B, 3, K) stream LLRs (positive = bit 0). Returns (B, K) int8 bits."""
-    preds, pred_combo, signs = _tables()
+@functools.lru_cache(maxsize=8)
+def _signs(dev: torch.device) -> torch.Tensor:
+    """The combos' bipolar signs (3, 8) on `dev`, copied there once."""
+    return torch.from_numpy(_tables()[2]).to(dev)
+
+
+def branch_metrics(llrs: torch.Tensor) -> torch.Tensor:
+    """(B, 3, K) stream LLRs -> (B, K, 8) branch metrics of the 8 output
+    combos, as both the plain loop and the kernel read them."""
+    return 0.5 * torch.einsum("bik,ic->bkc", llrs, _signs(llrs.device))
+
+
+def viterbi_decode_ref(llrs: torch.Tensor, tb_iter: int = TB_ITER) -> torch.Tensor:
+    """Plain PyTorch version: llrs (B, 3, K) stream LLRs (positive = bit 0).
+    Returns (B, K) int8 bits."""
+    preds, pred_combo, _ = _tables()
     dev = llrs.device
     p0, p1 = (torch.from_numpy(preds[:, j].copy()).to(dev) for j in (0, 1))
     c0, c1 = (torch.from_numpy(pred_combo[:, j].copy()).to(dev) for j in (0, 1))
     B, _, K = llrs.shape
-    # branch metrics for all 8 combos: (B, K, 8)
-    bm = 0.5 * torch.einsum("bik,ic->bkc", llrs, torch.from_numpy(signs).to(dev))
+    bm = branch_metrics(llrs)  # (B, K, 8)
     metrics = llrs.new_zeros((B, 64))
     decisions = []
     for t in range(tb_iter * K):  # tail-biting frame repetition
@@ -74,3 +94,14 @@ def viterbi_decode(llrs: torch.Tensor, tb_iter: int = TB_ITER) -> torch.Tensor:
         top = decisions[t].gather(1, state[:, None])[:, 0].to(torch.int64)
         state = (state >> 1) | (top << 5)
     return torch.stack(bits[::-1], dim=-1)
+
+
+def viterbi_decode(llrs: torch.Tensor, tb_iter: int = TB_ITER) -> torch.Tensor:
+    """llrs: (B, 3, K) stream LLRs (positive = bit 0). Returns (B, K) int8 bits:
+    the kernel for CUDA tensors (it raises where it cannot run), the plain
+    loop for CPU ones."""
+    if llrs.device.type != "cuda":
+        return viterbi_decode_ref(llrs, tb_iter)
+    from . import viterbi_cuda
+
+    return viterbi_cuda.viterbi_decode_cuda(llrs, tb_iter)

@@ -1,0 +1,74 @@
+"""The Hopper Viterbi kernel: wrapper and launch count.
+
+`viterbi_decode_cuda` is the CUDA side of `viterbi.viterbi_decode`, the
+port's twin of the reference's `ops/fec/viterbi.viterbi_decode` (one
+compiled program of two `lax.scan`s): the branch metrics in torch, by the
+plain version's own call (`viterbi.branch_metrics`), so that the kernel
+reads the same bits on the card; then one launch of `csrc/viterbi.cu`,
+which runs the add-compare-select over every trellis step and the
+traceback for every row.
+
+The kernel library is built by `turbodecoder_cuda.build` with nvcc at first
+use, into build/viterbi-<hash of sources and flags>/, and reused after.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import turbodecoder_cuda
+from .viterbi import TB_ITER, branch_metrics
+
+SOURCE = turbodecoder_cuda.CSRC / "viterbi.cu"
+
+# Kernel launches made by `launch` (a plain count; callers reset it).
+launches = 0
+
+
+def _lib():
+    return turbodecoder_cuda.build(SOURCE).lib
+
+
+def _stream(dev: torch.device) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def launch(bm: torch.Tensor, tb_iter: int = TB_ITER) -> torch.Tensor:
+    """The kernel alone, on PyTorch's current stream.  bm: (R, K, 8)
+    float32 branch metrics, contiguous on a CUDA device.  Returns the (R, K)
+    int8 bits; for R = 0 an empty tensor, with no launch.  ValueError for
+    what the kernel does not take: another device, shape or layout,
+    tb_iter < 1, or a K whose decisions do not fit a block's shared memory;
+    TypeError for another type (`turbodecoder_cuda._require`'s checks)."""
+    global launches
+    turbodecoder_cuda._require("bm", bm, bm.device, (torch.float32,), (*bm.shape[:2], 8))
+    R, K = bm.shape[:2]
+    if tb_iter < 1:
+        raise ValueError(f"tb_iter must be at least 1, not {tb_iter}")
+    lib = _lib()
+    if not lib.viterbi_fits(K, tb_iter):
+        raise ValueError(f"K={K} with tb_iter={tb_iter} does not fit the kernel's shared memory")
+    bits = torch.empty((R, K), dtype=torch.int8, device=bm.device)
+    if R == 0:
+        return bits
+    err = lib.viterbi_launch(bm.data_ptr(), bits.data_ptr(), R, K, tb_iter, _stream(bm.device))
+    if err != 0:
+        raise RuntimeError(f"viterbi kernel launch failed: cudaError_t {err}")
+    launches += 1
+    return bits
+
+
+def viterbi_decode_cuda(llrs: torch.Tensor, tb_iter: int = TB_ITER) -> torch.Tensor:
+    """llrs: (B, 3, K) float32 stream LLRs (positive = bit 0) on a CUDA
+    device.  Returns (B, K) int8 bits: the branch metrics, then one launch."""
+    if llrs.dim() != 3 or llrs.shape[1] != 3:
+        raise ValueError(f"llrs has shape {tuple(llrs.shape)}, expected (B, 3, K)")
+    return launch(branch_metrics(llrs).contiguous(), tb_iter)
+
+
+def occupancy(K: int, tb_iter: int = TB_ITER) -> int:
+    """Blocks (of 4 rows) per SM of the kernel on the current card."""
+    n = _lib().viterbi_blocks_per_sm(K, tb_iter)
+    if n < 0:
+        raise RuntimeError(f"occupancy query failed for K={K}, tb_iter={tb_iter}")
+    return n

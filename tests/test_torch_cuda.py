@@ -1,6 +1,6 @@
-"""The CUDA MAP kernels against their plain PyTorch versions, and the
-paths through them (PUSCH, the downlink subframe, the 2x2 TM3 cell, the
-waveform planes), on the card.
+"""The CUDA MAP kernels and the Viterbi kernel against their plain PyTorch
+versions, and the paths through them (PUSCH, the downlink subframe, the
+2x2 TM3 cell, the waveform planes, the control decoders), on the card.
 
 Marked `cuda`: skips without a CUDA device.  The card's machine has no jax,
 so run this file there without the suite's conftest:
@@ -1006,3 +1006,133 @@ def test_rank1_tm3_block_on_the_card_equals_the_cpu(dev):
         assert torch.equal(out[k].cpu(), cpu[k]), k
     for k in ("ack_val", "ack_energy"):
         torch.testing.assert_close(out[k].cpu(), cpu[k], rtol=1e-4, atol=1e-5)
+
+
+# ---------------- the Viterbi kernel (csrc/viterbi.cu) ----------------
+
+# every K a caller passes: UCI 20, 28, 38; PBCH 40; DCI 1A / 1 / 2A at 100
+# PRB 44, 55, 64; NPBCH 50; NPDSCH 224
+VIT_KS = (20, 28, 38, 40, 44, 50, 55, 64, 224)
+# (rows, K) of the kernel's launches in chip_smoke.py's phases 8 (the DL
+# subframe's blind searches at batch 128, its sf 0 at batch 16), 10 (MIB,
+# NPBCH, NPDSCH, the multi-cell step, the TDD frame), 11 (the dynamic
+# block), 12 (the network) and 13 (TM3's DCI 2A, the two-cell block)
+VIT_PATH_SHAPES = ((2688, 44), (2816, 44), (304, 44), (320, 44), (336, 44), (352, 44),
+                   (128, 40), (1024, 40), (128, 50), (128, 224), (168, 44), (8, 40), (384, 44),
+                   (1256, 44), (1, 38), (1256, 64), (768, 44), (64, 40))
+
+
+@pytest.mark.parametrize("tb_iter", (1, 3, 5))
+@pytest.mark.parametrize("k", VIT_KS)
+def test_viterbi_kernel_equals_plain(dev, k, tb_iter):
+    """Bit for bit at 1, 5 and 131 rows (a partial last block of 4 rows):
+    threshold LLRs (equal metrics) with an all-zero row (every decision a
+    tie), and clean codewords decoded right."""
+    from srslte_emane_tpu_torch.ops.fec import convcoder, viterbi, viterbi_cuda
+
+    smoke = _chip_smoke()
+    for rows in (1, 5, 131):
+        x = smoke.viterbi_inputs(rows, k, dev, 10 * rows + k)
+        before = viterbi_cuda.launches
+        got = viterbi.viterbi_decode(x, tb_iter)
+        torch.cuda.synchronize()
+        assert viterbi_cuda.launches == before + 1
+        assert torch.equal(got, viterbi.viterbi_decode_ref(x, tb_iter)), rows
+        assert not bool(got[0].any())  # the all-zero row: state 0 throughout
+    bits = torch.from_numpy(np.random.default_rng(k).integers(0, 2, (7, k), dtype=np.int8)).to(dev)
+    clean = 1.0 - 2.0 * convcoder.conv_encode(bits).float()
+    assert torch.equal(viterbi.viterbi_decode(clean, max(tb_iter, 2)), bits)
+
+
+@pytest.mark.parametrize("rows,k", VIT_PATH_SHAPES)
+def test_viterbi_kernel_equals_plain_at_the_path_shapes(dev, rows, k):
+    from srslte_emane_tpu_torch.ops.fec import viterbi
+
+    x = _chip_smoke().viterbi_inputs(rows, k, dev, rows + k)
+    got = viterbi.viterbi_decode(x)
+    assert torch.equal(got, viterbi.viterbi_decode_ref(x))
+
+
+# a `python -c` body: one viterbi_decode call per K of its arguments under
+# torch.profiler, after a warm-up; prints {K: [Viterbi kernels, other
+# device kernels]}
+PROFILE_ONE_CALL = """
+import json, sys, torch
+from torch.profiler import ProfilerActivity, profile
+from srslte_emane_tpu_torch.ops.fec import viterbi
+counts = {}
+for k in map(int, sys.argv[1:]):
+    x = torch.randn((300, 3, k), generator=torch.Generator().manual_seed(k)).cuda()
+    viterbi.viterbi_decode(x)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        viterbi.viterbi_decode(x)
+        torch.cuda.synchronize()
+    kernels = {e.key: e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0}
+    vit = sum(n for name, n in kernels.items() if "viterbi_kernel" in name)
+    counts[k] = [vit, sum(kernels.values()) - vit]
+print(json.dumps(counts))
+"""
+
+
+def test_viterbi_decode_is_one_launch(dev):
+    """One viterbi_decode call on the card: one Viterbi kernel and at most
+    4 other device kernels (the branch metrics), whatever K is, counted with
+    torch.profiler in a fresh process (in this one, earlier tests of the
+    file leave the profiler without device events); no launch for no rows."""
+    import json
+    import subprocess
+    import sys
+
+    from srslte_emane_tpu_torch.ops.fec import viterbi, viterbi_cuda
+
+    out = subprocess.run([sys.executable, "-c", PROFILE_ONE_CALL, "28", "64", "200"],
+                         cwd=pathlib.Path(__file__).resolve().parents[1], capture_output=True,
+                         text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-3000:]
+    counts = json.loads(out.stdout.splitlines()[-1])
+    assert sorted(counts) == ["200", "28", "64"], counts
+    for k, (vit, others) in counts.items():
+        assert vit == 1 and others <= 4, (k, vit, others)
+    before = viterbi_cuda.launches
+    empty = viterbi.viterbi_decode(torch.zeros((0, 3, 44), device=dev))
+    assert tuple(empty.shape) == (0, 44) and viterbi_cuda.launches == before
+
+
+def test_viterbi_wrapper_rejects_what_the_kernel_does_not_take(dev):
+    from srslte_emane_tpu_torch.ops.fec import viterbi_cuda
+
+    bm = torch.zeros((3, 44, 8), device=dev)
+    before = viterbi_cuda.launches
+    with pytest.raises(TypeError, match="float32"):
+        viterbi_cuda.launch(bm.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        viterbi_cuda.launch(torch.zeros((3, 8, 44), device=dev).transpose(1, 2))
+    with pytest.raises(ValueError, match="shared memory"):
+        viterbi_cuda.launch(torch.zeros((3, 4000, 8), device=dev))
+    with pytest.raises(ValueError, match="CUDA"):
+        viterbi_cuda.launch(bm.cpu())
+    with pytest.raises(ValueError, match="tb_iter"):
+        viterbi_cuda.launch(bm, 0)
+    assert viterbi_cuda.launches == before
+    assert viterbi_cuda.occupancy(44) > 0
+
+
+def test_control_decoders_reach_the_viterbi_kernel(dev):
+    """blind_search and pbch.decode on the card: one Viterbi launch each,
+    and no call of the plain loop."""
+    from srslte_emane_tpu_torch.ops.fec import viterbi, viterbi_cuda
+    from srslte_emane_tpu_torch.phch import dci, pbch, pdcch
+
+    cell, (g, ce), _ = _control_grid(dev)
+    ref = viterbi.viterbi_decode_ref
+    try:
+        viterbi.viterbi_decode_ref = lambda *a, **kw: pytest.fail("plain loop on the card")
+        before = viterbi_cuda.launches
+        pdcch.blind_search(g, ce, cell, 0, 0x46, dci.format0_1a_len(25))
+        pbch.decode(g, ce, cell)
+        torch.cuda.synchronize()
+    finally:
+        viterbi.viterbi_decode_ref = ref
+    assert viterbi_cuda.launches == before + 2
