@@ -6,9 +6,9 @@ Run from the repository root:  python3 chip_smoke.py
 Phases (any failure raises; the exit code is then non-zero):
   1. device: needs torch.cuda; prints the card's name and power limit;
   2. build: compiles both MAP kernels (srslte_emane_tpu_torch/csrc/
-     turbo_map.cu and turbo_map_v1.cu) and the Viterbi (csrc/viterbi.cu),
-     one nvcc each, started together, into build/ unless these sources
-     were built before;
+     turbo_map.cu and turbo_map_v1.cu), the Viterbi (csrc/viterbi.cu) and
+     the turbo decoder's epilogue (csrc/turbo_iter.cu), one nvcc each,
+     started together, into build/ unless these sources were built before;
   3. kernel vs plain: the CUDA MAP kernel against map_decode_ref on the card,
      bit for bit, at the downlink cell's shapes (768 x K=5504, 384 x
      K=5568), f32 and bf16-storage modes, and the uplink cell's (128 x
@@ -207,8 +207,25 @@ Phases (any failure raises; the exit code is then non-zero):
      all-zero row (every decision a tie), with the kernel's time warm and
      L2-flushed, the wrapper's, the plain loop's, the bound and share;
      then one row at each caller's K (28, 38, 40, 44, 50, 55, 64: the
-     dependent-step latency) and tb_iter 1 and 5; a K beyond the block's
-     shared memory must raise ValueError.
+     dependent-step latency) and tb_iter 1 and 5; then K beyond a block's
+     shared memory (4 x 1,211, NPDSCH's 128 x 2,552, 2 x 4,000), which the
+     kernel's variant with its decisions in device memory decodes, bit for
+     bit against the plain loop;
+ 18. the turbo decoder's loop on the card: every turbo_decode call of
+     phases 4 (the bench cell), 8 (the DL subframe) and 9 (the TM3 cell and
+     the MIMO paths), the first of each (K, rows, llr_bits), kept, and the
+     sweep's cell at 8-12 dB; each decoded by turbo_decode_device under
+     torch.cuda.set_sync_debug_mode("error") and by turbo_decode_host (the
+     host-driven loop of before, the plain version of the control flow):
+     bits, CRC flags, n_iter and MAP rows equal, turbo_decode one
+     synchronising read; per decode each loop's host syncs, kernel launches
+     and device ms (torch.profiler) and host-clock ms; the bench cell's
+     widest call captured as a CUDA graph and replayed bit-equal; the bench
+     cell's and the sweep's decode sf/s and CUDA-event ms per decode with
+     each loop, in turns; then turbo_iter against turbo_iter_ref, bit for
+     bit, at every (rows, K) of those calls, with its time per working
+     pass warm and L2-flushed, an idle pass, the plain version's, the bound
+     and share.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -379,7 +396,8 @@ def map_cases(shapes, dev):
         for narrow in modes:
             got = tdc.map_decode_cuda(*args, w, narrow)
             ref = tdc.map_decode_ref(*args, w, narrow)
-            assert torch.equal(got, ref), f"K={k} B={batch} narrow={narrow}: not bit-exact"
+            bad = int((got != ref).sum())
+            assert bad == 0, f"K={k} B={batch} narrow={narrow}: {bad} LLRs not bit-exact"
             err = (got - ref).abs().max().item()
             # the kernel alone (warm, and L2 flushed), the whole wrapper, the plain version
             kernel = lambda: tdc.launch(args[0], args[1], beta_k, w, narrow)
@@ -389,7 +407,7 @@ def map_cases(shapes, dev):
             plain_ms = cuda_ms(lambda: tdc.map_decode_ref(*args, w, narrow), 3)
             bound_ms, bound_by = map_bound(k, batch, w, narrow)
             cols, blocks = tdc.occupancy(k, w, narrow)
-            case = dict(K=k, B=batch, W=w, narrow=narrow, max_abs_err=err, ms=ms,
+            case = dict(K=k, B=batch, W=w, narrow=narrow, mismatched=bad, max_abs_err=err, ms=ms,
                         flushed_ms=flushed_ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
                         bound_ms=bound_ms, bound_by=bound_by, share=bound_ms / ms,
                         cols_per_block=cols, blocks_per_sm=blocks)
@@ -407,7 +425,7 @@ def phase_main_path(dev):
 
     from srslte_emane_tpu_torch.models import pdsch_link
     from srslte_emane_tpu_torch.ops import channel
-    from srslte_emane_tpu_torch.ops.fec import turbodecoder_cuda as tdc
+    from srslte_emane_tpu_torch.ops.fec import turbodecoder, turbodecoder_cuda as tdc
     from srslte_emane_tpu_torch.phch import grid
 
     cfg = pdsch_link.LinkConfig(cell=grid.CellConfig(n_prb=100, cell_id=1, cfi=1), qm=6,
@@ -441,15 +459,16 @@ def phase_main_path(dev):
     assert rel < 1e-5, f"card vs CPU TX waveform: relative RMS {rel}"
     log(f"card vs CPU tx_subframe relative RMS {rel:.3e}")
 
-    tdc.launches = 0
+    turbodecoder.map_rows = 0
     dec, dec_spread, dec_rates = rate(
         lambda: pdsch_link.rx_subframe(rx, cfg, use_kernel=True)[1],
         check=lambda ok_: bool(ok_.all()))
-    passes = tdc.launches / ((N_RUNS * ITERS + 1) * len({k for k in segm.cb_sizes}))
+    passes = turbodecoder.map_rows / ((N_RUNS * ITERS + 1) * BATCH * segm.C)
     enc, enc_spread, enc_rates = rate(lambda: pdsch_link.tx_subframe(payload, cfg))
     log(f"{fmt_rate('decode', dec, dec_spread, dec_rates)}, {dec * cfg.tbs / 1e6:.1f} Mb/s "
-        f"payload, MAP half-iterations per code-block size h = {passes:.2f} "
-        f"(n_iter = (h+1)//2 = {(passes + 1) // 2:.0f} when all sizes take the same h); "
+        f"payload, MAP half-iterations per code block h = {passes:.2f} (the rows of the "
+        f"passes that ran over the code blocks; n_iter = (h+1)//2 = {(passes + 1) // 2:.0f} "
+        f"when all sizes take the same h); "
         f"{fmt_rate('encode', enc, enc_spread, enc_rates)}; batch {BATCH}, tbs {cfg.tbs}")
     return main_launches
 
@@ -546,10 +565,11 @@ def v1_case(args, w, flush, plain_n=3):
     what = f"v1 K={k} B={batch} W={w}"
     got = tdc.map_decode_v1_cuda(*args, w)
     ref = tdc.map_decode_v1_ref(*args, w)
+    bad = int((got != ref).sum())
     if tdc.LOGMAP:  # the card's log and exp round differently from torch's
         err = check_close(got, ref, what)
     else:
-        assert torch.equal(got, ref), f"{what}: not bit-exact"
+        assert bad == 0, f"{what}: {bad} LLRs not bit-exact"
         err = (got - ref).abs().max().item()
     cols, blocks = tdc.occupancy_v1(k, w)
     # the kernel alone (warm, and L2 flushed), the whole wrapper, the plain version
@@ -560,7 +580,8 @@ def v1_case(args, w, flush, plain_n=3):
     wrapper_ms = cuda_ms(lambda: tdc.map_decode_v1_cuda(*args, w), 20)
     plain_ms = cuda_ms(lambda: tdc.map_decode_v1_ref(*args, w), plain_n)
     bound_ms, bound_by = v1_bound(k, batch, w)
-    case = dict(K=k, B=batch, W=w, L=k // w, max_abs_err=err, ms=ms, flushed_ms=flushed_ms,
+    case = dict(K=k, B=batch, W=w, L=k // w, mismatched=bad, max_abs_err=err, ms=ms,
+                flushed_ms=flushed_ms,
                 wrapper_ms=wrapper_ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, share=bound_ms / ms, cols_per_block=cols,
                 blocks_per_sm=blocks)
@@ -624,7 +645,7 @@ def phase_uplink(dev):
 
     from srslte_emane_tpu_torch.models import ue_ul
     from srslte_emane_tpu_torch.ops import channel
-    from srslte_emane_tpu_torch.ops.fec import turbodecoder_cuda as tdc
+    from srslte_emane_tpu_torch.ops.fec import turbodecoder, turbodecoder_cuda as tdc
     from srslte_emane_tpu_torch.phch import grid
 
     cfg = ul_bench_config()
@@ -653,14 +674,15 @@ def phase_uplink(dev):
         f"{segm.cb_sizes}) decoded bit-exact at {snr_db} dB, all CRCs pass, {launches} MAP "
         f"kernel launches, first call {first_s:.2f} s (host tables included)")
 
-    tdc.launches = 0
+    turbodecoder.map_rows = 0
     dec = rate(lambda: ue_ul.enb_receive(rx, cfg, use_kernel=True, llr_bits=llr_bits)["pusch"][1],
                check=lambda ok_: bool(ok_.all()))
     sizes = sorted(set(segm.cb_sizes))
-    passes = tdc.launches / ((N_RUNS * ITERS + 1) * len(sizes))
+    passes = turbodecoder.map_rows / ((N_RUNS * ITERS + 1) * BATCH * segm.C)
     enc = rate(lambda: ue_ul.build_subframe(cfg, tb_bits=payload))
     log(f"UL {fmt_rate('decode', *dec)}, {dec[0] * cfg.tbs / 1e6:.1f} Mb/s payload, "
-        f"MAP passes per code-block size {passes:.2f} (sizes {sizes}); "
+        f"MAP passes per code block {passes:.2f} (sizes {sizes}; the rows of the passes that "
+        f"ran over the code blocks); "
         f"UL {fmt_rate('encode', *enc)}; batch {BATCH}, tbs {cfg.tbs}")
 
     # full width: PUSCH beside PUCCH 1a on the edge PRBs 0 / 99
@@ -798,18 +820,56 @@ def timed_calls(targets):
             setattr(mod, name, fn)
 
 
+def loop_map_launches(a):
+    """(K, rows, narrow, v1, W, launches) of the MAP launches that one
+    turbo_iter_cuda.decode_cuda call (positional arguments `a`) enqueues:
+    one per slot, of the kernel that the window length picks, over the
+    batch's grid."""
+    from srslte_emane_tpu_torch.ops.fec import turbodecoder_cuda as tdc
+
+    rows, k = a[4].shape
+    w = tdc._pick_windows(k)
+    return k, rows, bool(a[18]), bool((k // w) % 2), w, 2 * a[16]
+
+
 @contextlib.contextmanager
 def launch_log():
     """Yields a list that gets (K, rows, narrow) of every turbo_map launch
-    made inside the block."""
-    from srslte_emane_tpu_torch.ops.fec import turbodecoder_cuda as tdc
+    made inside the block, those that the decoder's loop enqueues from C
+    (turbo_iter_cuda.decode_cuda) included."""
+    from srslte_emane_tpu_torch.ops.fec import turbo_iter_cuda as ti, turbodecoder_cuda as tdc
 
-    seen, launch = [], tdc.launch
+    seen, launch, decode = [], tdc.launch, ti.decode_cuda
+
+    def logged_decode(*a):
+        k, rows, narrow, v1, _, n = loop_map_launches(a)
+        if not v1:
+            seen.extend([(k, rows, narrow)] * n)
+        return decode(*a)
+
     tdc.launch = lambda *a, **kw: seen.append((a[0].shape[1], a[0].shape[0], a[4])) or launch(*a, **kw)
+    ti.decode_cuda = logged_decode
     try:
         yield seen
     finally:
-        tdc.launch = launch
+        tdc.launch, ti.decode_cuda = launch, decode
+
+
+@contextlib.contextmanager
+def plain_map():
+    """The turbo decoder with turbo_map's plain version in the kernel's
+    place inside the block: the host-driven loop (turbo_decode_host), whose
+    MAP passes go through map_decode_cuda, with map_decode_cuda replaced by
+    map_decode_ref (the same function, bit for bit, on the same device)."""
+    from srslte_emane_tpu_torch.ops.fec import turbodecoder, turbodecoder_cuda as tdc
+
+    saved = turbodecoder.turbo_decode, tdc.map_decode_cuda
+    turbodecoder.turbo_decode, tdc.map_decode_cuda = (turbodecoder.turbo_decode_host,
+                                                      tdc.map_decode_ref)
+    try:
+        yield
+    finally:
+        turbodecoder.turbo_decode, tdc.map_decode_cuda = saved
 
 
 @contextlib.contextmanager
@@ -1107,11 +1167,8 @@ def phase_mimo(dev, card):
     # place (the whole decode is the same bits and flags), and be one of the
     # worst-conditioned channels of the batch
     t0 = time.perf_counter()
-    map_cuda, tdc.map_decode_cuda = tdc.map_decode_cuda, tdc.map_decode_ref
-    try:
+    with plain_map():
         plain = decode(rx)
-    finally:
-        tdc.map_decode_cuda = map_cuda
     plain_s = time.perf_counter() - t0
     for got, ref in zip(res[0] + res[1], plain[0] + plain[1]):
         assert torch.equal(got, ref), "TM3 cell: the kernel and the plain MAP decode differ"
@@ -1536,11 +1593,8 @@ def step_fading(dev, card):
             total_launches += tdc.launches
         seen += seen_p
         assert passed_right(out), f"{profile}: a row passed its CRC with wrong bits"
-        map_cuda, tdc.map_decode_cuda = tdc.map_decode_cuda, tdc.map_decode_ref
-        try:
+        with plain_map():
             plain = decode(rx)
-        finally:
-            tdc.map_decode_cuda = map_cuda
         assert torch.equal(out[0], plain[0]) and torch.equal(out[1], plain[1]), \
             f"{profile}: the kernel and the plain MAP decode differ"
         failing = torch.nonzero(~out[1]).flatten().tolist()
@@ -2693,15 +2747,24 @@ NETSIM_IP_BYTES = 140  # netsim's IP packets: 120 bytes of payload in IPv4/UDP
 MODULE_LOGGED = """
 import collections, json, os, runpy, sys
 import torch
-from srslte_emane_tpu_torch.ops.fec import turbodecoder_cuda as tdc, viterbi_cuda
+from srslte_emane_tpu_torch.ops.fec import turbo_iter_cuda as ti, turbodecoder_cuda as tdc, viterbi_cuda
 seen, seen_v1, seen_vit = [], [], collections.Counter()
 launch, launch_v1, decode_vit = tdc.launch, tdc.launch_v1, viterbi_cuda.viterbi_decode_cuda
+loop = ti.decode_cuda
 def logged(*a, **kw):
     seen.append((a[0].shape[1], a[0].shape[0], bool(a[4])))
     return launch(*a, **kw)
 def logged_v1(*a, **kw):
     seen_v1.append((a[0].shape[1], a[0].shape[0], int(a[3])))
     return launch_v1(*a, **kw)
+def logged_loop(*a):
+    rows, k = a[4].shape
+    w = tdc._pick_windows(k)
+    if (k // w) % 2:
+        seen_v1.extend([(k, rows, w)] * (2 * a[16]))
+    else:
+        seen.extend([(k, rows, bool(a[18]))] * (2 * a[16]))
+    return loop(*a)
 def logged_vit(llrs, tb_iter=viterbi_cuda.TB_ITER):
     key = (llrs.shape[0], llrs.shape[2], tb_iter)
     if key not in seen_vit:
@@ -2709,6 +2772,7 @@ def logged_vit(llrs, tb_iter=viterbi_cuda.TB_ITER):
     seen_vit[key] += 1
     return decode_vit(llrs, tb_iter)
 tdc.launch, tdc.launch_v1, viterbi_cuda.viterbi_decode_cuda = logged, logged_v1, logged_vit
+ti.decode_cuda = logged_loop
 module = sys.argv.pop(1)
 try:
     runpy.run_module(module, run_name="__main__", alter_sys=True)
@@ -3094,7 +3158,8 @@ def profile_checks(label, out, card_name):
         assert per_call[profile_turbo.PLAIN] == (0, 0), per_call
         assert per_call[profile_turbo.fixed(1)] == (2, 0), per_call
         assert per_call[profile_turbo.fixed(2)] == (4, 0), per_call
-        assert per_call[profile_turbo.EARLY] == (16, 0), per_call  # random LLRs: no CRC passes
+        # random LLRs, no CRC passes: the loop's 16 slots, all run
+        assert per_call[profile_turbo.EARLY] == (16, 0), per_call
         assert all(v["ms"] > 0 for v in st.values()), st
     elif label == "profile_mimo":
         assert len(out["stages"]) == 6 and all(v["ms"] > 0 for v in out["stages"].values()), out
@@ -3366,6 +3431,9 @@ VIT_KS = (28, 38, 40, 44, 50, 55, 64)
 VIT_PROCESSES = ("waveform-full", "waveform-block", "waveform-dyn", "wavenet_smoke",
                  "bench_waveblock_dyn", "profile_dynblock")
 VIT_TB_ITERS = (1, 5)
+# (rows, K) beyond a block's shared memory: K = 1,211 (the first at
+# tb_iter 3), NPDSCH's largest (TBS 2,536 + CRC16) and 4,000
+VIT_GLOBAL_SHAPES = ((4, 1211), (128, 2552), (2, 4000))
 
 
 def viterbi_bound(rows, k, tb_iter):
@@ -3462,16 +3530,362 @@ def phase_viterbi(dev, card, vlog):
         extra.append(viterbi_case([viterbi_inputs(128, 44, dev, tb)], tb, flush))
     for c in extra:
         log(f"viterbi kernel vs plain {json.dumps(c)}; {card}")
-    # a K beyond what a block's shared memory holds is refused, not launched
-    try:
-        viterbi.viterbi_decode(torch.zeros((2, 3, 4000), device=dev))
-    except ValueError as e:
-        log(f"viterbi at K=4000: refused ({e})")
-    else:
-        raise AssertionError("viterbi took a K beyond its shared memory")
+    # a K whose row does not fit a block's shared memory takes the variant
+    # with its decisions in device memory: bit for bit all the same
+    for rows, k in VIT_GLOBAL_SHAPES:
+        c = viterbi_case([viterbi_inputs(rows, k, dev, k)], viterbi.TB_ITER, flush, plain_n=1)
+        log(f"viterbi kernel vs plain, decisions in device memory {json.dumps(c)}; {card}")
+        extra.append(c)
     log(f"phase 17: {time.perf_counter() - t0:.1f} s; {len(cases)} shapes of the run, "
         f"{len(extra)} more, every bit equal")
     return cases + extra
+
+
+# ---------------- phase 18: the turbo decoder's loop on the card ----------------
+
+LOOP_SWEEP_SNRS_DB = (8.0, 9.0, 10.0, 11.0, 12.0)  # the sweep's waterfall rows
+# the phases whose turbo_decode calls phase 18 replays, by label
+LOOP_PATHS = {4: "bench cell (phase 4)", 8: "DL subframe (phase 8)",
+              9: "TM3 cell and the MIMO paths (phase 9)"}
+ITER_OPS_PER_BIT = 6  # the epilogue's subtract, multiply, add, compare, and two XORs
+
+
+def iter_bound(rows, k):
+    """turbo_iter's bound for one pass: read post, ls_in and one of ls / ls2
+    (f32), write ls_in (f32) and the bits (int8), read the three (K,) int32
+    tables; ITER_OPS_PER_BIT operations per position."""
+    return bound(rows * k * 17 + 12 * k, rows * k * ITER_OPS_PER_BIT)
+
+
+def iter_inputs(k, rows, parity, dev, seed):
+    """An epilogue's inputs: random LLRs, a posterior whose signs give CRC24B
+    codewords in the first half of the rows (in the pass's order), some rows
+    done and some passed before."""
+    import torch
+
+    from srslte_emane_tpu_torch.ops.fec import crc, turbodecoder
+
+    rng = np.random.default_rng(seed)
+    perm, _, perm32, inv32 = turbodecoder._device_perms(k, dev)
+    f = lambda a: torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(dev)
+    ls = f(rng.normal(0, 2, (rows, k)))
+    payload = torch.from_numpy(rng.integers(0, 2, (rows, k - 24), dtype=np.int8)).to(dev)
+    words = crc.crc_attach(payload, crc.LTE_CRC24B)
+    words[rows // 2:] = torch.from_numpy(
+        rng.integers(0, 2, (rows - rows // 2, k), dtype=np.int8)).to(dev)
+    if parity:
+        words = words[:, perm]
+    return dict(post=((1 - 2.0 * words.float()) * f(rng.uniform(0.01, 9, (rows, k)))).contiguous(),
+                ls_in=f(rng.normal(0, 3, (rows, k))), ls=ls, ls2=ls[:, perm].contiguous(),
+                perm=perm32, inv=inv32, masks=crc.remainder_masks(*crc.LTE_CRC24B, k, dev),
+                bits_out=torch.from_numpy(rng.integers(0, 2, (rows, k), dtype=np.int8)).to(dev),
+                done=torch.from_numpy(rng.random(rows) < 0.3).to(dev),
+                pass_out=torch.from_numpy(rng.random(rows) < 0.3).to(dev))
+
+
+def iter_control(rows, dev, h=0, run=1, listed=None):
+    """ctl and a row list for an epilogue call: h, the flag, map_rows 11,
+    and the listed rows (every row by default)."""
+    import torch
+
+    from srslte_emane_tpu_torch.ops.fec import turbo_iter_cuda as ti
+
+    ctl, lst = ti.new_state(rows, dev)
+    ctl[ti.H], ctl[ti.RUN], ctl[ti.ROWS] = h, run, 11
+    listed = torch.arange(rows) if listed is None else torch.as_tensor(listed)
+    lst[0] = len(listed)
+    lst[1:1 + len(listed)] = listed.to(dev)
+    return ctl, lst
+
+
+def epilogue(fn, st, ctl, rows, parity, max_iter=8, n_stages=3):
+    """One call of turbo_iter_cuda / turbo_iter_ref on iter_inputs' state."""
+    fn(st["post"], st["ls_in"], st["ls"], st["ls2"], st["perm"], st["inv"], st["masks"],
+       st["bits_out"], st["done"], st["pass_out"], ctl, rows, parity, max_iter, n_stages)
+
+
+def iter_case(k, rows, dev, flush):
+    """turbo_iter against turbo_iter_ref at (rows, K), both parities, flag
+    set and clear, every row listed and a quarter of them (the cascade's
+    last stage, which the pass may leave for none), every output, the
+    control words and the row list bit for bit; then its time per working
+    pass (every row, the flag kept set), warm and L2-flushed, a pass whose
+    flag is clear, the plain version's, the bound and share."""
+    import torch
+
+    from srslte_emane_tpu_torch.ops.fec import turbo_iter_cuda as ti
+
+    bad = 0
+    listed = list(range(rows - 1, -1, -4))  # a quarter, out of order
+    for parity in (0, 1):
+        for flag in (1, 0):
+            for part in (None, listed):
+                a = iter_inputs(k, rows, parity, dev, k + rows + parity)
+                b = {n: v.clone() for n, v in a.items()}
+                (ca, ra), (cb, rb) = (iter_control(rows, dev, 6 + parity, flag, part)
+                                      for _ in range(2))
+                epilogue(ti.turbo_iter_cuda, a, ca, ra, parity)
+                epilogue(ti.turbo_iter_ref, b, cb, rb, parity)
+                bad += (sum(int((a[n] != b[n]).sum()) for n in a) + int((ca != cb).sum())
+                        + int((ra != rb).sum()))
+    assert bad == 0, f"turbo_iter at {rows} x K={k}: {bad} values differ from the plain version"
+    st = iter_inputs(k, rows, 0, dev, k)
+    ctl, lst = iter_control(rows, dev)
+    # max_iter too large to end and one stage: every timed pass runs
+    timed = lambda fn, parity: epilogue(fn, st, ctl, lst, parity, 10 ** 6, 1)
+    ms = cuda_ms(lambda: timed(ti.turbo_iter_cuda, 0), 20)
+    flushed = cuda_ms(lambda: timed(ti.turbo_iter_cuda, 1), 10, flush)
+    plain = cuda_ms(lambda: timed(ti.turbo_iter_ref, 0), 3)
+    assert int(ctl[ti.RUN]) == 1 and int(lst[0]) == rows, "the timed passes did not all run"
+    ctl[ti.RUN] = 0
+    idle = cuda_ms(lambda: timed(ti.turbo_iter_cuda, 0), 20)
+    bound_ms, bound_by = iter_bound(rows, k)
+    return dict(K=k, B=rows, mismatched_bits=bad, max_abs_err=0.0, ms=ms, flushed_ms=flushed,
+                idle_ms=idle, plain_ms=plain, bound_ms=bound_ms, bound_by=bound_by,
+                share=bound_ms / ms)
+
+
+@contextlib.contextmanager
+def decode_log(store, label):
+    """Keeps the arguments of the first turbo_decode call on the card of each
+    (K, rows, llr_bits) made inside the block, cloned, in store[(label, K,
+    rows, llr_bits)] as a dict of turbo_decode's parameters."""
+    import inspect
+
+    from srslte_emane_tpu_torch.ops.fec import turbodecoder
+
+    decode = turbodecoder.turbo_decode
+    sig = inspect.signature(decode)
+
+    def logged(*a, **kw):
+        bound_args = sig.bind(*a, **kw)
+        bound_args.apply_defaults()
+        args = bound_args.arguments
+        key = (label, args["k"], args["d0"].shape[0], args["llr_bits"])
+        # on the card only (not the phases' comparisons on the CPU), with rows
+        if key not in store and args["d0"].is_cuda and args["d0"].shape[0]:
+            store[key] = {n: (v.clone() if hasattr(v, "clone") else v) for n, v in args.items()}
+        return decode(*a, **kw)
+
+    turbodecoder.turbo_decode = logged
+    try:
+        yield store
+    finally:
+        turbodecoder.turbo_decode = decode
+
+
+def sweep_decodes(dev, store):
+    """The sweep's cell (scripts/snr_sweep.py: the bench cell at each SNR,
+    one default_rng(0) stream for the payloads, noise from a generator
+    seeded 1) at 8-12 dB: each SNR's turbo_decode calls into `store`, and
+    its (rx, cfg) for the rates."""
+    import dataclasses
+
+    import torch
+
+    from srslte_emane_tpu_torch import bench
+    from srslte_emane_tpu_torch.models import pdsch_link
+    from srslte_emane_tpu_torch.ops import channel
+
+    rng = np.random.default_rng(0)
+    cells = {}
+    for snr in LOOP_SWEEP_SNRS_DB:
+        cfg = dataclasses.replace(bench.bench_config(16), snr_db=snr)
+        payload = torch.from_numpy(rng.integers(0, 2, (BATCH, cfg.tbs), dtype=np.int8)).to(dev)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(1)
+        rx = channel.awgn(gen, pdsch_link.tx_subframe(payload, cfg), snr)
+        with decode_log(store, f"sweep {snr:g} dB"):
+            pdsch_link.rx_subframe(rx, cfg)
+        cells[snr] = (rx, cfg)
+    return cells
+
+
+def count_syncs(fn):
+    """Calls fn under torch.cuda.set_sync_debug_mode("warn") and returns
+    (its result, the synchronising operations it made)."""
+    import warnings
+
+    import torch
+
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return out, sum("synchroniz" in str(w.message) for w in seen)
+
+
+def device_profile(fn, what):
+    """(device kernels launched, their device ms, {kernel name: launches})
+    of one call of fn, from torch.profiler; fails if two sessions in turn
+    record no device kernel (the profiler has been seen to record none in a
+    long process)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        ev = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
+              and e.self_device_time_total > 0]
+        if ev:
+            names = collections.Counter()
+            for e in ev:
+                names[e.key[:40]] += e.count
+            return (sum(e.count for e in ev), sum(e.self_device_time_total for e in ev) / 1e3,
+                    dict(names))
+        log(f"{what}: the profiler recorded no device kernel; once more")
+    raise AssertionError(f"{what}: the profiler recorded no device kernel twice")
+
+
+def loop_case(label, args, flush):
+    """One path's turbo_decode call, by both loops: the device loop under
+    set_sync_debug_mode("error") and the host loop (turbo_decode_host, the
+    pre-device-loop driver) give the same bits, CRC flags, n_iter and MAP
+    rows; per decode each loop's host syncs, kernel launches and device ms
+    (torch.profiler) and host-clock ms (synchronised, in turns)."""
+    import torch
+
+    from srslte_emane_tpu_torch.ops.fec import turbodecoder
+
+    kw = dict(args)
+    host = lambda: turbodecoder.turbo_decode_host(**kw)
+    new = lambda: turbodecoder.turbo_decode(**kw)
+    turbodecoder.turbo_decode_device(**kw)  # the tables onto the card
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        bits, ok, n_iter, rows = turbodecoder.turbo_decode_device(**kw)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    turbodecoder.map_rows = 0
+    (h_bits, h_ok, h_iter), h_syncs = count_syncs(host)
+    h_rows = turbodecoder.map_rows
+    (_, _, d_iter), d_syncs = count_syncs(new)
+    assert torch.equal(bits, h_bits) and torch.equal(ok, h_ok), f"{label}: the loops disagree"
+    assert int(n_iter) == h_iter == d_iter and int(rows) == h_rows, \
+        f"{label}: n_iter {int(n_iter)} / {h_iter}, MAP rows {int(rows)} / {h_rows}"
+    assert d_syncs == 1, f"{label}: turbo_decode made {d_syncs} synchronising reads"
+    what = f"{label} {kw['d0'].shape[0]} x K={kw['k']}"
+    h_kernels, h_dev, h_names = device_profile(host, what + ", host loop")
+    d_kernels, d_dev, d_names = device_profile(new, what + ", device loop")
+    h_ms, d_ms = [], []
+    for which in (host, new, new, host) * 3:
+        (h_ms if which is host else d_ms).append(host_ms(which, 1))
+    B = kw["d0"].shape[0]
+    return dict(path=label, K=kw["k"], B=B, llr_bits=kw["llr_bits"], n_iter=h_iter,
+                passes=h_rows / B, crc_pass=int(ok.sum()), equal=True,
+                host_loop=dict(syncs=h_syncs, kernels=h_kernels, device_ms=h_dev,
+                               ms=statistics.median(h_ms), by_kernel=h_names),
+                device_loop=dict(syncs=d_syncs, kernels=d_kernels, device_ms=d_dev,
+                                 ms=statistics.median(d_ms), by_kernel=d_names))
+
+
+@contextlib.contextmanager
+def host_loop():
+    """turbodecoder.turbo_decode replaced by turbo_decode_host inside the
+    block, for the paths' rates with the pre-device-loop driver."""
+    from srslte_emane_tpu_torch.ops.fec import turbodecoder
+
+    decode = turbodecoder.turbo_decode
+    turbodecoder.turbo_decode = turbodecoder.turbo_decode_host
+    try:
+        yield
+    finally:
+        turbodecoder.turbo_decode = decode
+
+
+def phase_device_loop(dev, card, store):
+    """Phase 18.  Returns the turbo_iter cases at the paths' shapes."""
+    import torch
+
+    from srslte_emane_tpu_torch import bench
+    from srslte_emane_tpu_torch.models import pdsch_link
+    from srslte_emane_tpu_torch.ops.fec import turbo_iter_cuda as ti, turbodecoder
+
+    t0 = time.perf_counter()
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
+    cells = sweep_decodes(dev, store)
+    labels = {key[0] for key in store}
+    assert set(LOOP_PATHS.values()) <= labels, labels
+    cases = []
+    for key in sorted(store, key=lambda key: (key[0], -key[2], key[1])):
+        c = loop_case(key[0], store[key], flush)
+        log(f"decode loop {json.dumps(c)}; {card}")
+        cases.append(c)
+    n = len(cases)
+    for loop in ("host_loop", "device_loop"):
+        log(f"decode loop, {loop}: per decode of the {n} path calls above, host syncs "
+            f"{sum(c[loop]['syncs'] for c in cases) / n:.2f}, kernel launches "
+            f"{sum(c[loop]['kernels'] for c in cases) / n:.1f}, device ms "
+            f"{sum(c[loop]['device_ms'] for c in cases) / n:.3f}, host-clock ms "
+            f"{sum(c[loop]['ms'] for c in cases) / n:.3f}; {card}")
+
+    # the graph: one capture of the device loop on the bench cell's widest
+    # call, replayed, bit-equal to the host loop
+    kw = dict(store[max((k for k in store if k[0] == LOOP_PATHS[4]), key=lambda k: k[2])])
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        turbodecoder.turbo_decode_device(**kw)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        g_out = turbodecoder.turbo_decode_device(**kw)
+    ref = turbodecoder.turbo_decode_host(**kw)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(g_out[0], ref[0]) and torch.equal(g_out[1], ref[1]), "graph replay"
+        assert int(g_out[2]) == ref[2], "graph replay: n_iter"
+    log(f"decode loop as a CUDA graph: {kw['d0'].shape[0]} x K={kw['k']} captured once, "
+        f"replayed twice, bits, flags and n_iter equal to the host loop; replay "
+        f"{cuda_ms(graph.replay, 10):.3f} ms against {cuda_ms(lambda: turbodecoder.turbo_decode_device(**kw), 10):.3f} ms "
+        f"enqueued by the host (CUDA events)")
+
+    # the number of record's cell and the sweep's waterfall: rates with each
+    # loop, in turns
+    from srslte_emane_tpu_torch.ops import channel
+
+    cfg = bench.bench_config(16)
+    payload = torch.from_numpy(
+        np.random.default_rng(0).integers(0, 2, (BATCH, cfg.tbs), dtype=np.int8)).to(dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    rx = channel.awgn(gen, pdsch_link.tx_subframe(payload, cfg), cfg.snr_db)
+    for label, (rx_, cfg_), right in (
+            ("bench cell 20 dB", (rx, cfg), lambda ok: bool(ok.all())),
+            *((f"sweep {snr:g} dB", cells[snr], lambda ok: True) for snr in LOOP_SWEEP_SNRS_DB)):
+        decode = lambda: pdsch_link.rx_subframe(rx_, cfg_)[1]
+        res = {}
+        for loop in ("host_loop", "device_loop", "device_loop", "host_loop"):
+            with (host_loop() if loop == "host_loop" else contextlib.nullcontext()):
+                r = rate(decode, check=right, iters=ITERS if label.startswith("bench") else 3)
+                dms = cuda_ms(decode, 5)
+            res.setdefault(loop, []).append((r[0], dms))
+        with host_loop():
+            bler = 1.0 - float(decode().float().mean())
+        log(f"{label}: decode sf/s host loop {[round(x[0], 1) for x in res['host_loop']]}, "
+            f"device loop {[round(x[0], 1) for x in res['device_loop']]}; device_ms (CUDA "
+            f"events per decode) {[round(x[1], 3) for x in res['host_loop']]} / "
+            f"{[round(x[1], 3) for x in res['device_loop']]}; BLER {bler:.4f}; {card}")
+
+    # the epilogue kernel at the paths' shapes
+    shapes = sorted({(key[1], key[2]) for key in store}, key=lambda s: -s[1])
+    iter_cases = []
+    for k, rows in shapes:
+        c = iter_case(k, rows, dev, flush)
+        log(f"turbo_iter kernel vs plain {json.dumps(c)}; {card}")
+        iter_cases.append(c)
+    log(f"phase 18: {time.perf_counter() - t0:.1f} s; {len(cases)} decodes equal under both "
+        f"loops, turbo_iter bit for bit at {len(iter_cases)} shapes")
+    return iter_cases
 
 
 def main():
@@ -3488,13 +3902,14 @@ def main():
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
 
-    from srslte_emane_tpu_torch.ops.fec import turbodecoder_cuda as tdc, viterbi_cuda
+    from srslte_emane_tpu_torch.ops.fec import (turbo_iter_cuda as ti, turbodecoder_cuda as tdc,
+                                                viterbi_cuda)
 
     t0 = time.perf_counter()
-    sources = (tdc.SOURCE, tdc.SOURCE_V1, viterbi_cuda.SOURCE)
+    sources = (tdc.SOURCE, tdc.SOURCE_V1, viterbi_cuda.SOURCE, ti.SOURCE)
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source
         builds = list(pool.map(tdc.build, sources))
-    log(f"build: {time.perf_counter() - t0:.1f} s wall for all three")
+    log(f"build: {time.perf_counter() - t0:.1f} s wall for all four")
     for b in builds:
         log(f"build: {b.seconds:.1f} s -> {b.path}")
         for line in b.log.splitlines():
@@ -3503,11 +3918,15 @@ def main():
 
     t_run = time.perf_counter()
     cases = phase_kernel(dev)
-    # the main paths, every call of the Viterbi counted and its shape kept
-    viterbi_cuda.launches = 0
+    # the main paths, every call of the Viterbi counted and its shape kept,
+    # every launch of the decoder's epilogue counted, the first turbo_decode
+    # call of each shape on phases 4, 8 and 9 kept for phase 18
+    viterbi_cuda.launches = ti.launches = ti.arm_launches = 0
+    decodes = {}
     with ViterbiLog(dev) as vlog:
         vlog.phase = 4
-        dl_launches = phase_main_path(dev)
+        with decode_log(decodes, LOOP_PATHS[4]):
+            dl_launches = phase_main_path(dev)
         vlog.phase = 5
         v1_cases, v1_launches = phase_v1(dev)
         vlog.phase = 6
@@ -3515,9 +3934,11 @@ def main():
         vlog.phase = 7
         phase_cascade(dev)
         vlog.phase = 8
-        sf_launches = phase_dl_subframe(dev, card)
+        with decode_log(decodes, LOOP_PATHS[8]):
+            sf_launches = phase_dl_subframe(dev, card)
         vlog.phase = 9
-        mimo_cases, tm3_launches = phase_mimo(dev, card)
+        with decode_log(decodes, LOOP_PATHS[9]):
+            mimo_cases, tm3_launches = phase_mimo(dev, card)
         vlog.phase = 10
         sync_cases, sync_launches = phase_sync(dev, card)
         vlog.phase = 11
@@ -3538,6 +3959,10 @@ def main():
         vlog.phase = 16
         c16_cases, c16_v1_cases, c16_launches, c16_v1_launches = phase_slice17(dev, card, known)
     vit_launches = viterbi_cuda.launches
+    iter_launches, arm_launches = ti.launches, ti.arm_launches
+    log(f"turbo_iter: {iter_launches} epilogue and {arm_launches} arm launches in phases 4-16 "
+        f"in this process")
+    assert iter_launches > 0 and arm_launches > 0, "the main paths did not launch turbo_iter"
     by_phase = collections.Counter()
     for (phase, *_), n in vlog.seen.items():
         by_phase[phase] += n
@@ -3548,10 +3973,12 @@ def main():
     assert all(by_phase[p] > 0 for p in (8, 10, 11, 12, 13, 14, 15, 16)), by_phase
     assert all(sub[label] > 0 for label in VIT_PROCESSES), sub
     vit_cases = phase_viterbi(dev, card, vlog)
+    iter_cases = phase_device_loop(dev, card, decodes)
     sf_vit = max((c for c in vit_cases if 8 in c.get("calls_by_phase", {})),
                  key=lambda c: c["rows"])  # phase 8's blind search
     log(f"chip_smoke: {time.perf_counter() - t_run:.1f} s after the build")
     bench = next(c for c in cases if (c["K"], c["B"], c["narrow"]) == (5504, 768, True))
+    bench_iter = next(c for c in iter_cases if (c["K"], c["B"]) == (5504, 768))
     odd = next(c for c in v1_cases if (c["K"], c["B"]) == (1040, 768))
     print(json.dumps({"kernels": [{
         "name": "turbo_map",
@@ -3565,6 +3992,10 @@ def main():
         "max_abs_err": max(c["max_abs_err"] for c in cases + mimo_cases + sync_cases
                            + block_cases + net_cases + c13_cases + c14_cases + c15_cases
                            + c16_cases),
+        # LLRs that differ from the plain version's: 0 is bit for bit
+        "mismatched_bits": sum(c.get("mismatched", 0) for c in cases + mimo_cases + sync_cases
+                               + block_cases + net_cases + c13_cases + c14_cases + c15_cases
+                               + c16_cases),
         "ms": bench["ms"],
         "wrapper_ms": bench["wrapper_ms"],
         "plain_ms": bench["plain_ms"],
@@ -3579,6 +4010,7 @@ def main():
         "replaces": "srslte_emane_tpu/ops/fec/turbodecoder_pallas.py:53",
         "launches": v1_launches + c16_v1_launches,  # the odd-window path, profile_turbo
         "max_abs_err": max(c["max_abs_err"] for c in v1_cases + c16_v1_cases),
+        "mismatched_bits": sum(c["mismatched"] for c in v1_cases + c16_v1_cases),
         "ms": odd["ms"],
         "wrapper_ms": odd["wrapper_ms"],
         "plain_ms": odd["plain_ms"],
@@ -3603,6 +4035,24 @@ def main():
         "rows": sf_vit["rows"],
         "K": sf_vit["K"],
         "library_ms": None,  # no PyTorch call computes a Viterbi decode
+    }, {
+        "name": "turbo_iter",
+        "route": "cuda",
+        "source": "srslte_emane_tpu_torch/csrc/turbo_iter.cu",
+        "replaces": "srslte_emane_tpu/ops/fec/turbodecoder.py:421",
+        "launches": iter_launches,  # phases 4-16, this process; arm launches apart
+        "arm_launches": arm_launches,
+        "max_abs_err": max(c["max_abs_err"] for c in iter_cases),
+        "mismatched_bits": sum(c["mismatched_bits"] for c in iter_cases),
+        "ms": bench_iter["ms"],
+        "idle_ms": bench_iter["idle_ms"],
+        "plain_ms": bench_iter["plain_ms"],
+        "bound_ms": bench_iter["bound_ms"],
+        "bound_by": bench_iter["bound_by"],
+        "share": bench_iter["share"],
+        "rows": bench_iter["B"],
+        "K": bench_iter["K"],
+        "library_ms": None,  # no single PyTorch call computes this epilogue
     }]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -146,7 +146,8 @@ def main():
             llr = torch.empty_like(ls)
             out[f"{name}_{'bf16' if narrow else 'f32'}_ms"] = per_launch_ms(
                 lambda: lib.turbo_map_launch(ls.data_ptr(), lp.data_ptr(), beta_k.data_ptr(),
-                                             llr.data_ptr(), B * w, w, L, H, int(narrow), 0, stream))
+                                             llr.data_ptr(), B * w, w, L, H, int(narrow), 0, None, None,
+                                             stream))
 
     src_v1 = tdc.SOURCE_V1.read_text()
     libs = build_copies("turbo_map_v1", {**variants_v1(src_v1), **tuned_v1(src_v1)})
@@ -158,7 +159,8 @@ def main():
             llr = llrs[name] = torch.empty_like(ls)
             ms[name] = per_launch_ms(
                 lambda: lib.turbo_map_v1_launch(ls.data_ptr(), lp.data_ptr(), beta_k.data_ptr(),
-                                                llr.data_ptr(), rows * w, w, L, H, 0, stream))
+                                                llr.data_ptr(), rows * w, w, L, H, 0, None, None,
+                                                stream))
         for name in tuned_v1(src_v1):
             assert torch.equal(llrs[name], llrs["full"]), f"{name}: LLRs differ at L={L}"
         out[f"v1_tuned_{rows}x{k}_L{L}"] = {

@@ -53,6 +53,15 @@
 // The kernel equals its plain version bit for bit (ops/fec/
 // turbodecoder_cuda.py `map_decode_ref`).
 //
+// For the decoder's loop on the device: with a non-null `run`, every block
+// reads *run first and returns at once when it is 0, so the turbo decoder
+// can enqueue a whole budget of half-iterations and let the CRC epilogue
+// (csrc/turbo_iter.cu) stop them without the host; with a non-null `rows`,
+// [n, r_0, ..., r_{n-1}], only the first n rows of the grid compute, row b
+// reading and writing data row r_b (the compaction cascade's stage, its
+// width and rows written by the epilogue).  Null pointers launch as before;
+// neither changes what a computed column does.
+//
 // Budget (K=5504: L=172, H=40, 11 segments): per column 352 B of
 // checkpoints, 256 B of segment rows and 1,012 B of staged pairs in bf16
 // (512 B and 2,024 B in f32).  The default block of 128 threads takes 32
@@ -131,13 +140,20 @@ struct Layout {
 };
 
 // ls, lp: (B, K) f32 as given, K = W * L, n_cols = B * W; beta_tail:
-// (B, 8); llr: (B, K) f32.  blockDim.x = kThreads; cols <= kThreads
-// columns per block.
+// (B, 8); llr: (B, K) f32; run: null, or a flag that is 0 when the pass is
+// not to run; rows: null, or the row list above.  blockDim.x = kThreads;
+// cols <= kThreads columns per block.
 template <typename T, bool LOGMAP>
 __global__ void __launch_bounds__(kThreads)
 map_kernel(const float* __restrict__ ls, const float* __restrict__ lp,
            const float* __restrict__ beta_tail, float* __restrict__ llr,
-           int n_cols, int W, int L, int H, int cols) {
+           int n_cols, int W, int L, int H, int cols, const int* __restrict__ run,
+           const int* __restrict__ rows) {
+  if (run != nullptr && *run == 0) return;
+  if (rows != nullptr) n_cols = rows[0] * W;  // the listed rows' columns only
+  if (static_cast<int>(blockIdx.x) * cols >= n_cols) return;
+  // the data row of batch row b: itself, or the list's b-th entry
+  const auto row = [rows](int b) -> long long { return rows != nullptr ? rows[1 + b] : b; };
   using S = Storage<T>;
   using quad = typename S::quad;
   using pair = typename S::pair;
@@ -158,7 +174,7 @@ map_kernel(const float* __restrict__ ls, const float* __restrict__ lp,
 #pragma unroll
     for (int q = 0; q < kStageCols; ++q) {
       const int cl = m + q * kWarps, c = c0 + cl, k0 = (c % W) * L - H;
-      const long long base = (long long)(c / W) * K;
+      const long long base = cl < n_here ? row(c / W) * K : 0;
 #pragma unroll
       for (int u = 0; u < kChunks; ++u) {
         const int i = 32 * u + lane, k = k0 + i;
@@ -222,7 +238,7 @@ map_kernel(const float* __restrict__ ls, const float* __restrict__ lp,
     }
     if (w == W - 1) {
 #pragma unroll
-      for (int s = 0; s < 8; ++s) beta[s] = beta_tail[(size_t)(c / W) * 8 + s];
+      for (int s = 0; s < 8; ++s) beta[s] = beta_tail[row(c / W) * 8 + s];
     }
     normalise(beta);
 
@@ -298,7 +314,7 @@ map_kernel(const float* __restrict__ ls, const float* __restrict__ lp,
   // ---- the block's LLRs, contiguous in (B, K): coalesced, a warp per column ----
   for (int k = warp; k < n_here; k += kWarps)
     for (int tt = lane; tt < L; tt += 32)
-      llr[(long long)(c0 + k) * L + tt] =
+      llr[row((c0 + k) / W) * K + (long long)((c0 + k) % W) * L + tt] =
           *reinterpret_cast<const float*>(xy + k * lay.stride + H + tt);
 }
 
@@ -323,7 +339,8 @@ int default_cols(int L, int H) {
 
 template <typename T, bool LOGMAP>
 cudaError_t launch(const float* ls, const float* lp, const float* beta_tail, float* llr,
-                   int n_cols, int W, int L, int H, cudaStream_t stream) {
+                   int n_cols, int W, int L, int H, const int* run, const int* rows,
+                   cudaStream_t stream) {
   const int cols = default_cols<T>(L, H);
   const Layout<T> lay(cols, L, H);
   if (lay.bytes > kSmem) return cudaErrorInvalidValue;
@@ -331,7 +348,7 @@ cudaError_t launch(const float* ls, const float* lp, const float* beta_tail, flo
   const cudaError_t err = allow_smem(kernel, lay.bytes);
   if (err != cudaSuccess) return err;
   kernel<<<(n_cols + cols - 1) / cols, kThreads, lay.bytes, stream>>>(
-      ls, lp, beta_tail, llr, n_cols, W, L, H, cols);
+      ls, lp, beta_tail, llr, n_cols, W, L, H, cols, run, rows);
   return cudaGetLastError();
 }
 
@@ -364,10 +381,14 @@ extern "C" int turbo_map_blocks_per_sm(int L, int H, int narrow, int logmap) {
 
 // Plain C entry point, loaded with ctypes.  ls, lp, llr: (B, K) float32
 // with K = W * L and n_cols = B * W; beta_tail: (B, 8) float32.  narrow:
-// bf16 storage (else float32).  Returns the cudaError_t of the launch.
+// bf16 storage (else float32).  run: null, or an int on the card that
+// skips the pass when it is 0; rows: null, or an int list on the card,
+// [n, r_0, ..., r_{n-1}] with n <= B, of the rows to compute.  Returns the
+// cudaError_t of the launch.
 extern "C" int turbo_map_launch(const void* ls, const void* lp, const void* beta_tail,
                                 void* llr, int n_cols, int W, int L, int H, int narrow,
-                                int logmap, void* stream) {
+                                int logmap, const void* run, const void* rows,
+                                void* stream) {
   if (n_cols <= 0 || W <= 0 || L <= 0 || L % 2 || H < 0 || H > L || n_cols % W ||
       L + 2 * H > 32 * kChunks)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -376,13 +397,15 @@ extern "C" int turbo_map_launch(const void* ls, const void* lp, const void* beta
   const auto* y = static_cast<const float*>(lp);
   const auto* bt = static_cast<const float*>(beta_tail);
   auto* out = static_cast<float*>(llr);
+  const auto* r = static_cast<const int*>(run);
+  const auto* rl = static_cast<const int*>(rows);
   using bf16 = __nv_bfloat16;
   cudaError_t err;
   if (narrow)
-    err = logmap ? launch<bf16, true>(x, y, bt, out, n_cols, W, L, H, st)
-                 : launch<bf16, false>(x, y, bt, out, n_cols, W, L, H, st);
+    err = logmap ? launch<bf16, true>(x, y, bt, out, n_cols, W, L, H, r, rl, st)
+                 : launch<bf16, false>(x, y, bt, out, n_cols, W, L, H, r, rl, st);
   else
-    err = logmap ? launch<float, true>(x, y, bt, out, n_cols, W, L, H, st)
-                 : launch<float, false>(x, y, bt, out, n_cols, W, L, H, st);
+    err = logmap ? launch<float, true>(x, y, bt, out, n_cols, W, L, H, r, rl, st)
+                 : launch<float, false>(x, y, bt, out, n_cols, W, L, H, r, rl, st);
   return static_cast<int>(err);
 }

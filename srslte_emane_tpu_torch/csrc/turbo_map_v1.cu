@@ -174,13 +174,21 @@ struct Layout {
 };
 
 // ls, lp: (B, K) f32 as given, K = W * L, n_cols = B * W; beta_tail:
-// (B, 8); llr: (B, K) f32.  blockDim.x = kThreads; cols <= kThreads
-// columns per block.
+// (B, 8); llr: (B, K) f32; run: null, or a flag that is 0 when the pass is
+// not to run; rows: null, or [n, r_0, ..., r_{n-1}], the rows to compute
+// (the turbo decoder's loop on the device, as in turbo_map.cu).
+// blockDim.x = kThreads; cols <= kThreads columns per block.
 template <bool LOGMAP>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
 map_v1_kernel(const float* __restrict__ ls, const float* __restrict__ lp,
               const float* __restrict__ beta_tail, float* __restrict__ llr,
-              int n_cols, int W, int L, int H, int cols) {
+              int n_cols, int W, int L, int H, int cols, const int* __restrict__ run,
+              const int* __restrict__ rows) {
+  if (run != nullptr && *run == 0) return;
+  if (rows != nullptr) n_cols = rows[0] * W;  // the listed rows' columns only
+  if (static_cast<int>(blockIdx.x) * cols >= n_cols) return;
+  // the data row of batch row b: itself, or the list's b-th entry
+  const auto row = [rows](int b) -> long long { return rows != nullptr ? rows[1 + b] : b; };
   extern __shared__ __align__(16) unsigned char smem[];
   const int c0 = blockIdx.x * cols;
   const Layout lay(cols, L, H);
@@ -199,7 +207,7 @@ map_v1_kernel(const float* __restrict__ ls, const float* __restrict__ lp,
 #pragma unroll
       for (int q = 0; q < kStageCols; ++q) {
         const int cl = m + q * kWarps, c = c0 + cl, k0 = (c % W) * L - H;
-        const long long base = (long long)(c / W) * K;
+        const long long base = cl < n_here ? row(c / W) * K : 0;
 #pragma unroll
         for (int u = 0; u < kChunks; ++u) {
           const int i = i0 + 32 * u + lane, k = k0 + i;
@@ -250,7 +258,7 @@ map_v1_kernel(const float* __restrict__ ls, const float* __restrict__ lp,
     }
     if (w == W - 1) {
 #pragma unroll
-      for (int s = 0; s < 8; ++s) beta[s] = beta_tail[(size_t)(c / W) * 8 + s];
+      for (int s = 0; s < 8; ++s) beta[s] = beta_tail[row(c / W) * 8 + s];
       normalise(beta);
     }
 
@@ -319,7 +327,8 @@ map_v1_kernel(const float* __restrict__ ls, const float* __restrict__ lp,
   // ---- the block's LLRs, contiguous in (B, K): coalesced, a warp per column ----
   for (int k = warp; k < n_here; k += kWarps)
     for (int tt = lane; tt < L; tt += 32)
-      llr[(long long)(c0 + k) * L + tt] = xy[k * lay.stride + H + tt].x;
+      llr[row((c0 + k) / W) * K + (long long)((c0 + k) % W) * L + tt] =
+          xy[k * lay.stride + H + tt].x;
 }
 
 // Dynamic shared memory above 48 KB must be allowed per kernel first; the
@@ -351,7 +360,8 @@ bool valid_shape(int n_cols, int W, int L, int H) {
 
 template <bool LOGMAP>
 cudaError_t launch(const float* ls, const float* lp, const float* beta_tail, float* llr,
-                   int n_cols, int W, int L, int H, cudaStream_t stream) {
+                   int n_cols, int W, int L, int H, const int* run, const int* rows,
+                   cudaStream_t stream) {
   const int cols = block_cols(L, H);
   if (cols == 0) return cudaErrorInvalidValue;
   const Layout lay(cols, L, H);
@@ -359,7 +369,7 @@ cudaError_t launch(const float* ls, const float* lp, const float* beta_tail, flo
   const cudaError_t err = allow_smem(kernel, lay.bytes);
   if (err != cudaSuccess) return err;
   kernel<<<(n_cols + cols - 1) / cols, kThreads, lay.bytes, stream>>>(
-      ls, lp, beta_tail, llr, n_cols, W, L, H, cols);
+      ls, lp, beta_tail, llr, n_cols, W, L, H, cols, run, rows);
   return cudaGetLastError();
 }
 
@@ -392,18 +402,22 @@ extern "C" int turbo_map_v1_blocks_per_sm(int L, int H, int logmap) {
 }
 
 // Plain C entry points, loaded with ctypes.  ls, lp, llr: (B, K) float32
-// with K = W * L and n_cols = B * W; beta_tail: (B, 8) float32.  Returns
-// the cudaError_t of the launch; refuses a shape for which turbo_map_v1_cols
+// with K = W * L and n_cols = B * W; beta_tail: (B, 8) float32; run: null,
+// or an int on the card that skips the pass when it is 0; rows: null, or
+// [n, r_0, ..., r_{n-1}] on the card, the rows to compute.  Returns the
+// cudaError_t of the launch; refuses a shape for which turbo_map_v1_cols
 // is 0.
 extern "C" int turbo_map_v1_launch(const void* ls, const void* lp, const void* beta_tail,
                                    void* llr, int n_cols, int W, int L, int H, int logmap,
-                                   void* stream) {
+                                   const void* run, const void* rows, void* stream) {
   if (!valid_shape(n_cols, W, L, H)) return static_cast<int>(cudaErrorInvalidValue);
   const auto st = static_cast<cudaStream_t>(stream);
   const auto* x = static_cast<const float*>(ls);
   const auto* y = static_cast<const float*>(lp);
   const auto* bt = static_cast<const float*>(beta_tail);
   auto* out = static_cast<float*>(llr);
-  return static_cast<int>(logmap ? launch<true>(x, y, bt, out, n_cols, W, L, H, st)
-                                 : launch<false>(x, y, bt, out, n_cols, W, L, H, st));
+  const auto* r = static_cast<const int*>(run);
+  const auto* rl = static_cast<const int*>(rows);
+  return static_cast<int>(logmap ? launch<true>(x, y, bt, out, n_cols, W, L, H, r, rl, st)
+                                 : launch<false>(x, y, bt, out, n_cols, W, L, H, r, rl, st));
 }

@@ -35,7 +35,14 @@
 //    shared memory once, and two ballots pack the step's 64 decisions into
 //    two words (bit l of word j: state 2l+j) kept in shared memory for the
 //    steps the traceback visits (8 * (T - mid) bytes, 1 KB at K=64); lane 0
-//    then runs the traceback from them in the same launch.
+//    then runs the traceback from them in the same launch;
+//  * a second variant for a K whose row does not fit that budget (K above
+//    1,210 at tb_iter 3, four rows to a block; NB-IoT's NPDSCH reaches it
+//    from a TBS of 1,195): the same warp per row, the same ACS and
+//    traceback, but the branch metrics stay in device memory and are read
+//    through L2, and the decision words go to a scratch tensor in device
+//    memory that the wrapper allocates (8 B per row per traceback step).
+//    The wrapper picks the variant by shape (`viterbi_fits`).
 // Bit for bit against the plain loop (ops/fec/viterbi.py
 // `viterbi_decode_ref`) by construction: the only arithmetic is the
 // rounded add of a metric and a branch metric, an exact compare and
@@ -78,19 +85,31 @@ long long block_bytes(int K, int tb_iter) {
   return static_cast<long long>(kWarps) * row_bytes(K, tb_iter);
 }
 
+// kGlobal: the variant for a K beyond the shared-memory budget, with the
+// branch metrics read from device memory and the decision words kept in
+// `scratch` ((R, T - mid) uint2); otherwise both live in shared memory and
+// `scratch` is not read.
+template <bool kGlobal>
 __global__ void __launch_bounds__(kThreads)
-viterbi_kernel(const float* __restrict__ bm, int8_t* __restrict__ bits, int R, int K,
-               int tb_iter) {
+viterbi_kernel(const float* __restrict__ bm, int8_t* __restrict__ bits,
+               uint2* __restrict__ scratch, int R, int K, int tb_iter) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int row = blockIdx.x * kWarps + warp;
   if (row >= R) return;  // a whole warp: no block-wide barrier below
   const int T = tb_iter * K, mid = (tb_iter / 2) * K;
-  float* sbm = reinterpret_cast<float*>(smem + warp * row_bytes(K, tb_iter));
-  uint2* dec = reinterpret_cast<uint2*>(sbm + 8 * K);
-
   const float* src = bm + static_cast<size_t>(row) * 8 * K;
-  for (int i = lane; i < 8 * K; i += 32) sbm[i] = src[i];
+  const float* sbm;
+  uint2* dec;
+  if constexpr (kGlobal) {
+    sbm = src;
+    dec = scratch + static_cast<size_t>(row) * (T - mid);
+  } else {
+    float* stage = reinterpret_cast<float*>(smem + warp * row_bytes(K, tb_iter));
+    for (int i = lane; i < 8 * K; i += 32) stage[i] = src[i];
+    sbm = stage;
+    dec = reinterpret_cast<uint2*>(stage + 8 * K);
+  }
   const int c00 = kPredCombo[2 * lane][0], c01 = kPredCombo[2 * lane][1];
   const int c10 = kPredCombo[2 * lane + 1][0], c11 = kPredCombo[2 * lane + 1][1];
   const int lane_a = lane >> 1, lane_b = 16 + (lane >> 1);  // hold states l, l+32
@@ -142,42 +161,66 @@ viterbi_kernel(const float* __restrict__ bm, int8_t* __restrict__ bits, int R, i
 
 }  // namespace
 
+// 1 if either variant takes this K and tb_iter: the global-memory variant
+// takes every K up to 65,536 (NB-IoT's largest TBS, 2,536 bits, gives
+// K = 2,552).
+extern "C" int viterbi_global_fits(int K, int tb_iter) {
+  return K > 0 && K <= (1 << 16) && tb_iter > 0 && tb_iter <= (1 << 10);
+}
+
 // 1 if a block's shared memory holds kWarps rows of this K and tb_iter.
 extern "C" int viterbi_fits(int K, int tb_iter) {
-  return K > 0 && K <= (1 << 16) && tb_iter > 0 && tb_iter <= (1 << 10) &&
-         block_bytes(K, tb_iter) <= kMaxSmem;
+  return viterbi_global_fits(K, tb_iter) && block_bytes(K, tb_iter) <= kMaxSmem;
 }
 
 // Thread blocks of the kernel that one SM holds at once for this K and
-// tb_iter (the card's occupancy calculator), or -1 on an error.
+// tb_iter (the card's occupancy calculator; the variant viterbi_launch
+// takes), or -1 on an error.
 extern "C" int viterbi_blocks_per_sm(int K, int tb_iter) {
-  if (!viterbi_fits(K, tb_iter)) return -1;
-  const int bytes = static_cast<int>(block_bytes(K, tb_iter));
+  if (!viterbi_global_fits(K, tb_iter)) return -1;
   int n = 0;
-  if (cudaFuncSetAttribute(viterbi_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  if (!viterbi_fits(K, tb_iter))
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, viterbi_kernel<true>, kThreads, 0) ==
+                   cudaSuccess
+               ? n
+               : -1;
+  const int bytes = static_cast<int>(block_bytes(K, tb_iter));
+  if (cudaFuncSetAttribute(viterbi_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            bytes > 48 * 1024 ? bytes : 48 * 1024) != cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, viterbi_kernel, kThreads, bytes) !=
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, viterbi_kernel<false>, kThreads, bytes) !=
           cudaSuccess)
     return -1;
   return n;
 }
 
 // Plain C entry point, loaded with ctypes.  bm: (R, K, 8) float32
-// contiguous on the card; bits: (R, K) int8.  Returns the cudaError_t of
-// the launch: cudaErrorInvalidValue for a shape that viterbi_fits refuses,
-// and cudaSuccess without a launch for R = 0.
-extern "C" int viterbi_launch(const void* bm, void* bits, int R, int K, int tb_iter,
-                              void* stream) {
-  if (R < 0 || !viterbi_fits(K, tb_iter)) return static_cast<int>(cudaErrorInvalidValue);
+// contiguous on the card; bits: (R, K) int8; scratch: for a shape that
+// viterbi_fits refuses, (R, (tb_iter - tb_iter / 2) * K) pairs of uint32
+// (the decision words), else unused and may be null.  Returns the
+// cudaError_t of the launch: cudaErrorInvalidValue for a shape that
+// viterbi_global_fits refuses or a missing scratch, and cudaSuccess without
+// a launch for R = 0.
+extern "C" int viterbi_launch(const void* bm, void* bits, void* scratch, int R, int K,
+                              int tb_iter, void* stream) {
+  if (R < 0 || !viterbi_global_fits(K, tb_iter)) return static_cast<int>(cudaErrorInvalidValue);
+  const bool shared = viterbi_fits(K, tb_iter);
+  if (!shared && scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   if (R == 0) return static_cast<int>(cudaSuccess);
+  const int blocks = (R + kWarps - 1) / kWarps;
+  const auto st = static_cast<cudaStream_t>(stream);
+  const auto* x = static_cast<const float*>(bm);
+  auto* out = static_cast<int8_t*>(bits);
+  if (!shared) {
+    viterbi_kernel<true><<<blocks, kThreads, 0, st>>>(x, out, static_cast<uint2*>(scratch), R,
+                                                      K, tb_iter);
+    return static_cast<int>(cudaGetLastError());
+  }
   const int bytes = static_cast<int>(block_bytes(K, tb_iter));
   if (bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        viterbi_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+        viterbi_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  const int blocks = (R + kWarps - 1) / kWarps;
-  viterbi_kernel<<<blocks, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(bm), static_cast<int8_t*>(bits), R, K, tb_iter);
+  viterbi_kernel<false><<<blocks, kThreads, bytes, st>>>(x, out, nullptr, R, K, tb_iter);
   return static_cast<int>(cudaGetLastError());
 }

@@ -43,6 +43,30 @@ def _device_matrix(poly: int, order: int, length: int, device: torch.device):
         _remainder_matrix(poly, order, length).astype(np.float32)).to(device)
 
 
+@functools.lru_cache(maxsize=32)
+def remainder_masks(poly: int, order: int, length: int, device: torch.device) -> torch.Tensor:
+    """The rows of `_remainder_matrix` packed MSB-first into int32 words,
+    (length,) on `device` (copied there once): the CRC of a length-bit
+    message is the XOR of the words of its set bits (`crc_remainder`), as
+    the turbo decoder's epilogue kernel computes it."""
+    rows = _remainder_matrix(poly, order, length).astype(np.int64)
+    words = rows @ (1 << np.arange(order - 1, -1, -1, dtype=np.int64))
+    return torch.from_numpy(words.astype(np.int32)).to(device)
+
+
+def crc_remainder(bits: torch.Tensor, masks: torch.Tensor) -> torch.Tensor:
+    """(..., L) 0/1 bits -> (...,) int32: the XOR of `masks` (L,) over the
+    set bits, i.e. the packed CRC remainder; 0 iff the CRC passes."""
+    x = torch.where(bits != 0, masks, 0)
+    n = x.shape[-1]
+    while n > 1:  # a tree of halvings; an odd length keeps its last word
+        half = n // 2
+        folded = x[..., :half] ^ x[..., half:2 * half]
+        x = torch.cat([folded, x[..., 2 * half:]], dim=-1) if n % 2 else folded
+        n = x.shape[-1]
+    return x[..., 0] if n else torch.zeros(x.shape[:-1], dtype=torch.int32, device=x.device)
+
+
 def crc_bits(bits: torch.Tensor, crc=LTE_CRC24A) -> torch.Tensor:
     """CRC of batched bit messages: (..., L) 0/1 -> (..., order) int8 bits,
     MSB-first (`srslte_crc_attach` bit order)."""

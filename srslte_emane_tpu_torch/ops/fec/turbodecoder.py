@@ -11,18 +11,22 @@ tensors, `_map_decode` for CPU tensors.
 
 `turbo_decode` keeps the reference's semantics: a CRC check after every
 half-iteration (one MAP pass), a block's bits freeze when its CRC first
-passes, n_iter = (h + 1) // 2.  The reference keeps its stop test on the
-device (lax.while_loop); here the test is a host sync after each
-half-iteration.  It also keeps the reference's batch-compaction cascade
-(`SRSLTE_TPU_CASCADE`, on unless "0"): once at most B/2 code blocks are
-unfinished, the stragglers are gathered into a B/2 batch and then a B/4
-one, so finished blocks stop costing MAP work.  Each row's MAP is
-independent of the others and the half-iteration counter carries across
-the stages, so the cascade changes the cost and never the results.  On an
-H100 it halves the MAP rows of a straggler batch yet costs time (0.5-2.2
-ms more per decode of 128 x K=5504, `PERF.md`): each stage adds a gather,
-a scatter and a host sync, which cost more than the narrower MAP passes
-save.
+passes, n_iter = (h + 1) // 2.  It also keeps the reference's
+batch-compaction cascade (`SRSLTE_TPU_CASCADE`, on unless "0"): once at
+most B/2 code blocks are unfinished, the stragglers are gathered into a
+B/2 batch and then a B/4 one, so finished blocks stop costing MAP work.
+Each row's MAP is independent of the others and the half-iteration counter
+carries across the stages, so the cascade changes the cost and never the
+results.
+
+The reference keeps its stop test on the device (lax.while_loop, lax.cond);
+so does the port on the card.  `turbo_decode_device` enqueues the loop's
+whole budget of predicated MAP passes and epilogues (`turbo_iter_cuda`,
+`csrc/turbo_iter.cu`: the CRC, the freeze, the stop test, the cascade's
+stage and the flag that the next launches read) and never reads;
+`turbo_decode` is that plus one read at the end.  `turbo_decode_host`, the
+loop with a host sync before every half-iteration that the port ran
+before, stays as the plain version of that control flow.
 
 LLR convention: positive LLR <=> bit 0 (bipolar sign s_b = 1 - 2b).
 """
@@ -47,7 +51,8 @@ LOGMAP = os.environ.get("SRSLTE_TPU_LOGMAP", "0") != "0"
 EXT_SCALE = 0.75  # extrinsic damping (kept in both modes)
 
 # Code-block rows that MAP passes have processed (a plain count of the
-# batch rows of every pass; callers reset it): what the cascade saves.
+# batch rows of every pass that ran, added after turbo_decode's read;
+# callers reset it): what the cascade saves.
 map_rows = 0
 
 
@@ -233,9 +238,104 @@ def quantize_llr_int16(llr, scale: float = 256.0):
 
 @functools.lru_cache(maxsize=16)
 def _device_perms(k: int, device: torch.device):
+    """The QPP interleaver of size k and its inverse on `device` (copied
+    there once), int64 for indexing and int32 for the epilogue kernel."""
     perm = turbo.qpp_interleaver(k)
-    return (torch.from_numpy(perm).to(device),
-            torch.from_numpy(np.argsort(perm)).to(device))
+    inv = np.argsort(perm)
+    return (torch.from_numpy(perm).to(device), torch.from_numpy(inv).to(device),
+            torch.from_numpy(perm.astype(np.int32)).to(device),
+            torch.from_numpy(inv.astype(np.int32)).to(device))
+
+
+def _split(d0, d1, d2, k: int, llr_bits: int):
+    """The decoder's inputs: quantised per llr_bits, then ls, lp1, lp2
+    (B, K) and the tails (B, 3) of both encoders (36.212 5.1.3.2.2, see
+    turbo.turbo_encode)."""
+    if llr_bits == 8:
+        d0, d1, d2 = (quantize_llr_int8(d) for d in (d0, d1, d2))
+    elif llr_bits == 16:
+        d0, d1, d2 = (quantize_llr_int16(d) for d in (d0, d1, d2))
+    ls = d0[:, :k]
+    lp1 = d1[:, :k].contiguous()
+    lp2 = d2[:, :k].contiguous()
+    tail_x1 = torch.stack([d0[:, k], d2[:, k], d1[:, k + 1]], dim=-1)
+    tail_z1 = torch.stack([d1[:, k], d0[:, k + 1], d2[:, k + 1]], dim=-1)
+    tail_x2 = torch.stack([d0[:, k + 2], d2[:, k + 2], d1[:, k + 3]], dim=-1)
+    tail_z2 = torch.stack([d1[:, k + 2], d0[:, k + 3], d2[:, k + 3]], dim=-1)
+    return ls, lp1, lp2, (tail_x1, tail_z1, tail_x2, tail_z2)
+
+
+def turbo_decode_device(d0: torch.Tensor, d1: torch.Tensor, d2: torch.Tensor,
+                        valid: torch.Tensor, k: int, max_iter: int = 8,
+                        crc: tuple = crc_mod.LTE_CRC24B, use_kernel: bool | None = None,
+                        llr_bits: int = 32):
+    """`turbo_decode` without its one read: the loop runs on the tensors'
+    device, and on the card the host only enqueues.
+
+    One loop of 2 * max_iter slots, each a MAP pass of the constituent of
+    parity slot % 2 and its epilogue (`turbo_iter_cuda`), run while the
+    loop's flag is set; since h starts at 0 and the flag never sets again
+    once it clears, slot s runs pass h = s or nothing.  The cascade is a
+    state beside the flag: the passes compute the rows of a row list, the
+    whole batch, then (when at most B/2 rows are unfinished) the first B/2
+    of argsort(done) and then the first B/4, entered at the narrowest stage
+    that fits as the reference's `lax.cond`s do; the batch's state is never
+    gathered or scattered.  On the card (use_kernel, CUDA tensors) one
+    call, `turbo_iter_cuda.decode_cuda`, enqueues the whole loop from C,
+    and the MAP kernels and the epilogue read the flag and the list
+    themselves: no host sync.  Otherwise (the CPU, or use_kernel=False on
+    the card) the host reads the flag before each slot and stops when it
+    clears; the MAP is the plain `_map_decode` for use_kernel=False and
+    `turbodecoder_cuda.map_decode`'s plain version for use_kernel on the
+    CPU, over the listed rows, and the epilogue `turbo_iter_ref`.
+
+    Returns (bits (B, K) int8, crc_pass (B,) bool, n_iter 0-d int32,
+    map_rows 0-d int32: the MAP rows of the passes that ran), all on the
+    decode's device.
+    """
+    from . import turbo_iter_cuda as ti
+
+    B = d0.shape[0]
+    dev = d0.device
+    perm, _, perm32, inv32 = _device_perms(k, dev)
+    ls, lp1, lp2, (tx1, tz1, tx2, tz2) = _split(d0, d1, d2, k, llr_bits)
+    ls = ls.contiguous()
+    ls2 = ls[:, perm]
+    ls_in = ls + torch.zeros_like(ls)  # ls + ext with ext = 0, as the reference's first pass
+    tails = (torch.cat([tx1, tz1], dim=1), torch.cat([tx2, tz2], dim=1))  # x, z of each encoder
+    masks = None if crc is None else crc_mod.remainder_masks(*crc, k, dev)
+    cascade_on = os.environ.get("SRSLTE_TPU_CASCADE", "1") != "0"
+    n_stages = 1 if crc is None or B < 8 or not cascade_on else 3
+    done, pass_out = ~valid, torch.zeros((B,), dtype=torch.bool, device=dev)
+    bits_out = torch.zeros((B, k), dtype=torch.int8, device=dev)
+    ctl, rows = ti.new_state(B, dev)
+    if use_kernel is None:
+        use_kernel = dev.type == "cuda"
+    if use_kernel and dev.type == "cuda" and B:
+        # beta_K of each constituent, once per decode
+        bk1, bk2 = (beta_tail(t[:, :3], t[:, 3:]).contiguous() for t in tails)
+        ti.decode_cuda(lp1, lp2, bk1, bk2, torch.empty_like(ls), ls_in, ls, ls2, perm32, inv32,
+                       masks, bits_out, done, pass_out, ctl, rows, max_iter, n_stages,
+                       llr_bits <= 16)
+    else:
+        if use_kernel:
+            from . import turbodecoder_cuda
+
+            plain_map = functools.partial(turbodecoder_cuda.map_decode, narrow=llr_bits <= 16)
+        else:
+            plain_map = _map_decode
+        post = torch.zeros_like(ls)
+        ti.arm_ref(done, ctl, rows, max_iter, n_stages)
+        for slot in range(2 * max_iter):
+            if not int(ctl[ti.RUN]):
+                break
+            par = slot % 2
+            idx = rows[1:1 + int(rows[0])].long()
+            t = tails[par][idx]
+            post[idx] = plain_map(ls_in[idx], (lp1, lp2)[par][idx], t[:, :3], t[:, 3:])
+            ti.turbo_iter_ref(post, ls_in, ls, ls2, perm32, inv32, masks, bits_out, done,
+                              pass_out, ctl, rows, par, max_iter, n_stages)
+    return bits_out, pass_out & valid, (ctl[ti.H] + 1) // 2, ctl[ti.ROWS]
 
 
 def turbo_decode(d0: torch.Tensor, d1: torch.Tensor, d2: torch.Tensor,
@@ -248,27 +348,35 @@ def turbo_decode(d0: torch.Tensor, d1: torch.Tensor, d2: torch.Tensor,
     valid: (B,) bool — rows actually present (padding rows decode but are
            ignored and treated as done from the start).
     crc: polynomial for the per-CB early stop, or None to run all iterations.
-    use_kernel: run each MAP pass through turbodecoder_cuda.map_decode
-           (llr_bits <= 16 selects its bf16-storage mode); False runs the
-           plain `_map_decode`; None (default) means "the LLRs lie on a
-           CUDA device".
+    use_kernel: run each MAP pass through the kernels of turbodecoder_cuda
+           (llr_bits <= 16 selects its bf16-storage mode) and the epilogue
+           of turbo_iter_cuda; False runs the plain `_map_decode`; None
+           (default) means "the LLRs lie on a CUDA device".
     Returns (bits (B, K) int8 hard decisions, crc_pass (B,) bool, n_iter int).
+
+    `turbo_decode_device` and one read at the end, of n_iter and of the
+    MAP rows, which join `map_rows`.
     """
-    if llr_bits == 8:
-        d0, d1, d2 = (quantize_llr_int8(d) for d in (d0, d1, d2))
-    elif llr_bits == 16:
-        d0, d1, d2 = (quantize_llr_int16(d) for d in (d0, d1, d2))
+    global map_rows
+    bits, ok, n_iter, rows = turbo_decode_device(d0, d1, d2, valid, k, max_iter, crc,
+                                                 use_kernel, llr_bits)
+    n_iter, rows = torch.stack([n_iter, rows]).tolist()
+    map_rows += rows
+    return bits, ok, n_iter
+
+
+def turbo_decode_host(d0: torch.Tensor, d1: torch.Tensor, d2: torch.Tensor,
+                      valid: torch.Tensor, k: int, max_iter: int = 8,
+                      crc: tuple = crc_mod.LTE_CRC24B, use_kernel: bool | None = None,
+                      llr_bits: int = 32):
+    """The host-driven loop the port ran before its loop moved to the card
+    (one read of the unfinished rows before every half-iteration, two more
+    in the cascade), kept as the plain version of `turbo_decode`'s control
+    flow: the card's tests and chip_smoke.py hold the device loop to it.
+    Same arguments and results as `turbo_decode`."""
     B = d0.shape[0]
-    perm, inv_perm = _device_perms(k, d0.device)
-    ls = d0[:, :k]
-    lp1 = d1[:, :k].contiguous()
-    lp2 = d2[:, :k].contiguous()
-    ls2 = ls[:, perm]
-    # tail arrangement (36.212 5.1.3.2.2, see turbo.turbo_encode):
-    tail_x1 = torch.stack([d0[:, k], d2[:, k], d1[:, k + 1]], dim=-1)
-    tail_z1 = torch.stack([d1[:, k], d0[:, k + 1], d2[:, k + 1]], dim=-1)
-    tail_x2 = torch.stack([d0[:, k + 2], d2[:, k + 2], d1[:, k + 3]], dim=-1)
-    tail_z2 = torch.stack([d1[:, k + 2], d0[:, k + 3], d2[:, k + 3]], dim=-1)
+    ls, lp1, lp2, (tail_x1, tail_z1, tail_x2, tail_z2) = _split(d0, d1, d2, k, llr_bits)
+    perm, inv_perm, _, _ = _device_perms(k, d0.device)
 
     if use_kernel is None:
         use_kernel = d0.device.type == "cuda"

@@ -66,19 +66,26 @@ launches_v1 = 0
 # argument types of each library's C entry points (all return an int)
 _ENTRY_POINTS = {
     "turbo_map": {
-        "turbo_map_launch": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+        "turbo_map_launch": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 3,
         "turbo_map_blocks_per_sm": [ctypes.c_int] * 4,
         "turbo_map_cols": [ctypes.c_int] * 3,
     },
     "turbo_map_v1": {
-        "turbo_map_v1_launch": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+        "turbo_map_v1_launch": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 3,
         "turbo_map_v1_blocks_per_sm": [ctypes.c_int] * 3,
         "turbo_map_v1_cols": [ctypes.c_int] * 2,
     },
     "viterbi": {  # ops/fec/viterbi_cuda.py's kernel
-        "viterbi_launch": [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+        "viterbi_launch": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
         "viterbi_fits": [ctypes.c_int] * 2,
+        "viterbi_global_fits": [ctypes.c_int] * 2,
         "viterbi_blocks_per_sm": [ctypes.c_int] * 2,
+    },
+    "turbo_iter": {  # ops/fec/turbo_iter_cuda.py's kernels
+        "turbo_iter_launch": [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+        "turbo_iter_decode": ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 5
+                              + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4
+                              + [ctypes.c_void_p]),
     },
 }
 
@@ -200,12 +207,39 @@ def _require(name: str, t: torch.Tensor, device: torch.device, dtypes: tuple, sh
         raise ValueError(f"{name} must be contiguous")
 
 
+def _check_select(run: torch.Tensor | None, rows: torch.Tensor | None, B: int,
+                  dev: torch.device) -> tuple[int | None, int | None]:
+    """The device addresses of a pass's flag and row list (None: every row
+    runs), checked."""
+    if run is not None:
+        _require("run", run, dev, (torch.int32,), tuple(run.shape))
+        if run.numel() != 1:
+            raise ValueError(f"run must hold one flag, not {run.numel()}")
+    if rows is not None:
+        _require("rows", rows, dev, (torch.int32,), (B + 1,))
+    return (None if run is None else run.data_ptr(), None if rows is None else rows.data_ptr())
+
+
+def _output(out: torch.Tensor | None, like: torch.Tensor) -> torch.Tensor:
+    """The posterior's tensor: `out` when given (checked), else a new one."""
+    if out is None:
+        return torch.empty_like(like)
+    _require("out", out, like.device, (torch.float32,), tuple(like.shape))
+    return out
+
+
 def launch(ls: torch.Tensor, lp: torch.Tensor, beta_k: torch.Tensor, n_windows: int,
-           narrow: bool) -> torch.Tensor:
+           narrow: bool, run: torch.Tensor | None = None, rows: torch.Tensor | None = None,
+           out: torch.Tensor | None = None) -> torch.Tensor:
     """The kernel alone, on PyTorch's current stream.  ls/lp: (B, K)
     float32 LLRs as the decoder holds them; beta_k: (B, 8) float32 exact
-    beta_K (`beta_tail`); all contiguous on one CUDA device.  Returns the
-    posterior LLRs (B, K) float32."""
+    beta_K (`beta_tail`); all contiguous on one CUDA device.  For the turbo
+    decoder's loop on the device: run, None or a one-element int32 flag on
+    the card, when it holds 0 the launch returns at once and writes
+    nothing; rows, None or (B + 1,) int32 [n, r_0, ...] on the card, only
+    the n listed rows are computed (the others of the output are not
+    written).  out: the (B, K) float32 tensor to write, else a new one.
+    Returns the posterior LLRs (B, K) float32."""
     global launches
     B, K = ls.shape
     L, H = _windows(K, n_windows)
@@ -213,10 +247,11 @@ def launch(ls: torch.Tensor, lp: torch.Tensor, beta_k: torch.Tensor, n_windows: 
     _require("ls", ls, dev, (torch.float32,), (B, K))
     _require("lp", lp, dev, (torch.float32,), (B, K))
     _require("beta_k", beta_k, dev, (torch.float32,), (B, 8))
-    llr = torch.empty((B, K), dtype=torch.float32, device=dev)
+    run_ptr, rows_ptr = _check_select(run, rows, B, dev)
+    llr = _output(out, ls)
     err = build(SOURCE).lib.turbo_map_launch(
         ls.data_ptr(), lp.data_ptr(), beta_k.data_ptr(), llr.data_ptr(), B * n_windows,
-        n_windows, L, H, int(narrow), int(LOGMAP),
+        n_windows, L, H, int(narrow), int(LOGMAP), run_ptr, rows_ptr,
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"turbo_map kernel launch failed: cudaError_t {err}")
@@ -381,11 +416,13 @@ def _v1_inputs(ls: torch.Tensor, lp: torch.Tensor, tail_x: torch.Tensor,
 
 
 def launch_v1(ls: torch.Tensor, lp: torch.Tensor, beta_k: torch.Tensor,
-              n_windows: int) -> torch.Tensor:
+              n_windows: int, run: torch.Tensor | None = None,
+              rows: torch.Tensor | None = None, out: torch.Tensor | None = None) -> torch.Tensor:
     """The v1 kernel alone, on PyTorch's current stream.  ls/lp: (B, K)
     float32 LLRs as the decoder holds them; beta_k: (B, 8) float32 exact
-    beta_K (`beta_tail`); all contiguous on one CUDA device.  Returns the
-    posterior LLRs (B, K) float32 and allocates nothing else.
+    beta_K (`beta_tail`); all contiguous on one CUDA device; run, rows and
+    out as for `launch`.  Returns the posterior LLRs (B, K) float32 and allocates
+    nothing else.
 
     One kernel takes every window length that fits a block's shared memory
     (L up to about 19,000, three times the largest code block): as many
@@ -398,13 +435,15 @@ def launch_v1(ls: torch.Tensor, lp: torch.Tensor, beta_k: torch.Tensor,
     _require("ls", ls, dev, (torch.float32,), (B, K))
     _require("lp", lp, dev, (torch.float32,), (B, K))
     _require("beta_k", beta_k, dev, (torch.float32,), (B, 8))
+    run_ptr, rows_ptr = _check_select(run, rows, B, dev)
     lib = build(SOURCE_V1).lib
     if lib.turbo_map_v1_cols(L, H) == 0:
         raise ValueError(f"window length {L} does not fit the kernel's shared memory")
-    llr = torch.empty_like(ls)
+    llr = _output(out, ls)
     err = lib.turbo_map_v1_launch(
         ls.data_ptr(), lp.data_ptr(), beta_k.data_ptr(), llr.data_ptr(), B * n_windows,
-        n_windows, L, H, int(LOGMAP), torch.cuda.current_stream(dev).cuda_stream)
+        n_windows, L, H, int(LOGMAP), run_ptr, rows_ptr,
+        torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"turbo_map_v1 kernel launch failed: cudaError_t {err}")
     launches_v1 += 1
@@ -456,3 +495,22 @@ def map_decode(ls: torch.Tensor, lp: torch.Tensor, tail_x: torch.Tensor,
     if cpu:
         return map_decode_ref(ls, lp, tail_x, tail_z, n_windows, narrow)
     return map_decode_cuda(ls, lp, tail_x, tail_z, n_windows, narrow)
+
+
+
+def map_entry(K: int, narrow: bool):
+    """What the decoder's loop on the card hands `turbo_iter_cuda.decode_cuda`
+    for its MAP launches, with W = _pick_windows(K) as `map_decode` routes:
+    (address of the library's C entry point, v1, W, L, H, narrow), the v1
+    kernel (float32) for an odd window length, else turbo_map.  Raises as
+    `launch` / `launch_v1` do for a shape the kernel does not take."""
+    n_windows = _pick_windows(K)
+    if (K // n_windows) % 2:
+        L, H = _windows_v1(K, n_windows)
+        lib = build(SOURCE_V1).lib
+        if lib.turbo_map_v1_cols(L, H) == 0:
+            raise ValueError(f"window length {L} does not fit the kernel's shared memory")
+        return ctypes.cast(lib.turbo_map_v1_launch, ctypes.c_void_p).value, True, n_windows, L, H, False
+    L, H = _windows(K, n_windows)
+    entry = build(SOURCE).lib.turbo_map_launch
+    return ctypes.cast(entry, ctypes.c_void_p).value, False, n_windows, L, H, narrow

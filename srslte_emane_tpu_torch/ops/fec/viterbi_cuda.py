@@ -6,7 +6,10 @@ compiled program of two `lax.scan`s): the branch metrics in torch, by the
 plain version's own call (`viterbi.branch_metrics`), so that the kernel
 reads the same bits on the card; then one launch of `csrc/viterbi.cu`,
 which runs the add-compare-select over every trellis step and the
-traceback for every row.
+traceback for every row.  The launch takes one of the kernel's two
+variants by shape: the rows' branch metrics and decisions in shared memory
+where a block holds them (`viterbi_fits`: K up to 1,210 at tb_iter 3),
+else in device memory, the decisions in a scratch tensor allocated here.
 
 The kernel library is built by `turbodecoder_cuda.build` with nvcc at first
 use, into build/viterbi-<hash of sources and flags>/, and reused after.
@@ -36,9 +39,11 @@ def _stream(dev: torch.device) -> int:
 def launch(bm: torch.Tensor, tb_iter: int = TB_ITER) -> torch.Tensor:
     """The kernel alone, on PyTorch's current stream.  bm: (R, K, 8)
     float32 branch metrics, contiguous on a CUDA device.  Returns the (R, K)
-    int8 bits; for R = 0 an empty tensor, with no launch.  ValueError for
-    what the kernel does not take: another device, shape or layout,
-    tb_iter < 1, or a K whose decisions do not fit a block's shared memory;
+    int8 bits; for R = 0 an empty tensor, with no launch.  A K whose row
+    does not fit a block's shared memory takes the variant that keeps its
+    decisions in a scratch tensor of R * (tb_iter - tb_iter // 2) * K * 8
+    bytes.  ValueError for what neither variant takes: another device,
+    shape or layout, tb_iter < 1 or above 1,024, or K above 65,536;
     TypeError for another type (`turbodecoder_cuda._require`'s checks)."""
     global launches
     turbodecoder_cuda._require("bm", bm, bm.device, (torch.float32,), (*bm.shape[:2], 8))
@@ -46,12 +51,16 @@ def launch(bm: torch.Tensor, tb_iter: int = TB_ITER) -> torch.Tensor:
     if tb_iter < 1:
         raise ValueError(f"tb_iter must be at least 1, not {tb_iter}")
     lib = _lib()
-    if not lib.viterbi_fits(K, tb_iter):
-        raise ValueError(f"K={K} with tb_iter={tb_iter} does not fit the kernel's shared memory")
+    if not lib.viterbi_global_fits(K, tb_iter):
+        raise ValueError(f"K={K} with tb_iter={tb_iter} is beyond both variants of the kernel")
     bits = torch.empty((R, K), dtype=torch.int8, device=bm.device)
     if R == 0:
         return bits
-    err = lib.viterbi_launch(bm.data_ptr(), bits.data_ptr(), R, K, tb_iter, _stream(bm.device))
+    scratch = None if lib.viterbi_fits(K, tb_iter) else torch.empty(
+        (R, (tb_iter - tb_iter // 2) * K, 2), dtype=torch.int32, device=bm.device)
+    err = lib.viterbi_launch(bm.data_ptr(), bits.data_ptr(),
+                             None if scratch is None else scratch.data_ptr(), R, K, tb_iter,
+                             _stream(bm.device))
     if err != 0:
         raise RuntimeError(f"viterbi kernel launch failed: cudaError_t {err}")
     launches += 1
@@ -67,7 +76,8 @@ def viterbi_decode_cuda(llrs: torch.Tensor, tb_iter: int = TB_ITER) -> torch.Ten
 
 
 def occupancy(K: int, tb_iter: int = TB_ITER) -> int:
-    """Blocks (of 4 rows) per SM of the kernel on the current card."""
+    """Blocks (of 4 rows) per SM of the kernel, in the variant this shape
+    takes, on the current card."""
     n = _lib().viterbi_blocks_per_sm(K, tb_iter)
     if n < 0:
         raise RuntimeError(f"occupancy query failed for K={K}, tb_iter={tb_iter}")

@@ -46,15 +46,19 @@ TM3_RNTI = 0x46
 
 @contextlib.contextmanager
 def plain_map():
-    """The MAP kernel's wrapper replaced by its plain version (the same
-    function, bit for bit, on the same device)."""
-    from ..ops.fec import turbodecoder_cuda as tdc
+    """The turbo decoder with the MAP kernel's plain version in its place
+    (the same function, bit for bit, on the same device): the host-driven
+    loop (`turbodecoder.turbo_decode_host`), whose passes go through the
+    kernel's wrapper, with that wrapper replaced by `map_decode_ref`."""
+    from ..ops.fec import turbodecoder, turbodecoder_cuda as tdc
 
-    kernel, tdc.map_decode_cuda = tdc.map_decode_cuda, tdc.map_decode_ref
+    saved = turbodecoder.turbo_decode, tdc.map_decode_cuda
+    turbodecoder.turbo_decode, tdc.map_decode_cuda = (turbodecoder.turbo_decode_host,
+                                                      tdc.map_decode_ref)
     try:
         yield
     finally:
-        tdc.map_decode_cuda = kernel
+        turbodecoder.turbo_decode, tdc.map_decode_cuda = saved
 
 
 def main(argv=None) -> int:

@@ -3,9 +3,8 @@
 Twin of the JAX repository's `scripts/snr_sweep.py`: the bench cell of
 `srslte_emane_tpu_torch.bench` (100 PRB, 64QAM, rate 0.55, llr_bits=16)
 at each SNR in turn.  At waterfall SNRs the turbo decoder runs up to its
-full iteration budget (one host sync per half-iteration) and its
-compaction cascade launches the MAP kernel on the straggler rows, so the
-rate falls with the iteration count.  One default_rng(0) stream draws each
+full iteration budget and its compaction cascade runs the MAP kernel on
+the straggler rows, so the rate falls with the iteration count.  One default_rng(0) stream draws each
 SNR's payload in order; the noise comes from a torch.Generator seeded 1 at
 each SNR.  The first call at each SNR is untimed; then `iters` calls on the
 host clock, bracketed by synchronises.
@@ -14,8 +13,9 @@ Usage: python -m srslte_emane_tpu_torch.scripts.snr_sweep [batch] [iters] [snrs.
 
 Prints one JSON line per SNR, {snr_db, bler, sf_per_s, goodput_mbps} and
 the MAP kernel's launches per decode call, "turbo_map_launches" (0 on the
-CPU, which runs the kernel's plain version), then {"snr_sweep": rows} with
-"backend" and "device".
+CPU, which runs the kernel's plain version; on the card the decoder's loop
+enqueues a fixed budget of predicated launches, 2 * max_iter per phase,
+whatever the SNR), then {"snr_sweep": rows} with "backend" and "device".
 """
 
 from __future__ import annotations

@@ -201,7 +201,7 @@ def test_v1_wrapper_rejects_what_the_kernel_does_not_take(dev):
     lib = turbodecoder_cuda.build(turbodecoder_cuda.SOURCE_V1).lib
     assert lib.turbo_map_v1_cols(30000, 40) == 0
     assert lib.turbo_map_v1_launch(long.data_ptr(), long.data_ptr(), beta_k.data_ptr(),
-                                   long.data_ptr(), 1, 1, 30000, 40, 0,
+                                   long.data_ptr(), 1, 1, 30000, 40, 0, None, None,
                                    torch.cuda.current_stream(dev).cuda_stream) != 0
     assert turbodecoder_cuda.launches_v1 == before  # a refused launch is not counted
 
@@ -286,7 +286,8 @@ def test_logmap_v1_kernel_matches_plain(dev, monkeypatch):
 
 def test_turbo_decode_at_an_odd_window_launches_v1_once_per_pass(dev, monkeypatch):
     """turbo_decode with the window count patched to give L=33 makes one v1
-    launch for each MAP pass (half-iteration) and none of the radix-2
+    launch for each slot of the loop's budget (2 * max_iter predicated
+    passes; the passes that ran are map_rows / B) and none of the radix-2
     kernel, and decodes every code block."""
     from srslte_emane_tpu_torch.ops.fec import crc
 
@@ -305,9 +306,9 @@ def test_turbo_decode_at_an_odd_window_launches_v1_once_per_pass(dev, monkeypatc
     out, ok, n_iter = turbodecoder.turbo_decode(d0, d1, d2, valid, k, 8, crc.LTE_CRC24B)
     torch.cuda.synchronize()
     passes = turbodecoder.map_rows // B
-    assert passes >= 1 and n_iter == (passes + 1) // 2
+    assert 1 <= passes < 16 and n_iter == (passes + 1) // 2
     assert (turbodecoder_cuda.launches, turbodecoder_cuda.launches_v1) == (before[0],
-                                                                          before[1] + passes)
+                                                                          before[1] + 16)
     assert bool(ok.all()) and torch.equal(out, bits)
 
 
@@ -1109,8 +1110,8 @@ def test_viterbi_wrapper_rejects_what_the_kernel_does_not_take(dev):
         viterbi_cuda.launch(bm.double())
     with pytest.raises(ValueError, match="contiguous"):
         viterbi_cuda.launch(torch.zeros((3, 8, 44), device=dev).transpose(1, 2))
-    with pytest.raises(ValueError, match="shared memory"):
-        viterbi_cuda.launch(torch.zeros((3, 4000, 8), device=dev))
+    with pytest.raises(ValueError, match="beyond both variants"):
+        viterbi_cuda.launch(torch.zeros((3, 70000, 8), device=dev))
     with pytest.raises(ValueError, match="CUDA"):
         viterbi_cuda.launch(bm.cpu())
     with pytest.raises(ValueError, match="tb_iter"):
@@ -1136,3 +1137,188 @@ def test_control_decoders_reach_the_viterbi_kernel(dev):
     finally:
         viterbi.viterbi_decode_ref = ref
     assert viterbi_cuda.launches == before + 2
+
+
+@pytest.mark.parametrize("k", [1211, 4000])
+def test_viterbi_beyond_shared_memory_equals_plain(dev, k):
+    """A K whose decisions do not fit a block's shared memory takes the
+    global-memory variant: one launch, bit for bit against the plain loop,
+    on threshold LLRs with an all-zero row, at 1, 5 and 9 rows."""
+    from srslte_emane_tpu_torch.ops.fec import viterbi, viterbi_cuda
+
+    smoke = _chip_smoke()
+    for rows in (1, 5, 9):
+        x = smoke.viterbi_inputs(rows, k, dev, rows + k)
+        before = viterbi_cuda.launches
+        got = viterbi.viterbi_decode(x)
+        torch.cuda.synchronize()
+        assert viterbi_cuda.launches == before + 1
+        assert torch.equal(got, viterbi.viterbi_decode_ref(x)), rows
+    assert viterbi_cuda.occupancy(k) > 0
+
+
+def test_npdsch_at_the_largest_tbs_on_the_card(dev, monkeypatch):
+    """NB-IoT's largest TBS, 2,536 bits (K = 2,552 with its CRC16) over 32
+    subframes at 12 dB: decoded on the card through the kernel, bit for bit
+    as with the plain loop on the same LLRs, and right."""
+    from srslte_emane_tpu_torch.ops.fec import viterbi, viterbi_cuda
+    from srslte_emane_tpu_torch.phch import nbiot
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    tb = torch.from_numpy(np.random.default_rng(2).integers(0, 2, (4, 2536), dtype=np.int8)).to(dev)
+    rx = channel.awgn(gen, nbiot.npdsch_encode(tb, 32, 5, 0x51), 12.0)
+    before = viterbi_cuda.launches
+    bits, ok = nbiot.npdsch_decode(rx, 2536, 5, 0x51)
+    assert viterbi_cuda.launches == before + 1
+    monkeypatch.setattr(viterbi, "viterbi_decode", viterbi.viterbi_decode_ref)
+    bits_ref, ok_ref = nbiot.npdsch_decode(rx, 2536, 5, 0x51)
+    assert torch.equal(bits, bits_ref) and torch.equal(ok, ok_ref)
+    assert bool(ok.all()) and torch.equal(bits, tb)
+
+
+# ---------------- the turbo decoder's loop on the card (csrc/turbo_iter.cu) ----------------
+
+@pytest.mark.parametrize("parity", [0, 1])
+@pytest.mark.parametrize("k,B", [(40, 5), (5504, 768), (4480, 128), (6144, 3)])
+def test_turbo_iter_equals_plain(dev, k, B, parity):
+    """The epilogue kernel against turbo_iter_ref, every output, the control
+    words and the row list bit for bit, with the flag set (one launch, h
+    advanced) and clear (nothing changes), on every row and on a third of
+    them."""
+    from srslte_emane_tpu_torch.ops.fec import turbo_iter_cuda as ti
+
+    smoke = _chip_smoke()
+    for flag in (1, 0):
+        for listed in (None, list(range(0, B, 3))):
+            a = smoke.iter_inputs(k, B, parity, dev, k + B + parity)
+            b = {n: v.clone() for n, v in a.items()}
+            untouched = {n: v.clone() for n, v in a.items()}
+            (ca, ra), (cb, rb) = (smoke.iter_control(B, dev, 6 + parity, flag, listed)
+                                  for _ in range(2))
+            before = ti.launches
+            smoke.epilogue(ti.turbo_iter_cuda, a, ca, ra, parity)
+            torch.cuda.synchronize()
+            assert ti.launches == before + 1
+            smoke.epilogue(ti.turbo_iter_ref, b, cb, rb, parity)
+            for n in a:
+                assert torch.equal(a[n], b[n]), (n, flag)
+                if not flag:
+                    assert torch.equal(a[n], untouched[n]), n
+            assert torch.equal(ca, cb), (ca.tolist(), cb.tolist())
+            assert torch.equal(ra, rb)
+            assert ca[ti.H].item() == 6 + parity + flag
+
+
+def test_predicated_map_kernels_equal_unpredicated(dev):
+    """A set flag gives the unpredicated launch's LLRs bit for bit, a clear
+    one writes nothing; a row list computes the listed rows bit for bit as
+    the whole batch does and writes no other; both kernels, both storage
+    modes."""
+    run = torch.ones(1, dtype=torch.int32, device=dev)
+    stop = torch.zeros(1, dtype=torch.int32, device=dev)
+    for k, B, narrow in ((5504, 64, True), (4480, 32, False)):
+        ls, lp, tx, tz = _random_inputs(k, B, dev)
+        bk = turbodecoder.beta_tail(tx, tz).contiguous()
+        w = turbodecoder._pick_windows(k)
+        listed = torch.tensor([B - 1, 0, B // 2, 5], dtype=torch.int32)
+        rows = torch.cat([torch.tensor([4], dtype=torch.int32), listed,
+                          torch.zeros(B - 4, dtype=torch.int32)]).to(dev)
+        others = torch.ones(B, dtype=torch.bool)
+        others[listed.long()] = False
+        for kernel, extra in ((turbodecoder_cuda.launch, (narrow,)), (turbodecoder_cuda.launch_v1, ())):
+            ref = kernel(ls, lp, bk, w, *extra)
+            assert torch.equal(kernel(ls, lp, bk, w, *extra, run=run), ref)
+            out = torch.full_like(ls, 7.0)
+            kernel(ls, lp, bk, w, *extra, run=stop, out=out)
+            part = torch.full_like(ls, 7.0)
+            kernel(ls, lp, bk, w, *extra, run=run, rows=rows, out=part)
+            torch.cuda.synchronize()
+            assert bool((out == 7.0).all())
+            assert torch.equal(part[listed.long()], ref[listed.long()])
+            assert bool((part[others.to(dev)] == 7.0).all())
+
+
+def _decode_cases(dev):
+    """(llr_bits, args) of turbo_decode: 768 x K=5504 bf16 at high SNR, the
+    same with every fourth row at low SNR (the cascade), 128 x K=4480 f32,
+    and 16 x K=40 (no cascade)."""
+    from srslte_emane_tpu_torch.ops.fec import crc
+
+    smoke = _chip_smoke()
+    out = []
+    for k, B, low, bits in ((5504, 768, False, 16), (5504, 768, True, 16), (4480, 128, False, 32),
+                            (40, 6, True, 32)):
+        scale = torch.where((torch.arange(B, device=dev) % 4 == 0) & low, 0.45, 1.2)[:, None]
+        _, d0, d1, d2 = smoke.code_block_llrs(k, B, dev, k + B, scale)
+        valid = torch.ones(B, dtype=torch.bool, device=dev)
+        out.append((bits, (d0, d1, d2, valid, k, 8, crc.LTE_CRC24B)))
+    return out
+
+
+def test_device_loop_equals_the_host_loop(dev):
+    """turbo_decode (the loop on the card, one read) against
+    turbo_decode_host (a read before every pass): bits, CRC flags, n_iter
+    and the MAP rows, with the cascade on and off."""
+    import os
+
+    for bits, args in _decode_cases(dev):
+        for cascade in ("1", "0"):
+            os.environ["SRSLTE_TPU_CASCADE"] = cascade
+            try:
+                turbodecoder.map_rows = 0
+                new = turbodecoder.turbo_decode(*args, llr_bits=bits)
+                rows = turbodecoder.map_rows
+                old = turbodecoder.turbo_decode_host(*args, llr_bits=bits)
+            finally:
+                os.environ.pop("SRSLTE_TPU_CASCADE")
+            assert torch.equal(new[0], old[0]) and torch.equal(new[1], old[1])
+            assert new[2] == old[2] and turbodecoder.map_rows == 2 * rows
+
+
+def test_device_loop_makes_no_host_sync(dev):
+    """turbo_decode_device runs under torch.cuda.set_sync_debug_mode("error")
+    (after a warm-up that copies the tables to the card); turbo_decode adds
+    exactly one synchronising read."""
+    import warnings
+
+    for bits, args in _decode_cases(dev):
+        turbodecoder.turbo_decode_device(*args, llr_bits=bits)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = turbodecoder.turbo_decode_device(*args, llr_bits=bits)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        ref = turbodecoder.turbo_decode_host(*args, llr_bits=bits)
+        assert torch.equal(out[0], ref[0]) and int(out[2]) == ref[2]
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                turbodecoder.turbo_decode(*args, llr_bits=bits)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        assert len([w for w in seen if "synchroniz" in str(w.message)]) == 1
+
+
+def test_device_loop_replays_as_a_cuda_graph(dev):
+    """turbo_decode_device captured once under torch.cuda.graph and
+    replayed twice: bit-equal to the host loop each time (the launch
+    sequence no longer depends on the data)."""
+    bits, args = _decode_cases(dev)[1]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        turbodecoder.turbo_decode_device(*args, llr_bits=bits)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = turbodecoder.turbo_decode_device(*args, llr_bits=bits)
+    ref = turbodecoder.turbo_decode_host(*args, llr_bits=bits)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out[0], ref[0]) and torch.equal(out[1], ref[1])
+        assert int(out[2]) == ref[2] == 8
+

@@ -67,6 +67,17 @@ def test_viterbi_equals_jax(K, tb_iter):
     assert (got.numpy()[2:] != sent[2:]).any(), "no decoding error: not at the threshold"
 
 
+def test_a_k_beyond_shared_memory_equals_jax():
+    """K = 1,211, the first K (at tb_iter 3) whose row does not fit the
+    kernel's shared-memory variant: the plain loop, which the card's tests
+    hold the global-memory variant to, equals the JAX decoder."""
+    x, sent = _llrs(1211, 1211)
+    x = x[:3]
+    got = p_vit.viterbi_decode(torch.from_numpy(x))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(j_vit.viterbi_decode(x)))
+    np.testing.assert_array_equal(got.numpy()[1], sent[1])
+
+
 @pytest.mark.parametrize("K", (40, 64))
 def test_one_row_equals_jax(K):
     x, _ = _llrs(K, K)
@@ -171,16 +182,23 @@ def test_import_loads_no_kernel_library():
 
 class StubLib:
     """Stands in for the nvcc-built library: refuses K above `max_k` as
-    viterbi_fits does above the shared-memory limit, records launches."""
+    viterbi_fits does above the shared-memory limit, and K above `max_global`
+    as viterbi_global_fits does beyond both variants; records launches and
+    whether each had a decisions scratch."""
 
-    def __init__(self, max_k=100, err=0):
-        self.max_k, self.err, self.calls = max_k, err, []
+    def __init__(self, max_k=100, max_global=1000, err=0):
+        self.max_k, self.max_global, self.err, self.calls, self.scratch = (
+            max_k, max_global, err, [], [])
 
     def viterbi_fits(self, K, tb_iter):
         return int(0 < K <= self.max_k and tb_iter > 0)
 
-    def viterbi_launch(self, bm, bits, R, K, tb_iter, stream):
+    def viterbi_global_fits(self, K, tb_iter):
+        return int(0 < K <= self.max_global and tb_iter > 0)
+
+    def viterbi_launch(self, bm, bits, scratch, R, K, tb_iter, stream):
         self.calls.append((R, K, tb_iter))
+        self.scratch.append(scratch is not None)
         return self.err
 
 
@@ -198,7 +216,26 @@ def test_launch_reaches_the_library_once(stub):
     before = viterbi_cuda.launches
     bits = viterbi_cuda.launch(torch.zeros((5, 44, 8)), 3)
     assert stub.calls == [(5, 44, 3)] and viterbi_cuda.launches == before + 1
+    assert stub.scratch == [False]  # the shared-memory variant needs none
     assert bits.dtype == torch.int8 and tuple(bits.shape) == (5, 44)
+
+
+@pytest.mark.parametrize("tb_iter", [1, 3, 5])
+def test_a_k_beyond_shared_memory_takes_the_global_variant(stub, monkeypatch, tb_iter):
+    """Above viterbi_fits' limit the wrapper allocates the decisions
+    scratch, (R, (tb_iter - tb_iter // 2) * K) pairs of int32, and launches
+    once: a route by shape, not a fallback to the plain loop."""
+    shapes = []
+    empty = torch.empty
+    monkeypatch.setattr(torch, "empty", lambda shape, **kw: shapes.append(
+        (tuple(shape), kw.get("dtype"))) or empty(shape, **kw))
+    monkeypatch.setattr(p_vit, "viterbi_decode_ref",
+                        lambda *a, **kw: pytest.fail("the plain loop was asked for"))
+    before = viterbi_cuda.launches
+    bits = viterbi_cuda.launch(torch.zeros((3, 101, 8)), tb_iter)
+    assert stub.calls == [(3, 101, tb_iter)] and stub.scratch == [True]
+    assert viterbi_cuda.launches == before + 1 and tuple(bits.shape) == (3, 101)
+    assert ((3, (tb_iter - tb_iter // 2) * 101, 2), torch.int32) in shapes
 
 
 def test_decode_passes_the_branch_metrics(stub, monkeypatch):
@@ -221,8 +258,8 @@ def test_no_launch_for_no_rows(stub):
 
 def test_launch_rejects_what_the_kernel_does_not_take(stub):
     bm = torch.zeros((3, 44, 8))
-    with pytest.raises(ValueError, match="shared memory"):
-        viterbi_cuda.launch(torch.zeros((3, 101, 8)))  # above the library's K limit
+    with pytest.raises(ValueError, match="beyond both variants"):
+        viterbi_cuda.launch(torch.zeros((3, 1001, 8)))  # above the library's K limit
     with pytest.raises(TypeError, match="float32"):
         viterbi_cuda.launch(bm.double())
     with pytest.raises(ValueError, match="contiguous"):
