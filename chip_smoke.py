@@ -102,11 +102,16 @@ Phases (any failure raises; the exit code is then non-zero):
      ports (every codeword); the dynamic block of
      scripts/bench_waveblock_dyn.py (100 PRB, cfi 2, 8 feasible RNTIs, DL 11
      PRB MCS 25, UL 10 PRB MCS 20, 30 dB, R=20) through
-     runtime/waveblock_dyn.make_dyn_block_step: every CRC and ACK, no DCI
-     miss, the decoded RIVs followed, the TBs delivered in queue order; the
-     first two rounds against the CPU; TTIs/s, its profile and the time by
-     stage of a round (the Viterbi's share); then turbo_map against its
-     plain version at the blocks' shapes, with its launches per block;
+     runtime/waveblock_dyn.make_dyn_block_step, by default one round
+     captured as a CUDA graph and replayed R times: every CRC and ACK, no
+     DCI miss, the decoded RIVs followed, the TBs delivered in queue order,
+     equal bit for bit to the eager block (jit=False), whose noise is
+     recorded for the first two rounds against the CPU; the graph's
+     turbo_map launches and their log from its second call, equal to the
+     eager block's; TTIs/s and the profile of the graph (its kernels' runs
+     equal to their launch counts), the time by stage of a round of the
+     eager block (the Viterbi's share); then turbo_map against its plain
+     version at the blocks' shapes, with its launches per block;
  12. the waveform-native network: apps/netsim.py:run_waveform_full's
      network (runtime/wavenet.WaveformNetwork at 100 PRB, cfi 3, 8 UEs,
      80 dB, seed 0, on the card by default) attaches in 10-TTI slabs (all
@@ -225,7 +230,22 @@ Phases (any failure raises; the exit code is then non-zero):
      each loop, in turns; then turbo_iter against turbo_iter_ref, bit for
      bit, at every (rows, K) of those calls, with its time per working
      pass warm and L2-flushed, an idle pass, the plain version's, the bound
-     and share.
+     and share;
+ 19. the dynamic block as a replayed CUDA graph (make_dyn_block_step's
+     jit=True, the card's default): phase 11's block (R=20), the HARQ block
+     (its cell with UE 7 at -6 dB: retransmissions, drops and DCI misses)
+     and the block across 2 cells, each against the eager block (jit=False)
+     on equal generators: every output, counter and consumed pointer bit
+     for bit, the generators left equal, the kernels' launch counts
+     (replays included) equal and non-zero; two successive blocks on one
+     generator against two eager blocks; a whole call under
+     torch.cuda.set_sync_debug_mode("error"); then, graph and eager in
+     turns at phase 11's block: the first call's time and memory, TTIs/s,
+     CUDA-event and host ms per block, host launches (at most R + 64 for
+     the graph), busy share and device ms from a profile, in which each of
+     turbo_map, turbo_iter, its arm and the Viterbi ran on the card as many
+     times as its launch count says (replays included), peak memory; and
+     the other two blocks' cell-TTIs/s both ways.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -235,6 +255,7 @@ import concurrent.futures
 import contextlib
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -832,44 +853,95 @@ def loop_map_launches(a):
     return k, rows, bool(a[18]), bool((k // w) % 2), w, 2 * a[16]
 
 
+# What the logs' wrappers logged while a stream was capturing a CUDA graph,
+# not yet handed to the graph (count_replays_in_logs)
+CAPTURED = []
+
+
+def log_update(update):
+    """Makes `update` (a function that adds one call to a log of this
+    script) now, or, while a stream is capturing a CUDA graph (which
+    launches nothing), keeps it for the graph's replays."""
+    import torch
+
+    if torch.cuda.is_current_stream_capturing():
+        CAPTURED.append(update)
+    else:
+        update()
+
+
+def count_replays_in_logs():
+    """Makes runtime/graphs.RoundGraph count a captured round's replays in
+    this script's logs, as it counts them in the kernels' own counts: the
+    updates kept during a capture go with its graph, and each run(n) makes
+    them n times.  For the rest of the process."""
+    from srslte_emane_tpu_torch.runtime import graphs
+
+    init, run = graphs.RoundGraph.__init__, graphs.RoundGraph.run
+
+    def captured(self, *a, **kw):
+        CAPTURED.clear()
+        init(self, *a, **kw)
+        self.log_updates = CAPTURED[:]
+        CAPTURED.clear()
+
+    def replayed(self, n, gens):
+        run(self, n, gens)
+        for _ in range(n):
+            for update in self.log_updates:
+                update()
+
+    graphs.RoundGraph.__init__, graphs.RoundGraph.run = captured, replayed
+
+
 @contextlib.contextmanager
 def launch_log():
     """Yields a list that gets (K, rows, narrow) of every turbo_map launch
     made inside the block, those that the decoder's loop enqueues from C
-    (turbo_iter_cuda.decode_cuda) included."""
+    (turbo_iter_cuda.decode_cuda) included, and those of a captured round's
+    replays (count_replays_in_logs)."""
     from srslte_emane_tpu_torch.ops.fec import turbo_iter_cuda as ti, turbodecoder_cuda as tdc
 
-    seen, launch, decode = [], tdc.launch, ti.decode_cuda
+    seen, live, launch, decode = [], [True], tdc.launch, ti.decode_cuda
+
+    def add(entries):
+        log_update(lambda: live[0] and seen.extend(entries))
+
+    def logged_launch(*a, **kw):
+        add([(a[0].shape[1], a[0].shape[0], a[4])])
+        return launch(*a, **kw)
 
     def logged_decode(*a):
         k, rows, narrow, v1, _, n = loop_map_launches(a)
         if not v1:
-            seen.extend([(k, rows, narrow)] * n)
+            add([(k, rows, narrow)] * n)
         return decode(*a)
 
-    tdc.launch = lambda *a, **kw: seen.append((a[0].shape[1], a[0].shape[0], a[4])) or launch(*a, **kw)
-    ti.decode_cuda = logged_decode
+    tdc.launch, ti.decode_cuda = logged_launch, logged_decode
     try:
         yield seen
     finally:
         tdc.launch, ti.decode_cuda = launch, decode
+        live[0] = False
 
 
 @contextlib.contextmanager
 def plain_map():
     """The turbo decoder with turbo_map's plain version in the kernel's
-    place inside the block: the host-driven loop (turbo_decode_host), whose
-    MAP passes go through map_decode_cuda, with map_decode_cuda replaced by
-    map_decode_ref (the same function, bit for bit, on the same device)."""
+    place inside the block: the host-driven loop (turbo_decode_host, as
+    scripts/bench_extra.host_loop_decode, in turbo_decode_device's place),
+    whose MAP passes go through map_decode_cuda, with map_decode_cuda
+    replaced by map_decode_ref (the same function, bit for bit, on the same
+    device)."""
     from srslte_emane_tpu_torch.ops.fec import turbodecoder, turbodecoder_cuda as tdc
+    from srslte_emane_tpu_torch.scripts.bench_extra import host_loop_decode
 
-    saved = turbodecoder.turbo_decode, tdc.map_decode_cuda
-    turbodecoder.turbo_decode, tdc.map_decode_cuda = (turbodecoder.turbo_decode_host,
-                                                      tdc.map_decode_ref)
+    saved = turbodecoder.turbo_decode_device, tdc.map_decode_cuda
+    turbodecoder.turbo_decode_device, tdc.map_decode_cuda = host_loop_decode, tdc.map_decode_ref
     try:
         yield
     finally:
-        turbodecoder.turbo_decode, tdc.map_decode_cuda = saved
+        turbodecoder.turbo_decode_device, tdc.map_decode_cuda = saved
 
 
 @contextlib.contextmanager
@@ -910,7 +982,9 @@ class ViterbiLog:
     the first LLRs of each shape for phase 17.  The subprocesses' calls
     come in through `add_process` (run_logged reaches the log as
     `ViterbiLog.active`); their launches are counted apart, in
-    `process_launches`."""
+    `process_launches`.  A captured round's replays count
+    (count_replays_in_logs; the LLRs kept are those of the round's
+    warm-up, the first call of each shape)."""
 
     active = None
 
@@ -941,7 +1015,8 @@ class ViterbiLog:
 
         def logged(llrs, tb_iter=viterbi_cuda.TB_ITER):
             key = (llrs.shape[0], llrs.shape[2], tb_iter)
-            self.seen[(self.phase, *key)] += 1
+            phase = self.phase
+            log_update(lambda: ViterbiLog.active is self and self.seen.update([(phase, *key)]))
             if key not in self.inputs:
                 self.inputs[key] = llrs.detach().clone()
             return decode(llrs, tb_iter)
@@ -1016,7 +1091,7 @@ def phase_dl_subframe(dev, card):
     # not a rate)
     stages = ((ofdm, "demodulate"), (chest, "estimate"), (pcfich, "decode"),
               (pdcch, "blind_search"), (viterbi, "viterbi_decode"), (pdsch, "decode"),
-              (turbodecoder, "turbo_decode"), (ue_dl, "decode_subframe"))
+              (turbodecoder, "turbo_decode_device"), (ue_dl, "decode_subframe"))
     with timed_calls(stages) as totals:
         ue_dl.decode_subframe(rx, cfg)
     whole = totals["ue_dl.decode_subframe"][1]
@@ -1194,7 +1269,7 @@ def phase_mimo(dev, card):
     log(f"TM3 cell: card vs CPU on 2 rows: TX relative RMS {rel:.3e}, bits equal")
 
     stages = ((ofdm, "demodulate"), (pdsch, "estimate_mimo"), (mimo, "decode_zf2"),
-              (modem, "demod_soft"), (turbodecoder, "turbo_decode"), (pdsch, "decode_tm"))
+              (modem, "demod_soft"), (turbodecoder, "turbo_decode_device"), (pdsch, "decode_tm"))
     for _ in range(2):  # the second call is the one printed
         with timed_calls(stages) as totals:
             decode(rx)
@@ -1652,7 +1727,7 @@ def step_tdd(dev, card):
     fr = rate(lambda: tdd_frame.run_frame(cfg, dl, ul, gen), check=right, iters=2)
     with timed_calls(((pdsch, "encode"), (pusch, "encode"), (ofdm, "modulate"), (channel, "awgn"),
                       (ofdm, "demodulate"), (pdsch, "decode"), (pusch, "decode"),
-                      (turbodecoder, "turbo_decode"), (tdd_frame, "run_frame"))) as t_tdd:
+                      (turbodecoder, "turbo_decode_device"), (tdd_frame, "run_frame"))) as t_tdd:
         tdd_frame.run_frame(cfg, dl, ul, gen)
     sizes = {f"sf {sf} ({tdd.sf_type(1, sf)})": (cfg.dl_cfg(sf) if sf in dl else cfg.ul_cfg()).tbs
              for sf in sorted({**dl, **ul})}
@@ -1705,7 +1780,7 @@ def step_multicell(dev, card):
     r = rate(lambda: multicell.step(cfg, pays, g, gen), check=right, per_call=2 * BATCH, iters=1)
     with timed_calls(((enb_dl, "build_subframe"), (ue_dl, "decode_subframe"),
                       (pdcch, "blind_search"), (viterbi, "viterbi_decode"), (pdsch, "decode"),
-                      (turbodecoder, "turbo_decode"), (multicell, "step"))) as t_mc:
+                      (turbodecoder, "turbo_decode_device"), (multicell, "step"))) as t_mc:
         multicell.step(cfg, pays, g, gen)
     log(f"multi-cell: PCI 3 (PRB 0-49) and PCI 6 (PRB 50-99) at 100 PRB, TBS "
         f"{cells[0].grants[0][3]} each, two UEs 6 dB nearer their own cell, 25 dB, batch "
@@ -1974,13 +2049,26 @@ def recorded_noise(record=None, replay=None, rows=slice(None)):
         waveblock._randn = randn
 
 
+# the CUDA API calls (cuda* and cu*) with which the host enqueues work on the card
+HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                     "cuLaunchKernelEx", "cudaGraphLaunch", "cudaMemcpyAsync", "cudaMemsetAsync")
+
+
+# the port's kernels on the dynamic block's path, as kernel_counts names
+# them, and their names on the card (csrc/*.cu)
+PORT_KERNELS = dict(turbo_map="map_kernel", turbo_iter="iter_kernel", arm="arm_kernel",
+                    viterbi="viterbi_kernel")
+
+
 def profile_block(fn, control=False):
     """One call of fn under torch.profiler (after a synchronise): the
     device time (the CUDA kernels' own time), the kernel launches, the busy
     share (device time over the profiled wall time, which includes the
     profiler's overhead: a lower bound), turbo_map's and the Viterbi
-    kernel's device time.  Fails if the profiler recorded no device kernel,
-    or, where fn decodes control channels (`control`), no Viterbi kernel."""
+    kernel's device time, the host's launches (its calls of
+    HOST_LAUNCH_CALLS: a CUDA graph's replay is one, however many kernels
+    it runs) and the runs on the card of each of PORT_KERNELS.  Fails if the profiler recorded no device kernel, or, where
+    fn decodes control channels (`control`), no Viterbi kernel."""
     import torch
     from torch.profiler import ProfilerActivity, profile as tprofile
 
@@ -1999,8 +2087,15 @@ def profile_block(fn, control=False):
     map_ms = sum(e.self_device_time_total for e in kernels if "map_kernel" in e.key) / 1e3
     vit_ms = sum(e.self_device_time_total for e in vit) / 1e3
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
+    host = sum(e.count for e in prof.key_averages() if e.key in HOST_LAUNCH_CALLS)
+    ran = collections.Counter()
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            for name, kernel in PORT_KERNELS.items():
+                ran[name] += e.count if re.search(rf"\b{kernel}\b", e.key) else 0
     return dict(profiled_wall_ms=round(wall_ms, 3), device_ms=round(device_ms, 3),
-                busy_share=round(device_ms / wall_ms, 4),
+                busy_share=round(device_ms / wall_ms, 4), host_launches=host,
+                port_kernels=dict(ran),
                 kernel_launches=sum(e.count for e in kernels), turbo_map_ms=round(map_ms, 3),
                 viterbi_ms=round(vit_ms, 3),
                 top=[(e.key[:50], round(e.self_device_time_total / 1e3, 3), e.count)
@@ -2128,7 +2223,10 @@ def dyn_block_right(o, dl_q, ul_q, rb_dl):
 
 
 def step_dyn(dev, card):
-    """Phase 11.3: the dynamic block at R=20.  Returns (turbo_map launches
+    """Phase 11.3: the dynamic block at R=20, on the card's default path
+    (one round captured as a CUDA graph, R replays), its noise recorded
+    from the eager block (jit=False: a capture draws no noise on the
+    host), which the graph equals bit for bit.  Returns (turbo_map launches
     of one block, launch log)."""
     import torch
 
@@ -2144,28 +2242,47 @@ def step_dyn(dev, card):
     dl_q = torch.from_numpy(rng.integers(0, 2, (T, n, cfg.dl_tbs), dtype=np.int8)).to(dev)
     ul_q = torch.from_numpy(rng.integers(0, 2, (T, n, cfg.ul_tbs), dtype=np.int8)).to(dev)
     rb_dl, rb_ul = (torch.from_numpy(a).to(dev) for a in wbd.make_schedule(cfg, seed=3))
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(0)
     t0 = time.perf_counter()
-    step = wbd.make_dyn_block_step(cfg)  # the card: the entry point's default
+    step = wbd.make_dyn_block_step(cfg)  # the card and the graph: the entry point's defaults
+    eager = wbd.make_dyn_block_step(cfg, jit=False)  # the plain version
     bench = wbd.make_bench_step(cfg)
     build_s = time.perf_counter() - t0
     args = (dl_q, ul_q, rb_dl, rb_ul)
+
+    def gen(seed=0):
+        g = torch.Generator(device=dev)
+        g.manual_seed(seed)
+        return g
 
     right = lambda o: dyn_block_right(o, dl_q, ul_q, rb_dl)
 
     record = []
     torch.cuda.reset_peak_memory_stats()
-    with launch_log() as seen, recorded_noise(record=record):
+    with recorded_noise(record=record):
         tdc.launches = 0
         t0 = time.perf_counter()
-        out = step(*args, gen, 0)
+        out_eager = eager(*args, gen(), 0)
         torch.cuda.synchronize()
         first_s = time.perf_counter() - t0
-        launches = tdc.launches
+        eager_launches = tdc.launches
     peak = torch.cuda.max_memory_allocated()
+    with launch_log() as seen:
+        t0 = time.perf_counter()
+        step(*args, gen(), 0)  # warm-up round, capture, R replays
+        torch.cuda.synchronize()
+        graph_s = time.perf_counter() - t0
+        del seen[:]
+        tdc.launches = 0
+        out = step(*args, gen(), 0)  # the graph: R replays
+        torch.cuda.synchronize()
+        launches = tdc.launches
     assert all(v.device.type == "cuda" for v in out.values()), "a block output left the card"
     assert launches > 0, "dynamic block: no turbo_map launch"
+    assert launches == eager_launches == len(seen), (
+        f"dynamic block: turbo_map launches, graph {launches}, eager {eager_launches}, "
+        f"logged {len(seen)}")
+    for k, v in out_eager.items():
+        assert torch.equal(out[k], v), f"dynamic block: the graph and the eager block differ at {k}"
     assert right(out), (
         f"dynamic block: DL {int(out['dl_ok'].sum())}, UL {int(out['ul_ok'].sum())}, ACK "
         f"{int(out['ack_det'].sum())} of {T * n}, DCI misses {int(out['dci_dl_miss'])} + "
@@ -2173,9 +2290,11 @@ def step_dyn(dev, card):
     log(f"dynamic block: 100 PRB, 8 UEs (RNTIs {list(cfg.rntis)}), R={DYN_R} ({T} TTIs), DL 11 PRB "
         f"MCS 25 (TBS {cfg.dl_tbs}, 2 code blocks), UL 10 PRB MCS 20 (TBS {cfg.ul_tbs}), 30 dB: "
         f"every DL and UL CRC and ACK, no DCI miss, the UE followed every decoded RIV, the "
-        f"delivered TBs equal the queues in order; {launches} turbo_map launches "
-        f"{sorted(set(seen))} (K, rows, bf16); first call {first_s:.2f} s, tables {build_s:.2f} s; "
-        f"peak memory {peak / 2**20:.1f} MiB")
+        f"delivered TBs equal the queues in order; the graph (first call: warm-up, capture, "
+        f"{DYN_R} replays, {graph_s:.2f} s) equals the eager block bit for bit; {launches} "
+        f"turbo_map launches in the graph's second call, as many as the eager block's "
+        f"{sorted(set(seen))} (K, rows, bf16); eager first call "
+        f"{first_s:.2f} s, tables {build_s:.2f} s; eager peak memory {peak / 2**20:.1f} MiB")
 
     # the card against the CPU (the plain MAP): the first two rounds, with
     # the card's noise replayed into the CPU run
@@ -2188,17 +2307,17 @@ def step_dyn(dev, card):
         assert torch.equal(out[k][:2].cpu(), v), f"dynamic block: card and CPU differ at {k}"
     log("dynamic block: card vs CPU on the first 2 rounds: every per-round output equal")
 
-    counts = lambda: bench(*args, gen, 0)
+    counts = lambda: bench(*args, gen(), 0)
     (med, spread, rates), event_ms = block_timing(counts, T)
     assert [int(x) for x in counts()] == [T * n, T * n, T * n, 0, 0, 0]
     stages = ((ofdm, "modulate"), (ofdm, "demodulate"), (convcoder, "rate_unmatch_cc"),
               (viterbi, "viterbi_decode"), (sch, "encode_tb"), (sch, "decode_tb"),
-              (turbodecoder, "turbo_decode"), (wbd, "_scatter_rows"))
+              (turbodecoder, "turbo_decode_device"), (wbd, "_scatter_rows"))
     whole = "waveblock_dyn.step"
     with timed_calls(stages) as totals:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        step(*args, gen, 0)
+        eager(*args, gen(), 0)
         torch.cuda.synchronize()
         totals[whole] = [1, time.perf_counter() - t0]
     per_round = {k: {"calls_per_round": n_ / DYN_R, "ms_per_round": round(1e3 * t / DYN_R, 3),
@@ -2206,17 +2325,17 @@ def step_dyn(dev, card):
     with plain_viterbi(), timed_calls(stages) as plain:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        step(*args, gen, 0)
+        eager(*args, gen(), 0)
         torch.cuda.synchronize()
         plain[whole] = [1, time.perf_counter() - t0]
-    prof = profile_block(lambda: step(*args, gen, 0), control=True)
-    log(f"dynamic block: {fmt_rate('block', med, spread, rates, unit='TTIs/s')}; DL "
+    prof = profile_counted(lambda: step(*args, gen(), 0), "dynamic block (the graph)")
+    log(f"dynamic block (the graph): {fmt_rate('block', med, spread, rates, unit='TTIs/s')}; DL "
         f"{med * n * cfg.dl_tbs / 1e6:.1f} Mb/s + UL {med * n * cfg.ul_tbs / 1e6:.1f} Mb/s; "
         f"CUDA-event time per block {event_ms:.2f} ms; profile of one block {json.dumps(prof)}; {card}")
-    log(f"dynamic block by stage, per round (host clock, synchronised at every stage: a "
-        f"breakdown, not a rate; the Viterbi's share is viterbi.viterbi_decode's): "
-        f"{json.dumps(per_round)}")
-    viterbi_beside("dynamic block", totals, plain, whole, DYN_R, "round", card)
+    log(f"dynamic block by stage, per round, of the eager block (jit=False; host clock, "
+        f"synchronised at every stage: a breakdown, not a rate; the Viterbi's share is "
+        f"viterbi.viterbi_decode's): {json.dumps(per_round)}")
+    viterbi_beside("dynamic block (eager)", totals, plain, whole, DYN_R, "round", card)
     return launches, seen
 
 
@@ -2285,7 +2404,7 @@ def network_stages():
             (wn._CellKernels, "blind_all"), (viterbi, "viterbi_decode"),
             (wn.WaveUePhy, "_camp_rx_row"), (wn._CellKernels, "pdsch_rx"),
             (wn._CellKernels, "pusch_rx"), (wn.WaveUePhy, "_tx"),
-            (turbodecoder, "turbo_decode"))
+            (turbodecoder, "turbo_decode_device"))
 
 
 class NetworkRun:
@@ -2410,23 +2529,23 @@ class NetworkRun:
 
 
 def run_runner(runner, launch_seen):
-    """One untimed block, then 2 timed ones.  Returns (TTIs/s, turbo_map
-    launches per block)."""
+    """One untimed block (its launches logged; the dynamic block's first
+    call also warms and captures its round), then 2 timed ones.  Returns
+    (TTIs/s, turbo_map launches per timed block)."""
     import torch
 
     from srslte_emane_tpu_torch.ops.fec import turbodecoder_cuda as tdc
 
     with launch_seen():
-        tdc.launches = 0
         runner.run_block()
         torch.cuda.synchronize()
-        per_block = tdc.launches
+    tdc.launches = 0
     t0 = time.perf_counter()
     for _ in range(2):
         runner.run_block()
     torch.cuda.synchronize()
     rate_ = 2 * runner.cfg.T / (time.perf_counter() - t0)
-    return rate_, per_block
+    return rate_, tdc.launches // 2
 
 
 def every_map_shape(logs, known):
@@ -2676,12 +2795,13 @@ def step_cells(dev, card, logs):
                 else (dl_q[0], ul_q[0], rb_dl[0], rb_ul[0], gens[0], 0))
         want = [cells * T * n] * 3 + [0, 0, 0]
         with launch_log() as seen:
+            bench(*args)  # the first call warms and captures the round
             tdc.launches = 0
             counts = [int(x) for x in bench(*args)]
             launches = tdc.launches
         assert counts == want, f"dynamic block x {cells} cells: counts {counts}, want {want}"
         med, spread, rates = rate(lambda: bench(*args), per_call=cells * T, iters=1)
-        prof = profile_block(lambda: bench(*args), control=True)
+        prof = profile_counted(lambda: bench(*args), f"dynamic block x {cells} cell(s)")
         results[cells] = dict(launches=launches, seen=seen, med=med, prof=prof)
         log(f"dynamic block x {cells} cell(s) (R={DYN_R}, {n} UEs per cell): every CRC and ACK in "
             f"every cell, no DCI miss; {fmt_rate('block', med, spread, rates, unit='cell-TTIs/s')}; "
@@ -2743,33 +2863,36 @@ NETSIM_IP_BYTES = 140  # netsim's IP packets: 120 bytes of payload in IPv4/UDP
 # "v1_launches": v1's wrapper's count, "v1_shapes": [[K, rows, W], ...],
 # "vit_launches": viterbi_cuda's count, "vit_shapes": [[rows, K, tb_iter,
 # calls], ...]} (a module that resets the counts itself leaves the shapes
-# whole)
+# whole); a captured round's replays count in the three logs as in the
+# wrappers' counts (count_replays_in_logs, imported from this script)
 MODULE_LOGGED = """
 import collections, json, os, runpy, sys
 import torch
 from srslte_emane_tpu_torch.ops.fec import turbo_iter_cuda as ti, turbodecoder_cuda as tdc, viterbi_cuda
+from chip_smoke import count_replays_in_logs, log_update
+count_replays_in_logs()
 seen, seen_v1, seen_vit = [], [], collections.Counter()
 launch, launch_v1, decode_vit = tdc.launch, tdc.launch_v1, viterbi_cuda.viterbi_decode_cuda
 loop = ti.decode_cuda
 def logged(*a, **kw):
-    seen.append((a[0].shape[1], a[0].shape[0], bool(a[4])))
+    log_update(lambda e=(a[0].shape[1], a[0].shape[0], bool(a[4])): seen.append(e))
     return launch(*a, **kw)
 def logged_v1(*a, **kw):
-    seen_v1.append((a[0].shape[1], a[0].shape[0], int(a[3])))
+    log_update(lambda e=(a[0].shape[1], a[0].shape[0], int(a[3])): seen_v1.append(e))
     return launch_v1(*a, **kw)
 def logged_loop(*a):
     rows, k = a[4].shape
     w = tdc._pick_windows(k)
     if (k // w) % 2:
-        seen_v1.extend([(k, rows, w)] * (2 * a[16]))
+        log_update(lambda e=[(k, rows, w)] * (2 * a[16]): seen_v1.extend(e))
     else:
-        seen.extend([(k, rows, bool(a[18]))] * (2 * a[16]))
+        log_update(lambda e=[(k, rows, bool(a[18]))] * (2 * a[16]): seen.extend(e))
     return loop(*a)
 def logged_vit(llrs, tb_iter=viterbi_cuda.TB_ITER):
     key = (llrs.shape[0], llrs.shape[2], tb_iter)
     if key not in seen_vit:
         torch.save(llrs.cpu(), os.path.join(os.environ["VITERBI_LLR_DIR"], "%d_%d_%d.pt" % key))
-    seen_vit[key] += 1
+    log_update(lambda: seen_vit.update([key]))
     return decode_vit(llrs, tb_iter)
 tdc.launch, tdc.launch_v1, viterbi_cuda.viterbi_decode_cuda = logged, logged_v1, logged_vit
 ti.decode_cuda = logged_loop
@@ -3647,14 +3770,15 @@ def iter_case(k, rows, dev, flush):
 
 @contextlib.contextmanager
 def decode_log(store, label):
-    """Keeps the arguments of the first turbo_decode call on the card of each
-    (K, rows, llr_bits) made inside the block, cloned, in store[(label, K,
-    rows, llr_bits)] as a dict of turbo_decode's parameters."""
+    """Keeps the arguments of the first turbo decode on the card of each
+    (K, rows, llr_bits) made inside the block (turbo_decode_device, which
+    sch.decode_tb and turbo_decode call), cloned, in store[(label, K, rows,
+    llr_bits)] as a dict of the decoder's parameters (turbo_decode's)."""
     import inspect
 
     from srslte_emane_tpu_torch.ops.fec import turbodecoder
 
-    decode = turbodecoder.turbo_decode
+    decode = turbodecoder.turbo_decode_device
     sig = inspect.signature(decode)
 
     def logged(*a, **kw):
@@ -3667,11 +3791,11 @@ def decode_log(store, label):
             store[key] = {n: (v.clone() if hasattr(v, "clone") else v) for n, v in args.items()}
         return decode(*a, **kw)
 
-    turbodecoder.turbo_decode = logged
+    turbodecoder.turbo_decode_device = logged
     try:
         yield store
     finally:
-        turbodecoder.turbo_decode = decode
+        turbodecoder.turbo_decode_device = decode
 
 
 def sweep_decodes(dev, store):
@@ -3789,16 +3913,18 @@ def loop_case(label, args, flush):
 
 @contextlib.contextmanager
 def host_loop():
-    """turbodecoder.turbo_decode replaced by turbo_decode_host inside the
-    block, for the paths' rates with the pre-device-loop driver."""
+    """turbodecoder.turbo_decode_device replaced by turbo_decode_host (as
+    scripts/bench_extra.host_loop_decode) inside the block, for the paths'
+    rates with the host-driven loop."""
     from srslte_emane_tpu_torch.ops.fec import turbodecoder
+    from srslte_emane_tpu_torch.scripts.bench_extra import host_loop_decode
 
-    decode = turbodecoder.turbo_decode
-    turbodecoder.turbo_decode = turbodecoder.turbo_decode_host
+    decode = turbodecoder.turbo_decode_device
+    turbodecoder.turbo_decode_device = host_loop_decode
     try:
         yield
     finally:
-        turbodecoder.turbo_decode = decode
+        turbodecoder.turbo_decode_device = decode
 
 
 def phase_device_loop(dev, card, store):
@@ -3888,6 +4014,223 @@ def phase_device_loop(dev, card, store):
     return iter_cases
 
 
+# ---------------- phase 19: the dynamic block as a replayed CUDA graph ----------------
+
+# the HARQ block: phase 11's cell with UE 7 at -6 dB (it misses its DCIs, so
+# its DL processes retransmit and drop after max_tx), as the harq case of
+# tests/test_torch_waveblock.py lowers a UE's SNR at 15 PRB
+GRAPH_HARQ_SNR_DB = (30.0,) * 7 + (-6.0,)
+
+
+def kernel_counts():
+    """The kernels' launch counts (the wrappers', replays included):
+    turbo_map, turbo_iter's epilogue, its arm, the Viterbi."""
+    from srslte_emane_tpu_torch.ops.fec import turbo_iter_cuda as ti, turbodecoder_cuda as tdc
+    from srslte_emane_tpu_torch.ops.fec import viterbi_cuda
+
+    return dict(turbo_map=tdc.launches, turbo_iter=ti.launches, arm=ti.arm_launches,
+                viterbi=viterbi_cuda.launches)
+
+
+def profile_counted(fn, label):
+    """profile_block(fn, control=True), and the kernels' launch counts over
+    that call (kernel_counts: for a replayed graph, what the capture counted
+    times the replays) held equal to the runs of each kernel that the
+    profiler recorded on the card.  The profiler has dropped a few events
+    in a long process (PERF.md section 7), so a call whose counts differ is
+    profiled once more; a second difference fails."""
+    for attempt in range(2):
+        before = kernel_counts()
+        prof = profile_block(fn, control=True)
+        counted = {k: v - before[k] for k, v in kernel_counts().items()}
+        if counted == prof["port_kernels"]:
+            return prof
+        log(f"{label}: launch counts {counted}, runs on the card {prof['port_kernels']}"
+            f"{'; once more' if attempt == 0 else ''}")
+    raise AssertionError(f"{label}: the launch counts differ from the card's runs twice")
+
+
+def graph_block(dev, label, cfg, n_cells, seed):
+    """One block of phase 19 on the card: (its steps {"graph": jit=True,
+    "eager": jit=False}, its inputs, a maker of its generators, (the graph's
+    first call in s, the memory it reserved in MiB), the launches of one
+    graph block by kernel, the graph's outputs).  The graph
+    equals the eager block bit for bit on every output, counter and
+    consumed pointer, leaves the generators in the eager block's states,
+    and its launch counts (replays included) equal the eager block's, each
+    kernel launched."""
+    import torch
+
+    from srslte_emane_tpu_torch.runtime import waveblock_dyn as wbd
+
+    T, n, C = cfg.T, cfg.n_ues, n_cells
+    rng = np.random.default_rng(seed)
+    q = lambda tbs: torch.from_numpy(rng.integers(0, 2, (C, T, n, tbs), dtype=np.int8)).to(dev)
+    dl_q, ul_q = q(cfg.dl_tbs), q(cfg.ul_tbs)
+    rb = [wbd.make_schedule(cfg, seed=3 + c) for c in range(C)]
+    rb_dl, rb_ul = (torch.from_numpy(np.stack([r[k] for r in rb])).to(dev) for k in (0, 1))
+    args = (dl_q, ul_q, rb_dl, rb_ul) if C > 1 else (dl_q[0], ul_q[0], rb_dl[0], rb_ul[0])
+
+    def gens(base):
+        out = []
+        for c in range(C):
+            out.append(torch.Generator(device=dev))
+            out[-1].manual_seed(base + c)
+        return out if C > 1 else out[0]
+
+    steps = dict(graph=wbd.make_dyn_block_step(cfg, n_cells=C),
+                 eager=wbd.make_dyn_block_step(cfg, n_cells=C, jit=False))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved()
+    t0 = time.perf_counter()
+    steps["graph"](*args, gens(100), 0)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    reserved = (torch.cuda.memory_reserved() - reserved) / 2**20
+    runs = {}
+    for name, step in steps.items():
+        g = gens(1)
+        before = kernel_counts()
+        out = step(*args, g, 0)
+        torch.cuda.synchronize()
+        after = kernel_counts()
+        state = [x.get_state() for x in (g if C > 1 else [g])]
+        runs[name] = out, state, {k: after[k] - before[k] for k in after}
+    (out, state, counts), (ref, ref_state, ref_counts) = runs["graph"], runs["eager"]
+    assert set(out) == set(ref), label
+    for k in ref:
+        assert torch.equal(out[k], ref[k]), f"{label}: the graph and the eager block differ at {k}"
+    assert all(torch.equal(a, b) for a, b in zip(state, ref_state)), f"{label}: generator states"
+    assert counts == ref_counts and min(counts.values()) > 0, (label, counts, ref_counts)
+    log(f"{label}: the graph equals the eager block bit for bit on all {len(out)} outputs "
+        f"(counters and consumed pointers included), generators left equal; launches per block "
+        f"{json.dumps(counts)} both ways; graph first call (warm-up, capture, {cfg.R} replays) "
+        f"{first_s:.2f} s; dl_ok {int(out['dl_ok'].sum())}, ul_ok {int(out['ul_ok'].sum())}, "
+        f"ack {int(out['ack_det'].sum())} of {C * T * n}, dl_retx_tx "
+        f"{out['dl_retx_tx'].tolist()}, dl_drop {out['dl_drop'].tolist()}, dci misses "
+        f"{(out['dci_dl_miss'] + out['dci_ul_miss']).tolist()}; the first call reserved "
+        f"{reserved:.1f} MiB more (the warm-up's blocks, the graph's pool)")
+    return steps, args, gens, (first_s, reserved), counts, out
+
+
+def graph_timing(steps, args, gens, ttis, card):
+    """Graph against eager, in turns (graph, eager, eager, graph): TTIs/s
+    (median of N_RUNS, spread), CUDA-event ms per block, host ms per block
+    (to the call's return, and to the card's end), a profile of one block
+    (busy share, device ms, kernel and host launches) and peak memory."""
+    import torch
+
+    res = {name: collections.defaultdict(list) for name in steps}
+    for name in ("graph", "eager", "eager", "graph"):
+        fn = lambda: steps[name](*args, gens(7), 0)
+        (med, spread, rates), event_ms = block_timing(fn, ttis)
+        enq, whole = [], []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            enq.append(1e3 * (time.perf_counter() - t0))
+            torch.cuda.synchronize()
+            whole.append(1e3 * (time.perf_counter() - t0))
+        r = res[name]
+        r["tti_per_s"].append(med)
+        r["spread_pct"].append(round(spread, 2))
+        r["event_ms"].append(round(event_ms, 3))
+        r["host_return_ms"].append(round(statistics.median(enq), 3))
+        r["host_ms"].append(round(statistics.median(whole), 3))
+    for name, step in steps.items():
+        fn = lambda: step(*args, gens(7), 0)
+        res[name]["profile"] = profile_counted(fn, f"graph vs eager: the {name} block")
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        res[name]["peak_allocated_mib"] = round(torch.cuda.max_memory_allocated() / 2**20, 1)
+        res[name]["peak_reserved_mib"] = round(torch.cuda.max_memory_reserved() / 2**20, 1)
+    return {k: dict(v) for k, v in res.items()}
+
+
+def phase_graph(dev, card):
+    """Phase 19.  Returns the kernels' launches of its graph blocks (the
+    equality runs), by kernel."""
+    import torch
+
+    t_phase = time.perf_counter()
+    cfg = dyn_config(DYN_R)
+    launches = collections.Counter()
+    steps, args, gens, (first_s, pool_mib), counts, _ = graph_block(
+        dev, "graph: phase 11's block", cfg, 1, 0)
+    launches.update(counts)
+
+    # two successive blocks on one generator against two eager blocks
+    outs = {}
+    for name, step in steps.items():
+        g = gens(2)
+        outs[name] = [step(*args, g, 0), step(*args, g, 8 * DYN_R)], g.get_state()
+    for a, b in zip(outs["graph"][0], outs["eager"][0]):
+        assert all(torch.equal(a[k], b[k]) for k in b), "graph: two successive blocks differ"
+    assert torch.equal(outs["graph"][1], outs["eager"][1]), "graph: generator after two blocks"
+    log("graph: two successive blocks on one generator equal two eager blocks on one generator, "
+        "every output, and the generator's state after them")
+
+    # no host sync from the first replay to the return (the inputs on the
+    # card: the whole call enqueues only)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = steps["graph"](*args, gens(3), 0)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert dyn_block_right(out, args[0], args[1], args[2]), "graph: the sync-free block is wrong"
+    log("graph: one whole call (copies in, reset, R replays, copies out) under "
+        "torch.cuda.set_sync_debug_mode(\"error\"): no synchronising operation")
+
+    res = graph_timing(steps, args, gens, cfg.T, card)
+    host = res["graph"]["profile"]["host_launches"]
+    assert host <= DYN_R + 64, f"graph: {host} host launches per block, above R + 64"
+    summary = {name: dict(
+        tti_per_s=round(statistics.median(r["tti_per_s"]), 1), runs=[round(x, 1) for x in
+                                                                     r["tti_per_s"]],
+        spread_pct=r["spread_pct"], event_ms=r["event_ms"], host_ms=r["host_ms"],
+        host_return_ms=r["host_return_ms"], host_launches=r["profile"]["host_launches"],
+        busy_share=r["profile"]["busy_share"], device_ms=r["profile"]["device_ms"],
+        kernel_launches=r["profile"]["kernel_launches"],
+        peak_allocated_mib=r["peak_allocated_mib"], peak_reserved_mib=r["peak_reserved_mib"])
+        for name, r in res.items()}
+    summary["graph"].update(first_call_s=round(first_s, 3),
+                            first_call_reserved_mib=round(pool_mib, 1))
+    log(f"graph vs eager, phase 11's block (R={DYN_R}, {cfg.T} TTIs), in turns: "
+        f"{json.dumps(summary)}; {card}")
+    log(f"graph vs eager: TTIs/s x {summary['graph']['tti_per_s'] / summary['eager']['tti_per_s']:.2f}, "
+        f"host launches {summary['graph']['host_launches']} vs {summary['eager']['host_launches']}, "
+        f"busy share {summary['graph']['busy_share']} vs {summary['eager']['busy_share']}, "
+        f"device ms {summary['graph']['device_ms']} vs {summary['eager']['device_ms']}; {card}")
+    log(f"graph profile {json.dumps(res['graph']['profile'])}; eager profile "
+        f"{json.dumps(res['eager']['profile'])}")
+    del steps
+
+    for label, c, cells, seed in (("graph: the HARQ block", cfg._replace(snr_db=GRAPH_HARQ_SNR_DB),
+                                   1, 0),
+                                  ("graph: 2 cells", cfg, 2, 1)):
+        steps, args, gens, _, counts, out = graph_block(dev, label, c, cells, seed)
+        launches.update(counts)
+        if cells == 1:
+            assert int(out["dl_retx_tx"]) > 0 and int(out["dl_drop"]) > 0 and \
+                int(out["dci_dl_miss"]) > 0, f"{label}: no retransmission, drop or DCI miss"
+        rates = {}
+        for name in ("graph", "eager", "eager", "graph"):
+            rates.setdefault(name, []).append(rate(lambda: steps[name](*args, gens(9), 0),
+                                                   per_call=cells * c.T, iters=1)[0])
+        log(f"{label}: cell-TTIs/s graph {[round(x, 1) for x in rates['graph']]} vs eager "
+            f"{[round(x, 1) for x in rates['eager']]} (in turns; each a median of {N_RUNS}); "
+            f"{card}")
+        del steps
+    log(f"phase 19: {time.perf_counter() - t_phase:.1f} s")
+    return dict(launches)
+
+
 def main():
     import torch
 
@@ -3905,6 +4248,7 @@ def main():
     from srslte_emane_tpu_torch.ops.fec import (turbo_iter_cuda as ti, turbodecoder_cuda as tdc,
                                                 viterbi_cuda)
 
+    count_replays_in_logs()
     t0 = time.perf_counter()
     sources = (tdc.SOURCE, tdc.SOURCE_V1, viterbi_cuda.SOURCE, ti.SOURCE)
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source
@@ -3974,6 +4318,7 @@ def main():
     assert all(sub[label] > 0 for label in VIT_PROCESSES), sub
     vit_cases = phase_viterbi(dev, card, vlog)
     iter_cases = phase_device_loop(dev, card, decodes)
+    graph_launches = phase_graph(dev, card)
     sf_vit = max((c for c in vit_cases if 8 in c.get("calls_by_phase", {})),
                  key=lambda c: c["rows"])  # phase 8's blind search
     log(f"chip_smoke: {time.perf_counter() - t_run:.1f} s after the build")
@@ -3988,7 +4333,7 @@ def main():
         # PDSCH link, uplink, DL subframe, TM3 cell, phase 10's to 16's paths
         "launches": (dl_launches + ul_launches + sf_launches + tm3_launches + sync_launches
                      + block_launches + net_launches + c13_launches + c14_launches
-                     + c15_launches + c16_launches),
+                     + c15_launches + c16_launches + graph_launches["turbo_map"]),
         "max_abs_err": max(c["max_abs_err"] for c in cases + mimo_cases + sync_cases
                            + block_cases + net_cases + c13_cases + c14_cases + c15_cases
                            + c16_cases),
@@ -4023,7 +4368,8 @@ def main():
         "route": "cuda",
         "source": "srslte_emane_tpu_torch/csrc/viterbi.cu",
         "replaces": "srslte_emane_tpu/ops/fec/viterbi.py:53",
-        "launches": vit_launches + sum(sub.values()),  # phases 4-16, subprocesses too
+        # phases 4-16, subprocesses too, and phase 19's graph blocks
+        "launches": vit_launches + sum(sub.values()) + graph_launches["viterbi"],
         "max_abs_err": max(c["max_abs_err"] for c in vit_cases),  # bits: 0 is bit for bit
         "mismatched_bits": sum(c["mismatched_bits"] for c in vit_cases),
         "ms": sf_vit["ms"],
@@ -4040,8 +4386,9 @@ def main():
         "route": "cuda",
         "source": "srslte_emane_tpu_torch/csrc/turbo_iter.cu",
         "replaces": "srslte_emane_tpu/ops/fec/turbodecoder.py:421",
-        "launches": iter_launches,  # phases 4-16, this process; arm launches apart
-        "arm_launches": arm_launches,
+        # phases 4-16 and 19, this process; arm launches apart
+        "launches": iter_launches + graph_launches["turbo_iter"],
+        "arm_launches": arm_launches + graph_launches["arm"],
         "max_abs_err": max(c["max_abs_err"] for c in iter_cases),
         "mismatched_bits": sum(c["mismatched_bits"] for c in iter_cases),
         "ms": bench_iter["ms"],

@@ -178,7 +178,7 @@ def run_waveform_block(args):
         for _ in range(4):
             spgw.handle_sgi_pdu(pkt)
         u.gw_send(spgw_mod.make_ipv4(u.ip_addr, "8.8.8.8", b"u" * 120))
-    runner.run_block()  # compile + first block outside the timed window
+    runner.run_block()  # the capture + first block outside the timed window
     t1 = time.time()
     n_blocks = max(2, args.ttis // args.block_ttis)
     for _ in range(n_blocks):
@@ -206,8 +206,9 @@ def run_waveform_dyn(args):
     """--waveform-dyn: attach over the host-paced waveform network, then
     run the steady state DEVICE-RESIDENT with DYNAMIC per-TTI scheduling:
     PDCCH DCI at true search-space CCEs, UE blind decode, 8-process
-    IR-HARQ soft buffers, PUCCH ACK + PHICH over the air — one compiled
-    call per R rounds of 8 TTIs (runtime/waveblock_dyn.py)."""
+    IR-HARQ soft buffers, PUCCH ACK + PHICH over the air — one block step
+    per R rounds of 8 TTIs (runtime/waveblock_dyn.py; on the card one round
+    captured as a CUDA graph at the first block and replayed R times)."""
     from ..runtime import waveblock_dyn, wavenet
 
     hss = hss_mod.Hss()
@@ -241,7 +242,7 @@ def run_waveform_dyn(args):
         for _ in range(4):
             spgw.handle_sgi_pdu(pkt)
         u.gw_send(spgw_mod.make_ipv4(u.ip_addr, "8.8.8.8", b"u" * 120))
-    runner.run_block()  # compile + first block outside the timed window
+    runner.run_block()  # the capture + first block outside the timed window
     t1 = time.time()
     n_blocks = max(2, args.ttis // runner.cfg.T)
     for _ in range(n_blocks):

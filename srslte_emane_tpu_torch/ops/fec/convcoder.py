@@ -101,16 +101,25 @@ def cc_rx_gather_table(d: int, e: int) -> np.ndarray:
     return out
 
 
+@functools.lru_cache(maxsize=None)
+def _on_device(table_fn, d: int, e: int, device: torch.device) -> torch.Tensor:
+    """A host table as int64 on `device`, copied there once per (d, e,
+    device): a copy from the host per call would synchronise, and a
+    captured CUDA graph reads the table by its address at every replay, so
+    the entry is never evicted."""
+    return torch.from_numpy(table_fn(d, e).astype(np.int64)).to(device)
+
+
 def rate_match_cc(streams: torch.Tensor, e: int) -> torch.Tensor:
     """(B, 3, D) encoder bits -> (B, e) rate-matched bits."""
     B, _, d = streams.shape
-    tbl = torch.from_numpy(cc_tx_table(d, e).astype(np.int64)).to(streams.device)
+    tbl = _on_device(cc_tx_table, d, e, streams.device)
     return streams.reshape(B, 3 * d)[:, tbl]
 
 
 def rate_unmatch_cc(llrs: torch.Tensor, d: int) -> torch.Tensor:
     """(B, e) LLRs -> (B, 3, D) stream LLRs with soft combining of repeats."""
     B, e = llrs.shape
-    tbl = torch.from_numpy(cc_rx_gather_table(d, e).astype(np.int64)).to(llrs.device)
+    tbl = _on_device(cc_rx_gather_table, d, e, llrs.device)
     padded = torch.cat([llrs, llrs.new_zeros((B, 1))], dim=-1)
     return padded[:, tbl].sum(-1).reshape(B, 3, d)

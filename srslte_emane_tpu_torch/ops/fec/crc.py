@@ -37,13 +37,13 @@ def _remainder_matrix(poly: int, order: int, length: int) -> np.ndarray:
     return rem
 
 
-@functools.lru_cache(maxsize=32)
+@functools.lru_cache(maxsize=None)
 def _device_matrix(poly: int, order: int, length: int, device: torch.device):
     return torch.from_numpy(
         _remainder_matrix(poly, order, length).astype(np.float32)).to(device)
 
 
-@functools.lru_cache(maxsize=32)
+@functools.lru_cache(maxsize=None)
 def remainder_masks(poly: int, order: int, length: int, device: torch.device) -> torch.Tensor:
     """The rows of `_remainder_matrix` packed MSB-first into int32 words,
     (length,) on `device` (copied there once): the CRC of a length-bit

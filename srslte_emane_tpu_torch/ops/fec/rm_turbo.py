@@ -138,7 +138,7 @@ def _wbuf_inverse(k: int, f: int):
     return inv, present, filler
 
 
-@functools.lru_cache(maxsize=64)
+@functools.lru_cache(maxsize=None)
 def _on_device(table_fn, args: tuple, device: torch.device):
     """A host table, uploaded once per (configuration, device)."""
     out = table_fn(*args)

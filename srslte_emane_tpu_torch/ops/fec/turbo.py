@@ -136,14 +136,14 @@ def _carry_matrix(c: int, n: int) -> np.ndarray:
     return m
 
 
-@functools.lru_cache(maxsize=16)
+@functools.lru_cache(maxsize=None)
 def _device_tables(c: int, n: int, device: torch.device):
     P, Q, _, R = _chunk_tables(c)
     f = lambda a: torch.from_numpy(np.ascontiguousarray(a).astype(np.float32)).to(device)
     return f(P.T), f(Q.T), f(R), f(_carry_matrix(c, n)), f(_TAIL.T)
 
 
-@functools.lru_cache(maxsize=16)
+@functools.lru_cache(maxsize=None)
 def _device_perm(k: int, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(qpp_interleaver(k)).to(device)
 

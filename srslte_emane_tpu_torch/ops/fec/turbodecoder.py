@@ -130,7 +130,7 @@ def _gammas(ls: torch.Tensor, lp: torch.Tensor) -> torch.Tensor:
     return 0.5 * (su + sz)
 
 
-@functools.lru_cache(maxsize=16)
+@functools.lru_cache(maxsize=None)
 def _tail_signs(device: torch.device) -> torch.Tensor:
     return torch.from_numpy(_trellis()["tail_signs"]).to(device)
 
@@ -138,11 +138,21 @@ def _tail_signs(device: torch.device) -> torch.Tensor:
 def beta_tail(tail_x: torch.Tensor, tail_z: torch.Tensor) -> torch.Tensor:
     """Exact termination beta_K (B, 8) from the tail-bit path metrics (the
     sign table is copied to each device once: a copy per call would hold
-    the host until the card caught up)."""
-    signs = _tail_signs(tail_x.device)
+    the host until the card caught up).
+
+    Each state's metric is its six signed tail LLRs added one at a time in
+    index order, the order of the CPU's matmul (so the same bits).  A
+    matmul on the card sums in an order that depends on the batch size, and
+    the last bits of beta_K then change the hard decisions of a code block
+    that fails with the rows decoded beside it."""
+    signs = _tail_signs(tail_x.device)  # (8, 6) of +-1: the products are exact
     tails = torch.stack([tail_x[:, 0], tail_z[:, 0], tail_x[:, 1], tail_z[:, 1],
                          tail_x[:, 2], tail_z[:, 2]], dim=-1)
-    return 0.5 * (tails.to(torch.float32) @ signs.T)
+    terms = tails.to(torch.float32)[:, None, :] * signs  # (B, 8, 6)
+    acc = terms[..., 0]
+    for j in range(1, 6):
+        acc = acc + terms[..., j]
+    return 0.5 * acc
 
 
 def _map_decode(ls_eff: torch.Tensor, lp: torch.Tensor, tail_x: torch.Tensor,
@@ -236,7 +246,7 @@ def quantize_llr_int16(llr, scale: float = 256.0):
     return q / scale
 
 
-@functools.lru_cache(maxsize=16)
+@functools.lru_cache(maxsize=None)
 def _device_perms(k: int, device: torch.device):
     """The QPP interleaver of size k and its inverse on `device` (copied
     there once), int64 for indexing and int32 for the epilogue kernel."""

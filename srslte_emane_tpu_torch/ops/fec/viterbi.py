@@ -55,7 +55,7 @@ def _tables():
     return preds, pred_combo, signs
 
 
-@functools.lru_cache(maxsize=8)
+@functools.lru_cache(maxsize=None)
 def _signs(dev: torch.device) -> torch.Tensor:
     """The combos' bipolar signs (3, 8) on `dev`, copied there once."""
     return torch.from_numpy(_tables()[2]).to(dev)

@@ -77,7 +77,7 @@ def _cp_tables(n_prb: int, cp: str = "normal"):
     return np.concatenate(add), np.concatenate(remove)
 
 
-@functools.lru_cache(maxsize=16)
+@functools.lru_cache(maxsize=None)
 def _device_tables(n_prb: int, device: torch.device, cp: str = "normal"):
     add, remove = _cp_tables(n_prb, cp)
     f = lambda a: torch.from_numpy(a).to(device)

@@ -33,7 +33,7 @@ def _tables(n: int):
     return x1_seq, x2_resp
 
 
-@functools.lru_cache(maxsize=16)
+@functools.lru_cache(maxsize=None)
 def _device_tables(n: int, device: torch.device):
     x1_seq, x2_resp = _tables(n)
     return (torch.from_numpy(x1_seq).to(device),

@@ -113,7 +113,7 @@ def init_softbuffer(batch: int, cfg: SchConfig, dtype=torch.float32, device=None
 
 
 def decode_tb(llrs: torch.Tensor, cfg: SchConfig, softbuf=None, max_iter: int = 8,
-              use_kernel: bool | None = None, llr_bits: int = 32, rv_b=None):
+              use_kernel: bool | None = None, llr_bits: int = 32, rv_b=None, read: bool = True):
     """(B, G) codeword LLRs (positive = bit 0) -> (tb_bits (B, tbs), ok (B,),
     softbuf', n_iter).
 
@@ -124,6 +124,11 @@ def decode_tb(llrs: torch.Tensor, cfg: SchConfig, softbuf=None, max_iter: int = 
     the bf16 sums are exact there; HARQ retransmission sums round to bf16
     in the soft buffers.  rv_b: optional (B,) int tensor, one redundancy
     version per row in place of cfg.rv.
+
+    Each turbo decode is `turbodecoder.turbo_decode_device`, so on the card
+    the host only enqueues, and one read at the end makes n_iter an int.
+    read=False skips that read (a CUDA graph can capture the whole decode):
+    n_iter is then a 0-d int32 tensor on the LLRs' device.
     """
     s = cfg.segm
     B = llrs.shape[0]
@@ -160,10 +165,10 @@ def decode_tb(llrs: torch.Tensor, cfg: SchConfig, softbuf=None, max_iter: int = 
         l0, l1, l2 = (torch.cat([d3[j] for _, d3 in parts], dim=0)
                       for j in range(3))
         nB = len(rs_all) * B
-        bits, ok, it = turbodecoder.turbo_decode(
+        bits, ok, it, _ = turbodecoder.turbo_decode_device(
             l0, l1, l2, torch.ones((nB,), dtype=torch.bool, device=llrs.device),
             kr, max_iter, check, use_kernel=use_kernel, llr_bits=llr_bits)
-        total_iters += it
+        total_iters = total_iters + it
         for i, r in enumerate(rs_all):
             cb_bits[r] = bits[i * B : (i + 1) * B]
             cb_ok[r] = ok[i * B : (i + 1) * B]
@@ -178,4 +183,4 @@ def decode_tb(llrs: torch.Tensor, cfg: SchConfig, softbuf=None, max_iter: int = 
     all_ok = crc.crc_ok(tb_with_crc, crc.LTE_CRC24A)
     for ok in cb_ok:
         all_ok = all_ok & ok
-    return payload, all_ok, new_soft, total_iters
+    return payload, all_ok, new_soft, int(total_iters) if read else total_iters

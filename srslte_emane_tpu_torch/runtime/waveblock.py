@@ -34,6 +34,7 @@ Noise is drawn through `_randn`, in the reference's order, from the
 from __future__ import annotations
 
 import dataclasses
+import functools
 import typing
 
 import numpy as np
@@ -262,6 +263,14 @@ def _gather_cols(x: torch.Tensor, idx: torch.Tensor, dim: int) -> torch.Tensor:
     return x.expand(x_shape).gather(dim, idx.expand(shape))
 
 
+@functools.lru_cache(maxsize=None)
+def _time_weights(device: torch.device) -> torch.Tensor:
+    """(12,) linear time-interpolation weights of the PUSCH data symbols
+    between the two DMRS symbols, on `device`, copied there once (never
+    evicted: a captured CUDA graph reads it by its address)."""
+    return torch.from_numpy((np.array(pusch_mod.DATA_SYMS, np.float32) - 3.0) / 7.0).to(device)
+
+
 def _ul_estimate(yd: torch.Tensor, rref: torch.Tensor):
     """eNB DMRS chest of the blocks: LS, 5-tap edge-padded smoothing,
     linear time interpolation.  yd (..., 2, m_sc, 2) received DMRS; rref
@@ -274,7 +283,7 @@ def _ul_estimate(yd: torch.Tensor, rref: torch.Tensor):
     sm = sum(pad[..., i : i + m_sc, :] for i in range(k5)) / k5
     lead = h_ls.shape[:-3]
     noise = cplx.abs2(h_ls - sm).reshape(lead + (-1,)).mean(-1) * 1.25
-    t_w = torch.from_numpy((np.array(pusch_mod.DATA_SYMS, np.float32) - 3.0) / 7.0).to(yd.device)
+    t_w = _time_weights(yd.device)
     ce = ((1.0 - t_w)[:, None, None] * sm[..., 0:1, :, :]
           + t_w[:, None, None] * sm[..., 1:2, :, :])
     return ce, noise

@@ -22,9 +22,15 @@ grants as DCI on PDCCH, 8-process HARQ with IR soft combining,
         retransmission / NDI / drop decisions (max_tx cap).
 
 A round is 8 TTIs, one per HARQ process; they run as one batch.  The rounds
-run as a Python loop (the reference's `lax.scan`) carrying the protocol's
-state: soft buffers, NDI toggles, retransmission counts, queue pointers,
-the previous RBs, the PHICH payload and the counters.
+are the reference's `lax.scan`, carrying the protocol's state: soft
+buffers, NDI toggles, retransmission counts, queue pointers, the previous
+RBs, the PHICH payload and the counters.  The round body keeps that state
+in tensors that it writes back in place, reads its schedule entries at a
+round index held on the device and writes its outputs there, so no Python
+value depends on the round or on the data: on the card one round is
+captured once as a CUDA graph (`graphs.RoundGraph`) and replayed R times,
+and the host enqueues R replays and a few copies per block; elsewhere, and
+with jit=False, the same body runs as a Python loop of R rounds.
 
 Modeling simplifications, as in the reference: the 4 ms HARQ-ACK/PHICH
 delay is folded into the TTI; grant widths and MCS are static per block
@@ -45,15 +51,19 @@ import numpy as np
 import torch
 
 from ..ops import cplx, dft, modem, ofdm, scrambling, sequence
-from ..ops.fec import convcoder, crc as crc_mod, viterbi
+from ..ops.fec import convcoder, crc as crc_mod, turbodecoder_cuda, viterbi
 from ..phch import chest, dci as dci_mod, grid as grid_mod
 from ..phch import pdcch as pdcch_mod, phich as phich_mod
 from ..phch import pucch as pucch_mod, pusch as pusch_mod, ra, sch
 from ..utils.devices import resolve
-from . import waveblock
+from . import graphs, waveblock
 
 RV_SEQ = np.array([0, 2, 3, 1], np.int32)  # scheduler_harq.cc RV cycle
 N_PID = 8
+# the per-round outputs, by dtype, and the block's counters
+ROUND_FLAGS = ("dl_ok", "dl_new", "dl_found", "ack_det", "ul_ok", "ul_new", "ul_tx")
+ROUND_INTS = ("rb_ue", "rv_dl")
+COUNTERS = ("dl_retx_tx", "dl_drop", "ul_retx_tx", "ul_drop", "dci_dl_miss", "dci_ul_miss")
 
 
 class DynBlockConfig(typing.NamedTuple):
@@ -486,7 +496,8 @@ def _take_rows(tbl: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 # the block
 # ---------------------------------------------------------------------------
 
-def make_dyn_block_step(cfg: DynBlockConfig, device="cuda", n_cells: int = 1):
+def make_dyn_block_step(cfg: DynBlockConfig, device="cuda", n_cells: int = 1,
+                        jit: bool = True):
     """Build the R-round dynamic block on `device` (the card by default;
     raises where there is none).
 
@@ -509,6 +520,17 @@ def make_dyn_block_step(cfg: DynBlockConfig, device="cuda", n_cells: int = 1):
     draws its noise from its own generator as a block of one would.
     Array arguments may be numpy arrays or tensors; they are moved to the
     device.
+
+    jit (the reference's jit=): on the card, the first call for a set of
+    queue shapes warms one round, captures it as a CUDA graph with one
+    graph-safe generator per cell, and every call then copies its inputs
+    in, resets the carry, replays the round R times from the state of
+    `gen` (which it advances as the eager block would) and returns fresh
+    tensors, with no host sync from the first replay to the return; the
+    outputs equal the eager block's bit for bit.  A capture or replay that
+    fails raises.  jit=False runs the rounds as a Python loop of the same
+    body (the plain version, for stage timers and recorded noise); off the
+    card jit changes nothing.
     """
     dev = resolve(device, "make_dyn_block_step")
     c = waveblock._on(_consts(cfg), dev)
@@ -536,6 +558,7 @@ def make_dyn_block_step(cfg: DynBlockConfig, device="cuda", n_cells: int = 1):
     rows8 = torch.arange(T8, device=dev)[:, None]
     cells = torch.arange(C, device=dev)[:, None, None]
     syms14 = torch.arange(grid_mod.N_SYM, device=dev)
+    steps = N_PID * torch.arange(R, device=dev)  # the rounds' first TTIs after tti0
     sdt = torch.bfloat16 if cfg.llr_bits <= 16 else torch.float32
     decode = dict(use_kernel=cfg.use_kernel, llr_bits=cfg.llr_bits)
 
@@ -623,10 +646,16 @@ def make_dyn_block_step(cfg: DynBlockConfig, device="cuda", n_cells: int = 1):
         rows = c["cce_re"][cce[..., None] + torch.arange(l, device=dev)]  # (T8, n, l, 36)
         return rows.reshape(T8, n * l * 36), syms.reshape(T8, n * l * 36, 2)
 
-    def round_body(st, rb_dl_r, rb_ul_r, tti_r, dl_q, ul_q, gen):
-        """One HARQ round of 8 TTIs in each cell: updates the state dict
-        `st` in place (rebinding its entries) and returns the round's
-        outputs, (T8, n) rows."""
+    def round_body(b, gen):
+        """One HARQ round of 8 TTIs in each cell, the reference's scan body,
+        on the block's tensors `b` (`new_block`): its xs are the entries of
+        the schedules and TTIs at the round index b["r"] (a tensor), its
+        carry b["st"] is written back in place, its (T8, n) outputs go into
+        b's (R, T8, n, ...) tensors at the round index, which then steps."""
+        r, dl_q, ul_q = b["r"], b["dl_q"], b["ul_q"]
+        st = dict(b["st"])  # this round's carry: entries are rebound, then copied back
+        rb_dl_r, rb_ul_r = (b[k].index_select(0, r)[0] for k in ("rb_dl", "rb_ul"))
+        tti_r = b["ttis"].index_select(0, r)  # (1,)
         sfs = ((tti_r + torch.arange(N_PID, device=dev)) % 10).repeat(C)
         pid = torch.arange(N_PID, device=dev).repeat(C)[:, None].expand(T8, n)
 
@@ -769,7 +798,7 @@ def make_dyn_block_step(cfg: DynBlockConfig, device="cuda", n_cells: int = 1):
         ue_soft = [sb * keep for sb in st["ue_soft"]]
         llr = llr * dl_found.reshape(B, 1)  # a missed DCI adds nothing
         dl_out, dl_ok, st["ue_soft"], _ = sch.decode_tb(
-            llr, cfg_d, softbuf=ue_soft, rv_b=rv_d_ue.reshape(B), **decode)
+            llr, cfg_d, softbuf=ue_soft, rv_b=rv_d_ue.reshape(B), read=False, **decode)
         dl_ok = dl_ok.reshape(T8, n) & dl_found
 
         # ------------- UE transmit -------------
@@ -832,7 +861,7 @@ def make_dyn_block_step(cfg: DynBlockConfig, device="cuda", n_cells: int = 1):
         llr_u = waveblock._ul_llrs(yu, ce_u, noise_u, qm_u, cinit_u)
         enb_soft = [sb * (~new_ul).reshape(B, 1) for sb in st["enb_soft"]]
         ul_out, ul_ok, st["enb_soft"], _ = sch.decode_tb(
-            llr_u, cfg_u, softbuf=enb_soft, rv_b=rv_ul_enb.reshape(B), **decode)
+            llr_u, cfg_u, softbuf=enb_soft, rv_b=rv_ul_enb.reshape(B), read=False, **decode)
         ul_ok = ul_ok.reshape(T8, n)
 
         # PUCCH ACK matched filter at the eNB's own CCE (DTX-aware)
@@ -856,55 +885,107 @@ def make_dyn_block_step(cfg: DynBlockConfig, device="cuda", n_cells: int = 1):
         st["enb_rb_prev"] = rb_enb
         st["phich_tx"] = ul_ok  # next round's PHICH payload
 
-        cnt = st["counters"]
-        for name, x in (("dl_retx_tx", ~new_dl), ("dl_drop", dl_drop),
-                        ("ul_retx_tx", retx_now), ("ul_drop", ul_drop),
-                        ("dci_dl_miss", ~dl_found), ("dci_ul_miss", ~ul_found)):
-            cnt[name] = cnt[name] + x.reshape(C, -1).sum(1)
-        return dict(dl_ok=dl_ok, dl_out=dl_out.reshape(T8, n, -1),
-                    dl_new=new_dl, dl_found=dl_found, ack_det=ack_det,
-                    ul_ok=ul_ok, ul_out=ul_out.reshape(T8, n, -1),
-                    ul_new=is_new_ul, ul_tx=tx_ul, rb_ue=rb_ue, rv_dl=rv_dl)
+        st["counters"] = st["counters"] + torch.stack([
+            x.reshape(C, -1).sum(1) for x in (~new_dl, dl_drop, retx_now, ul_drop, ~dl_found,
+                                              ~ul_found)])
+        for k, v in st.items():  # the carry, in place
+            dst = b["st"][k]
+            for d, x in (zip(dst, v) if isinstance(dst, list) else ((dst, v),)):
+                if d is not x:
+                    d.copy_(x)
+        b["flags"].index_copy_(1, r, torch.stack([dl_ok, new_dl, dl_found, ack_det, ul_ok,
+                                                  is_new_ul, tx_ul])[:, None])
+        b["ints"].index_copy_(1, r, torch.stack([rb_ue, rv_dl])[:, None])
+        b["dl_out"].index_copy_(0, r, dl_out.reshape(1, T8, n, -1))
+        b["ul_out"].index_copy_(0, r, ul_out.reshape(1, T8, n, -1))
+        r.add_(1)
 
-    def step(dl_q, ul_q, rb_dl, rb_ul, gen, tti0):
-        dl_q, ul_q, rb_dl, rb_ul = (torch.as_tensor(a, device=dev)
-                                    for a in (dl_q, ul_q, rb_dl, rb_ul))
-        gens = list(gen) if C > 1 else [gen]
-        assert len(gens) == C, "one generator per cell"
-        if C == 1:  # the cells axis, of one cell
-            dl_q, ul_q, rb_dl, rb_ul = (a[None] for a in (dl_q, ul_q, rb_dl, rb_ul))
-        # (C, R, 8, n) -> (R, T8, n): round r's rows of every cell
-        rb_dl, rb_ul = (a.long().transpose(0, 1).reshape(R, T8, n) for a in (rb_dl, rb_ul))
-        z8n = torch.zeros((T8, n), dtype=torch.int64, device=dev)
-        f8n = torch.zeros((T8, n), dtype=torch.bool, device=dev)
-        zc = torch.zeros((C,), dtype=torch.int64, device=dev)
-        zn = torch.zeros((C, n), dtype=torch.int64, device=dev)
+    def new_block(dl_shape, ul_shape):
+        """The block's tensors on the device: the queues (C, Q, n, tbs) of
+        the inputs' shapes, the schedules as rounds of rows (R, T8, n), the
+        TTIs (R,), the round index r (1,), the carry st, and the per-round
+        outputs (R, T8, n, ...), the flags and ints stacked."""
+        i64, u8 = dict(dtype=torch.int64, device=dev), dict(dtype=torch.bool, device=dev)
+        z8n, f8n = (lambda: torch.zeros((T8, n), **i64)), (lambda: torch.zeros((T8, n), **u8))
         st = dict(
             dl_tb=torch.zeros((T8, n, cfg.dl_tbs), dtype=torch.int8, device=dev),
-            dl_pend=f8n, dl_retx=z8n, dl_ndi=f8n, ue_ndi=z8n,
+            dl_pend=f8n(), dl_retx=z8n(), dl_ndi=f8n(), ue_ndi=z8n(),
             ue_soft=sch.init_softbuffer(B, cfg_d, sdt, dev),
-            dl_ptr=zn,
+            dl_ptr=torch.zeros((C, n), **i64),
             ul_tb_ue=torch.zeros((T8, n, cfg.ul_tbs), dtype=torch.int8, device=dev),
-            ue_pend=f8n, ue_retx=z8n, ue_ndi_ul=z8n,
-            ul_ptr=zn, ue_rb_prev=z8n,
-            enb_pend=f8n, enb_retx=z8n, enb_ndi_ul=f8n, enb_rb_prev=z8n,
+            ue_pend=f8n(), ue_retx=z8n(), ue_ndi_ul=z8n(),
+            ul_ptr=torch.zeros((C, n), **i64), ue_rb_prev=z8n(),
+            enb_pend=f8n(), enb_retx=z8n(), enb_ndi_ul=f8n(), enb_rb_prev=z8n(),
             enb_soft=sch.init_softbuffer(B, cfg_u, sdt, dev),
-            phich_tx=torch.ones((T8, n), dtype=torch.bool, device=dev),
-            counters=dict(dl_retx_tx=zc, dl_drop=zc, ul_retx_tx=zc, ul_drop=zc,
-                          dci_dl_miss=zc, dci_ul_miss=zc),
+            phich_tx=f8n(),
+            counters=torch.zeros((len(COUNTERS), C), **i64),
         )
-        rounds = [round_body(st, rb_dl[r], rb_ul[r], int(tti0) + N_PID * r, dl_q, ul_q, gens)
-                  for r in range(R)]
-        # (R, T8, n, ...) -> (C, R, 8, n, ...)
-        outs = {k: torch.stack([o[k] for o in rounds]).reshape((R, C, N_PID)
-                                                               + rounds[0][k].shape[1:])
-                .transpose(0, 1) for k in rounds[0]}
-        outs.update(st["counters"])
-        outs["dl_consumed"] = st["dl_ptr"]
-        outs["ul_consumed"] = st["ul_ptr"]
+        return dict(
+            dl_q=torch.zeros((C,) + dl_shape, dtype=torch.int8, device=dev),
+            ul_q=torch.zeros((C,) + ul_shape, dtype=torch.int8, device=dev),
+            rb_dl=torch.zeros((R, T8, n), **i64), rb_ul=torch.zeros((R, T8, n), **i64),
+            ttis=torch.zeros((R,), **i64), r=torch.zeros((1,), **i64), st=st,
+            flags=torch.zeros((len(ROUND_FLAGS), R, T8, n), **u8),
+            ints=torch.zeros((len(ROUND_INTS), R, T8, n), **i64),
+            dl_out=torch.zeros((R, T8, n, cfg.dl_tbs), dtype=torch.int8, device=dev),
+            ul_out=torch.zeros((R, T8, n, cfg.ul_tbs), dtype=torch.int8, device=dev))
+
+    def load(b, dl_q, ul_q, rb_dl, rb_ul, tti0):
+        """A call's inputs into the block's tensors: the queues, the
+        schedules (C, R, 8, n) as rounds of every cell's rows (R, T8, n),
+        and the reference's ttis = tti0 + 8 * arange(R)."""
+        b["dl_q"].copy_(dl_q.reshape(b["dl_q"].shape))
+        b["ul_q"].copy_(ul_q.reshape(b["ul_q"].shape))
+        for k, a in (("rb_dl", rb_dl), ("rb_ul", rb_ul)):
+            b[k].copy_(torch.as_tensor(a).reshape(C, R, N_PID, n).transpose(0, 1)
+                       .reshape(R, T8, n))
+        torch.add(steps, int(tti0), out=b["ttis"])  # on the device: no copy from the host
+
+    def reset(b):
+        """The carry to the reference's carry0 (all zero but the PHICH
+        payload, all ACK) and the round index to 0."""
+        for v in b["st"].values():
+            for t in (v if isinstance(v, list) else (v,)):
+                t.zero_()
+        b["st"]["phich_tx"].fill_(True)
+        b["r"].zero_()
+
+    def outputs(b):
+        """The block's results as new tensors (a later call overwrites b):
+        the per-round outputs (C, R, 8, n, ...), the counters (C,) and the
+        queue pointers (C, n); one cell drops the cells axis."""
+        per_round = dict(zip(ROUND_FLAGS, b["flags"].clone()))
+        per_round.update(zip(ROUND_INTS, b["ints"].clone()))
+        per_round.update(dl_out=b["dl_out"].clone(), ul_out=b["ul_out"].clone())
+        outs = {k: v.reshape((R, C, N_PID) + v.shape[2:]).transpose(0, 1)
+                for k, v in per_round.items()}
+        outs.update(zip(COUNTERS, b["st"]["counters"].clone()))
+        outs["dl_consumed"] = b["st"]["dl_ptr"].clone()
+        outs["ul_consumed"] = b["st"]["ul_ptr"].clone()
         if C == 1:
             outs = {k: v[0] for k, v in outs.items()}
         return outs
+
+    graphed = {}  # queue shapes -> (the block's tensors, its RoundGraph)
+    on_card = jit and turbodecoder_cuda._on_card(rvseq, rvseq.device)
+
+    def step(dl_q, ul_q, rb_dl, rb_ul, gen, tti0):
+        gens = list(gen) if C > 1 else [gen]
+        assert len(gens) == C, "one generator per cell"
+        dl_q, ul_q = torch.as_tensor(dl_q), torch.as_tensor(ul_q)
+        shapes = tuple(dl_q.shape[-3:]), tuple(ul_q.shape[-3:])
+        b, graph = graphed.get(shapes) or (new_block(*shapes), None)
+        load(b, dl_q, ul_q, rb_dl, rb_ul, tti0)
+        if not on_card:
+            reset(b)
+            for _ in range(R):
+                round_body(b, gens)
+            return outputs(b)
+        if graph is None:
+            graph = graphs.RoundGraph(lambda g: round_body(b, g), lambda: reset(b), C, dev)
+            graphed[shapes] = b, graph
+        graph.run(R, gens)
+        return outputs(b)
 
     return step
 
@@ -923,7 +1004,9 @@ class DynBlockRunner:
     a dynamic grant/HARQ loop.  Delivery happens at recovery time, so a
     TB that needed two IR transmissions arrives 8 TTIs late, exactly the
     8-process cadence.  The block's noise comes from a torch.Generator
-    seeded net.tti + 23."""
+    seeded net.tti + 23, carried from block to block.  On the card the
+    step is make_dyn_block_step's default: the first block captures a
+    round as a CUDA graph, and every block replays it R times."""
 
     def __init__(self, net, R: int = 3, dl_mcs: int = 10, ul_mcs: int = 10):
         self.net = net
@@ -1003,7 +1086,9 @@ def make_bench_step(cfg: DynBlockConfig, n_cells: int = 1, device="cuda"):
     retransmissions, DCI misses).  n_cells > 1 runs that many independent
     cells in one block (make_dyn_block_step's cells axis: leading cells
     axis on the queues and schedules, one generator per cell, one tti0) and
-    sums each count over them, on the device."""
+    sums each count over them, on the device.  The block is
+    make_dyn_block_step's default: on the card, a captured round replayed R
+    times."""
     step = make_dyn_block_step(cfg, device, n_cells)
 
     def bench(dl_q, ul_q, rb_dl, rb_ul, gen, tti0):

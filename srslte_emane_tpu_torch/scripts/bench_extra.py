@@ -44,21 +44,33 @@ from . import _timing
 TM3_RNTI = 0x46
 
 
+def host_loop_decode(*args, **kw):
+    """`turbodecoder.turbo_decode_host`, the host-driven loop, with
+    `turbo_decode_device`'s arguments and results (n_iter and the MAP rows
+    as 0-d tensors; the rows are 0, since the host loop adds its own to
+    `turbodecoder.map_rows`): it can stand in for the device loop."""
+    from ..ops.fec import turbodecoder
+
+    bits, ok, n_iter = turbodecoder.turbo_decode_host(*args, **kw)
+    zero = torch.zeros((), dtype=torch.int32, device=bits.device)
+    return bits, ok, zero + n_iter, zero
+
+
 @contextlib.contextmanager
 def plain_map():
     """The turbo decoder with the MAP kernel's plain version in its place
     (the same function, bit for bit, on the same device): the host-driven
-    loop (`turbodecoder.turbo_decode_host`), whose passes go through the
-    kernel's wrapper, with that wrapper replaced by `map_decode_ref`."""
+    loop (`host_loop_decode` in `turbodecoder.turbo_decode_device`'s
+    place), whose passes go through the kernel's wrapper, with that wrapper
+    replaced by `map_decode_ref`."""
     from ..ops.fec import turbodecoder, turbodecoder_cuda as tdc
 
-    saved = turbodecoder.turbo_decode, tdc.map_decode_cuda
-    turbodecoder.turbo_decode, tdc.map_decode_cuda = (turbodecoder.turbo_decode_host,
-                                                      tdc.map_decode_ref)
+    saved = turbodecoder.turbo_decode_device, tdc.map_decode_cuda
+    turbodecoder.turbo_decode_device, tdc.map_decode_cuda = host_loop_decode, tdc.map_decode_ref
     try:
         yield
     finally:
-        turbodecoder.turbo_decode, tdc.map_decode_cuda = saved
+        turbodecoder.turbo_decode_device, tdc.map_decode_cuda = saved
 
 
 def main(argv=None) -> int:

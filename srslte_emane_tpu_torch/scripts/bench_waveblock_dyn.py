@@ -10,7 +10,9 @@ and the rate is the aggregate.  The payloads come from default_rng(0) and
 stay on the device; cell c's schedule is make_schedule(seed=3 + c) and its
 noise a torch.Generator seeded c (one generator seeded 0 for one cell).
 The first block must pass every DL and UL CRC, detect every ACK and miss
-no DCI.
+no DCI.  On the card that first call also captures the block's round as a
+CUDA graph, which every block then replays R times: its time is
+`compile_s`, as the source's jit compile is.
 
 Usage: python -m srslte_emane_tpu_torch.scripts.bench_waveblock_dyn
            [n_ues] [R] [iters] [runs] [cells] [--cpu]

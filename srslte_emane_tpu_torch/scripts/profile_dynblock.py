@@ -12,9 +12,12 @@ attribute the per-round latency:
   - "-all-fec": the three together.
 
 Each stub keeps its inputs' producer chain alive as the source's does (a
-zero-weighted sum of its input is added to its output).  The port's block
-is a loop of torch calls, so a stub takes effect at call time; the original
-functions are restored after each variant.  Payloads come from
+zero-weighted sum of its input is added to its output).  On the card the
+block captures its round as a CUDA graph at its first call, and what the
+graph replays is what the capture called: so each variant builds its own
+step and makes its first call inside its stubs, as the source traces each
+variant's program with its stubs in place; the original functions are
+restored after each variant.  Payloads come from
 default_rng(0) in the source's order, the schedule is make_schedule(seed=3)
 and the noise a torch.Generator seeded 0 (the source's PRNGKey(0)).
 
@@ -57,7 +60,8 @@ def stub_vit(llrs, tb_iter=3):
                        device=llrs.device) + keep
 
 
-def stub_dec(llrs, c, softbuf=None, max_iter=8, use_kernel=None, llr_bits=32, rv_b=None):
+def stub_dec(llrs, c, softbuf=None, max_iter=8, use_kernel=None, llr_bits=32, rv_b=None,
+             read=True):
     B = llrs.shape[0]
     if softbuf is None:
         softbuf = sch.init_softbuffer(B, c, llrs.dtype, llrs.device)
@@ -113,15 +117,15 @@ def block_inputs(cfg: wbd.DynBlockConfig, dev: torch.device):
 def run(cfg: wbd.DynBlockConfig, variant: str, dev: torch.device, iters: int = 3):
     """The block under `variant`: (its first call's outputs, the
     `profile_stage` record per block)."""
-    step = wbd.make_dyn_block_step(cfg, device=dev)
     inputs = block_inputs(cfg, dev)
-
-    def call():
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(0)
-        return step(*inputs, gen, 0)
-
     with stubbed(variant):
+        step = wbd.make_dyn_block_step(cfg, device=dev)
+
+        def call():
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(0)
+            return step(*inputs, gen, 0)
+
         return _timing.profile_stage(call, iters, dev)
 
 

@@ -1322,3 +1322,195 @@ def test_device_loop_replays_as_a_cuda_graph(dev):
         assert torch.equal(out[0], ref[0]) and torch.equal(out[1], ref[1])
         assert int(out[2]) == ref[2] == 8
 
+
+
+def test_turbo_decode_rows_do_not_depend_on_the_batch(dev):
+    """The device loop decodes a row to the same bits alone in its batch or
+    beside other rows: 16 noise-only code blocks of K=280 (every CRC fails,
+    so the hard decisions rest on the last bits of every metric) decoded as
+    a batch of 16 and as the first half of 32; beta_K (turbodecoder.beta_tail)
+    equal on the card and on the CPU at each batch size."""
+    from srslte_emane_tpu_torch.ops.fec import crc
+
+    rng = np.random.default_rng(9)
+    k, B = 280, 16
+    d = [torch.from_numpy(rng.normal(0, 1.5, (2 * B, k + 4)).astype(np.float32)).to(dev)
+         for _ in range(3)]
+    valid = torch.ones(2 * B, dtype=torch.bool, device=dev)
+    for n in (B, 2 * B, 1, 5):
+        tx, tz = d[0][:n, :3], d[1][:n, :3]
+        assert torch.equal(turbodecoder.beta_tail(tx, tz).cpu(),
+                           turbodecoder.beta_tail(tx.cpu(), tz.cpu())), n
+    outs = [turbodecoder.turbo_decode_device(*(x[:n] for x in d), valid[:n], k, 8,
+                                             crc.LTE_CRC24B) for n in (B, 2 * B)]
+    assert not bool(outs[1][1].any())
+    assert torch.equal(outs[0][0], outs[1][0][:B]) and int(outs[0][2]) == int(outs[1][2]) == 8
+
+
+# ---------------- the dynamic block's round as a replayed CUDA graph (chip_smoke.py phase 19) ----------------
+
+def _dyn_case(dev, R=2, harq=False, n_cells=1, seed=0):
+    """tests/test_torch_waveblock.py's 15 PRB dynamic-block cases on the
+    card (clean, or harq: UE 0 at 8 dB with MCS 16, UE 1 at -6 dB): (cfg,
+    the queues and schedules as tensors on the card, with a leading cells
+    axis for n_cells > 1)."""
+    from srslte_emane_tpu_torch.phch import grid
+    from srslte_emane_tpu_torch.runtime import waveblock_dyn
+
+    kw = dict(dl_mcs=16, snr_db=(8.0, -6.0)) if harq else dict(dl_mcs=8, snr_db=(30.0, 28.0))
+    cfg = waveblock_dyn.DynBlockConfig(
+        cell=grid.CellConfig(n_prb=15, cell_id=1, cfi=2), rntis=(70, 71), dl_l_crbs=3,
+        ul_l_prb=2, ul_mcs=8, R=R, **kw)
+    cells = []
+    for c in range(n_cells):
+        rng = np.random.default_rng(seed + c)
+        rb_dl, rb_ul = waveblock_dyn.make_schedule(cfg, seed=1 + c)
+        cells.append((rng.integers(0, 2, (cfg.T, 2, cfg.dl_tbs), dtype=np.int8),
+                      rng.integers(0, 2, (cfg.T, 2, cfg.ul_tbs), dtype=np.int8), rb_dl, rb_ul))
+    ins = [np.stack(x) if n_cells > 1 else x[0] for x in zip(*cells)]
+    return cfg, [torch.from_numpy(a).to(dev) for a in ins]
+
+
+def _gens(dev, *seeds):
+    out = []
+    for s in seeds:
+        g = torch.Generator(device=dev)
+        g.manual_seed(s)
+        out.append(g)
+    return out
+
+
+def _equal(a, b):
+    assert set(a) == set(b)
+    for k in a:
+        assert a[k].device.type == "cuda" and torch.equal(a[k], b[k]), k
+
+
+@pytest.mark.parametrize("case", [dict(R=2), dict(R=5, harq=True), dict(R=2, n_cells=2),
+                                  dict(R=5, harq=True, n_cells=2)],
+                         ids=["clean", "harq", "cells2", "harq-cells2"])
+def test_dyn_graph_equals_the_eager_block(dev, case):
+    """make_dyn_block_step on the card (jit=True: one round captured, R
+    replays) against jit=False on equal generators: every output, counter
+    and consumed pointer bit for bit, the generators left in equal states,
+    and the kernels' launch counts (replays included) equal the eager
+    block's; then the same graph on other queues and a new generator."""
+    from srslte_emane_tpu_torch.ops.fec import turbo_iter_cuda, viterbi_cuda
+    from srslte_emane_tpu_torch.runtime import waveblock_dyn
+
+    C = case.get("n_cells", 1)
+    cfg, ins = _dyn_case(dev, **case)
+    graph = waveblock_dyn.make_dyn_block_step(cfg, n_cells=C)
+    eager = waveblock_dyn.make_dyn_block_step(cfg, n_cells=C, jit=False)
+    arg = lambda gens: gens if C > 1 else gens[0]
+    graph(*ins, arg(_gens(dev, *range(C))), 8)  # the capture
+    counters = lambda: (turbodecoder_cuda.launches, turbo_iter_cuda.launches,
+                        turbo_iter_cuda.arm_launches, viterbi_cuda.launches)
+    runs = {}
+    for name, step in (("graph", graph), ("eager", eager)):
+        gens = _gens(dev, *(11 + c for c in range(C)))
+        before = counters()
+        out = step(*ins, arg(gens), 16)
+        torch.cuda.synchronize()
+        runs[name] = out, [g.get_state() for g in gens], [a - b for a, b in zip(counters(), before)]
+    _equal(runs["graph"][0], runs["eager"][0])
+    assert all(torch.equal(a, b) for a, b in zip(runs["graph"][1], runs["eager"][1]))
+    assert runs["graph"][2] == runs["eager"][2] and min(runs["graph"][2]) > 0, runs["graph"][2]
+    out = runs["graph"][0]
+    if case.get("harq"):  # retransmissions, drops and DCI misses happened
+        assert out["dl_retx_tx"].sum() > 0 and out["dl_drop"].sum() > 0
+        assert out["dci_dl_miss"].sum() > 0
+    else:
+        assert bool(out["dl_ok"].all()) and bool(out["ul_ok"].all())
+    _, other = _dyn_case(dev, seed=7, **case)
+    _equal(graph(*other, arg(_gens(dev, *(30 + c for c in range(C)))), 0),
+           eager(*other, arg(_gens(dev, *(30 + c for c in range(C)))), 0))
+
+
+@pytest.mark.parametrize("harq", [False, True], ids=["clean", "harq"])
+def test_dyn_graph_cells_equal_one_cell_graphs(dev, harq):
+    """The 2-cell graph block is two 1-cell graph blocks side by side:
+    each cell, with its own queues, schedule and generator, equals the
+    1-cell block on them bit for bit (on the card, as
+    tests/test_torch_waveblock_cells.py's test_cells_block_equals_one_cell_blocks
+    holds it on the CPU).  The harq case at R=5: each cell retransmits,
+    drops (a drop needs a fourth failed transmission, so at least 4
+    rounds) and misses DCIs."""
+    from srslte_emane_tpu_torch.runtime import waveblock_dyn
+
+    cfg, ins = _dyn_case(dev, R=5 if harq else 2, harq=harq, n_cells=2)
+    both = waveblock_dyn.make_dyn_block_step(cfg, n_cells=2)(*ins, _gens(dev, 11, 12), 8)
+    one = waveblock_dyn.make_dyn_block_step(cfg)
+    for c in range(2):
+        _equal({k: v[c] for k, v in both.items()},
+               one(*(a[c] for a in ins), _gens(dev, 11 + c)[0], 8))
+    if harq:
+        for k in ("dl_retx_tx", "dl_drop", "dci_dl_miss"):
+            assert bool((both[k] > 0).all()), (k, both[k])
+
+
+def test_dyn_graph_two_blocks_on_one_generator(dev):
+    """Two successive graph blocks on one generator equal two eager
+    blocks on one generator (the state the first leaves is the second's)."""
+    from srslte_emane_tpu_torch.runtime import waveblock_dyn
+
+    cfg, ins = _dyn_case(dev, R=3, harq=True)
+    outs = {}
+    for jit in (True, False):
+        step = waveblock_dyn.make_dyn_block_step(cfg, jit=jit)
+        gen = _gens(dev, 5)[0]
+        outs[jit] = [step(*ins, gen, 8 * r) for r in (0, 3)], gen.get_state()
+    for a, b in zip(outs[True][0], outs[False][0]):
+        _equal(a, b)
+    assert torch.equal(outs[True][1], outs[False][1])
+
+
+def test_dyn_graph_makes_no_host_sync(dev):
+    """After the capture, a whole call (inputs on the card) runs under
+    torch.cuda.set_sync_debug_mode("error"): the copies in, R replays and
+    the copies out enqueue only."""
+    from srslte_emane_tpu_torch.runtime import waveblock_dyn
+
+    cfg, ins = _dyn_case(dev, R=4, harq=True)
+    step = waveblock_dyn.make_dyn_block_step(cfg)
+    step(*ins, _gens(dev, 1)[0], 0)
+    torch.cuda.synchronize()
+    gen = _gens(dev, 2)[0]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = step(*ins, gen, 0)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    ref = waveblock_dyn.make_dyn_block_step(cfg, jit=False)(*ins, _gens(dev, 2)[0], 0)
+    _equal(out, ref)
+
+
+def test_dyn_block_runner_graph_equals_jit_false(dev, tmp_path):
+    """DynBlockRunner (R=2) on an attached 15 PRB, 2-UE network on the card
+    over two blocks, its generator carried across them: each block's
+    outputs equal the jit=False block's on the same queues, schedule and
+    TTI, drawing from one generator started where the runner's was."""
+    from srslte_emane_tpu_torch.runtime import waveblock_dyn
+
+    net, ues, _, _ = _port_network(tmp_path, "cuda")
+    while net.tti < 400 and not all(u.emm_state == "REGISTERED" for u in ues):
+        net.run(10)
+    assert all(u.emm_state == "REGISTERED" for u in ues)
+    runner = waveblock_dyn.DynBlockRunner(net, R=2)
+    calls, step = [], runner.step
+
+    def recorded(*a):
+        out = step(*a)
+        calls.append((a, {k: v.clone() for k, v in out.items()}))
+        return out
+
+    runner.step = recorded
+    gen = torch.Generator(device=net.device)
+    gen.set_state(runner._gen.get_state())
+    for _ in range(2):
+        runner.run_block()
+    eager = waveblock_dyn.make_dyn_block_step(runner.cfg, device=net.device, jit=False)
+    for (dl, ul, rb_dl, rb_ul, _, tti0), out in calls:
+        _equal(out, eager(dl, ul, rb_dl, rb_ul, gen, tti0))
+    assert torch.equal(gen.get_state(), runner._gen.get_state())
+    assert runner.metrics["blocks"] == 2 and runner.metrics["dl_ok"] > 0

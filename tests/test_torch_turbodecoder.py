@@ -274,6 +274,20 @@ def _code_block_llrs(k, B, snr_scale, seed):
     return bits, llr
 
 
+def test_beta_tail_does_not_depend_on_the_batch():
+    """beta_tail gives a row the same beta_K bits whatever rows are decoded
+    beside it (each state's six signed tail LLRs are added one at a time in
+    index order), and the reference's einsum within float rounding."""
+    rng = np.random.default_rng(3)
+    tx, tz = (rng.normal(0, 3, (64, 3)).astype(np.float32) for _ in range(2))
+    whole = p_td.beta_tail(*_t(tx, tz))
+    for n in (1, 2, 5, 8, 16, 32):
+        assert torch.equal(p_td.beta_tail(*_t(tx[:n], tz[:n])), whole[:n]), n
+    tails = np.stack([tx[:, 0], tz[:, 0], tx[:, 1], tz[:, 1], tx[:, 2], tz[:, 2]], -1)
+    ref = 0.5 * np.einsum("sj,bj->bs", j_td._trellis()["tail_signs"], tails)
+    np.testing.assert_allclose(whole.numpy(), ref, rtol=0, atol=1e-5)
+
+
 @pytest.mark.parametrize("k,B,scale,llr_bits", [
     (40, 4, 1.0, 32), (40, 8, 1.0, 16), (512, 3, 1.0, 32), (512, 3, 1.0, 16),
     (1056, 2, 1.0, 8)])
