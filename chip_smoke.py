@@ -19,7 +19,16 @@ Phases (any failure raises; the exit code is then non-zero):
   4. downlink path: the 20 MHz SISO 64QAM PDSCH link at batch 128
      (tx_subframe, AWGN, rx_subframe with the kernel) must decode the payload
      bit-exactly with every CRC passing, through the kernel; then decode and
-     encode throughput, median of 3 runs;
+     encode throughput, median of 3 runs, and the MAP passes per code block;
+     (b) make_link_step, the reference's jitted step (on the card a CUDA
+     graph captured once and replayed per call, runtime/graphs.jit),
+     against link_step, the eager step, on the bench payload and a new one, on
+     generators seeded alike: bits, CRC flags, snr_db, the generators'
+     states, launches and MAP rows equal, each payload decoded; then both in
+     turns (graph, eager, eager, graph): sf/s, CUDA-event ms per call, and
+     one profiled call each (host launches, at most 16 for the graph; busy
+     share; each port kernel's runs on the card equal to its launch count;
+     an empty trace fails);
   5. v1 kernel vs plain (map_decode_v1_ref), bit for bit unless
      SRSLTE_TPU_LOGMAP is set, at 768 x K=5504 (W=32, L=172), 768 x K=1040
      (W=16, L=65, an odd window) and the odd-window path's 128 x K=1056
@@ -94,12 +103,16 @@ Phases (any failure raises; the exit code is then non-zero):
  11. the device-resident block engines: the SPS block of
      scripts/bench_waveform_tpu.py (100 PRB, cell_id 1, cfi 1, 8 UEs, DL 11
      PRB and UL 12 PRB at MCS 20, 30 dB, T=160, llr_bits=16) through
-     runtime/waveblock.make_block_step on the card: every DL and UL CRC and
-     ACK, payloads bit-exact; the first two TTIs against the CPU (the card's
-     noise replayed); TTIs/s, CUDA-event time, a profile of one block
-     (device time, kernel launches, busy share), DL/UL Mb/s, peak memory
-     and a depth sweep at T = 20, 40, 80, 160; the same block in TM3 with 2
-     ports (every codeword); the dynamic block of
+     runtime/waveblock.make_block_step on the card: the eager block
+     (jit=False): every DL and UL CRC and ACK, payloads bit-exact; the
+     first two TTIs against the CPU (the card's noise replayed); the
+     graphed block (the default: one CUDA graph, tti0 and the payloads its
+     inputs) against the eager one at tti0 0 and 37 on other payloads, as
+     phase 4b, then both in turns as phase 4b (TTIs/s); the graphed bench
+     step's TTIs/s, CUDA-event time, a profile of one graphed block (device
+     time, kernel launches, busy share), DL/UL Mb/s, peak memory and a depth
+     sweep at T = 20, 40, 80, 160; the same in TM3 with 2 ports (every
+     codeword); the dynamic block of
      scripts/bench_waveblock_dyn.py (100 PRB, cfi 2, 8 feasible RNTIs, DL 11
      PRB MCS 25, UL 10 PRB MCS 20, 30 dB, R=20) through
      runtime/waveblock_dyn.make_dyn_block_step, by default one round
@@ -144,7 +157,7 @@ Phases (any failure raises; the exit code is then non-zero):
  14. the multi-device layer on one card (a 1-device mesh, no scaling claim):
      (a) pdsch_link.make_link_step_sharded at the bench cell (100 PRB, 64QAM,
      rate 0.55, llr_bits=16, batch 128) through turbo_map: every CRC, the
-     payload bit-exact, equal bit for bit to make_link_step on the same
+     payload bit-exact, equal bit for bit to link_step on the same
      noise, 0 cross-device transfers, sf/s; then parallel/dryrun.py on 1
      device (its JSON lines); (b) ota_mix_sharded and total_rx_power_psum
      of 8 nodes on the card against the dense mix (atol 1e-4), also with
@@ -166,7 +179,8 @@ Phases (any failure raises; the exit code is then non-zero):
      `python -m` runs it in a subprocess through MODULE_LOGGED (its
      turbo_map launches and their shapes): srslte_emane_tpu_torch.bench (the
      number of record, alone: every CRC and bit, decode sf/s, CUDA-event ms
-     per call, a warm kernel library), then together the scripts' snr_sweep
+     per call, a warm kernel library, its encode and decode two captured
+     graphs), then together the scripts' snr_sweep
      (BLER and sf/s at 8-20 dB, no failure at 20 dB), bench_extra (cell
      search, TM3, PUSCH, 2-carrier CA), bench_waveform_tpu (T=20),
      bench_waveblock_dyn (R=20), profile_stages and wavenet_smoke (both UEs
@@ -253,6 +267,7 @@ The line before the last is {"kernels": [...]}; the last line is
 import collections
 import concurrent.futures
 import contextlib
+import functools
 import json
 import os
 import re
@@ -441,7 +456,132 @@ def phase_kernel(dev):
     return map_cases(MAP_SHAPES, dev)
 
 
-def phase_main_path(dev):
+def event_ms(fn, n=5):
+    """Median CUDA-event milliseconds of n calls of fn, each bracketed by
+    its own events and synchronised (the host's waits inside a call
+    included, not the time between calls)."""
+    import torch
+
+    times = []
+    for _ in range(n):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def graph_against_eager(label, steps, inputs, call, right):
+    """Phases 4b and 11: the graphed step (steps["graph"], captured by
+    its first call here) and the eager one (steps["eager"]) on each input
+    tuple of `inputs`, on generators seeded alike (`call(step, args, gen)`):
+    every output bit for bit, the generators left in equal states, each
+    call's launch counts and MAP rows equal and each port kernel launched,
+    `right(out, args)` holding (a second input tuple: the graph read its new
+    inputs).  Returns (the first call's s, the launches of the graph's
+    calls after it, by kernel)."""
+    import torch
+
+    from srslte_emane_tpu_torch.ops.fec import turbodecoder
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    call(steps["graph"], inputs[0], seeded(0))
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = collections.Counter()
+    for i, args in enumerate(inputs):
+        runs = {}
+        for name in ("graph", "eager"):
+            g = seeded(100 + i)
+            before, rows = kernel_counts(), turbodecoder.read_map_rows()
+            out = call(steps[name], args, g)
+            torch.cuda.synchronize()
+            after = kernel_counts()
+            counts = {k: after[k] - before[k] for k in after}
+            runs[name] = out, g.get_state(), counts, turbodecoder.read_map_rows() - rows
+        (out, state, counts, rows), (ref, ref_state, ref_counts, ref_rows) = (runs["graph"],
+                                                                             runs["eager"])
+        out_d, ref_d = (x if isinstance(x, dict) else dict(enumerate(x)) for x in (out, ref))
+        assert set(out_d) == set(ref_d), label
+        for k in ref_d:
+            assert torch.equal(out_d[k], ref_d[k]), f"{label}: graph and eager differ at {k}"
+        assert torch.equal(state, ref_state), f"{label}: generator states differ"
+        assert counts == ref_counts and rows == ref_rows > 0, (label, counts, ref_counts, rows,
+                                                               ref_rows)
+        assert counts["turbo_map"] > 0 and counts["turbo_iter"] > 0, (label, counts)
+        assert right(out, args), f"{label}: the graph's call {i} is wrong"
+        launches.update(counts)
+    return first_s, launches
+
+
+def seeded(seed):
+    """A generator on the card seeded `seed`."""
+    import torch
+
+    g = torch.Generator(device=torch.device("cuda", 0))
+    g.manual_seed(seed)
+    return g
+
+
+def graph_turns(label, steps, call, per_call, unit, card):
+    """The graphed and the eager step in turns (graph, eager, eager, graph):
+    per_call units per second (median of N_RUNS runs of ITERS calls),
+    CUDA-event ms per call (event_ms), then one profiled call of each
+    (profile_counted: each port kernel's runs on the card equal its counted
+    launches; an empty trace fails) with its host launches, busy share and
+    device ms.  Logs and returns the summary."""
+    res = {name: collections.defaultdict(list) for name in steps}
+    for name in ("graph", "eager", "eager", "graph"):
+        fn = lambda: call(steps[name])
+        r = res[name]
+        r["rates"].append(round(rate(fn, per_call=per_call)[0], 1))
+        r["event_ms"].append(round(event_ms(fn), 3))
+    for name in steps:
+        prof = profile_counted(lambda: call(steps[name]), f"{label}: the {name} step",
+                               control=False)
+        res[name].update(host_launches=prof["host_launches"], busy_share=prof["busy_share"],
+                         device_ms=prof["device_ms"], kernel_launches=prof["kernel_launches"],
+                         port_kernels=prof["port_kernels"])
+    summary = {name: {"rate": statistics.median(r["rates"]), "unit": unit, **r}
+               for name, r in res.items()}
+    log(f"{label}, graph vs eager in turns: {json.dumps(summary)}; {card}")
+    return summary
+
+
+def link_graph(dev, cfg, payload, card):
+    """Phase 4b: make_link_step (the reference's jitted step: on the card a
+    CUDA graph captured once and replayed) against link_step, the eager
+    step, on the bench payload and on a new one, then both in turns.  Returns the
+    turbo_map launches of the graph's calls after its first."""
+    import torch
+
+    from srslte_emane_tpu_torch.models import pdsch_link
+
+    steps = dict(graph=pdsch_link.make_link_step(cfg),
+                 eager=functools.partial(pdsch_link.link_step, cfg=cfg))
+    other = torch.from_numpy(np.random.default_rng(1).integers(
+        0, 2, tuple(payload.shape), dtype=np.int8)).to(dev)
+    first_s, launches = graph_against_eager(
+        "link graph", steps, [(payload,), (other,)], lambda step, a, g: step(a[0], g),
+        lambda out, a: bool(out[1].all()) and torch.equal(out[0], a[0]))
+    (graph,) = steps["graph"].graphs.values()
+    log(f"link graph: make_link_step's graph equals link_step bit for bit (bits, CRC flags, "
+        f"snr_db, generator states, launches {json.dumps(dict(launches))} over two calls, MAP "
+        f"rows) on the bench payload and a new one, each decoded; first call (warm-up, capture, "
+        f"one replay) {first_s:.2f} s; {len(graph.tables)} cached tables held")
+    s = graph_turns("link graph (phase 4b)", steps, lambda step: step(payload, seeded(7)),
+                    BATCH, "sf/s", card)
+    assert s["graph"]["host_launches"] <= 16, s["graph"]
+    log(f"link graph: sf/s x {s['graph']['rate'] / s['eager']['rate']:.2f}, host launches "
+        f"{s['graph']['host_launches']} vs {s['eager']['host_launches']}, busy share "
+        f"{s['graph']['busy_share']} vs {s['eager']['busy_share']}; {card}")
+    return launches["turbo_map"]
+
+
+def phase_main_path(dev, card):
     import torch
 
     from srslte_emane_tpu_torch.models import pdsch_link
@@ -480,18 +620,18 @@ def phase_main_path(dev):
     assert rel < 1e-5, f"card vs CPU TX waveform: relative RMS {rel}"
     log(f"card vs CPU tx_subframe relative RMS {rel:.3e}")
 
-    turbodecoder.map_rows = 0
+    turbodecoder.reset_map_rows()
     dec, dec_spread, dec_rates = rate(
         lambda: pdsch_link.rx_subframe(rx, cfg, use_kernel=True)[1],
         check=lambda ok_: bool(ok_.all()))
-    passes = turbodecoder.map_rows / ((N_RUNS * ITERS + 1) * BATCH * segm.C)
+    passes = turbodecoder.read_map_rows() / ((N_RUNS * ITERS + 1) * BATCH * segm.C)
     enc, enc_spread, enc_rates = rate(lambda: pdsch_link.tx_subframe(payload, cfg))
     log(f"{fmt_rate('decode', dec, dec_spread, dec_rates)}, {dec * cfg.tbs / 1e6:.1f} Mb/s "
         f"payload, MAP half-iterations per code block h = {passes:.2f} (the rows of the "
         f"passes that ran over the code blocks; n_iter = (h+1)//2 = {(passes + 1) // 2:.0f} "
         f"when all sizes take the same h); "
         f"{fmt_rate('encode', enc, enc_spread, enc_rates)}; batch {BATCH}, tbs {cfg.tbs}")
-    return main_launches
+    return main_launches + link_graph(dev, cfg, payload, card)
 
 
 def random_llrs(k, batch, dev, seed):
@@ -695,11 +835,11 @@ def phase_uplink(dev):
         f"{segm.cb_sizes}) decoded bit-exact at {snr_db} dB, all CRCs pass, {launches} MAP "
         f"kernel launches, first call {first_s:.2f} s (host tables included)")
 
-    turbodecoder.map_rows = 0
+    turbodecoder.reset_map_rows()
     dec = rate(lambda: ue_ul.enb_receive(rx, cfg, use_kernel=True, llr_bits=llr_bits)["pusch"][1],
                check=lambda ok_: bool(ok_.all()))
     sizes = sorted(set(segm.cb_sizes))
-    passes = turbodecoder.map_rows / ((N_RUNS * ITERS + 1) * BATCH * segm.C)
+    passes = turbodecoder.read_map_rows() / ((N_RUNS * ITERS + 1) * BATCH * segm.C)
     enc = rate(lambda: ue_ul.build_subframe(cfg, tb_bits=payload))
     log(f"UL {fmt_rate('decode', *dec)}, {dec[0] * cfg.tbs / 1e6:.1f} Mb/s payload, "
         f"MAP passes per code block {passes:.2f} (sizes {sizes}; the rows of the passes that "
@@ -871,19 +1011,22 @@ def log_update(update):
 
 
 def count_replays_in_logs():
-    """Makes runtime/graphs.RoundGraph count a captured round's replays in
-    this script's logs, as it counts them in the kernels' own counts: the
-    updates kept during a capture go with its graph, and each run(n) makes
-    them n times.  For the rest of the process."""
+    """Makes runtime/graphs.RoundGraph and StepGraph count a captured round's
+    or step's replays in this script's logs, as they count them in the
+    kernels' own counts: the updates kept during a capture go with its
+    graph, and each RoundGraph.run(n) makes them n times, each
+    StepGraph.run once.  For the rest of the process."""
     from srslte_emane_tpu_torch.runtime import graphs
 
-    init, run = graphs.RoundGraph.__init__, graphs.RoundGraph.run
+    def captured(init):
+        def init_logged(self, *a, **kw):
+            CAPTURED.clear()
+            init(self, *a, **kw)
+            self.log_updates = CAPTURED[:]
+            CAPTURED.clear()
+        return init_logged
 
-    def captured(self, *a, **kw):
-        CAPTURED.clear()
-        init(self, *a, **kw)
-        self.log_updates = CAPTURED[:]
-        CAPTURED.clear()
+    run, step_run = graphs.RoundGraph.run, graphs.StepGraph.run
 
     def replayed(self, n, gens):
         run(self, n, gens)
@@ -891,7 +1034,15 @@ def count_replays_in_logs():
             for update in self.log_updates:
                 update()
 
-    graphs.RoundGraph.__init__, graphs.RoundGraph.run = captured, replayed
+    def step_replayed(self, args):
+        out = step_run(self, args)
+        for update in self.log_updates:
+            update()
+        return out
+
+    graphs.RoundGraph.__init__ = captured(graphs.RoundGraph.__init__)
+    graphs.StepGraph.__init__ = captured(graphs.StepGraph.__init__)
+    graphs.RoundGraph.run, graphs.StepGraph.run = replayed, step_replayed
 
 
 @contextlib.contextmanager
@@ -2122,8 +2273,12 @@ def block_timing(fn, ttis):
 
 
 def step_sps(dev, card, tm3):
-    """Phase 11.1/11.2: the SPS block at T=160 (SISO, or TM3 with 2 ports).
-    Returns (turbo_map launches of one block, launch log)."""
+    """Phase 11.1/11.2: the SPS block at T=160 (SISO, or TM3 with 2 ports):
+    the eager block's first call (its noise recorded) against the CPU, then
+    the graphed block (make_block_step's default on the card) against the
+    eager one at tti0 0 and 37 on other payloads, both in turns, and the
+    graphed bench step.  Returns (turbo_map launches of the eager block and
+    the graph's calls, launch log of the first block)."""
     import torch
 
     from srslte_emane_tpu_torch.ops.fec import turbodecoder_cuda as tdc
@@ -2133,30 +2288,35 @@ def step_sps(dev, card, tm3):
     cfg = sps_config(SPS_T, tm3)
     n, T = cfg.n_ues, cfg.T
     n_cw = 2 if tm3 else 1
-    rng = np.random.default_rng(0)
-    dl_shape = (T, n) + ((2,) if tm3 else ()) + (cfg.dl_tbs,)
-    dl = torch.from_numpy(rng.integers(0, 2, dl_shape, dtype=np.int8)).to(dev)
-    ul = torch.from_numpy(rng.integers(0, 2, (T, n, cfg.ul_tbs), dtype=np.int8)).to(dev)
+
+    def payloads(seed):
+        rng = np.random.default_rng(seed)
+        dl_shape = (T, n) + ((2,) if tm3 else ()) + (cfg.dl_tbs,)
+        return (torch.from_numpy(rng.integers(0, 2, dl_shape, dtype=np.int8)).to(dev),
+                torch.from_numpy(rng.integers(0, 2, (T, n, cfg.ul_tbs), dtype=np.int8)).to(dev))
+
+    dl, ul = payloads(0)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     t0 = time.perf_counter()
-    step = waveblock.make_block_step(cfg, sfn0=4)  # the card: the entry point's default
+    steps = dict(graph=waveblock.make_block_step(cfg, sfn0=4),  # the card: the entry point's default
+                 eager=waveblock.make_block_step(cfg, sfn0=4, jit=False))
     bench = waveblock.make_bench_step(cfg, sfn0=4)
     build_s = time.perf_counter() - t0
 
-    def right(out):
+    def right(out, args=(dl, ul)):
         return (bool(out["dl_ok"].all()) and bool(out["ul_ok"].all())
                 and (not tm3 or bool(out["dl_ok_cw"].all()))
                 and int((out["ack_energy"] > 1e-2).sum()) == T * n
-                and torch.equal(out["dl_out"], dl.reshape(T, n, -1))
-                and torch.equal(out["ul_out"], ul))
+                and torch.equal(out["dl_out"], args[0].reshape(T, n, -1))
+                and torch.equal(out["ul_out"], args[1]))
 
     record = []
     torch.cuda.reset_peak_memory_stats()
     with launch_log() as seen, recorded_noise(record=record):
         tdc.launches = 0
         t0 = time.perf_counter()
-        out = step(dl, ul, gen, 0)
+        out = steps["eager"](dl, ul, gen, 0)
         torch.cuda.synchronize()
         first_s = time.perf_counter() - t0
         launches = tdc.launches
@@ -2183,13 +2343,32 @@ def step_sps(dev, card, tm3):
             assert torch.equal(out[k][:2].cpu(), v), f"{name}: card and CPU differ at {k}"
     log(f"{name}: card vs CPU on the first 2 TTIs: bits, CRCs equal, ACK values within 1e-4")
 
+    # the graph (one capture, tti0 and the payloads its inputs) against the
+    # eager block at two TTIs, then both in turns
+    graph_first_s, graph_launches = graph_against_eager(
+        f"{name} graph", steps, [(dl, ul, 0), (*payloads(1), 37)],
+        lambda step, a, g: step(a[0], a[1], g, a[2]), lambda out, a: right(out, a))
+    (graph,) = steps["graph"].graphs.values()
+    log(f"{name} graph: equals the eager block bit for bit at tti0 0 and 37 on other payloads "
+        f"(bits, CRC flags, ack_energy, ack_val, generator states, MAP rows, launches "
+        f"{json.dumps(dict(graph_launches))} over the two calls); first call (warm-up, capture, "
+        f"one replay) {graph_first_s:.2f} s; {len(graph.tables)} cached tables held")
+    s = graph_turns(f"{name} graph (phase 11)", steps, lambda step: step(dl, ul, seeded(7), 0),
+                    T, "TTIs/s", card)
+    assert s["graph"]["host_launches"] <= 16, s["graph"]
+    log(f"{name} graph: TTIs/s x {s['graph']['rate'] / s['eager']['rate']:.2f}, host launches "
+        f"{s['graph']['host_launches']} vs {s['eager']['host_launches']}, busy share "
+        f"{s['graph']['busy_share']} vs {s['eager']['busy_share']}, device ms "
+        f"{s['graph']['device_ms']} vs {s['eager']['device_ms']}; {card}")
+
     counts = lambda: bench(dl, ul, gen, 0)
-    (med, spread, rates), event_ms = block_timing(counts, T)
+    (med, spread, rates), ev_ms = block_timing(counts, T)
     assert [int(x) for x in counts()] == [T * n * n_cw, T * n, T * n]
-    prof = profile_block(lambda: step(dl, ul, gen, 0))
-    log(f"{name}: {fmt_rate('block', med, spread, rates, unit='TTIs/s')}; DL "
-        f"{med * n * n_cw * cfg.dl_tbs / 1e6:.1f} Mb/s + UL {med * n * cfg.ul_tbs / 1e6:.1f} Mb/s; "
-        f"CUDA-event time per block {event_ms:.2f} ms; profile of one block {json.dumps(prof)}; {card}")
+    prof = profile_block(lambda: steps["graph"](dl, ul, gen, 0))
+    log(f"{name}: {fmt_rate('block', med, spread, rates, unit='TTIs/s')} (the graphed bench "
+        f"step); DL {med * n * n_cw * cfg.dl_tbs / 1e6:.1f} Mb/s + UL "
+        f"{med * n * cfg.ul_tbs / 1e6:.1f} Mb/s; CUDA-event time per block {ev_ms:.2f} ms; "
+        f"profile of one graphed block {json.dumps(prof)}; {card}")
     if not tm3:
         sweep = {}
         for depth in SPS_DEPTHS:
@@ -2198,9 +2377,9 @@ def step_sps(dev, card, tm3):
             d, u = dl[:depth], ul[:depth]
             sweep[depth] = rate(lambda: b(d, u, gen, 0), per_call=depth, iters=1,
                                 check=lambda o: int(o[0]) == depth * n)[0]
-        log(f"{name} depth sweep (TTIs/s by T, median of {N_RUNS}): "
+        log(f"{name} depth sweep (TTIs/s by T, graphed bench step, median of {N_RUNS}): "
             f"{json.dumps({k: round(v, 1) for k, v in sweep.items()})}; {card}")
-    return launches, seen
+    return launches + graph_launches["turbo_map"], seen
 
 
 def dyn_block_right(o, dl_q, ul_q, rb_dl):
@@ -2910,7 +3089,7 @@ NETSIM_MODULE = "srslte_emane_tpu_torch.apps.netsim"
 
 def step_link_sharded(dev, card, logs):
     """Phase 14a: make_link_step_sharded on a 1-device mesh at the bench
-    cell, batch 128, against make_link_step on the same noise; then the dry
+    cell, batch 128, against link_step on the same noise; then the dry
     run.  Returns its turbo_map launches."""
     import torch
 
@@ -2936,16 +3115,16 @@ def step_link_sharded(dev, card, logs):
     assert launches > 0 and all(narrow for _, _, narrow in seen), seen
     assert bool(ok.all()) and torch.equal(out, payload), \
         f"sharded link: {int(ok.sum())} of {BATCH} CRCs, or a payload bit"
-    with replaying_awgn(replay=record, rows=slice(None)):
-        ref = pdsch_link.make_link_step(cfg)(payload, gen)
+    with replaying_awgn(replay=record, rows=slice(None)):  # eager: one awgn call to answer
+        ref = pdsch_link.link_step(payload, gen, cfg)
     assert torch.equal(ref[0], out) and torch.equal(ref[1], ok) and torch.equal(ref[2], snr), \
-        "sharded link differs from make_link_step on the same noise"
+        "sharded link differs from link_step on the same noise"
     right = lambda o: bool(o[1].all()) and torch.equal(o[0], payload)
     r = rate(lambda: step(payload, gen), check=right)
     assert mesh.transfers == 0, f"sharded link moved {mesh.transfers} tensors between devices"
     log(f"sharded link: make_link_step_sharded on a 1-device mesh {mesh.shape}, bench cell "
         f"(100 PRB, 64QAM, rate 0.55, llr_bits=16, TBS {cfg.tbs}), batch {BATCH}: every CRC "
-        f"passes, payload bit-exact, equal to make_link_step on the same noise bit for bit "
+        f"passes, payload bit-exact, equal to link_step on the same noise bit for bit "
         f"(bits, CRCs, SNR estimates); {launches} turbo_map launches {sorted(set(seen))}; "
         f"cross-device transfers {mesh.transfers}; {fmt_rate('sharded link', *r)}; {card}")
     with launch_log() as seen:
@@ -3052,7 +3231,7 @@ def step_block_sharded(dev, card, logs):
         f"sharded block: DL {int(out['dl_ok'].sum())}, UL {int(out['ul_ok'].sum())}, ACK "
         f"{int((out['ack_energy'] > 1e-2).sum())} of {T * n}, or a payload")
     with recorded_noise(replay=record):
-        ref = waveblock.make_block_step(cfg, sfn0=4)(dl[0], ul[0], gen, 0)
+        ref = waveblock.make_block_step(cfg, sfn0=4, jit=False)(dl[0], ul[0], gen, 0)
     for k, v in ref.items():
         assert torch.equal(out[k][0], v), f"sharded block differs from make_block_step at {k}"
     (med, spread, rates), event_ms = block_timing(lambda: step(dl, ul, [gen], 0), T)
@@ -3193,6 +3372,7 @@ def entry_checks(label, lines, card_name):
     if label == "bench":
         assert out["metric"] == "pdsch_20mhz_decode_subframes_per_sec_per_chip", out
         assert out["value"] > 0 and out["device_ms"] > 0 and out["cache_state"] == "warm", out
+        assert out["captured_graphs"] == 2, out  # the encode and the decode ran as graphs
     elif label == "snr_sweep":
         rows = out["snr_sweep"]
         assert rows == lines[:-1] and [r["snr_db"] for r in rows] == list(SWEEP_SNRS_DB), rows
@@ -4032,8 +4212,8 @@ def kernel_counts():
                 viterbi=viterbi_cuda.launches)
 
 
-def profile_counted(fn, label):
-    """profile_block(fn, control=True), and the kernels' launch counts over
+def profile_counted(fn, label, control=True):
+    """profile_block(fn, control), and the kernels' launch counts over
     that call (kernel_counts: for a replayed graph, what the capture counted
     times the replays) held equal to the runs of each kernel that the
     profiler recorded on the card.  The profiler has dropped a few events
@@ -4041,7 +4221,7 @@ def profile_counted(fn, label):
     profiled once more; a second difference fails."""
     for attempt in range(2):
         before = kernel_counts()
-        prof = profile_block(fn, control=True)
+        prof = profile_block(fn, control=control)
         counted = {k: v - before[k] for k, v in kernel_counts().items()}
         if counted == prof["port_kernels"]:
             return prof
@@ -4270,7 +4450,7 @@ def main():
     with ViterbiLog(dev) as vlog:
         vlog.phase = 4
         with decode_log(decodes, LOOP_PATHS[4]):
-            dl_launches = phase_main_path(dev)
+            dl_launches = phase_main_path(dev, card)
         vlog.phase = 5
         v1_cases, v1_launches = phase_v1(dev)
         vlog.phase = 6

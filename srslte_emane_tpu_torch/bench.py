@@ -9,17 +9,21 @@ the `turbo_map` CUDA kernel with CRC early stop).  The payload comes from
 numpy's default_rng(0) and stays on the card; the noise comes from a
 torch.Generator seeded 0.  The first call must pass every CRC and return
 the payload bit for bit.  There is no fallback: if the kernel does not
-build or launch, the run fails.
+build or launch, the run fails.  As bench.py jits its encode and its
+decode, both run as `runtime.graphs.jit` steps: on the card the first call
+captures each as a CUDA graph, and every call replays it.
 
 Usage: python -m srslte_emane_tpu_torch.bench [batch] [iters] [n_runs] [llr_bits] [--cpu]
 
 Prints one JSON line: bench.py's keys ("value" = the median decode rate
 of n_runs runs of `iters` calls, host clock bracketed by synchronises)
-plus "backend", "device" and "device_ms" (the CUDA-event time per decode
-call in the same runs, null on the CPU).  "compile_s" is the first call,
-the kernel's build included; "cache_state" is "warm" when the kernel's
-library was already under build/ and "cold" when this run built it (null
-on the CPU, which runs the kernel's plain version).  The stderr line adds
+plus "backend", "device", "device_ms" (the CUDA-event time per decode
+call in the same runs, null on the CPU) and "captured_graphs" (2 on the
+card: the encode's and the decode's; 0 on the CPU).  "compile_s" is the
+first call, the kernel's build and the decode's warm-up and capture
+included; "cache_state" is "warm" when the kernel's library was already
+under build/ and "cold" when this run built it (null on the CPU, which
+runs the kernel's plain version).  The stderr line adds
 the encode rate and the decode's kernel time from torch.profiler.
 """
 
@@ -35,6 +39,7 @@ import torch
 from .models import pdsch_link
 from .ops import channel
 from .phch import grid as grid_mod
+from .runtime import graphs
 from .scripts import _timing
 
 
@@ -60,8 +65,10 @@ def main(argv=None) -> int:
         0, 2, size=(batch, cfg.tbs), dtype=np.int8)).to(dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    rx_samples = channel.awgn(gen, pdsch_link.tx_subframe(payload, cfg), cfg.snr_db)
-    decode = lambda: pdsch_link.rx_subframe(rx_samples, cfg)[:2]
+    tx_fn = graphs.jit(lambda p: pdsch_link.tx_subframe(p, cfg))
+    rx_samples = channel.awgn(gen, tx_fn(payload), cfg.snr_db)
+    rx_fn = graphs.jit(lambda s: pdsch_link.rx_subframe(s, cfg)[:2])
+    decode = lambda: rx_fn(rx_samples)
 
     _timing.sync(dev)
     t0 = time.perf_counter()
@@ -80,7 +87,7 @@ def main(argv=None) -> int:
         lambda: decode()[1], batch, iters, n_runs, dev, check=lambda ok_: bool(ok_.all()))
 
     # secondary: encode rate, the waveform reduced to a scalar on the device
-    encode = lambda: pdsch_link.tx_subframe(payload, cfg).abs().sum()
+    encode = lambda: tx_fn(payload).abs().sum()
     s = float(encode())
     _timing.require(np.isfinite(s) and s > 0.0, f"encode gave {s}")
     enc_sf_per_s = _timing.median_rate(encode, batch, iters, 1, dev).median
@@ -105,6 +112,7 @@ def main(argv=None) -> int:
         "cache_state": cache_state,
         "compile_s": round(compile_s, 1),
         "device_ms": None if device_ms is None else round(device_ms, 3),
+        "captured_graphs": len(tx_fn.graphs) + len(rx_fn.graphs),
         **_timing.stamp(dev),
     }), flush=True)
     return 0

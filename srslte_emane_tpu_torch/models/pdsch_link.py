@@ -19,6 +19,7 @@ import torch
 from ..ops import channel, ofdm
 from ..phch import grid as grid_mod
 from ..phch import pdsch, sch
+from ..runtime import graphs
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,8 +85,13 @@ def link_step(payload: torch.Tensor, gen: torch.Generator, cfg: LinkConfig,
 
 
 def make_link_step(cfg: LinkConfig, use_kernel: bool | None = None):
-    """link_step bound to cfg: step(payload, gen) -> (out, ok, snr_db)."""
-    return functools.partial(link_step, cfg=cfg, use_kernel=use_kernel)
+    """link_step bound to cfg: step(payload, gen) -> (out, ok, snr_db).  As
+    the reference jits it, on the card it runs as `graphs.jit`: one CUDA
+    graph per payload shape, captured once and replayed per call, bit for
+    bit with link_step (the eager step).  use_kernel=False (the plain
+    decoder, whose loop reads on the host between passes) runs eagerly."""
+    step = functools.partial(link_step, cfg=cfg, use_kernel=use_kernel)
+    return graphs.jit(step) if use_kernel is not False else step
 
 
 def make_ca_link_step(cfg: LinkConfig, n_cc: int, use_kernel: bool | None = None):
@@ -95,7 +101,8 @@ def make_ca_link_step(cfg: LinkConfig, n_cc: int, use_kernel: bool | None = None
     srsue/src/phy/scell/scell_recv.cc role).
 
     step(payloads (n_cc, B, tbs), gen) -> (out (n_cc, B, tbs), ok (n_cc, B));
-    `gen` draws each carrier's channel noise in carrier order."""
+    `gen` draws each carrier's channel noise in carrier order.  A replayed
+    CUDA graph on the card, as make_link_step's."""
     cfgs = [dataclasses.replace(cfg, cell=dataclasses.replace(
         cfg.cell, cell_id=cfg.cell.cell_id + 3 * i)) for i in range(n_cc)]
 
@@ -107,7 +114,7 @@ def make_ca_link_step(cfg: LinkConfig, n_cc: int, use_kernel: bool | None = None
             oks.append(ok)
         return torch.stack(outs), torch.stack(oks)
 
-    return step
+    return graphs.jit(step) if use_kernel is not False else step
 
 
 def _device_seed(base: int, node: int, sf: int) -> int:

@@ -22,6 +22,8 @@ def awgn(gen: torch.Generator, x: torch.Tensor, snr_db, signal_power=None):
         p = cplx.abs2(x)
         signal_power = p.reshape(p.shape[0], -1).mean(dim=-1)
         signal_power = signal_power.reshape((-1,) + (1,) * (x.ndim - 2))
+    if isinstance(snr_db, (int, float)):  # a fill on the device: nothing copied from the host
+        snr_db = torch.full((), snr_db, dtype=torch.float32, device=x.device)
     snr = 10.0 ** (torch.as_tensor(snr_db, dtype=torch.float32, device=x.device) / 10.0)
     snr = snr.reshape(snr.shape + (1,) * (x.ndim - 1 - snr.ndim))
     sigma2 = signal_power / snr  # total complex noise variance

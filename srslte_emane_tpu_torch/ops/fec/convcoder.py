@@ -14,6 +14,8 @@ import functools
 import numpy as np
 import torch
 
+from ...utils.devices import table_cache
+
 NCOLS = 32
 # 36.212 Table 5.1.4-2 inter-column permutation (== RM_PERM_CC, rm_conv.c:32)
 PERM_CC = np.array(
@@ -101,12 +103,11 @@ def cc_rx_gather_table(d: int, e: int) -> np.ndarray:
     return out
 
 
-@functools.lru_cache(maxsize=None)
+@table_cache(64)
 def _on_device(table_fn, d: int, e: int, device: torch.device) -> torch.Tensor:
     """A host table as int64 on `device`, copied there once per (d, e,
     device): a copy from the host per call would synchronise, and a
-    captured CUDA graph reads the table by its address at every replay, so
-    the entry is never evicted."""
+    captured CUDA graph that reads the table holds it."""
     return torch.from_numpy(table_fn(d, e).astype(np.int64)).to(device)
 
 

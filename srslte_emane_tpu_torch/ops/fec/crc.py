@@ -14,6 +14,8 @@ import functools
 import numpy as np
 import torch
 
+from ...utils.devices import table_cache
+
 # polynomial bitmasks include the leading x^order term
 LTE_CRC24A = (0x1864CFB, 24)
 LTE_CRC24B = (0x1800063, 24)
@@ -37,13 +39,13 @@ def _remainder_matrix(poly: int, order: int, length: int) -> np.ndarray:
     return rem
 
 
-@functools.lru_cache(maxsize=None)
+@table_cache(128)
 def _device_matrix(poly: int, order: int, length: int, device: torch.device):
     return torch.from_numpy(
         _remainder_matrix(poly, order, length).astype(np.float32)).to(device)
 
 
-@functools.lru_cache(maxsize=None)
+@table_cache(128)
 def remainder_masks(poly: int, order: int, length: int, device: torch.device) -> torch.Tensor:
     """The rows of `_remainder_matrix` packed MSB-first into int32 words,
     (length,) on `device` (copied there once): the CRC of a length-bit

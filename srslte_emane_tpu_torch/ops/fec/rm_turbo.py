@@ -17,6 +17,8 @@ import functools
 import numpy as np
 import torch
 
+from ...utils.devices import table_cache
+
 NCOLS = 32
 # 36.212 Table 5.1.4-1 inter-column permutation pattern (== RM_PERM_TC).
 PERM_TC = np.array(
@@ -138,7 +140,7 @@ def _wbuf_inverse(k: int, f: int):
     return inv, present, filler
 
 
-@functools.lru_cache(maxsize=None)
+@table_cache(256)
 def _on_device(table_fn, args: tuple, device: torch.device):
     """A host table, uploaded once per (configuration, device)."""
     out = table_fn(*args)

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from . import cbsegm
+from ...utils.devices import table_cache
 
 # 36.212 Table 5.1.3-3 QPP parameters (f1, f2) per CB size index.
 F1_TABLE = np.array([
@@ -136,14 +137,14 @@ def _carry_matrix(c: int, n: int) -> np.ndarray:
     return m
 
 
-@functools.lru_cache(maxsize=None)
+@table_cache(188)
 def _device_tables(c: int, n: int, device: torch.device):
     P, Q, _, R = _chunk_tables(c)
     f = lambda a: torch.from_numpy(np.ascontiguousarray(a).astype(np.float32)).to(device)
     return f(P.T), f(Q.T), f(R), f(_carry_matrix(c, n)), f(_TAIL.T)
 
 
-@functools.lru_cache(maxsize=None)
+@table_cache(188)
 def _device_perm(k: int, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(qpp_interleaver(k)).to(device)
 

@@ -41,6 +41,7 @@ import torch
 
 from . import crc as crc_mod
 from . import turbo
+from ...utils.devices import table_cache
 
 NEG = -1e30
 HALO = 40  # window overlap, matches turbodecoder_win.h:36-87
@@ -54,6 +55,38 @@ EXT_SCALE = 0.75  # extrinsic damping (kept in both modes)
 # batch rows of every pass that ran, added after turbo_decode's read;
 # callers reset it): what the cascade saves.
 map_rows = 0
+# The rows of `sch.decode_tb`'s decodes, which read nothing: a 0-d count on
+# each decode's device, added to there (a captured decode adds at every
+# replay).  `read_map_rows` folds them into map_rows; `reset_map_rows`
+# zeroes both.
+_device_rows = {}
+
+
+def count_rows(rows: torch.Tensor) -> None:
+    """Adds a decode's MAP rows (`turbo_decode_device`'s 0-d tensor) to the
+    count on its device, on the device."""
+    acc = _device_rows.get(rows.device)
+    if acc is None:  # a decode's first call on a device is eager (a graph's warm-up)
+        acc = _device_rows[rows.device] = torch.zeros((), dtype=torch.int64, device=rows.device)
+    acc.add_(rows)
+
+
+def read_map_rows() -> int:
+    """map_rows, with the rows counted on each device folded in (one read
+    per device, which zeroes its count)."""
+    global map_rows
+    for acc in _device_rows.values():
+        map_rows += int(acc)
+        acc.zero_()
+    return map_rows
+
+
+def reset_map_rows() -> None:
+    """map_rows and every device's count to 0."""
+    global map_rows
+    map_rows = 0
+    for acc in _device_rows.values():
+        acc.zero_()
 
 
 def max_star(a, b):
@@ -130,7 +163,7 @@ def _gammas(ls: torch.Tensor, lp: torch.Tensor) -> torch.Tensor:
     return 0.5 * (su + sz)
 
 
-@functools.lru_cache(maxsize=None)
+@table_cache(8)
 def _tail_signs(device: torch.device) -> torch.Tensor:
     return torch.from_numpy(_trellis()["tail_signs"]).to(device)
 
@@ -246,7 +279,7 @@ def quantize_llr_int16(llr, scale: float = 256.0):
     return q / scale
 
 
-@functools.lru_cache(maxsize=None)
+@table_cache(188)
 def _device_perms(k: int, device: torch.device):
     """The QPP interleaver of size k and its inverse on `device` (copied
     there once), int64 for indexing and int32 for the epilogue kernel."""

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from .convcoder import GENERATORS
+from ...utils.devices import table_cache
 
 TB_ITER = 3
 
@@ -55,7 +56,7 @@ def _tables():
     return preds, pred_combo, signs
 
 
-@functools.lru_cache(maxsize=None)
+@table_cache(8)
 def _signs(dev: torch.device) -> torch.Tensor:
     """The combos' bipolar signs (3, 8) on `dev`, copied there once."""
     return torch.from_numpy(_tables()[2]).to(dev)

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from . import dft
+from ..utils.devices import table_cache
 
 N_SYM_SF = 14  # normal CP
 
@@ -77,7 +78,7 @@ def _cp_tables(n_prb: int, cp: str = "normal"):
     return np.concatenate(add), np.concatenate(remove)
 
 
-@functools.lru_cache(maxsize=None)
+@table_cache(16)
 def _device_tables(n_prb: int, device: torch.device, cp: str = "normal"):
     add, remove = _cp_tables(n_prb, cp)
     f = lambda a: torch.from_numpy(a).to(device)

@@ -7,10 +7,9 @@ device and cached.
 
 from __future__ import annotations
 
-import functools
-
 import torch
 
+from ..utils.devices import table_cache
 from . import sequence
 
 
@@ -34,7 +33,7 @@ def pdcch_cinit(sf_idx, cell_id):
     return (sf_idx << 9) + cell_id
 
 
-@functools.lru_cache(maxsize=64)
+@table_cache(64)
 def _cached_sequence(c_init: int, n: int, device: torch.device) -> torch.Tensor:
     return sequence.gold_sequence(c_init, n, device)
 

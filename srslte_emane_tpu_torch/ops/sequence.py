@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from ..utils import gf2
+from ..utils.devices import table_cache
 
 NC = 1600
 _X1_TAPS = np.array([1, 0, 0, 1] + [0] * 27, dtype=np.int64)  # x1(n+31)=x1(n+3)+x1(n)
@@ -33,7 +34,7 @@ def _tables(n: int):
     return x1_seq, x2_resp
 
 
-@functools.lru_cache(maxsize=None)
+@table_cache(128)
 def _device_tables(n: int, device: torch.device):
     x1_seq, x2_resp = _tables(n)
     return (torch.from_numpy(x1_seq).to(device),

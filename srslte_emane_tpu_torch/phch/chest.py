@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from ..ops import cplx
+from ..utils.devices import table_cache
 from . import grid as grid_mod
 
 
@@ -72,7 +73,7 @@ def _crs_values10(cell_id: int, n_prb: int, port: int, cp: str) -> np.ndarray:
     return np.stack([grid_mod.crs_values(cell_id, s, n_prb, port, cp) for s in range(10)])
 
 
-@functools.lru_cache(maxsize=32)
+@table_cache(32)
 def _device_tables(cell: grid_mod.CellConfig, sf_idx: int, port: int,
                    device: torch.device):
     """(pilot flat indices (S*P,), pilot values (S, P, 2), frequency

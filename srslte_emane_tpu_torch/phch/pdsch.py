@@ -19,10 +19,11 @@ import torch
 
 from ..ops import cplx, mimo, modem, scrambling
 from ..ops.fec import turbodecoder as _td
+from ..utils.devices import table_cache
 from . import chest, grid as grid_mod, sch
 
 
-@functools.lru_cache(maxsize=32)
+@table_cache(32)
 def _crs_table(cell: grid_mod.CellConfig, sf_idx: int, port: int, device: torch.device):
     """(flat CRS positions (n_crs,), CRS values (n_crs, 2)) of one port."""
     ks = grid_mod.crs_k(cell.cell_id, cell.n_prb, port, cell.cp)
@@ -34,14 +35,14 @@ def _crs_table(cell: grid_mod.CellConfig, sf_idx: int, port: int, device: torch.
 
 # one table per (subframe, allocation): the waveform network's DL grants
 # vary in both from TTI to TTI
-@functools.lru_cache(maxsize=256)
+@table_cache(256)
 def _re_table(cell: grid_mod.CellConfig, sf_idx: int, prb_mask: tuple,
               device: torch.device, max_sym: int = 0) -> torch.Tensor:
     idx = grid_mod.pdsch_re_indices(cell, sf_idx, prb_mask, max_sym)
     return torch.from_numpy(idx.astype(np.int64)).to(device)
 
 
-@functools.lru_cache(maxsize=32)
+@table_cache(32)
 def _tx_gather(cell: grid_mod.CellConfig, sf_idx: int, prb_mask: tuple, port: int,
                device: torch.device, max_sym: int = 0) -> torch.Tensor:
     tbl = grid_mod.tx_gather_table(cell, sf_idx, prb_mask, port, max_sym)
@@ -130,8 +131,8 @@ def decode(rx_grid: torch.Tensor, cfg: sch.SchConfig, cell: grid_mod.CellConfig,
         llr = llr * (2.0 / torch.clamp(ch.noise_est, min=1e-9))[..., None]
     c_init = scrambling.pdsch_cinit(rnti, codeword_q, sf_idx, cell.cell_id)
     llr = scrambling.scramble_llrs(llr, c_init)
-    payload, ok, softbuf, _ = sch.decode_tb(llr, cfg, softbuf, max_iter,
-                                            use_kernel=use_kernel, llr_bits=llr_bits)
+    payload, ok, softbuf, _ = sch.decode_tb(llr, cfg, softbuf, max_iter, use_kernel=use_kernel,
+                                            llr_bits=llr_bits, read=False)
     return payload, ok, softbuf, ch
 
 
@@ -241,7 +242,7 @@ def _decode_codewords(llr_list, cfg_list, softbufs, max_iter, use_kernel=None, l
     outs, oks, sbs = [], [], []
     for q, cfg in enumerate(cfg_list):
         payload, ok, sb, _ = sch.decode_tb(llr_list[q], cfg, softbufs[q], max_iter,
-                                           use_kernel=use_kernel, llr_bits=llr_bits)
+                                           use_kernel=use_kernel, llr_bits=llr_bits, read=False)
         outs.append(payload)
         oks.append(ok)
         sbs.append(sb)
@@ -305,7 +306,8 @@ def decode_tm(rx_grids: torch.Tensor, cfg_list, cell: grid_mod.CellConfig, sf_id
         if softbufs[0] is not None:
             sb_in = [torch.cat([a, b], dim=0) for a, b in zip(softbufs[0], softbufs[1])]
         payload, ok, sb, _ = sch.decode_tb(torch.cat(llr_list, dim=0), cfg_list[0], sb_in,
-                                           max_iter, use_kernel=use_kernel, llr_bits=llr_bits)
+                                           max_iter, use_kernel=use_kernel, llr_bits=llr_bits,
+                                           read=False)
         return ([payload[:B], payload[B:]], [ok[:B], ok[B:]],
                 [[w_[:B] for w_ in sb], [w_[B:] for w_ in sb]])
     return _decode_codewords(llr_list, cfg_list, softbufs, max_iter, use_kernel, llr_bits)

@@ -219,10 +219,11 @@ def decode(rx_grid: torch.Tensor, cfg: sch.SchConfig, cell: grid_mod.CellConfig,
             cqi_llr, data = data[..., :q_cqi], data[..., q_cqi:]
             cqi_bits, _ = uci_codes.decode_cqi_pusch(cqi_llr, n_cqi)
         payload, ok, softbuf, _ = sch.decode_tb(data, cfg, softbuf, max_iter,
-                                                use_kernel=use_kernel, llr_bits=llr_bits)
+                                                use_kernel=use_kernel, llr_bits=llr_bits,
+                                                read=False)
         return dict(payload=payload, ok=ok, softbuf=softbuf, noise=noise, cqi=cqi_bits,
                     ri=pusch_uci.decode_ack_ri(ri_llr, n_ri, cfg.Qm) if q_ri else None,
                     ack=pusch_uci.decode_ack_ri(ack_llr, n_ack, cfg.Qm) if q_ack else None)
     payload, ok, softbuf, _ = sch.decode_tb(deinterleave(llr, cfg.Qm), cfg, softbuf, max_iter,
-                                            use_kernel=use_kernel, llr_bits=llr_bits)
+                                            use_kernel=use_kernel, llr_bits=llr_bits, read=False)
     return payload, ok, softbuf, noise

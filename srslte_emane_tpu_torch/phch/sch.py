@@ -165,9 +165,10 @@ def decode_tb(llrs: torch.Tensor, cfg: SchConfig, softbuf=None, max_iter: int = 
         l0, l1, l2 = (torch.cat([d3[j] for _, d3 in parts], dim=0)
                       for j in range(3))
         nB = len(rs_all) * B
-        bits, ok, it, _ = turbodecoder.turbo_decode_device(
+        bits, ok, it, rows = turbodecoder.turbo_decode_device(
             l0, l1, l2, torch.ones((nB,), dtype=torch.bool, device=llrs.device),
             kr, max_iter, check, use_kernel=use_kernel, llr_bits=llr_bits)
+        turbodecoder.count_rows(rows)
         total_iters = total_iters + it
         for i, r in enumerate(rs_all):
             cb_bits[r] = bits[i * B : (i + 1) * B]

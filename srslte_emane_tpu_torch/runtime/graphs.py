@@ -1,22 +1,32 @@
-"""One round of device work captured as a CUDA graph and replayed.
+"""Device work captured as a CUDA graph and replayed: the port's `jax.jit`
+and `lax.scan`.
 
-The reference compiles a loop of rounds (`lax.scan`) into one device
-program.  The port captures the round's launches once as a
-`torch.cuda.CUDAGraph` and replays the graph once per round: the host then
-enqueues one graph launch per round instead of every kernel of it.
+The reference compiles a step (`jax.jit`) or a loop of rounds (`lax.scan`)
+into one device program.  The port captures the step's or the round's
+launches once as a `torch.cuda.CUDAGraph` and replays the graph: the host
+then enqueues one graph launch per call (`StepGraph`, through `jit`) or per
+round (`RoundGraph`) instead of every kernel of it.
 
 A replay runs the captured kernels, but the Python that enqueued them ran
 once, at capture, and a capture launches nothing: the launch counts that the
 kernels' wrappers keep (`COUNTERS`) would count the capture and no replay.
-`RoundGraph` puts each count back to its value before the capture, and
-`run(n)` adds n times what the capture counted.
+A capture puts each count back to its value before it, and each replay adds
+what the capture counted.  A graph reads its tables by address: every
+cache of device tables that a captured step reads is a bounded
+`utils.devices.table_cache`, and the graph holds each table one handed out
+while it captured, so none is freed under it.  A failure raises: nothing
+falls back to the eager step.
 """
 
 from __future__ import annotations
 
 import importlib
+import numbers
 
+import numpy as np
 import torch
+
+from ..utils import devices
 
 # the launch counts kept by the kernels' wrappers: (module, attribute)
 COUNTERS = (("srslte_emane_tpu_torch.ops.fec.turbodecoder_cuda", "launches"),
@@ -26,53 +36,218 @@ COUNTERS = (("srslte_emane_tpu_torch.ops.fec.turbodecoder_cuda", "launches"),
             ("srslte_emane_tpu_torch.ops.fec.viterbi_cuda", "launches"))
 
 
+def _warm_up(fn, dev: torch.device) -> None:
+    """fn() once on a side stream: it copies the tables to the card, plans
+    the FFTs and builds the kernels, none of which a capture may do."""
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream(dev).wait_stream(side)
+
+
+def _capture(graph, fn, gens=(), pool=None):
+    """fn() captured into `graph`, with `gens` registered as its graph-safe
+    generators.  Returns (fn's result, [(module, attribute, launches the
+    capture counted)], the tables it read); each count is put back to its
+    value before the capture."""
+    for g in gens:
+        graph.register_generator_state(g)
+    counters = [(importlib.import_module(m), name) for m, name in COUNTERS]
+    before = [getattr(m, name) for m, name in counters]
+    with devices.holding() as tables, torch.cuda.graph(graph, pool=pool):
+        out = fn()
+    counted = []
+    for (m, name), b in zip(counters, before):
+        counted.append((m, name, getattr(m, name) - b))
+        setattr(m, name, b)
+    return out, counted, tables
+
+
+def _add_counts(counted, n: int) -> None:
+    """n replays' launches: n times what the capture counted."""
+    for m, name, delta in counted:
+        setattr(m, name, getattr(m, name) + n * delta)
+
+
+def _copy_states(dst, src) -> None:
+    for d, s in zip(dst, src):
+        d.set_state(s.get_state())
+
+
 class RoundGraph:
     """`body(gens)`, one round, captured once on `dev`, and `reset()`, which
     puts the round's state back to its start, captured beside it.
 
     The build: `reset` and `body` run once eagerly on a side stream with
-    scratch generators (the warm-up: it copies the tables to the card,
-    plans the FFTs and builds the kernels, none of which a capture may do;
-    it leaves the round's state dirty, which `run` resets); then one
-    graph-safe generator per cell (`n_gens`) is registered with the graph
-    and `body` is captured with them; then `reset`, in the same memory pool.
-    The tables that the round reads come from caches that never evict, so
-    none is freed under the graph.  A failure raises: nothing falls back to
-    the eager round."""
+    scratch generators (the warm-up; it leaves the round's state dirty,
+    which `run` resets); then one graph-safe generator per cell (`n_gens`)
+    is registered with the graph and `body` is captured with them; then
+    `reset`, in the same memory pool."""
 
     def __init__(self, body, reset, n_gens: int, dev: torch.device):
         self.gens = [torch.Generator(device=dev) for _ in range(n_gens)]
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
+
+        def warm_up():
             reset()
             body([torch.Generator(device=dev) for _ in range(n_gens)])
-        torch.cuda.current_stream(dev).wait_stream(side)
+
+        _warm_up(warm_up, dev)
         self.graph = torch.cuda.CUDAGraph()
-        for g in self.gens:
-            self.graph.register_generator_state(g)
-        counters = [(importlib.import_module(m), name) for m, name in COUNTERS]
-        before = [getattr(m, name) for m, name in counters]
-        with torch.cuda.graph(self.graph):
-            body(self.gens)
-        self.counted = []  # (module, attribute, launches of one round)
-        for (m, name), b in zip(counters, before):
-            self.counted.append((m, name, getattr(m, name) - b))
-            setattr(m, name, b)
+        _, self.counted, self.tables = _capture(self.graph, lambda: body(self.gens), self.gens)
         self.reset = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.reset, pool=self.graph.pool()):
-            reset()
+        _capture(self.reset, reset, pool=self.graph.pool())
 
     def run(self, n: int, gens) -> None:
         """Reset, then n replays drawing from the states of `gens` (one
         generator per cell, on the card), which are advanced as n eager
         rounds would advance them.  Enqueues only: no host sync."""
-        for mine, g in zip(self.gens, gens):
-            mine.set_state(g.get_state())
+        _copy_states(self.gens, gens)
         self.reset.replay()
         for _ in range(n):
             self.graph.replay()
-        for mine, g in zip(self.gens, gens):
-            g.set_state(mine.get_state())
-        for m, name, delta in self.counted:
-            setattr(m, name, getattr(m, name) + n * delta)
+        _copy_states(gens, self.gens)
+        _add_counts(self.counted, n)
+
+
+def _is_number(a) -> bool:
+    return isinstance(a, numbers.Number)
+
+
+def _as_tensor(a):
+    """A tensor argument as a tensor (numpy arrays become CPU tensors), or
+    None for an argument that is not one."""
+    if isinstance(a, torch.Tensor):
+        return a
+    if isinstance(a, np.ndarray):
+        return torch.as_tensor(a)
+    return None
+
+
+def _signature(args) -> tuple:
+    """The key under which `jit` keeps a step's graph, as `jax.jit` keys its
+    cache: each tensor's (or numpy array's) shape and dtype, each Python
+    number's type, "generator" for each torch.Generator, and each other
+    argument itself (static: it must be hashable)."""
+    key = []
+    for a in args:
+        t = _as_tensor(a)
+        if t is not None:
+            key.append(("tensor", tuple(t.shape), t.dtype))
+        elif isinstance(a, torch.Generator):
+            key.append(("generator",))
+        elif _is_number(a):
+            key.append(("number", type(a)))
+        else:
+            key.append(("static", a))
+    return tuple(key)
+
+
+def _tree_map(fn, x):
+    """fn on every tensor of a tensor, tuple, list or dict of them."""
+    if isinstance(x, torch.Tensor):
+        return fn(x)
+    if isinstance(x, dict):
+        return {k: _tree_map(fn, v) for k, v in x.items()}
+    if isinstance(x, (tuple, list)):
+        return type(x)(_tree_map(fn, v) for v in x)
+    return x
+
+
+class StepGraph:
+    """`fn(*args)` captured once on `dev` for one signature of its arguments
+    (`_signature`); `run(args)` replays it on new arguments of that
+    signature.
+
+    The build: the static inputs, one per argument (a tensor on `dev` for
+    each tensor or numpy array, a 0-d tensor for each Python number, the
+    argument itself for a static one), loaded with `args`; one warm-up of
+    fn on them with scratch generators; one graph-safe generator per
+    torch.Generator argument, registered with the graph; then fn captured
+    on the static inputs, its results kept as the static outputs."""
+
+    def __init__(self, fn, args, dev: torch.device):
+        self.inputs = []
+        for a in args:
+            t = _as_tensor(a)
+            if t is not None:
+                self.inputs.append(torch.empty(t.shape, dtype=t.dtype, device=dev))
+            elif isinstance(a, torch.Generator):
+                self.inputs.append(torch.Generator(device=dev))
+            elif _is_number(a):
+                self.inputs.append(torch.empty((), dtype=torch.as_tensor(a).dtype, device=dev))
+            else:
+                self.inputs.append(a)
+        self.gens = [x for x in self.inputs if isinstance(x, torch.Generator)]
+        self._load(args)
+        scratch = lambda: [torch.Generator(device=dev) if isinstance(x, torch.Generator) else x
+                           for x in self.inputs]
+        _warm_up(lambda: fn(*scratch()), dev)
+        self.graph = torch.cuda.CUDAGraph()
+        self.outputs, self.counted, self.tables = _capture(
+            self.graph, lambda: fn(*self.inputs), self.gens)
+
+    def _load(self, args) -> None:
+        """The arguments into the static inputs: a copy per tensor, a fill
+        per number (a kernel argument: nothing is copied from the host)."""
+        for x, a in zip(self.inputs, args):
+            if isinstance(x, torch.Tensor):
+                if _is_number(a):
+                    x.fill_(a)
+                else:
+                    x.copy_(_as_tensor(a))
+
+    def run(self, args):
+        """One replay on `args`: the generators' states go in and come back
+        advanced as the eager step would advance them; returns new tensors
+        (the next replay overwrites the static outputs).  With the tensor
+        arguments on `dev`, enqueues only: no host sync."""
+        self._load(args)
+        gens = [a for a in args if isinstance(a, torch.Generator)]
+        _copy_states(self.gens, gens)
+        self.graph.replay()
+        _copy_states(gens, self.gens)
+        _add_counts(self.counted, 1)
+        return _tree_map(torch.Tensor.clone, self.outputs)
+
+
+def on_card(dev: torch.device) -> bool:
+    """Whether `jit` captures on `dev`: a CUDA device."""
+    return dev.type == "cuda"
+
+
+def _device_of(args) -> torch.device:
+    """The device of a step's first tensor argument, else of its first
+    generator, else the CPU."""
+    for a in args:
+        if isinstance(a, torch.Tensor):
+            return a.device
+    for a in args:
+        if isinstance(a, torch.Generator):
+            return a.device
+    return torch.device("cpu")
+
+
+def jit(fn, device=None):
+    """fn as the reference's `jax.jit(fn)` runs it: on the card (`device`,
+    or the device of the first tensor argument), the first call of each
+    `_signature` builds a `StepGraph` and every call replays it, returning
+    new tensors, with no host sync from the replay to the return when the
+    tensor arguments lie on the card.  Off the card fn runs eagerly.  The
+    outputs equal the eager fn's bit for bit; a capture or replay that
+    fails raises.  The returned step keeps its graphs in `.graphs`."""
+    graphs = {}
+    fixed = None if device is None else torch.device(device)
+
+    def step(*args):
+        dev = fixed or _device_of(args)
+        if not on_card(dev):
+            return fn(*args)
+        key = _signature(args)
+        graph = graphs.get(key)
+        if graph is None:
+            graph = graphs[key] = StepGraph(fn, args, dev)
+        return graph.run(args)
+
+    step.graphs = graphs
+    return step

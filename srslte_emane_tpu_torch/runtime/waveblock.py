@@ -20,7 +20,9 @@ The T axis is a batch axis: given the payloads, TTIs are independent (SPS
 TBs carry no per-TTI HARQ state), so the block is a (T * n_ues)-deep batch
 that reaches the turbo decoder as one call per direction.  The tables are
 built once per block step on its device; the host only moves payload bits
-in and decoded bits out.
+in and decoded bits out.  On the card the step is one CUDA graph
+(`graphs.jit`, the reference's `jax.jit`), replayed per call with the
+block's TTI as a device input.
 
 All SPS DL allocations avoid the centre 6 PRBs (PSS/SSS/PBCH region), so
 one per-UE PDSCH RE table serves every subframe (checked at build).  The
@@ -45,7 +47,8 @@ from ..phch import chest, grid as grid_mod, pbch as pbch_mod
 from ..phch import pcfich as pcfich_mod, pdsch as pdsch_mod
 from ..phch import pucch as pucch_mod, pusch as pusch_mod, ra
 from ..phch import sch, sync as sync_mod
-from ..utils.devices import resolve
+from ..utils.devices import resolve, table_cache
+from . import graphs
 
 
 
@@ -263,11 +266,11 @@ def _gather_cols(x: torch.Tensor, idx: torch.Tensor, dim: int) -> torch.Tensor:
     return x.expand(x_shape).gather(dim, idx.expand(shape))
 
 
-@functools.lru_cache(maxsize=None)
+@table_cache(8)
 def _time_weights(device: torch.device) -> torch.Tensor:
     """(12,) linear time-interpolation weights of the PUSCH data symbols
-    between the two DMRS symbols, on `device`, copied there once (never
-    evicted: a captured CUDA graph reads it by its address)."""
+    between the two DMRS symbols, on `device`, copied there once (a
+    captured CUDA graph that reads it holds it)."""
     return torch.from_numpy((np.array(pusch_mod.DATA_SYMS, np.float32) - 3.0) / 7.0).to(device)
 
 
@@ -326,8 +329,9 @@ def _step_body(cfg: BlockConfig, c: dict, dl_bits, ul_bits, gen, tti0):
     dl_idx, ul_data, ul_dmrs = c["dl_idx"], c["ul_data"], c["ul_dmrs"]
     p_pos, p_vals, p_dmask = c["p_pos"], c["p_vals"], c["p_dmask"]
     rntis, amp = c["rntis"], c["amp"]
-    decode = dict(use_kernel=cfg.use_kernel, llr_bits=cfg.llr_bits)
-    sfs = (torch.as_tensor(tti0, device=dev) + torch.arange(T, device=dev)) % 10  # (T,)
+    decode = dict(use_kernel=cfg.use_kernel, llr_bits=cfg.llr_bits, read=False)
+    # tti0: an int, or a 0-d tensor on the device (a graph's input): no upload
+    sfs = (torch.arange(T, device=dev) + tti0) % 10  # (T,)
 
     # ---------------- eNB DL encode ----------------
     cinit_d = ((rntis[None, :] << 14) + (sfs[:, None] << 9) + cell.cell_id).reshape(-1)
@@ -462,17 +466,24 @@ def _step_body(cfg: BlockConfig, c: dict, dl_bits, ul_bits, gen, tti0):
         **({"dl_ok_cw": dl_ok2} if cfg.tm3 else {}))
 
 
-def make_block_step(cfg: BlockConfig, sfn0: int = 0, device="cuda"):
+def make_block_step(cfg: BlockConfig, sfn0: int = 0, device="cuda", jit: bool = True):
     """Build the single-cell T-TTI block step on `device` (the card by
     default; raises where there is none).
 
     Returns fn(dl_bits (T, n, dl_tbs) int8 (tm3: (T, n, 2, dl_tbs)),
                ul_bits (T, n, ul_tbs) int8,
-               gen torch.Generator on the device, tti0 int)
+               gen torch.Generator on the device, tti0 int or 0-d tensor)
       -> dict(dl_ok (T, n) bool, dl_out (T, n, dl_tbs) int8 (tm3: (T, n,
               2*dl_tbs), both codewords, and dl_ok_cw (T, n, 2)), ul_ok (T, n) bool,
               ul_out (T, n, ul_tbs) int8, ack_energy (T, n), ack_val (T, n))
     The bits may be numpy arrays or tensors; they are moved to the device.
+    As the reference jits it, on the card (jit, the default) it runs as
+    `graphs.jit`: the first call for a set of input shapes captures the
+    block as a CUDA graph and every call replays it, tti0 filled into a
+    device tensor, bit for bit with jit=False, the eager block (use it
+    where Python must run inside the block: stage timers, recorded noise).
+    cfg.use_kernel=False (the plain decoder, whose loop reads on the host
+    between passes) runs eagerly too.
     """
     dev = resolve(device, "make_block_step")
     consts = _on(_cell_consts(cfg, sfn0), dev)
@@ -481,7 +492,7 @@ def make_block_step(cfg: BlockConfig, sfn0: int = 0, device="cuda"):
         return _step_body(cfg, consts, torch.as_tensor(dl_bits, device=dev),
                           torch.as_tensor(ul_bits, device=dev), gen, tti0)
 
-    return step
+    return graphs.jit(step, dev) if jit and cfg.use_kernel is not False else step
 
 
 def make_block_step_sharded(cfg: BlockConfig, mesh, cell_ids, sfn0: int = 0):
@@ -664,12 +675,14 @@ class SpsBlockRunner:
 def make_bench_step(cfg: BlockConfig, sfn0: int = 0, device="cuda"):
     """The block step reduced on the device to three counts: (DL CRCs
     passed (per codeword with tm3), UL CRCs passed, ACKs detected with
-    ack_energy > 1e-2)."""
-    step = make_block_step(cfg, sfn0, device)
+    ack_energy > 1e-2).  Block and counts are one graph on the card, as
+    make_block_step's."""
+    dev = resolve(device, "make_bench_step")
+    step = make_block_step(cfg, sfn0, dev, jit=False)
 
     def bench(dl_bits, ul_bits, gen, tti0):
         out = step(dl_bits, ul_bits, gen, tti0)
         dl_ok = out["dl_ok_cw"] if cfg.tm3 else out["dl_ok"]
         return dl_ok.sum(), out["ul_ok"].sum(), (out["ack_energy"] > 1e-2).sum()
 
-    return bench
+    return graphs.jit(bench, dev) if cfg.use_kernel is not False else bench

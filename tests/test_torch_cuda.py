@@ -7,6 +7,7 @@ so run this file there without the suite's conftest:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 """
 
+import functools
 import importlib.util
 import pathlib
 
@@ -996,7 +997,7 @@ def test_rank1_tm3_block_on_the_card_equals_the_cpu(dev):
         gen = torch.Generator(device=dev)
         gen.manual_seed(1)
         before = turbodecoder_cuda.launches
-        out = waveblock.make_block_step(cfg, sfn0=8)(dl, ul, gen, 40)
+        out = waveblock.make_block_step(cfg, sfn0=8, jit=False)(dl, ul, gen, 40)
         assert turbodecoder_cuda.launches > before
     with smoke.recorded_noise(replay=record):
         cpu = waveblock.make_block_step(cfg, sfn0=8, device="cpu")(dl, ul, torch.Generator(), 40)
@@ -1514,3 +1515,232 @@ def test_dyn_block_runner_graph_equals_jit_false(dev, tmp_path):
         _equal(out, eager(dl, ul, rb_dl, rb_ul, gen, tti0))
     assert torch.equal(gen.get_state(), runner._gen.get_state())
     assert runner.metrics["blocks"] == 2 and runner.metrics["dl_ok"] > 0
+
+
+# ---------------- the port's jax.jit: steps captured once, replayed per call (chip_smoke.py phases 4, 11, 15) ----------------
+
+def _link_cfg(snr_db, llr_bits=16):
+    """The bench cell (srslte_emane_tpu_torch/bench.py) at `snr_db`."""
+    import dataclasses
+
+    from srslte_emane_tpu_torch import bench
+
+    return dataclasses.replace(bench.bench_config(llr_bits), snr_db=snr_db)
+
+
+def _step_counts():
+    """The kernels' launch counts and the MAP rows counted on the card."""
+    from srslte_emane_tpu_torch.ops.fec import turbo_iter_cuda, viterbi_cuda
+
+    return (turbodecoder_cuda.launches, turbo_iter_cuda.launches, turbo_iter_cuda.arm_launches,
+            viterbi_cuda.launches, turbodecoder.read_map_rows())
+
+
+def _link_call(step, args, gen):
+    return step(*args, gen)
+
+
+def _block_call(step, args, gen):  # args (dl, ul, tti0)
+    return step(args[0], args[1], gen, args[2])
+
+
+def _graph_against_eager(dev, graph, eager, inputs, call=_link_call):
+    """Each input tuple through the graphed and the eager step (`call`) on
+    generators seeded alike: every output bit for bit, the generators left
+    in equal states, the launch counts and MAP rows of each call equal (the
+    first call, which captures, first: its warm-up's launches count on top).
+    Returns the graphed step's outputs."""
+    call(graph, inputs[0], _gens(dev, 0)[0])  # the capture
+    outs = []
+    for i, args in enumerate(inputs):
+        runs = {}
+        for name, step in (("graph", graph), ("eager", eager)):
+            gens = _gens(dev, 100 + i)
+            before = _step_counts()
+            out = call(step, args, gens[0])
+            torch.cuda.synchronize()
+            counts = [a - b for a, b in zip(_step_counts(), before)]
+            runs[name] = out, [g.get_state() for g in gens], counts
+        (a, sa, ca), (b, sb, cb) = runs["graph"], runs["eager"]
+        _equal(a if isinstance(a, dict) else dict(enumerate(a)),
+               b if isinstance(b, dict) else dict(enumerate(b)))
+        assert all(torch.equal(x, y) for x, y in zip(sa, sb))
+        assert ca == cb and ca[0] > 0, (ca, cb)
+        outs.append(a)
+    assert len(graph.graphs) == 1  # one capture for one signature
+    return outs
+
+
+@pytest.mark.parametrize("snr_db", [20.0, 8.0], ids=["bench", "low-snr"])
+def test_link_step_graph_equals_the_eager_step(dev, snr_db):
+    """make_link_step on the card (a replayed graph) against link_step at
+    the bench cell with batch 16: bits, CRC flags and snr_db bit for bit on
+    two payloads (the second call reads its new payload), the launches and
+    MAP rows equal; at 20 dB each payload decodes, at 8 dB every row fails
+    (every iteration runs)."""
+    from srslte_emane_tpu_torch.models import pdsch_link
+
+    cfg = _link_cfg(snr_db)
+    rng = np.random.default_rng(3)
+    payloads = [torch.from_numpy(rng.integers(0, 2, (16, cfg.tbs), dtype=np.int8)).to(dev)
+                for _ in range(2)]
+    outs = _graph_against_eager(dev, pdsch_link.make_link_step(cfg),
+                                functools.partial(pdsch_link.link_step, cfg=cfg),
+                                [(p,) for p in payloads])
+    for (out, ok, snr), p in zip(outs, payloads):
+        if snr_db == 20.0:
+            assert bool(ok.all()) and torch.equal(out, p)
+        else:
+            assert not bool(ok.any())
+        assert snr.shape == (16,) and bool(snr.isfinite().all())
+
+
+def test_ca_step_graph_equals_the_eager_step(dev):
+    """make_ca_link_step (2 carriers of the bench cell, f32 LLRs, batch 8 as
+    scripts/bench_extra.py's CA cell) graphed against link_step carrier by
+    carrier (cell_id + 3 i, noise in carrier order), on two payloads: every
+    output and the generators bit for bit."""
+    import dataclasses
+
+    from srslte_emane_tpu_torch.models import pdsch_link
+
+    cfg = _link_cfg(20.0, llr_bits=32)
+    rng = np.random.default_rng(4)
+    payloads = [torch.from_numpy(rng.integers(0, 2, (2, 8, cfg.tbs), dtype=np.int8)).to(dev)
+                for _ in range(2)]
+
+    def eager(p, gen):
+        outs = [pdsch_link.link_step(p[i], gen, dataclasses.replace(cfg, cell=dataclasses.replace(
+            cfg.cell, cell_id=cfg.cell.cell_id + 3 * i))) for i in range(2)]
+        return torch.stack([o[0] for o in outs]), torch.stack([o[1] for o in outs])
+
+    outs = _graph_against_eager(dev, pdsch_link.make_ca_link_step(cfg, 2), eager,
+                                [(p,) for p in payloads])
+    for (out, ok), p in zip(outs, payloads):
+        assert bool(ok.all()) and torch.equal(out, p)
+
+
+def _block_inputs(cfg, dev, seed):
+    rng = np.random.default_rng(seed)
+    dl = rng.integers(0, 2, (cfg.T, cfg.n_ues) + ((2,) if cfg.tm3 else ()) + (cfg.dl_tbs,),
+                      dtype=np.int8)
+    ul = rng.integers(0, 2, (cfg.T, cfg.n_ues, cfg.ul_tbs), dtype=np.int8)
+    return torch.from_numpy(dl).to(dev), torch.from_numpy(ul).to(dev)
+
+
+@pytest.mark.parametrize("tm3", [False, True], ids=["siso", "tm3"])
+def test_sps_block_graph_equals_the_eager_block(dev, tm3):
+    """make_block_step and make_bench_step on the card (replayed graphs)
+    against the eager block (jit=False, and its counts) at chip_smoke.py's
+    SPS cell (100 PRB, 8 UEs) with T=8, at tti0 0 and 37 on other payloads
+    (the TTI and the payloads are inputs of the graph): every output bit
+    for bit (bits, CRC flags, ack_energy, ack_val), the generators,
+    launches and MAP rows equal."""
+    from srslte_emane_tpu_torch.runtime import waveblock
+
+    cfg = _chip_smoke().sps_config(8, tm3)
+    inputs = [(*_block_inputs(cfg, dev, seed), tti0) for seed, tti0 in ((0, 0), (1, 37))]
+    outs = _graph_against_eager(dev, waveblock.make_block_step(cfg, sfn0=4),
+                                waveblock.make_block_step(cfg, sfn0=4, jit=False), inputs,
+                                _block_call)
+    for out, (dl, ul, _) in zip(outs, inputs):
+        assert bool(out["dl_ok"].all()) and bool(out["ul_ok"].all())
+        assert torch.equal(out["dl_out"], dl.reshape(out["dl_out"].shape))
+        assert torch.equal(out["ul_out"], ul)
+    assert not torch.equal(outs[0]["ack_val"], outs[1]["ack_val"])
+    eager = waveblock.make_block_step(cfg, sfn0=4, jit=False)
+
+    def eager_counts(dl, ul, gen, tti0):  # make_bench_step's counts of the eager block
+        out = eager(dl, ul, gen, tti0)
+        dl_ok = out["dl_ok_cw"] if tm3 else out["dl_ok"]
+        return dl_ok.sum(), out["ul_ok"].sum(), (out["ack_energy"] > 1e-2).sum()
+
+    for counts in _graph_against_eager(dev, waveblock.make_bench_step(cfg, sfn0=4), eager_counts,
+                                       inputs, _block_call):
+        n = cfg.T * cfg.n_ues
+        assert [int(c) for c in counts] == [n * (2 if tm3 else 1), n, n]
+
+
+def test_graphed_steps_make_no_host_sync(dev):
+    """After the capture, a whole call of the link step and of the SPS
+    block (inputs on the card, tti0 a Python int) runs under
+    torch.cuda.set_sync_debug_mode("error"): the copies and fills in, the
+    generator states, one replay and the clones out enqueue only; and the
+    MAP rows of the calls are read once after them."""
+    from srslte_emane_tpu_torch.models import pdsch_link
+    from srslte_emane_tpu_torch.runtime import waveblock
+
+    cfg = _link_cfg(20.0)
+    payload = torch.from_numpy(np.random.default_rng(5).integers(
+        0, 2, (16, cfg.tbs), dtype=np.int8)).to(dev)
+    link = pdsch_link.make_link_step(cfg)
+    bcfg = _chip_smoke().sps_config(8)
+    block = waveblock.make_block_step(bcfg, sfn0=4)
+    dl, ul = _block_inputs(bcfg, dev, 2)
+    link(payload, _gens(dev, 1)[0])
+    block(dl, ul, _gens(dev, 1)[0], 0)
+    torch.cuda.synchronize()
+    turbodecoder.reset_map_rows()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = link(payload, _gens(dev, 2)[0])
+        blk = block(dl, ul, _gens(dev, 2)[0], 17)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    rows = turbodecoder.read_map_rows()
+    turbodecoder.reset_map_rows()
+    _equal(dict(enumerate(out)), dict(enumerate(
+        pdsch_link.link_step(payload, _gens(dev, 2)[0], cfg))))
+    _equal(blk, waveblock.make_block_step(bcfg, sfn0=4, jit=False)(dl, ul, _gens(dev, 2)[0], 17))
+    assert rows == turbodecoder.read_map_rows() > 0  # the eager calls counted as many
+
+
+# a `python -c` body: the graphed link step (the bench cell, batch 16) and
+# SPS block (chip_smoke.py's, T=8), each captured, then one call profiled by
+# chip_smoke.profile_counted (the launch counts against the kernels' runs on
+# the card); prints {step: [host launches, device kernels]}
+PROFILE_GRAPHS = """
+import json, sys
+sys.path.insert(0, ".")
+import numpy as np, torch
+import chip_smoke as cs
+from srslte_emane_tpu_torch import bench
+from srslte_emane_tpu_torch.models import pdsch_link
+from srslte_emane_tpu_torch.runtime import waveblock
+dev = torch.device("cuda", 0)
+g = lambda s: torch.Generator(device=dev).manual_seed(s)
+cfg = bench.bench_config(16)
+payload = torch.from_numpy(np.random.default_rng(0).integers(0, 2, (16, cfg.tbs), dtype=np.int8)).to(dev)
+link = pdsch_link.make_link_step(cfg)
+bcfg = cs.sps_config(8)
+rng = np.random.default_rng(1)
+dl = torch.from_numpy(rng.integers(0, 2, (8, 8, bcfg.dl_tbs), dtype=np.int8)).to(dev)
+ul = torch.from_numpy(rng.integers(0, 2, (8, 8, bcfg.ul_tbs), dtype=np.int8)).to(dev)
+block = waveblock.make_block_step(bcfg, sfn0=4)
+out = {}
+for name, fn in (("link", lambda: link(payload, g(1))), ("block", lambda: block(dl, ul, g(1), 0))):
+    fn()
+    prof = cs.profile_counted(fn, name, control=False)
+    out[name] = [prof["host_launches"], prof["kernel_launches"], prof["port_kernels"]]
+print(json.dumps(out))
+"""
+
+
+def test_graphed_launch_counts_equal_the_profilers_runs(dev):
+    """In a fresh process (the profiler records no device events late in
+    this one): one replayed call of the link step and of the SPS block
+    under torch.profiler: each port kernel ran on the card as many times as
+    its launch count says (chip_smoke.profile_counted), with a handful of
+    host launches (the copies in, the generator state, one graph launch,
+    the clones out) against the graph's hundreds of kernels."""
+    import json
+    import subprocess
+    import sys
+
+    out = subprocess.run([sys.executable, "-c", PROFILE_GRAPHS],
+                         cwd=pathlib.Path(__file__).resolve().parents[1], capture_output=True,
+                         text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-3000:]
+    res = json.loads(out.stdout.splitlines()[-1])
+    for name, (host, kernels, ran) in res.items():
+        assert host <= 16 and kernels > 100 and ran["turbo_map"] > 0, (name, host, kernels, ran)

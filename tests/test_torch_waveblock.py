@@ -231,7 +231,15 @@ def _jax_run(fn, args, draws):
     """fn(*args) jitted, with jax.random.normal answered by `draws`; returns
     its output and the LLRs of every JAX sch.decode_tb call (handed out
     through an ordered host callback, which works inside lax.scan)."""
-    taps, decode_tb = [], j_sch.decode_tb
+    return _jax_jit(fn, draws)(*args)
+
+
+def _jax_jit(fn, draws):
+    """fn jitted as _jax_run runs it, for more than one call: each call
+    returns (output, decode_tb LLRs); a call on arguments of the first's
+    shapes and types reuses its compile and so its draws."""
+    decode_tb = j_sch.decode_tb
+    taps = []
 
     def spy(llrs, *rest, **kw):
         jax.debug.callback(lambda x: taps.append(np.asarray(x, np.float32)), llrs,
@@ -244,9 +252,14 @@ def _jax_run(fn, args, draws):
             m.setattr(jax.random, "normal", draws.jax_normal)
             return fn(*a)
 
-    out = jax.tree_util.tree_map(np.asarray, jax.jit(run)(*args))
-    jax.effects_barrier()
-    return out, taps
+    jitted = jax.jit(run)
+
+    def call(*args):
+        taps.clear()
+        out = jax.tree_util.tree_map(np.asarray, jitted(*args))
+        jax.effects_barrier()
+        return out, list(taps)
+    return call
 
 
 def _port_run(fn, args, draws, monkeypatch, calls=None):
@@ -291,18 +304,21 @@ def _sps_payloads(cfg, seed):
 @pytest.fixture(scope="module", params=[False, True], ids=["siso", "tm3"])
 def sps_pair(request):
     """(port cfg, JAX cfg, payloads, draws, JAX consts, JAX outputs, JAX
-    decode_tb LLRs) of one SPS block, the JAX side compiled once."""
+    decode_tb LLRs, JAX outputs at tti0 37) of one SPS block at tti0 120
+    (subframes 0-1), the JAX side compiled once with its tti0 traced: the
+    call at 37 (subframes 7-8) reuses that compile and its draws."""
     p_cfg, j_cfg = _sps_cfgs(request.param)
     dl, ul = _sps_payloads(p_cfg, 0)
     draws = Draws(1)
     consts = j_wb._cell_consts(j_cfg, 12)
-    out, taps = _jax_run(lambda d, u, key, tti0: j_wb._step_body(j_cfg, consts, d, u, key, tti0),
-                         (dl, ul, jax.random.PRNGKey(0), jnp.int32(120)), draws)
-    return p_cfg, j_cfg, (dl, ul), draws, consts, out, taps
+    run = _jax_jit(lambda d, u, key, tti0: j_wb._step_body(j_cfg, consts, d, u, key, tti0), draws)
+    out, taps = run(dl, ul, jax.random.PRNGKey(0), jnp.int32(120))
+    out37, _ = run(dl, ul, jax.random.PRNGKey(0), jnp.int32(37))
+    return p_cfg, j_cfg, (dl, ul), draws, consts, out, taps, out37
 
 
 def test_sps_block_tables_equal(sps_pair):
-    p_cfg, j_cfg, _, _, j_consts, _, _ = sps_pair
+    p_cfg, j_cfg, _, _, j_consts, _, _, _ = sps_pair
     got = p_wb._cell_consts(p_cfg, 12)
     assert set(got) == set(j_consts) - {"cell_id"}
     for k, v in got.items():
@@ -313,18 +329,31 @@ def test_sps_block_tables_equal(sps_pair):
             np.testing.assert_array_equal(v, ref, err_msg=k)
 
 
-def test_sps_block_equal(sps_pair, monkeypatch):
-    p_cfg, _, (dl, ul), draws, _, ref, j_taps = sps_pair
-    step = p_wb.make_block_step(p_cfg, sfn0=12, device="cpu")
-    got, taps = _port_run(step, (dl, ul, torch.Generator(), 120), draws, monkeypatch)
+def _sps_outputs_equal(got, ref, tm3):
+    """The port's SPS block against the JAX block's: bits and CRC flags
+    exactly, the ACK values within ACK_RTOL."""
     assert set(got) == set(ref)
-    for k in ("dl_ok", "ul_ok", "dl_out", "ul_out") + (("dl_ok_cw",) if p_cfg.tm3 else ()):
+    for k in ("dl_ok", "ul_ok", "dl_out", "ul_out") + (("dl_ok_cw",) if tm3 else ()):
         np.testing.assert_array_equal(got[k], ref[k], err_msg=k)
     assert got["dl_ok"].all() and got["ul_ok"].all()
-    assert (got["dl_out"] == dl.reshape(got["dl_out"].shape)).all()
-    assert (got["ul_out"] == ul).all()
     np.testing.assert_allclose(got["ack_val"], ref["ack_val"], rtol=ACK_RTOL)
     np.testing.assert_allclose(got["ack_energy"], ref["ack_energy"], rtol=2 * ACK_RTOL)
+
+
+def test_sps_block_equal(sps_pair, monkeypatch):
+    """The block at tti0 120, given as an int and as a 0-d tensor (a
+    graph's device input on the card: the two give the same block)."""
+    p_cfg, _, (dl, ul), draws, _, ref, j_taps, _ = sps_pair
+    step = p_wb.make_block_step(p_cfg, sfn0=12, device="cpu")
+    monkeypatch.setattr(p_wb, "_randn", draws.port_randn())
+    as_tensor = step(dl, ul, torch.Generator(), torch.tensor(120))
+    got, taps = _port_run(step, (dl, ul, torch.Generator(), 120), draws, monkeypatch)
+    assert set(as_tensor) == set(got)
+    for k in got:
+        np.testing.assert_array_equal(as_tensor[k].numpy(), got[k], err_msg=k)
+    _sps_outputs_equal(got, ref, p_cfg.tm3)
+    assert (got["dl_out"] == dl.reshape(got["dl_out"].shape)).all()
+    assert (got["ul_out"] == ul).all()
     assert (got["ack_energy"] > 0.25).all() and (got["ack_val"] > 0).all()
     assert len(taps) == len(j_taps) == (3 if p_cfg.tm3 else 2)
     for a, b in zip(taps, j_taps):
@@ -332,8 +361,20 @@ def test_sps_block_equal(sps_pair, monkeypatch):
         assert _rel_rms(a, b) < REL, _rel_rms(a, b)
 
 
+def test_sps_block_at_a_second_tti(sps_pair, monkeypatch):
+    """The block with tti0 37 as a 0-d tensor equals the JAX block at 37
+    on the same draws; the two TTIs differ where the subframe enters (CRS,
+    DMRS, PUCCH and scrambling), so the ACK values show the TTI was read."""
+    p_cfg, _, (dl, ul), draws, _, ref120, _, ref = sps_pair
+    step = p_wb.make_block_step(p_cfg, sfn0=12, device="cpu")
+    got, _ = _port_run(step, (dl, ul, torch.Generator(), torch.tensor(37)), draws, monkeypatch)
+    _sps_outputs_equal(got, ref, p_cfg.tm3)
+    assert (got["ack_energy"] > 0.25).all()
+    assert not np.allclose(ref["ack_val"], ref120["ack_val"])
+
+
 def test_sps_bench_step_counts(sps_pair):
-    p_cfg, _, (dl, ul), _, _, _, _ = sps_pair
+    p_cfg, _, (dl, ul), _, _, _, _, _ = sps_pair
     gen = torch.Generator()
     gen.manual_seed(3)
     d_ok, u_ok, a_ok = p_wb.make_bench_step(p_cfg, sfn0=12, device="cpu")(dl, ul, gen, 120)

@@ -29,6 +29,7 @@ from srslte_emane_tpu_torch.ops.fec import turbodecoder_cuda, viterbi, viterbi_c
 from srslte_emane_tpu_torch.phch import sch
 from srslte_emane_tpu_torch.runtime import graphs, waveblock, waveblock_dyn as wbd
 from srslte_emane_tpu_torch.scripts import bench_extra
+from srslte_emane_tpu_torch.utils import devices
 
 from test_torch_waveblock import DYN_CASES, _dyn_cfgs, _dyn_inputs
 
@@ -255,6 +256,7 @@ def test_chip_smoke_logs_count_replays(monkeypatch):
     _fake_cuda(monkeypatch)
     for name in ("__init__", "run"):  # put back after the test
         monkeypatch.setattr(graphs.RoundGraph, name, getattr(graphs.RoundGraph, name))
+        monkeypatch.setattr(graphs.StepGraph, name, getattr(graphs.StepGraph, name))
     cs.count_replays_in_logs()
     log = []
     body = lambda gens: cs.log_update(lambda: log.append(len(gens)))
@@ -267,19 +269,25 @@ def test_chip_smoke_logs_count_replays(monkeypatch):
 
 
 def test_device_table_caches_never_evict():
-    """The caches of the tables that a round copies to the card keep every
-    entry: a captured graph reads its tables by address at every replay,
-    so none may be freed under it."""
+    """The caches of the tables that a round copies to the card never
+    evict a table from under a graph that read it: a captured graph reads
+    its tables by address at every replay.  Each is a bounded
+    utils.devices.table_cache (unbounded, the keys of a network run grow
+    with its grants), and a table it hands out inside `holding` (a
+    capture) stays held after the cache lets it go."""
     caches = (ofdm._device_tables, sequence._device_tables, crc._device_matrix,
               crc.remainder_masks, viterbi._signs, turbo._device_tables, turbo._device_perm,
               rm_turbo._on_device, turbodecoder._tail_signs, turbodecoder._device_perms,
               convcoder._on_device, waveblock._time_weights)
-    assert [c.cache_parameters()["maxsize"] for c in caches] == [None] * len(caches)
+    wrapper = devices.table_cache(1)(len).__code__  # the code of every table_cache's wrapper
+    assert all(c.__code__ is wrapper for c in caches)
+    assert all(c.cache_parameters()["maxsize"] is not None for c in caches)
     cpu = torch.device("cpu")
-    first = turbodecoder._device_perms(40, cpu)
-    for k in range(48, 48 + 8 * 40, 8):  # more K than the old bound of 16
-        turbodecoder._device_perms(k, cpu)
-    assert turbodecoder._device_perms(40, cpu) is first
+    turbodecoder._device_perms(40, cpu)  # made before the capture, as a warm-up makes it
+    with devices.holding() as held:
+        first = turbodecoder._device_perms(40, cpu)
+    turbodecoder._device_perms.cache_clear()  # an eviction
+    assert turbodecoder._device_perms(40, cpu) is not first and held[id(first)] is first
 
 
 def test_host_loop_decode_stands_in_for_the_device_loop(monkeypatch):
