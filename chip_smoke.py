@@ -127,18 +127,30 @@ Phases (any failure raises; the exit code is then non-zero):
      version at the blocks' shapes, with its launches per block;
  12. the waveform-native network: apps/netsim.py:run_waveform_full's
      network (runtime/wavenet.WaveformNetwork at 100 PRB, cfi 3, 8 UEs,
-     80 dB, seed 0, on the card by default) attaches in 10-TTI slabs (all
-     8 REGISTERED, RRC CONNECTED, with an IP address; >= 8 PRACH
-     detections), then carries netsim's 4 DL + 1 UL IP packets per UE over
-     60 host-paced TTIs (every DL packet delivered, UL bytes grown):
-     sf/s, CUDA-event time and turbo_map launches per TTI, the time by
-     stage of a TTI with traffic and its profile (device time, launches,
-     busy share); then SpsBlockRunner(T=160) and DynBlockRunner(R=20) on
-     the attached network, one untimed and two timed blocks each (every
-     CRC passes, every SPS ACK detected): TTIs/s and turbo_map launches
-     per block; then turbo_map against its plain version at every shape
-     the phase launched;
- 13. slice 13c on phase 12's network: (a) with netsim's --fading epa (5 Hz)
+     80 dB, seed 0, on the card by default, every _CellKernels stage a
+     CUDA graph captured once per key and replayed) beside the same
+     network with jit=False (its stages eager), TTI by TTI in lockstep
+     (NetworkPair: the HSS's RAND one seeded stream per network): every
+     TTI's DL samples and the UL samples the eNB receives equal bit for
+     bit, the UEs' states and all metrics equal.  It attaches in 10-TTI
+     slabs (all 8 REGISTERED, RRC CONNECTED, with an IP address; >= 8
+     PRACH detections), then carries netsim's 4 DL + 1 UL IP packets per
+     UE over 60 host-paced TTIs (every DL packet delivered, UL bytes grown;
+     the pair's delivered packets equal); then both networks in turns
+     (graphed, eager, graphed, eager), each with traffic: sf/s, CUDA-event
+     ms, host launches, device ms and busy share per TTI (a profile whose
+     launch counts equal the card's runs), graphs built, their build
+     seconds, peak allocated MiB and the graph pools' MiB; the graphs per
+     stage key (add_dl_grant, pdsch_rx and the PUSCH stages: one each,
+     never per sf or rb_start); the time by stage of a graphed TTI with
+     traffic, the eager network's beside the plain Viterbi, and a profile;
+     then SpsBlockRunner(T=160) and DynBlockRunner(R=20) on the attached
+     graphed network, one untimed and two timed blocks each (every CRC
+     passes, every SPS ACK detected): TTIs/s and turbo_map launches per
+     block; then turbo_map against its plain version at every shape the
+     phase launched;
+ 13. phase 12's network with the network's options, each graphed beside
+     eager in lockstep as in phase 12: (a) with netsim's --fading epa (5 Hz)
      --dyn-delay 0.2,1.5,1.0 --hst 40, (b) in TDD (configuration 1, special
      subframe 4), (c) in 2x2 TM3 at 70 dB with singular-value ratio 1.0 for
      UEs 0-5 and 0.05 for UEs 6-7; each attaches (in TM3 the UEs whose
@@ -231,12 +243,14 @@ Phases (any failure raises; the exit code is then non-zero):
      kernel's variant with its decisions in device memory decodes, bit for
      bit against the plain loop;
  18. the turbo decoder's loop on the card: every turbo_decode call of
-     phases 4 (the bench cell), 8 (the DL subframe) and 9 (the TM3 cell and
-     the MIMO paths), the first of each (K, rows, llr_bits), kept, and the
+     phases 4 (the bench cell), 8 (the DL subframe), 9 (the TM3 cell and
+     the MIMO paths) and 12-13 (the graphed networks' decodes, from the
+     graphs' warm-ups), the first of each (K, rows, llr_bits), kept, and the
      sweep's cell at 8-12 dB; each decoded by turbo_decode_device under
      torch.cuda.set_sync_debug_mode("error") and by turbo_decode_host (the
      host-driven loop of before, the plain version of the control flow):
-     bits, CRC flags, n_iter and MAP rows equal, turbo_decode one
+     bits, CRC flags, n_iter and MAP rows equal (the networks' calls
+     apart), turbo_decode one
      synchronising read; per decode each loop's host syncs, kernel launches
      and device ms (torch.profiler) and host-clock ms; the bench cell's
      widest call captured as a CUDA graph and replayed bit-equal; the bench
@@ -953,13 +967,19 @@ def dl_subframe_config(sf_idx, **kw):
 def timed_calls(targets):
     """Each (module, function name) of `targets` wrapped so that its calls
     are bracketed by torch.cuda.synchronize() and their host time summed.
-    Yields {"module.name": [calls, seconds]}; nested calls count in both."""
+    A target (class, factory name, "stage") times the calls of the stage
+    function that the factory returns (alone or first of a tuple), such as
+    a replayed graph of wavenet._CellKernels.  Calls made while a graph
+    captures are not timed.  Yields {"module.name": [calls, seconds]};
+    nested calls count in both."""
     import torch
 
     totals, saved = {}, []
 
     def wrap(fn, label):
         def timed(*args, **kw):
+            if torch.cuda.is_current_stream_capturing():
+                return fn(*args, **kw)  # a graph's capture: nothing runs, nothing to time
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = fn(*args, **kw)
@@ -969,11 +989,19 @@ def timed_calls(targets):
             return out
         return timed
 
-    for mod, name in targets:
+    def stage(factory, label):
+        def timed_factory(*args, **kw):
+            out = factory(*args, **kw)
+            if isinstance(out, tuple):
+                return (wrap(out[0], label),) + out[1:]
+            return wrap(out, label)
+        return timed_factory
+
+    for mod, name, *kind in targets:
         label = f"{mod.__name__.rsplit('.', 1)[-1]}.{name}"
         totals[label] = [0, 0.0]
         saved.append((mod, name, getattr(mod, name)))
-        setattr(mod, name, wrap(getattr(mod, name), label))
+        setattr(mod, name, (stage if kind else wrap)(getattr(mod, name), label))
     try:
         yield totals
     finally:
@@ -2551,7 +2579,7 @@ def waveform_network(pathloss=NET_PATHLOSS, n_prb=NET_PRB, n_ues=NET_UES, cfi=NE
     """apps/netsim.py:run_waveform_full's network: 8 UEs with IMSIs
     0010100000000xx and preambles (7 + i) % 64, pathloss 80 dB, seed 0, at
     cfi NET_CFI, on the card (the entry point's default); `kw` are netsim's
-    other WaveformNetwork options."""
+    other WaveformNetwork options, and jit=False (the eager stages)."""
     from srslte_emane_tpu_torch.epc import hss as hss_mod, mme as mme_mod, spgw as spgw_mod
     from srslte_emane_tpu_torch.runtime import wavenet
     from srslte_emane_tpu_torch.stack import enb_stack, security, ue_stack
@@ -2579,11 +2607,184 @@ def network_stages():
     from srslte_emane_tpu_torch.runtime import wavenet as wn
 
     return ((wn.WaveformNetwork, "run"), (wn.WaveEnbPhy, "_rx"), (wn.WaveEnbPhy, "_tx"),
-            (wn.WaveMedium, "dl_take_all"), (wn._CellKernels, "rx_front"),
-            (wn._CellKernels, "blind_all"), (viterbi, "viterbi_decode"),
-            (wn.WaveUePhy, "_camp_rx_row"), (wn._CellKernels, "pdsch_rx"),
-            (wn._CellKernels, "pusch_rx"), (wn.WaveUePhy, "_tx"),
+            (wn.WaveMedium, "dl_take_all"), (wn._CellKernels, "rx_front", "stage"),
+            (wn._CellKernels, "blind_all", "stage"), (viterbi, "viterbi_decode"),
+            (wn.WaveUePhy, "_camp_rx_row"), (wn._CellKernels, "pdsch_rx", "stage"),
+            (wn._CellKernels, "pusch_rx", "stage"), (wn.WaveUePhy, "_tx"),
             (turbodecoder, "turbo_decode_device"))
+
+
+def stage_table(totals, ttis):
+    """timed_calls' totals of a network run of `ttis` TTIs, per TTI, with
+    each stage's share of WaveformNetwork.run."""
+    return {k: {"calls_per_tti": n / ttis, "ms_per_tti": round(1e3 * t / ttis, 3),
+                "share": round(t / totals["WaveformNetwork.run"][1], 3)}
+            for k, (n, t) in totals.items()}
+
+
+TURN_TTIS, TURN_PROFILED = 20, 5  # per turn of phase 12: timed TTIs, then profiled ones
+
+
+class SeededUrandom:
+    """The HSS's `os` for a NetworkPair: os.urandom (its RAND) as one seeded
+    stream per network (`use` picks the one drawing), so that both networks
+    of the pair draw the same bytes."""
+
+    def __init__(self, seed=0):
+        self.seed, self.rngs, self.cur = seed, {}, None
+
+    def use(self, key):
+        self.rngs.setdefault(key, np.random.default_rng(self.seed))
+        self.cur = key
+
+    def urandom(self, n):
+        return self.rngs[self.cur].bytes(n)
+
+
+def graph_pool_mib():
+    """MiB of the card's memory held in CUDA graphs' private pools."""
+    import torch
+
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", (0, 0))) != (0, 0)) / 2**20
+
+
+class NetworkPair:
+    """waveform_network(**kw) twice on the card: graphed (every _CellKernels
+    stage a CUDA graph, the entry point's default) and eager (jit=False),
+    driven TTI by TTI in lockstep by `run`: every TTI the DL samples that
+    the eNB sends (WaveMedium.dl_put) and the UL samples it receives
+    (ul_take) of the two must be equal bit for bit, and so must the UEs'
+    EMM/RRC states and IP addresses and every PHY metrics dict.  The HSS's
+    RAND comes from one seeded stream per network.  Stands in for the
+    graphed network where NetworkRun drives one; `sides` holds both
+    (net, ues, spgw, spgw_mod), `True` the graphed."""
+
+    def __init__(self, **kw):
+        from srslte_emane_tpu_torch.epc import hss
+
+        self._hss, self._os = hss, hss.os
+        self.fake = hss.os = SeededUrandom()
+        self.sides, self.rec, self.recording = {}, {}, True
+        self.compared = collections.Counter()
+        for jit in (True, False):
+            self.fake.use(jit)
+            self.sides[jit] = waveform_network(jit=jit, **kw)
+            self.rec[jit] = self._hook(self.sides[jit][0].medium, [])
+
+    def _hook(self, medium, rec):
+        dl_put, ul_take = medium.dl_put, medium.ul_take
+
+        def put(tti, samples):
+            if self.recording:
+                rec.append(("DL", tti, samples.clone()))
+            return dl_put(tti, samples)
+
+        def take():
+            out = ul_take()
+            if out is not None and self.recording:
+                rec.append(("UL", out[2], out[0].clone()))
+            return out
+
+        medium.dl_put, medium.ul_take = put, take
+        return rec
+
+    def close(self):
+        self._hss.os = self._os
+
+    def __getattr__(self, name):  # the graphed network's tti, enb, ues, medium, kern
+        return getattr(self.sides[True][0], name)
+
+    def state(self, jit):
+        net, ues, spgw, _ = self.sides[jit]
+        return ([(u.emm_state, u.rrc_state, u.ip_addr) for u in ues], net.enb.metrics,
+                [u.metrics for u in net.ues], [u.state for u in net.ues],
+                [list(u.gw_rx) for u in ues], spgw.metrics)
+
+    def use(self, jit):
+        """The network `jit` runs next (its HSS stream)."""
+        self.fake.use(jit)
+        return self.sides[jit][0]
+
+    def run(self, n):
+        import torch
+
+        for _ in range(n):
+            for jit in (True, False):
+                self.rec[jit].clear()
+                self.use(jit).run(1)
+            a, b = self.rec[True], self.rec[False]
+            tti = self.sides[True][0].tti - 1
+            assert [x[:2] for x in a] == [x[:2] for x in b], (tti, [x[:2] for x in a],
+                                                              [x[:2] for x in b])
+            for (kind, t, x), (_, _, y) in zip(a, b):
+                assert torch.equal(x, y), f"TTI {tti}: the {kind} samples of TTI {t} differ"
+                self.compared[kind] += 1
+            assert self.state(True) == self.state(False), f"TTI {tti}: the states differ"
+
+    def check_equal(self, label):
+        """The pair's states, delivered packets and metrics equal (after
+        runs outside the lockstep)."""
+        assert self.state(True) == self.state(False), f"{label}: the pair's states differ"
+
+    def log_lockstep(self, label, card):
+        log(f"{label}: graphed == eager (jit=False) bit for bit at every TTI of "
+            f"{self.sides[True][0].tti} in lockstep: {self.compared['DL']} DL and "
+            f"{self.compared['UL']} UL sample tensors, the UEs' states, every metrics dict, "
+            f"the delivered packets; {card}")
+
+    def turns(self, offer, card, ttis=TURN_TTIS):
+        """Both networks in turns (graphed, eager, graphed, eager) after two
+        unreported turns each (which capture most of the traffic's keys),
+        each turn after `offer(net, ues, spgw, spgw_mod)`: sf/s and
+        CUDA-event ms per TTI over `ttis` TTIs, then, after a second offer,
+        a profile of TURN_PROFILED more (profile_counted: host launches,
+        device ms, busy share, the launch counts against the card's runs),
+        the graphs built in the turn and their build seconds, the turn's
+        peak allocated MiB and the graph pools' MiB.  Returns {jit: [each
+        turn's numbers]}."""
+        import torch
+
+        from srslte_emane_tpu_torch.runtime import graphs
+
+        self.recording, out = False, {True: [], False: []}
+        for jit in (True, False, True, False):
+            offer(*self.sides[jit])
+            self.use(jit).run(ttis + TURN_PROFILED)
+        for jit in (True, False, True, False):
+            net, ues, spgw, spgw_mod = self.sides[jit]
+            self.use(jit)
+            offer(net, ues, spgw, spgw_mod)
+            built = dict(graphs.STATS)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            net.run(ttis)
+            end.record()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            offer(net, ues, spgw, spgw_mod)
+            prof = profile_counted(lambda: net.run(TURN_PROFILED),
+                                   f"{'graphed' if jit else 'eager'} network turn")
+            n = TURN_PROFILED
+            row = dict(sf_per_s=round(ttis / wall, 2),
+                       event_ms_per_tti=round(start.elapsed_time(end) / ttis, 3),
+                       host_launches_per_tti=prof["host_launches"] / n,
+                       kernel_launches_per_tti=prof["kernel_launches"] / n,
+                       device_ms_per_tti=round(prof["device_ms"] / n, 3),
+                       busy_share=prof["busy_share"],
+                       graphs_built=graphs.STATS["graphs"] - built["graphs"],
+                       build_s=round(graphs.STATS["build_s"] - built["build_s"], 3),
+                       peak_allocated_mib=round(torch.cuda.max_memory_allocated() / 2**20, 1),
+                       graph_pools_mib=round(graph_pool_mib(), 1))
+            out[jit].append(row)
+            log(f"network turn, {'graphed' if jit else 'eager (jit=False)'}: {json.dumps(row)}; "
+                f"{card}")
+        self.recording = True
+        self.check_equal("after the turns")
+        return out
 
 
 class NetworkRun:
@@ -2630,8 +2831,8 @@ class NetworkRun:
         log(f"{self.name}: {NET_PRB} PRB, cfi {NET_CFI}, {NET_UES} UEs at "
             f"{float(net.medium.pathloss_db[0]):.0f} dB: all REGISTERED, RRC CONNECTED, with an "
             f"IP address; attach TTI per UE {json.dumps(attach_tti)}; {net.tti} TTIs in "
-            f"{attach_s:.1f} s ({net.tti / attach_s:.1f} sf/s during the attach, compiles none: "
-            f"first calls' host tables included); {tdc.launches} turbo_map launches; eNB "
+            f"{attach_s:.1f} s ({net.tti / attach_s:.1f} sf/s during the attach, its graph "
+            f"captures and first calls' host tables included); {tdc.launches} turbo_map launches; eNB "
             f"{json.dumps(net.enb.metrics)}; UE 0 {json.dumps(net.ues[0].metrics)}; {self.card}")
         return attach_tti
 
@@ -2682,29 +2883,41 @@ class NetworkRun:
             f"{launches / ttis:.2f}; {self.card}")
         return launches
 
-    def stages_and_profile(self, net, offer, extra_stages=()):
+    def stages_and_profile(self, pair, offer, extra_stages=()):
         """Where a host-paced TTI with traffic goes (synchronised at every
-        stage: a breakdown, not a rate; nested calls count in both), then
-        the same with viterbi_decode_ref forced, then the device profile of
-        5 such TTIs; `offer` queues the traffic before each."""
-        offer()
-        with timed_calls(network_stages() + tuple(extra_stages)) as totals:
-            net.run(10)
-        per_tti = {k: {"calls_per_tti": n_ / 10, "ms_per_tti": round(1e2 * t, 3),
-                       "share": round(t / totals["WaveformNetwork.run"][1], 3)}
-                   for k, (n_, t) in totals.items()}
-        log(f"{self.name} by stage, per host-paced TTI (traffic offered just before): "
-            f"{json.dumps(per_tti)}")
-        offer()
-        with plain_viterbi(), timed_calls(network_stages() + tuple(extra_stages)) as plain:
-            net.run(10)
-        viterbi_beside(self.name, totals, plain, "WaveformNetwork.run", 10, "TTI", self.card)
-        offer()
+        stage: a breakdown, not a rate; nested calls count in both): in the
+        graphed network of `pair` (its _CellKernels stages are their graphs'
+        replays), then in the eager one with the Viterbi kernel and with
+        viterbi_decode_ref forced (the stages' Python runs there); then the
+        device profile of 5 graphed TTIs, its launch counts held to the
+        card's runs.  `offer(jit)` queues the traffic on that network before
+        each.  Ends the lockstep: the two networks part here."""
+        from srslte_emane_tpu_torch.runtime import graphs
+
+        stages = network_stages() + tuple(extra_stages)
+        pair.recording, tables = False, []
+        for jit, plain in ((True, False), (False, False), (False, True)):
+            offer(jit)
+            with plain_viterbi() if plain else contextlib.nullcontext(), \
+                    timed_calls(stages) as totals:
+                pair.use(jit).run(10)
+            tables.append(totals)
+        log(f"{self.name} by stage, graphed, per host-paced TTI (traffic offered just before; "
+            f"the stages are their graphs' replays): {json.dumps(stage_table(tables[0], 10))}")
+        log(f"{self.name} by stage, eager (jit=False), per host-paced TTI: "
+            f"{json.dumps(stage_table(tables[1], 10))}")
+        viterbi_beside(f"{self.name}, eager", tables[1], tables[2], "WaveformNetwork.run", 10,
+                       "TTI", self.card)
+        offer(True)
         # the profiler's summary costs seconds per TTI
-        prof = profile_block(lambda: net.run(5), control=True)
-        log(f"{self.name} profile of 5 host-paced TTIs with traffic: {json.dumps(prof)}; per "
-            f"TTI: device {prof['device_ms'] / 5:.3f} ms, {prof['kernel_launches'] / 5:.0f} "
-            f"kernel launches, busy share {prof['busy_share']:.4f}; {self.card}")
+        built = graphs.STATS["graphs"]
+        prof = profile_counted(lambda: pair.use(True).run(5), f"{self.name}, graphed")
+        log(f"{self.name}, graphed, profile of 5 host-paced TTIs with traffic: "
+            f"{json.dumps(prof)}; per TTI: device {prof['device_ms'] / 5:.3f} ms, "
+            f"{prof['kernel_launches'] / 5:.0f} kernel launches, {prof['host_launches'] / 5:.0f} "
+            f"host launches, busy share {prof['busy_share']:.4f}; "
+            f"{graphs.STATS['graphs'] - built} graphs built in them (a build's warm-up runs "
+            f"the stage eagerly); {self.card}")
 
 
 def run_runner(runner, launch_seen):
@@ -2748,21 +2961,80 @@ def map_cases_logged(logs, known, dev, phase, card, select=new_map_shapes):
     return cases
 
 
+def pair_traffic(pair, ues_of=lambda side: side[1], **kw):
+    """NetworkRun.traffic offered alike to both networks of `pair` (to the
+    UEs that `ues_of` picks of each side).  Returns the graphed side's
+    packets."""
+    for jit in (False, True):
+        side = pair.sides[jit]
+        pkts = NetworkRun.traffic(ues_of(side), side[2], side[3], **kw)
+    return pkts
+
+
+def graphs_by_stage(kern, card, label):
+    """Logs how many graphs each stage key of `kern` captured, by stage,
+    and holds the position-free stages to one graph per key: add_dl_grant,
+    pdsch_rx, pusch_tx(_cqi), pusch_rx(_cqi) are keyed by widths, MCS and
+    RE counts alone, so a graph per sf or rb_start would show as a key with
+    several.  Returns the total."""
+    counts = kern.graph_counts()
+    by = collections.defaultdict(lambda: [0, 0])
+    for key, n in counts.items():
+        by[key[0]][0] += 1
+        by[key[0]][1] += n
+    free = ("add_dl_grant", "pdsch_rx", "pusch_tx", "pusch_tx_cqi", "pusch_rx", "pusch_rx_cqi")
+    several = {k: n for k, n in counts.items() if k[0] in free and n != 1}
+    assert not several, f"{label}: position-free stage keys with other than one graph {several}"
+    log(f"{label}: graphs by stage [keys, graphs] {json.dumps(dict(sorted(by.items())))}, "
+        f"{sum(counts.values())} in all; each key of {', '.join(free)} one graph (keyed by "
+        f"width, MCS and RE count: sf, rb_start, rnti and cce_start are inputs); {card}")
+    return sum(counts.values())
+
+
 def phase_network(dev, card):
     """Phase 12.  Returns (the turbo_map cases at its new shapes, its
-    launches: the host-paced steady state plus one block of each runner)."""
-    from srslte_emane_tpu_torch.runtime import waveblock, waveblock_dyn
+    launches: the lockstep (both networks) and the turns, plus one block of
+    each runner)."""
+    import torch
+
+    from srslte_emane_tpu_torch.ops.fec import turbodecoder_cuda as tdc
+    from srslte_emane_tpu_torch.runtime import graphs, waveblock, waveblock_dyn
 
     t_phase = time.perf_counter()
-    net, ues, spgw, spgw_mod = waveform_network()
+    torch.cuda.reset_peak_memory_stats()
+    before = dict(graphs.STATS)
+    pair = NetworkPair()
+    net, ues, spgw, spgw_mod = pair.sides[True]
     logs = []
-    run = NetworkRun("network", card, logs)
-    run.attach(net, ues)
-    pkts = run.traffic(ues, spgw, spgw_mod)
-    steady_launches = run.paced(net, ues, spgw, [(pkts, 4)])
-    run.stages_and_profile(net, lambda: run.traffic(ues, spgw, spgw_mod))
+    run = NetworkRun("network (graphed beside eager, in lockstep)", card, logs)
+    try:
+        run.attach(pair, ues)
+        log(f"network attach, both networks: {graphs.STATS['graphs'] - before['graphs']} graphs "
+            f"built in {graphs.STATS['build_s'] - before['build_s']:.1f} s (warm-up and capture) "
+            f"by the graphed network; peak allocated "
+            f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB, graph pools "
+            f"{graph_pool_mib():.0f} MiB; {card}")
+        pkts = pair_traffic(pair)
+        steady_launches = run.paced(pair, ues, spgw, [(pkts, 4)])
+        pair.check_equal("network steady state")
+        pair.log_lockstep("network", card)
+        turns = pair.turns(lambda n, u, sp, sm: NetworkRun.traffic(u, sp, sm), card)
+        med = lambda jit, k: statistics.median(r[k] for r in turns[jit])
+        log(f"network turns, graphed vs eager (median of 2 turns each): sf/s "
+            f"{med(True, 'sf_per_s')} vs {med(False, 'sf_per_s')}, CUDA-event ms per TTI "
+            f"{med(True, 'event_ms_per_tti')} vs {med(False, 'event_ms_per_tti')}, host launches "
+            f"per TTI {med(True, 'host_launches_per_tti')} vs "
+            f"{med(False, 'host_launches_per_tti')}, device ms per TTI "
+            f"{med(True, 'device_ms_per_tti')} vs {med(False, 'device_ms_per_tti')}, busy share "
+            f"{med(True, 'busy_share')} vs {med(False, 'busy_share')}; {card}")
+        graphs_by_stage(pair.kern, card, "network")
+        run.stages_and_profile(pair, lambda jit: NetworkRun.traffic(*pair.sides[jit][1:]))
+        turn_launches = tdc.launches - steady_launches
+    finally:
+        pair.close()
+    del pair
 
-    # the block runners on the attached network
+    # the block runners on the attached graphed network
     sps = waveblock.SpsBlockRunner(net, T=SPS_T)
     sps_rate, sps_launches = run_runner(sps, run.launch_seen)
     m = sps.metrics
@@ -2784,7 +3056,7 @@ def phase_network(dev, card):
 
     cases = map_cases_logged(logs, (), dev, 12, card)
     log(f"phase 12: {time.perf_counter() - t_phase:.1f} s")
-    return cases, steady_launches + sps_launches + dyn_launches
+    return cases, steady_launches + turn_launches + sps_launches + dyn_launches
 
 
 # phase 13: the waveform network's slice-13c options on phase 12's network
@@ -2819,19 +3091,28 @@ def wrapped(obj, name, before=None, after=None):
         setattr(obj, name, fn)
 
 
+PAIR_TTIS = STEADY_TTIS  # phase 13's host-paced TTIs in lockstep
+
+
 def step_net_impaired(card, logs):
     """Phase 13a.  Returns its turbo_map launches."""
     from srslte_emane_tpu_torch.ops import fading
     from srslte_emane_tpu_torch.runtime import wavenet as wn
 
-    net, ues, spgw, spgw_mod = waveform_network(**IMPAIRMENTS)
-    run = NetworkRun("impaired network (EPA 5 Hz, dynamic delay 0.2-1.5 us, HST 40 Hz)", card,
-                     logs)
-    run.attach(net, ues)
-    pkts = run.traffic(ues, spgw, spgw_mod)
-    launches = run.paced(net, ues, spgw, [(pkts, 4)])
-    run.stages_and_profile(net, lambda: run.traffic(ues, spgw, spgw_mod),
-                           ((wn.WaveMedium, "_impair"), (fading, "apply_fading")))
+    pair = NetworkPair(**IMPAIRMENTS)
+    net, ues, spgw, _ = pair.sides[True]
+    name = "impaired network (EPA 5 Hz, dynamic delay 0.2-1.5 us, HST 40 Hz)"
+    run = NetworkRun(name, card, logs)
+    try:
+        run.attach(pair, ues)
+        pkts = pair_traffic(pair)
+        launches = run.paced(pair, ues, spgw, [(pkts, 4)], ttis=PAIR_TTIS)
+        pair.log_lockstep(name, card)
+        graphs_by_stage(pair.kern, card, name)
+        run.stages_and_profile(pair, lambda jit: NetworkRun.traffic(*pair.sides[jit][1:]),
+                               ((wn.WaveMedium, "_impair"), (fading, "apply_fading")))
+    finally:
+        pair.close()
     return launches
 
 
@@ -2839,8 +3120,10 @@ def step_net_tdd(card, logs):
     """Phase 13b.  Returns its turbo_map launches."""
     from srslte_emane_tpu_torch.phch import tdd
 
-    net, ues, spgw, spgw_mod = waveform_network(tdd_config=TDD_CFG, ss_config=4)
-    run = NetworkRun(f"TDD network (configuration {TDD_CFG}, special subframe 4)", card, logs)
+    pair = NetworkPair(tdd_config=TDD_CFG, ss_config=4)
+    net, ues, spgw, _ = pair.sides[True]
+    name = f"TDD network (configuration {TDD_CFG}, special subframe 4)"
+    run = NetworkRun(name, card, logs)
     off_u, s_ok = [], [0]
 
     def ul_put(tti, ue_idx, samples, is_prach=False):
@@ -2850,19 +3133,24 @@ def step_net_tdd(card, logs):
     def tb_decoded(tti, payload, *a, **kw):
         s_ok[0] += payload is not None and tdd.sf_type(TDD_CFG, tti % 10) == "S"
 
-    with contextlib.ExitStack() as stack:
-        stack.enter_context(wrapped(net.medium, "ul_put", before=ul_put))
-        for u in ues:
-            stack.enter_context(wrapped(u, "tb_decoded", before=tb_decoded))
-        run.attach(net, ues)
-        pkts = run.traffic(ues, spgw, spgw_mod)
-        launches = run.paced(net, ues, spgw, [(pkts, 4)])
-    assert not off_u, f"TDD: UE transmissions off U subframes (tti, UE): {off_u[:8]}"
-    assert s_ok[0] >= 1, "TDD: no TB decoded in a special subframe"
-    log(f"TDD network: no UE transmission off a U subframe; {s_ok[0]} TBs decoded in S "
-        f"subframes (DwPTS 12 symbols) over the attach and the steady state; eNB "
-        f"{json.dumps(net.enb.metrics)}; {card}")
-    run.stages_and_profile(net, lambda: run.traffic(ues, spgw, spgw_mod))
+    try:
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(wrapped(net.medium, "ul_put", before=ul_put))
+            for u in ues:
+                stack.enter_context(wrapped(u, "tb_decoded", before=tb_decoded))
+            run.attach(pair, ues)
+            pkts = pair_traffic(pair)
+            launches = run.paced(pair, ues, spgw, [(pkts, 4)], ttis=PAIR_TTIS)
+        assert not off_u, f"TDD: UE transmissions off U subframes (tti, UE): {off_u[:8]}"
+        assert s_ok[0] >= 1, "TDD: no TB decoded in a special subframe"
+        log(f"TDD network: no UE transmission off a U subframe; {s_ok[0]} TBs decoded in S "
+            f"subframes (DwPTS 12 symbols) over the attach and the steady state; eNB "
+            f"{json.dumps(net.enb.metrics)}; {card}")
+        pair.log_lockstep(name, card)
+        graphs_by_stage(pair.kern, card, name)
+        run.stages_and_profile(pair, lambda jit: NetworkRun.traffic(*pair.sides[jit][1:]))
+    finally:
+        pair.close()
     return launches
 
 
@@ -2875,24 +3163,24 @@ def mib_decodable(net):
     combination fails and the UE never leaves SFN_SYNC."""
     import torch
 
-    from srslte_emane_tpu_torch.ops import cplx, ofdm
+    from srslte_emane_tpu_torch.ops import cplx
     from srslte_emane_tpu_torch.phch import pbch
 
     k = net.kern
     mib = np.asarray(pbch.pack_mib(NET_PRB, 0))[None].astype(np.int8)
-    tx = k.modulate(torch.cat([k.base_grid(0, 0, mib), k.base_grid_p1(0)]))  # (2 ports, T, 2)
+    tx = k.modulate()(torch.cat([k.base_grid(0, 0)(mib), k.base_grid_p1(0)]))  # (2 ports, T, 2)
     y = cplx.mul(net.medium.mimo_h[:, 0, :, None, :], tx[None]).sum(1)  # each UE's antenna 0
-    return [bool(x) for x in k.pbch_rx(ofdm.demodulate(y, NET_PRB))[3].cpu()]
+    return [bool(x) for x in k.pbch_rx()(k.demodulate()(y))[3].cpu()]
 
 
 def step_net_tm3(card, logs):
     """Phase 13c.  Returns its turbo_map launches."""
     from srslte_emane_tpu_torch.runtime import wavenet as wn
 
-    net, ues, spgw, spgw_mod = waveform_network(pathloss=TM3_PATHLOSS, mimo=True,
-                                                mimo_cond=list(TM3_COND))
-    run = NetworkRun(f"TM3 network (2x2, ratio {TM3_COND[0]} for UEs 0-5, {TM3_COND[-1]} for "
-                     f"6-7)", card, logs)
+    pair = NetworkPair(pathloss=TM3_PATHLOSS, mimo=True, mimo_cond=list(TM3_COND))
+    net, ues, spgw, _ = pair.sides[True]
+    name = f"TM3 network (2x2, ratio {TM3_COND[0]} for UEs 0-5, {TM3_COND[-1]} for 6-7)"
+    run = NetworkRun(name, card, logs)
     can = [i for i, ok in enumerate(mib_decodable(net)) if ok]
     h = net.medium.mimo_h.cpu().numpy()
     gain = lambda p: [round(float(10 * np.log10((h[u, 0, p] ** 2).sum())), 1) for u in range(NET_UES)]
@@ -2901,17 +3189,25 @@ def step_net_tm3(card, logs):
     assert len(can) >= NET_UES - 2, can
     cws = collections.Counter()
 
-    def tm3_rx(out, *a, **kw):
-        cws["grants"] += 1
-        cws["both"] += bool(out[2][0]) and bool(out[3][0])
+    def tm3_rx(fn):
+        def rx(*a):
+            out = fn(*a)
+            cws["grants"] += 1
+            cws["both"] += bool(out[2][0]) and bool(out[3][0])
+            return out
+        return rx
 
     camped = [ues[i] for i in can]
-    enb = net.enb.mac
+    camped_of = lambda side: [side[1][i] for i in can]
+    macs = [pair.sides[jit][0].enb.mac for jit in (True, False)]
+    enb = macs[0]
     ri_of = lambda: {r: getattr(u, "ri", None) for r, u in sorted(enb.ues.items())}
-    with wrapped(wn._CellKernels, "pdsch_rx_tm3", after=tm3_rx):
-        run.attach(net, ues, expect=can)
+    factory = net.kern.pdsch_rx_tm3
+    net.kern.pdsch_rx_tm3 = lambda *key: tm3_rx(factory(*key))  # the graphed network's
+    try:
+        run.attach(pair, ues, expect=can)
         assert [i for i, u in enumerate(net.ues) if u.state == "CAMP"] == can
-        net.run(wn.WaveUePhy.RI_PERIOD)  # every camped UE probes its rank once
+        pair.run(wn.WaveUePhy.RI_PERIOD)  # every camped UE probes its rank once
         ri_ue = {net.ues[i].stack.crnti: net.ues[i]._ri for i in can}
         want = {net.ues[i].stack.crnti: 2 if TM3_COND[i] > 0.3 else 1 for i in can}
         assert ri_ue == want, f"TM3: RI probes {ri_ue}, want {want}"
@@ -2921,30 +3217,37 @@ def step_net_tm3(card, logs):
         # PRB pair, so the last report of an RI window sets every UE's rank
         # (the reference's adjudication); for the traffic each RI report
         # reaches the MAC with its own UE's rank, as a per-UE read would
-        cqi_info = enb.cqi_info
-        enb.cqi_info = lambda tti, rnti, cqi, ri=None, **kw: cqi_info(
-            tti, rnti, cqi, ri=None if ri is None else ri_ue.get(rnti, ri), **kw)
-        try:
+        for mac in macs:
+            cqi_info = mac.cqi_info
+            mac.cqi_info = lambda tti, rnti, cqi, ri=None, _c=cqi_info, **kw: _c(
+                tti, rnti, cqi, ri=None if ri is None else ri_ue.get(rnti, ri), **kw)
             for rnti, ri in ri_ue.items():
-                enb.cqi_info(net.tti, rnti, None, ri=ri)
-            # phase 12's packets, then a burst that one TB (1,500 bytes at
-            # most) cannot carry, so that the scheduler opens a second codeword
-            pkts = run.traffic(camped, spgw, spgw_mod)
-            burst = run.traffic(camped, spgw, spgw_mod, size=1000, n_dl=3)
-            launches = run.paced(net, camped, spgw, [(pkts, 4), (burst, 3)])
-        finally:
-            del enb.cqi_info
-    n_tm3 = net.enb.metrics.get("tm3_tx", 0)
-    assert ri_of() == ri_ue, (ri_of(), ri_ue)
-    assert n_tm3 > 0 and cws["grants"] > 0 and cws["both"] > 0, (n_tm3, dict(cws))
-    log(f"TM3 network: RI probed by each camped UE (by RNTI) {json.dumps(ri_ue)}; eNB RI reports "
-        f"{enb.metrics['ri_reports']}; the eNB's RI per RNTI after the shared format-2 reads "
-        f"{json.dumps(ri_shared)}, with per-UE RI reports {json.dumps(ri_of())}; rank-2 grants "
-        f"sent {n_tm3}, decoded {cws['grants']}, both codewords right {cws['both']}; eNB "
-        f"{json.dumps(net.enb.metrics)}; {card}")
-    run.stages_and_profile(net, lambda: run.traffic(camped, spgw, spgw_mod, size=1000, n_dl=3),
-                           ((wn._CellKernels, "blind_all2"), (wn._CellKernels, "pdsch_rx_tm3"),
-                            (wn._CellKernels, "ri_probe")))
+                mac.cqi_info(net.tti, rnti, None, ri=ri)
+        # phase 12's packets, then a burst that one TB (1,500 bytes at
+        # most) cannot carry, so that the scheduler opens a second codeword
+        pkts = pair_traffic(pair, camped_of)
+        burst = pair_traffic(pair, camped_of, size=1000, n_dl=3)
+        launches = run.paced(pair, camped, spgw, [(pkts, 4), (burst, 3)], ttis=PAIR_TTIS)
+        n_tm3 = net.enb.metrics.get("tm3_tx", 0)
+        assert ri_of() == ri_ue, (ri_of(), ri_ue)
+        assert n_tm3 > 0 and cws["grants"] > 0 and cws["both"] > 0, (n_tm3, dict(cws))
+        log(f"TM3 network: RI probed by each camped UE (by RNTI) {json.dumps(ri_ue)}; eNB RI "
+            f"reports {enb.metrics['ri_reports']}; the eNB's RI per RNTI after the shared "
+            f"format-2 reads {json.dumps(ri_shared)}, with per-UE RI reports "
+            f"{json.dumps(ri_of())}; rank-2 grants sent {n_tm3}, decoded {cws['grants']}, both "
+            f"codewords right {cws['both']}; eNB {json.dumps(net.enb.metrics)}; {card}")
+        pair.log_lockstep(name, card)
+        graphs_by_stage(pair.kern, card, name)
+        run.stages_and_profile(
+            pair, lambda jit: NetworkRun.traffic(camped_of(pair.sides[jit]),
+                                                 *pair.sides[jit][2:], size=1000, n_dl=3),
+            ((wn._CellKernels, "blind_all2", "stage"), (wn._CellKernels, "pdsch_rx_tm3", "stage"),
+             (wn._CellKernels, "ri_probe", "stage")))
+    finally:
+        pair.close()
+        net.kern.__dict__.pop("pdsch_rx_tm3", None)
+        for mac in macs:
+            mac.__dict__.pop("cqi_info", None)
     return launches
 
 
@@ -3627,9 +3930,17 @@ def step_per_ue(dev, card, logs):
             return out
         return rec
 
+    def record_stage(factory, into):  # each call of the factory's stages, with its key
+        def stage(sf):
+            out = factory(sf)
+            fn = out[0] if isinstance(out, tuple) else out
+            rec = record(fn, into)
+            return (rec,) + out[1:] if isinstance(out, tuple) else rec
+        return stage
+
     net.medium.dl_take = record(take, taken)
-    net.kern.rx_front = record(front, fronts)
-    net.kern.blind_all = record(blind, blinds)
+    net.kern.rx_front = record_stage(front, fronts)
+    net.kern.blind_all = record_stage(blind, blinds)
     checked, max_err = 0, 0.0
     try:
         with launch_log() as seen:
@@ -3641,16 +3952,16 @@ def step_per_ue(dev, card, logs):
                     ue.run_tti(net.tti)
                 net.tti += 1
                 assert len(taken) == PER_UE_UES == len(fronts) == len(blinds), len(fronts)
-                # the batched front end on the same samples
-                sf = fronts[0][0][1]
-                assert all(a[1] == sf for a, _ in fronts), [a[1] for a, _ in fronts]
-                rg, ce, snr, sb = front(torch.cat([s for _, s in taken]), sf)
-                bits, resid, pos = blind(rg, ce, sf)
+                # the batched front end on the same samples, the UEs' subframe
+                sf = net.ues[0].tti % 10
+                assert all(u.tti % 10 == sf for u in net.ues), [u.tti for u in net.ues]
+                rg, ce, snr, sb = front(sf)(torch.cat([s for _, s in taken]))
+                bits, resid = blind(sf)[0](rg, ce)
                 for i, ((_, own), (_, own_blind)) in enumerate(zip(fronts, blinds)):
                     for a, b in zip(own, (rg, ce, snr, sb)):
                         torch.testing.assert_close(a, b[i:i + 1], rtol=1e-5, atol=1e-5)
                         max_err = max(max_err, (a - b[i:i + 1]).abs().max().item())
-                    assert own_blind[2] == pos and torch.equal(own_blind[1], resid[i:i + 1])
+                    assert torch.equal(own_blind[1], resid[i:i + 1])
                     assert torch.equal(own_blind[0], bits[i:i + 1])
                     checked += 1
             torch.cuda.synchronize()
@@ -3849,7 +4160,8 @@ def phase_viterbi(dev, card, vlog):
 LOOP_SWEEP_SNRS_DB = (8.0, 9.0, 10.0, 11.0, 12.0)  # the sweep's waterfall rows
 # the phases whose turbo_decode calls phase 18 replays, by label
 LOOP_PATHS = {4: "bench cell (phase 4)", 8: "DL subframe (phase 8)",
-              9: "TM3 cell and the MIMO paths (phase 9)"}
+              9: "TM3 cell and the MIMO paths (phase 9)",
+              12: "the graphed networks (phases 12-13)"}
 ITER_OPS_PER_BIT = 6  # the epilogue's subtract, multiply, add, compare, and two XORs
 
 
@@ -3933,8 +4245,10 @@ def iter_case(k, rows, dev, flush):
                         + int((ra != rb).sum()))
     assert bad == 0, f"turbo_iter at {rows} x K={k}: {bad} values differ from the plain version"
     st = iter_inputs(k, rows, 0, dev, k)
+    st["done"].zero_()  # no row done before (at one row, a done row stops every pass)
     ctl, lst = iter_control(rows, dev)
-    # max_iter too large to end and one stage: every timed pass runs
+    # max_iter too large to end and one stage: every timed pass runs (the
+    # second half of the rows carries no codeword, so never all pass)
     timed = lambda fn, parity: epilogue(fn, st, ctl, lst, parity, 10 ** 6, 1)
     ms = cuda_ms(lambda: timed(ti.turbo_iter_cuda, 0), 20)
     flushed = cuda_ms(lambda: timed(ti.turbo_iter_cuda, 1), 10, flush)
@@ -4121,7 +4435,10 @@ def phase_device_loop(dev, card, store):
     labels = {key[0] for key in store}
     assert set(LOOP_PATHS.values()) <= labels, labels
     cases = []
-    for key in sorted(store, key=lambda key: (key[0], -key[2], key[1])):
+    # both loops on each path's calls; the networks' many 1-6-row decodes
+    # (phases 12-13) only at the epilogue's check below
+    for key in sorted((k for k in store if k[0] != LOOP_PATHS[12]),
+                      key=lambda key: (key[0], -key[2], key[1])):
         c = loop_case(key[0], store[key], flush)
         log(f"decode loop {json.dumps(c)}; {card}")
         cases.append(c)
@@ -4444,7 +4761,7 @@ def main():
     cases = phase_kernel(dev)
     # the main paths, every call of the Viterbi counted and its shape kept,
     # every launch of the decoder's epilogue counted, the first turbo_decode
-    # call of each shape on phases 4, 8 and 9 kept for phase 18
+    # call of each shape on phases 4, 8, 9, 12 and 13 kept for phase 18
     viterbi_cuda.launches = ti.launches = ti.arm_launches = 0
     decodes = {}
     with ViterbiLog(dev) as vlog:
@@ -4468,11 +4785,13 @@ def main():
         vlog.phase = 11
         block_cases, block_launches = phase_blocks(dev, card)
         vlog.phase = 12
-        net_cases, net_launches = phase_network(dev, card)
+        with decode_log(decodes, LOOP_PATHS[12]):
+            net_cases, net_launches = phase_network(dev, card)
         known = tuple((c["K"], c["B"], (c["narrow"],)) for c in (
             cases + mimo_cases + sync_cases + block_cases + net_cases))
         vlog.phase = 13
-        c13_cases, c13_launches = phase_slice13c(dev, card, known)
+        with decode_log(decodes, LOOP_PATHS[12]):
+            c13_cases, c13_launches = phase_slice13c(dev, card, known)
         known += tuple((c["K"], c["B"], (c["narrow"],)) for c in c13_cases)
         vlog.phase = 14
         c14_cases, c14_launches = phase_slice14(dev, card, known)

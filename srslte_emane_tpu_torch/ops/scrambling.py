@@ -2,7 +2,9 @@
 
 Twin of the reference's `ops/scrambling.py`.  A scrambling sequence depends
 only on (c_init, length), so for an integer c_init it is built once per
-device and cached.
+device and cached.  The c_init helpers take ints or integer tensors (a 0-d
+rnti or sf on the device, as a CUDA graph's inputs are): a tensor c_init
+is expanded on the device by `sequence.gold_sequence`, to the same bits.
 """
 
 from __future__ import annotations

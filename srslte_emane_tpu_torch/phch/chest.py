@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from ..ops import cplx
-from ..utils.devices import table_cache
+from ..utils.devices import row, table_cache
 from . import grid as grid_mod
 
 
@@ -74,6 +74,12 @@ def _crs_values10(cell_id: int, n_prb: int, port: int, cp: str) -> np.ndarray:
 
 
 @table_cache(32)
+def _crs10(cell: grid_mod.CellConfig, port: int, device: torch.device) -> torch.Tensor:
+    """`_crs_values10` on `device`: (10, S, P, 2)."""
+    return cplx.from_numpy(_crs_values10(cell.cell_id, cell.n_prb, port, cell.cp), device)
+
+
+@table_cache(32)
 def _device_tables(cell: grid_mod.CellConfig, sf_idx: int, port: int,
                    device: torch.device):
     """(pilot flat indices (S*P,), pilot values (S, P, 2), frequency
@@ -92,9 +98,16 @@ def _device_tables(cell: grid_mod.CellConfig, sf_idx: int, port: int,
 def estimate(rx_grid: torch.Tensor, cell: grid_mod.CellConfig, sf_idx: int,
              port: int = 0) -> ChestResult:
     """LS + 2D linear interpolation channel estimate from port-`port` CRS.
-    rx_grid: (..., n_sym, NRE, 2) received grid."""
+    rx_grid: (..., n_sym, NRE, 2) received grid.  sf_idx is an int or a
+    0-d integer tensor on the grid's device, whose CRS values are then
+    gathered there from the (10, ...) table."""
     lead = rx_grid.shape[:-3]
-    pidx, r_p, fms, tm = _device_tables(cell, int(sf_idx), port, rx_grid.device)
+    if isinstance(sf_idx, torch.Tensor):
+        # the pilot positions and interpolators do not depend on sf
+        pidx, _, fms, tm = _device_tables(cell, 0, port, rx_grid.device)
+        r_p = row(_crs10(cell, port, rx_grid.device), sf_idx)
+    else:
+        pidx, r_p, fms, tm = _device_tables(cell, int(sf_idx), port, rx_grid.device)
     S, P = r_p.shape[:2]
     flat = rx_grid.reshape(lead + (cell.n_sym * cell.nre, 2))
     y_p = flat[..., pidx, :].reshape(lead + (S, P, 2))

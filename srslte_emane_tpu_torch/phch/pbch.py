@@ -19,6 +19,7 @@ import torch
 
 from ..ops import mimo, modem, scrambling
 from ..ops.fec import convcoder, crc as crc_mod, viterbi
+from ..utils.devices import table_cache
 from . import chest, grid as grid_mod
 
 MIB_LEN = 24
@@ -51,17 +52,26 @@ def re_indices(cell: grid_mod.CellConfig) -> np.ndarray:
     return out
 
 
-@functools.lru_cache(maxsize=32)
+@table_cache(32)
 def _device_tables(cell: grid_mod.CellConfig, device: torch.device):
-    """(RE indices (240,) int64, CRC masks of the port hypotheses (3, 16) int8)."""
+    """(RE indices (240,) int64, CRC masks of the port hypotheses (3, 16)
+    int8, the hypotheses' port counts (3,), the LLR row of each hypothesis
+    (1-port, SFBC, SFBC) (3,))."""
     masks = np.stack([PORT_MASKS[p] for p in PORT_HYPOTHESES])
     return (torch.from_numpy(re_indices(cell).astype(np.int64)).to(device),
-            torch.from_numpy(masks).to(device))
+            torch.from_numpy(masks).to(device), torch.tensor(PORT_HYPOTHESES, device=device),
+            torch.tensor([0, 1, 1], device=device))
+
+
+@table_cache(8)
+def _port_mask(n_ports: int, device: torch.device) -> torch.Tensor:
+    """(16,) int8 CRC mask of a port count on `device`."""
+    return torch.from_numpy(PORT_MASKS[n_ports]).to(device)
 
 
 def _coded_bits(mib_bits: torch.Tensor, n_ports: int) -> torch.Tensor:
     """(B, 24) -> (B, 1920) coded bits (before scrambling)."""
-    mask = torch.from_numpy(PORT_MASKS[n_ports]).to(mib_bits.device)
+    mask = _port_mask(n_ports, mib_bits.device)
     with_crc = crc_mod.crc_attach(mib_bits.to(torch.int8), crc_mod.LTE_CRC16)
     with_crc = torch.cat([with_crc[:, :MIB_LEN], with_crc[:, MIB_LEN:] ^ mask], dim=1)
     streams = convcoder.conv_encode(with_crc)  # (B, 3, 40)
@@ -76,7 +86,7 @@ def encode(mib_bits: torch.Tensor, cell: grid_mod.CellConfig, sfn: int,
     coded = _coded_bits(mib_bits, cell.n_ports)
     scr = scrambling.scramble_bits(coded, scrambling.pbch_cinit(cell.cell_id))
     syms = modem.modulate(scr[:, off * SEG : (off + 1) * SEG], modem.QPSK)  # (B, 240, 2)
-    idx, _ = _device_tables(cell, grid.device)
+    idx = _device_tables(cell, grid.device)[0]
     flat = grid.reshape(grid.shape[0], -1, 2).clone()
     flat[:, idx, :] = syms
     return flat.reshape(grid.shape)
@@ -86,7 +96,7 @@ def _llrs_port_hyp(rx_grid, ces, cell: grid_mod.CellConfig, n_ports: int):
     """PBCH symbol LLRs under a port-count hypothesis: SISO ZF for 1 port,
     SFBC/Alamouti combining over ports 0/1 for 2 (and, approximately, 4)."""
     B = rx_grid.shape[0]
-    idx, _ = _device_tables(cell, rx_grid.device)
+    idx = _device_tables(cell, rx_grid.device)[0]
     y = rx_grid.reshape(B, -1, 2)[:, idx]
     if n_ports == 1:
         x_eq, csi = chest.equalize_zf(y, ces[0].reshape(B, -1, 2)[:, idx])
@@ -120,13 +130,12 @@ def decode(rx_grid: torch.Tensor, ce: torch.Tensor, cell: grid_mod.CellConfig,
     streams = convcoder.rate_unmatch_cc(hyp, 40)
     bits = viterbi.viterbi_decode(streams).reshape(B, 4, 2, 40)
     # hypothesis = off*3 + port, ports (1, 2, 4) on LLR rows (1-port, SFBC, SFBC)
-    bits = bits[:, :, [0, 1, 1]].reshape(B, 12, 40)
-    _, masks = _device_tables(cell, rx_grid.device)
+    _, masks, ports, llr_row = _device_tables(cell, rx_grid.device)
+    bits = bits[:, :, llr_row].reshape(B, 12, 40)
     unmasked = torch.cat([bits[..., :MIB_LEN],
                           bits[..., MIB_LEN:] ^ masks.repeat(4, 1)], dim=-1)
     flat_ok = crc_mod.crc_ok(unmasked, crc_mod.LTE_CRC16)  # (B, 12)
     best = flat_ok.to(torch.int32).argmax(dim=1)  # first passing hypothesis
-    ports = torch.tensor(PORT_HYPOTHESES, device=best.device)
     mib = bits.gather(1, best[:, None, None].expand(B, 1, 40))[:, 0, :MIB_LEN]
     return mib.to(torch.int8), ports[best % 3], best // 3, flat_ok.any(dim=1)
 

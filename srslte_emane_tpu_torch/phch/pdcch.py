@@ -21,6 +21,7 @@ import torch
 
 from ..ops import modem, scrambling, sequence
 from ..ops.fec import convcoder, crc as crc_mod, viterbi
+from ..utils.devices import row, table_cache
 from . import chest, grid as grid_mod, regs as regs_mod
 
 CCE_BITS = 72  # 9 REGs x 4 REs x 2 bits (QPSK)
@@ -44,14 +45,25 @@ def cce_re_indices(cell: grid_mod.CellConfig) -> np.ndarray:
     return res.reshape(ncce, 36)
 
 
-@functools.lru_cache(maxsize=32)
+def _region_sequence(cell: grid_mod.CellConfig, sf_idx: int) -> np.ndarray:
+    """(72*n_cce,) int8 control-region scrambling bits of subframe sf_idx."""
+    c_init = scrambling.pdcch_cinit(sf_idx, cell.cell_id)
+    return sequence.gold_sequence_host(c_init, CCE_BITS * n_cce(cell))
+
+
+@table_cache(32)
 def _device_tables(cell: grid_mod.CellConfig, sf_idx: int, device: torch.device):
     """(CCE RE indices (n_cce, 36) int64, control-region scrambling bits
     c (72*n_cce,) int8) on `device`."""
-    c_init = scrambling.pdcch_cinit(sf_idx, cell.cell_id)
-    c = sequence.gold_sequence_host(c_init, CCE_BITS * n_cce(cell))
     return (torch.from_numpy(cce_re_indices(cell).astype(np.int64)).to(device),
-            torch.from_numpy(c).to(device))
+            torch.from_numpy(_region_sequence(cell, sf_idx)).to(device))
+
+
+@table_cache(8)
+def _sequence10(cell: grid_mod.CellConfig, device: torch.device) -> torch.Tensor:
+    """(10, 72*n_cce) int8: the control-region bits of every subframe, the
+    gather table for an sf_idx given as a tensor."""
+    return torch.from_numpy(np.stack([_region_sequence(cell, s) for s in range(10)])).to(device)
 
 
 def rnti_mask_bits(rnti, device=None) -> torch.Tensor:
@@ -92,10 +104,16 @@ def encode(dci_bits: torch.Tensor, rnti: int, l_aggr: int, cce_start: int,
 
 def encode_dyn(dci_bits: torch.Tensor, rnti, l_aggr: int, cce_start,
                cell: grid_mod.CellConfig, sf_idx: int, grid: torch.Tensor) -> torch.Tensor:
-    """encode() with rnti and cce_start as ints or 0-dim tensors on the
-    grid's device: the position is applied as device indices, so no value
-    is read back to the host (the reference's one-kernel-per-level form)."""
-    idx_all, c_all = _device_tables(cell, sf_idx, grid.device)
+    """encode() with rnti, cce_start and sf_idx as ints or 0-dim tensors on
+    the grid's device: the position is applied as device indices and a
+    tensor sf_idx gathers its control-region bits from the (10, ...) table,
+    so no value is read back to the host (the reference's one kernel per
+    aggregation level)."""
+    if isinstance(sf_idx, torch.Tensor):
+        idx_all, _ = _device_tables(cell, 0, grid.device)
+        c_all = row(_sequence10(cell, grid.device), sf_idx)
+    else:
+        idx_all, c_all = _device_tables(cell, sf_idx, grid.device)
     e = CCE_BITS * l_aggr
     start = torch.as_tensor(cce_start, dtype=torch.int64, device=grid.device)
     c = c_all[start * CCE_BITS + torch.arange(e, device=grid.device)]
@@ -113,6 +131,23 @@ def full_space(cell: grid_mod.CellConfig) -> tuple:
                  for s in range(0, ncce - l + 1, l))
 
 
+@table_cache(64)
+def _level_tables(cell: grid_mod.CellConfig, sf_idx: int, positions: tuple,
+                  device: torch.device) -> tuple:
+    """Per aggregation level of `positions`, in their order: (l, number of
+    candidates n, their REs (n*36*l,) int64, their scrambling bits (n, 72 l)
+    int8) on `device`."""
+    idx_all, c_all = cce_re_indices(cell), _region_sequence(cell, sf_idx)
+    out = []
+    for l in dict.fromkeys(l for l, _ in positions):
+        starts = np.array([s for ll, s in positions if ll == l])
+        idx = idx_all[starts[:, None] + np.arange(l)].reshape(-1).astype(np.int64)
+        c = c_all[starts[:, None] * CCE_BITS + np.arange(CCE_BITS * l)]
+        out.append((l, len(starts), torch.from_numpy(idx).to(device),
+                    torch.from_numpy(c).to(device)))
+    return tuple(out)
+
+
 def _decode_candidates(rx_grid: torch.Tensor, ce: torch.Tensor, cell: grid_mod.CellConfig,
                        sf_idx: int, positions: list, dci_len: int) -> torch.Tensor:
     """Viterbi-decoded bits (B, n, dci_len+16) of the (l_aggr, cce_start)
@@ -120,24 +155,25 @@ def _decode_candidates(rx_grid: torch.Tensor, ce: torch.Tensor, cell: grid_mod.C
     equalised, descrambled and de-rate-matched apart (e = 72 l differs),
     then every candidate goes through ONE Viterbi call."""
     B = rx_grid.shape[0]
-    idx_all, c_all = _device_tables(cell, sf_idx, rx_grid.device)
     flat_rx = rx_grid.reshape(B, -1, 2)
     flat_ce = ce.reshape(B, -1, 2)
     d = dci_len + 16
     streams = []
-    for l in dict.fromkeys(l for l, _ in positions):  # levels in their order
-        starts = torch.tensor([s for ll, s in positions if ll == l], device=rx_grid.device)
-        n = len(starts)
-        idx = idx_all[starts[:, None] + torch.arange(l, device=starts.device)].reshape(-1)
+    for l, n, idx, c in _level_tables(cell, sf_idx, tuple(positions), rx_grid.device):
         x_eq, csi = chest.equalize_zf(flat_rx[:, idx], flat_ce[:, idx])
         llr = modem.demod_soft(x_eq, modem.QPSK) * torch.repeat_interleave(csi, 2, dim=-1)
-        c = c_all[starts[:, None] * CCE_BITS + torch.arange(CCE_BITS * l, device=starts.device)]
         llr = llr.reshape(B, n, CCE_BITS * l) * (1.0 - 2.0 * c.to(llr.dtype))
         streams.append(convcoder.rate_unmatch_cc(llr.reshape(B * n, CCE_BITS * l), d)
                        .reshape(B, n, 3, d))
     streams = torch.cat(streams, dim=1)
     bits = viterbi.viterbi_decode(streams.reshape(-1, 3, d))  # (B*n_all, d)
     return bits.reshape(B, -1, d)
+
+
+@table_cache(8)
+def _crc_weights(device: torch.device) -> torch.Tensor:
+    """(16,) int32 MSB-first bit weights of a CRC16 residual."""
+    return torch.tensor([1 << (15 - i) for i in range(16)], dtype=torch.int32, device=device)
 
 
 def blind_search_all(rx_grid: torch.Tensor, ce: torch.Tensor, cell: grid_mod.CellConfig,
@@ -153,9 +189,7 @@ def blind_search_all(rx_grid: torch.Tensor, ce: torch.Tensor, cell: grid_mod.Cel
     pos = list(full_space(cell))
     bits = _decode_candidates(rx_grid, ce, cell, sf_idx, pos, dci_len)
     calc = crc_mod.crc_bits(bits[..., :dci_len], crc_mod.LTE_CRC16)
-    weights = torch.tensor([1 << (15 - i) for i in range(16)], dtype=torch.int32,
-                           device=bits.device)
-    resid = ((calc ^ bits[..., dci_len:]).to(torch.int32) * weights).sum(-1)
+    resid = ((calc ^ bits[..., dci_len:]).to(torch.int32) * _crc_weights(bits.device)).sum(-1)
     return bits[..., :dci_len], resid.to(torch.int32), pos
 
 

@@ -19,7 +19,7 @@ import torch
 
 from ..ops import cplx, mimo, modem, scrambling
 from ..ops.fec import turbodecoder as _td
-from ..utils.devices import table_cache
+from ..utils.devices import row, table_cache
 from . import chest, grid as grid_mod, sch
 
 
@@ -31,6 +31,24 @@ def _crs_table(cell: grid_mod.CellConfig, sf_idx: int, port: int, device: torch.
     pidx = (np.asarray(syms)[:, None] * cell.nre + ks).reshape(-1).astype(np.int64)
     vals = grid_mod.crs_values(cell.cell_id, sf_idx, cell.n_prb, port, cell.cp)
     return torch.from_numpy(pidx).to(device), cplx.from_numpy(vals.reshape(-1), device)
+
+
+@table_cache(32)
+def _crs_table10(cell: grid_mod.CellConfig, port: int, device: torch.device):
+    """(flat CRS positions (n_crs,), CRS values (10, n_crs, 2) of every
+    subframe) of one port: the gather table for an sf_idx given as a
+    tensor."""
+    pidx, _ = _crs_table(cell, 0, port, device)
+    v10 = chest._crs_values10(cell.cell_id, cell.n_prb, port, cell.cp)
+    return pidx, cplx.from_numpy(v10.reshape(10, -1), device)
+
+
+def _crs_of(cell: grid_mod.CellConfig, sf_idx, port: int, device: torch.device):
+    """`_crs_table` for an int sf_idx or a 0-d integer tensor on `device`."""
+    if isinstance(sf_idx, torch.Tensor):
+        pidx, v10 = _crs_table10(cell, port, device)
+        return pidx, row(v10, sf_idx)
+    return _crs_table(cell, int(sf_idx), port, device)
 
 
 # one table per (subframe, allocation): the waveform network's DL grants
@@ -51,8 +69,9 @@ def _tx_gather(cell: grid_mod.CellConfig, sf_idx: int, prb_mask: tuple, port: in
 
 def put_crs(grid: torch.Tensor, cell: grid_mod.CellConfig, sf_idx: int,
             port: int = 0) -> torch.Tensor:
-    """Write the CRS pilots of `port` into grid (..., 14, NRE, 2)."""
-    pidx, v = _crs_table(cell, int(sf_idx), port, grid.device)
+    """Write the CRS pilots of `port` into grid (..., 14, NRE, 2); sf_idx
+    an int or a 0-d integer tensor on the grid's device."""
+    pidx, v = _crs_of(cell, sf_idx, port, grid.device)
     flat = grid.reshape(grid.shape[:-3] + (cell.n_sym * cell.nre, 2)).clone()
     flat[..., pidx, :] = v
     return flat.reshape(grid.shape)
@@ -79,7 +98,8 @@ def encode(tb_bits: torch.Tensor, cfg: sch.SchConfig, cell: grid_mod.CellConfig,
     (into a copy of `grid` if given); max_sym truncates the PDSCH symbols
     (TDD DwPTS); codeword_q picks the scrambling c_init of codeword q;
     re_idx, an optional (n_re,) RE index tensor, overrides prb_mask's
-    table."""
+    table.  With re_idx, sf_idx and rnti may be 0-d integer tensors on the
+    device (a CUDA graph's inputs): nothing reads them on the host."""
     static_idx = re_idx is None
     if static_idx:
         re_idx = _re_table(cell, sf_idx, prb_mask, tb_bits.device, max_sym)
@@ -106,7 +126,8 @@ def decode(rx_grid: torch.Tensor, cfg: sch.SchConfig, cell: grid_mod.CellConfig,
     """Decode one PDSCH grant from a received subframe grid (B, 14, NRE, 2).
     equalizer: "zf" or "mmse" (with the estimate's noise variance);
     codeword_q: the scrambling c_init of codeword q; use_csi: weight the
-    LLRs by the equalizer's CSI; re_idx: as in `encode`.
+    LLRs by the equalizer's CSI; re_idx: as in `encode`, and with it
+    sf_idx and rnti may be 0-d tensors, as there.
 
     Returns (payload bits (B, tbs), crc ok (B,), softbuf', ChestResult)."""
     if re_idx is None:
@@ -165,7 +186,7 @@ def _put_crs_ports(flat: torch.Tensor, cell: grid_mod.CellConfig, sf_idx: int,
                    n_ports: int) -> None:
     """Write each port's CRS into flat (B, n_port, n_sym*NRE, 2), in place."""
     for p in range(n_ports):
-        pidx, v = _crs_table(cell, int(sf_idx), p, flat.device)
+        pidx, v = _crs_of(cell, sf_idx, p, flat.device)
         flat[:, p, pidx, :] = v
 
 
@@ -222,7 +243,7 @@ def estimate_mimo(rx_grids: torch.Tensor, cell: grid_mod.CellConfig, sf_idx: int
     return torch.stack(ces, dim=2), torch.stack(noises, dim=2).mean(dim=(1, 2))
 
 
-@functools.lru_cache(maxsize=32)
+@table_cache(32)
 def _layer_weights(tm: str, pmi: int, m: int, device: torch.device) -> torch.Tensor:
     """Per-RE precoder of TM3 (W D(i) U, W = I/sqrt2) or TM4 (codebook PMI)
     as a cf tensor (tx, layer, m, 2)."""

@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from ..ops import sequence as seq_mod
+from ..utils.devices import table_cache
 from . import chest, grid as grid_mod, regs as regs_mod
 
 NSF = 4  # spreading factor, normal CP
@@ -64,7 +65,7 @@ def _spread_matrix(cell_id: int, sf_idx: int) -> np.ndarray:
     return out
 
 
-@functools.lru_cache(maxsize=32)
+@table_cache(32)
 def _device_tables(cell: grid_mod.CellConfig, sf_idx: int, ng: str, device: torch.device):
     """(RE indices (G, 12) int64, spread matrix (8, 12, 2)) on `device`."""
     return (torch.from_numpy(re_indices(cell, ng).astype(np.int64)).to(device),

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from ..ops import cplx, modem, sequence
+from ..utils.devices import table_cache
 from . import grid as grid_mod, refsignal_ul, uci
 
 # normal CP, format 1: per slot, data symbols and DMRS symbols
@@ -114,7 +115,7 @@ def _f3_dmrs(cell_id: int, sf_idx: int) -> np.ndarray:
                                for l in range(7)]) for s in range(2)]).astype(np.complex64)
 
 
-@functools.lru_cache(maxsize=64)
+@table_cache(64)
 def _device_tables(kind: str, cell: grid_mod.CellConfig, sf_idx: int, n: int,
                    device: torch.device):
     """(flat grid indices (2, 7, 12) int64, reference waveform (2, 7, 12, 2))
@@ -180,8 +181,16 @@ def _f2_signal(cqi_bits: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
     DMRS symbols carry the bare reference."""
     d = modem.modulate(uci.encode_rm20(cqi_bits), modem.QPSK).reshape(-1, 2, 5, 2)
     sig = ref[None].expand(d.shape[0], -1, -1, -1, -1).clone()
-    sig[:, :, list(F2_DATA_SYMS)] = cplx.mul(d[:, :, :, None, :], ref[None, :, list(F2_DATA_SYMS)])
+    syms = _sym_index(F2_DATA_SYMS, ref.device)
+    sig[:, :, syms] = cplx.mul(d[:, :, :, None, :], ref[None, :, syms])
     return sig
+
+
+@table_cache(16)
+def _sym_index(syms: tuple, device: torch.device) -> torch.Tensor:
+    """The symbol numbers `syms` as an int64 index on `device` (a Python
+    list as an index would be copied there at every call)."""
+    return torch.tensor(syms, device=device)
 
 
 def encode_f2(cqi_bits: torch.Tensor, cell: grid_mod.CellConfig, sf_idx: int, n_pucch2: int,

@@ -1,15 +1,18 @@
 """PUSCH: uplink shared channel with SC-FDMA transform precoding.
 
-Twin of the reference's `phch/pusch.py` for a static sf_idx and rb_start
-(`lib/src/phy/phch/pusch.c`: UL-SCH + UCI mux + DFT precoding + PUSCH
-scrambling; eNB-side decode; `lib/src/phy/dft/dft_precoding.c`: transform
-precoding, valid sizes 2^a 3^b 5^c).  The UL channel interleaver
+Twin of the reference's `phch/pusch.py` (`lib/src/phy/phch/pusch.c`:
+UL-SCH + UCI mux + DFT precoding + PUSCH scrambling; eNB-side decode;
+`lib/src/phy/dft/dft_precoding.c`: transform precoding, valid sizes
+2^a 3^b 5^c).  The UL channel interleaver
 (36.212 §5.2.2.8) is a reshape/transpose; transform precoding is
 torch.fft (see ops/dft.py on how that differs from the reference's bf16
 product); the DMRS-based UL channel estimate smooths each slot's pilot in
 frequency and interpolates linearly in time.  Data symbols: l in
 {0..6}\\{3} per slot (DMRS at l=3).  RE index tables and DMRS values are
-built on the host once per configuration and device.
+built on the host once per configuration and device.  sf_idx, rb_start and
+rnti may each be an int or a 0-d integer tensor on the device (a CUDA
+graph's inputs): a tensor rb_start gives the RE indices by arithmetic and a
+tensor sf_idx gathers its DMRS from the (10, ...) table, to the same values.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ import numpy as np
 import torch
 
 from ..ops import cplx, dft, modem, scrambling
+from ..utils.devices import row, table_cache
 from . import chest as chest_dl  # for equalize helpers
 from . import grid as grid_mod, refsignal_ul, sch
 
@@ -70,6 +74,12 @@ def _dmrs10(cell_id: int, l_prb: int) -> np.ndarray:
     return np.stack([refsignal_ul.pusch_dmrs(cell_id, s, l_prb) for s in range(10)])
 
 
+@table_cache(64)
+def _dmrs10_device(cell_id: int, l_prb: int, device: torch.device) -> torch.Tensor:
+    """`_dmrs10` on `device`: (10, 2, 12*l_prb, 2)."""
+    return cplx.from_numpy(_dmrs10(cell_id, l_prb), device)
+
+
 def _dmrs_for(cell_id: int, sf_idx, l_prb: int, device=None) -> torch.Tensor:
     """(..., 2, 12*l_prb, 2) cf DMRS values; sf_idx an int, or an int tensor
     of any shape (one table row per element)."""
@@ -79,6 +89,15 @@ def _dmrs_for(cell_id: int, sf_idx, l_prb: int, device=None) -> torch.Tensor:
     return d10[sf_idx.long()]
 
 
+@table_cache(8)
+def _sym_offsets(n_prb_cell: int, device: torch.device):
+    """(data symbols (12, 1), DMRS symbols (2, 1)) times NRE, int64 on
+    `device`: `_re_idx`'s row offsets."""
+    nre = 12 * n_prb_cell
+    f = lambda syms: torch.tensor(syms, device=device)[:, None] * nre
+    return f(DATA_SYMS), f(DMRS_SYMS)
+
+
 def _re_idx(n_prb_cell: int, rb_start, l_prb: int):
     """re_indices that also takes rb_start as an int tensor (of any shape,
     giving (..., 12, m_sc) and (..., 2, m_sc)): the tables are plain
@@ -86,14 +105,13 @@ def _re_idx(n_prb_cell: int, rb_start, l_prb: int):
     same width."""
     if isinstance(rb_start, (int, np.integer)):
         return re_indices(n_prb_cell, int(rb_start), l_prb)
-    nre = 12 * n_prb_cell
     dev = rb_start.device
     ks = 12 * rb_start.long()[..., None, None] + torch.arange(12 * l_prb, device=dev)
-    sym = lambda syms: torch.tensor(syms, device=dev)[:, None] * nre
-    return sym(DATA_SYMS) + ks, sym(DMRS_SYMS) + ks
+    data, dmrs = _sym_offsets(n_prb_cell, dev)
+    return data + ks, dmrs + ks
 
 
-@functools.lru_cache(maxsize=32)
+@table_cache(32)
 def _device_tables(n_prb_cell: int, cell_id: int, sf_idx: int, rb_start: int, l_prb: int,
                    device: torch.device):
     """(data RE indices (12*m_sc,), DMRS RE indices (2*m_sc,), DMRS values
@@ -102,6 +120,23 @@ def _device_tables(n_prb_cell: int, cell_id: int, sf_idx: int, rb_start: int, l_
     f = lambda a: torch.from_numpy(a.reshape(-1).astype(np.int64)).to(device)
     return f(data), f(dmrs), cplx.from_numpy(refsignal_ul.pusch_dmrs(cell_id, sf_idx, l_prb),
                                              device)
+
+
+def _tables(cell: grid_mod.CellConfig, sf_idx, rb_start, l_prb: int, device: torch.device):
+    """`_device_tables` for ints, or with sf_idx and rb_start as 0-d
+    integer tensors on `device` (indices by arithmetic, DMRS gathered from
+    the (10, ...) table)."""
+    if not isinstance(sf_idx, torch.Tensor) and not isinstance(rb_start, torch.Tensor):
+        return _device_tables(cell.n_prb, cell.cell_id, int(sf_idx), int(rb_start), l_prb,
+                              device)
+    if isinstance(rb_start, torch.Tensor):
+        data, dmrs = (a.reshape(-1) for a in _re_idx(cell.n_prb, rb_start, l_prb))
+    else:
+        data, dmrs, _ = _device_tables(cell.n_prb, cell.cell_id, 0, int(rb_start), l_prb,
+                                       device)
+    if isinstance(sf_idx, torch.Tensor):
+        return data, dmrs, row(_dmrs10_device(cell.cell_id, l_prb, device), sf_idx)
+    return data, dmrs, _device_tables(cell.n_prb, cell.cell_id, int(sf_idx), 0, l_prb, device)[2]
 
 
 def uci_dims(l_prb: int, qm: int, n_ack: int, n_ri: int, n_cqi: int,
@@ -151,8 +186,7 @@ def encode(tb_bits: torch.Tensor, cfg: sch.SchConfig, cell: grid_mod.CellConfig,
     B = syms.shape[0]
     # transform precoding per SC-FDMA symbol
     x = dft.dft(syms.reshape(B, N_DATA_SYMS, m_sc, 2))
-    data_idx, dmrs_idx, dmrs = _device_tables(cell.n_prb, cell.cell_id, int(sf_idx),
-                                              int(rb_start), l_prb, syms.device)
+    data_idx, dmrs_idx, dmrs = _tables(cell, sf_idx, rb_start, l_prb, syms.device)
     if grid is None:
         flat = cplx.zeros((B, grid_mod.N_SYM * cell.nre), device=syms.device)
     else:
@@ -162,14 +196,22 @@ def encode(tb_bits: torch.Tensor, cfg: sch.SchConfig, cell: grid_mod.CellConfig,
     return flat.reshape(B, grid_mod.N_SYM, cell.nre, 2)
 
 
+@table_cache(8)
+def _time_weights(device: torch.device):
+    """(1 - t, t) of each data symbol, (1, 12, 1, 1) on `device`: the linear
+    time interpolation from the DMRS at symbols 3 and 10."""
+    t = (np.array(DATA_SYMS, np.float32) - 3.0) / 7.0  # 0 at sym3, 1 at sym10
+    return (torch.from_numpy(1.0 - t).to(device)[None, :, None, None],
+            torch.from_numpy(t).to(device)[None, :, None, None])
+
+
 def estimate_ul(rx_grid: torch.Tensor, cell: grid_mod.CellConfig, sf_idx: int,
                 rb_start: int, l_prb: int):
     """eNB UL channel estimate from the two DMRS symbols (chest_ul.c): LS per
     slot pilot, 5-tap frequency smoothing, linear time interpolation.
     Returns (ce (B, 12, M_sc, 2) at data symbols, noise_est (B,))."""
     m_sc = 12 * l_prb
-    _, dmrs_idx, r = _device_tables(cell.n_prb, cell.cell_id, int(sf_idx), int(rb_start),
-                                    l_prb, rx_grid.device)
+    _, dmrs_idx, r = _tables(cell, sf_idx, rb_start, l_prb, rx_grid.device)
     B = rx_grid.shape[0]
     y = rx_grid.reshape(B, -1, 2)[:, dmrs_idx].reshape(B, 2, m_sc, 2)
     h_ls = cplx.mul_conj(y, r)  # (B, 2, m_sc, 2)
@@ -180,10 +222,7 @@ def estimate_ul(rx_grid: torch.Tensor, cell: grid_mod.CellConfig, sf_idx: int,
     tap = float(np.float32(1.0 / k))
     sm = sum(pad[:, :, i : i + m_sc] * tap for i in range(k))
     noise = cplx.abs2(h_ls - sm).reshape(B, -1).mean(dim=-1) * (k / max(k - 1, 1))
-    # time interpolation: DMRS at symbols 3, 10 -> data symbols
-    t = (np.array(DATA_SYMS, np.float32) - 3.0) / 7.0  # 0 at sym3, 1 at sym10
-    w1 = torch.from_numpy(1.0 - t).to(rx_grid.device)[None, :, None, None]
-    w2 = torch.from_numpy(t).to(rx_grid.device)[None, :, None, None]
+    w1, w2 = _time_weights(rx_grid.device)
     return w1 * sm[:, 0:1] + w2 * sm[:, 1:2], noise
 
 
@@ -195,8 +234,7 @@ def decode(rx_grid: torch.Tensor, cfg: sch.SchConfig, cell: grid_mod.CellConfig,
     also carrying decoded ack/ri/cqi.  use_kernel and llr_bits go to
     sch.decode_tb (the MAP kernel, and the decoder's storage width)."""
     m_sc = 12 * l_prb
-    data_idx, _, _ = _device_tables(cell.n_prb, cell.cell_id, int(sf_idx), int(rb_start),
-                                    l_prb, rx_grid.device)
+    data_idx, _, _ = _tables(cell, sf_idx, rb_start, l_prb, rx_grid.device)
     B = rx_grid.shape[0]
     y = rx_grid.reshape(B, -1, 2)[:, data_idx].reshape(B, N_DATA_SYMS, m_sc, 2)
     ce, noise = estimate_ul(rx_grid, cell, sf_idx, rb_start, l_prb)

@@ -21,6 +21,8 @@ import functools
 import numpy as np
 import torch
 
+from ..utils.devices import table_cache
+
 RI_COLS = (1, 4, 7, 10)
 ACK_COLS = (2, 3, 8, 9)
 C_MUX = 12
@@ -93,7 +95,7 @@ def mux_tables(g_total: int, qm: int, q_ri: int, q_ack: int):
                 n_data=n_data)
 
 
-@functools.lru_cache(maxsize=32)
+@table_cache(32)
 def _device_tables(g_total: int, qm: int, q_ri: int, q_ack: int, device: torch.device):
     """(TX gather into [data | RI], ACK positions, RX gather into
     [llrs | 0], RI positions) as int64 tensors on `device`."""

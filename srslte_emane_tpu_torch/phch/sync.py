@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops import cplx, dft, ofdm
+from ..utils.devices import table_cache
 
 PSS_ROOTS = {0: 25, 1: 29, 2: 34}
 
@@ -149,7 +150,7 @@ def _to(a: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)
 
 
-@functools.lru_cache(maxsize=16)
+@table_cache(16)
 def _pss_replicas(fft_size: int, device: torch.device) -> torch.Tensor:
     """(6, 2, fft) conv1d weight: channels (re, im) of a window against it
     give [re (3) | im (3)] of its correlation with the 3 conjugated PSS
@@ -160,7 +161,7 @@ def _pss_replicas(fft_size: int, device: torch.device) -> torch.Tensor:
         6, 2, fft_size), device)
 
 
-@functools.lru_cache(maxsize=16)
+@table_cache(16)
 def _sss_banks(device: torch.device) -> torch.Tensor:
     """(3, 62, 336): `_sss_bank` of each N_id_2 on `device`."""
     return _to(np.stack([_sss_bank(h) for h in range(3)]), device)
@@ -204,6 +205,14 @@ def _sss_pick(sss_freq_62, bank):
             m.max(dim=-1).values)
 
 
+@table_cache(16)
+def _sss_bins(fft_size: int, device: torch.device) -> torch.Tensor:
+    """The centre 62 FFT bins: negative frequencies [-31..-1] at bins
+    N-31..N-1, then +1..+31."""
+    bins = np.concatenate([np.arange(fft_size - 31, fft_size), np.arange(1, 32)])
+    return torch.from_numpy(bins).to(device)
+
+
 def _sss_hypothesis(samples, pos, n_id_2, fft_size: int, cp: int):
     """SSS decode under one CP-length hypothesis: the SSS symbol starts
     (fft_size + cp) samples before the PSS peak.  Returns per-batch
@@ -212,9 +221,7 @@ def _sss_hypothesis(samples, pos, n_id_2, fft_size: int, cp: int):
     idx = start[:, None] + torch.arange(fft_size, device=samples.device)[None, :]
     sss_td = torch.gather(samples, 1, idx[..., None].expand(-1, -1, 2))  # (B, fft, 2)
     f = dft.dft(sss_td)
-    # center 62 bins: negative freqs at [-31..-1] -> bins N-31..N-1, +1..+31
-    bins = np.concatenate([np.arange(fft_size - 31, fft_size), np.arange(1, 32)])
-    sss62 = f[:, torch.from_numpy(bins).to(samples.device)]
+    sss62 = f[:, _sss_bins(fft_size, samples.device)]
     banks = _sss_banks(samples.device)
     # every row against the bank of each n_id_2, then the detected one's pick
     n1, sf, m = (torch.stack(v, 1) for v in zip(*(_sss_pick(sss62, banks[h]) for h in range(3))))

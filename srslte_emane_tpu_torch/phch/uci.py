@@ -18,6 +18,8 @@ import pathlib
 import numpy as np
 import torch
 
+from ..utils.devices import table_cache
+
 _DATA = np.load(pathlib.Path(__file__).parent / "uci_tables.npz")
 RM32 = _DATA["rm32"].astype(np.int64)  # (32, 11)
 RM20 = _DATA["rm20"].astype(np.int64)  # (20, 13)
@@ -26,11 +28,18 @@ RM20 = _DATA["rm20"].astype(np.int64)  # (20, 13)
 def encode_rm(bits: torch.Tensor, n_out: int, basis: np.ndarray = RM32) -> torch.Tensor:
     """(B, O) info bits -> (B, n_out) coded bits; circular repetition beyond
     the mother code length (uci.c:617)."""
-    n = basis.shape[0]
-    b = bits.shape[-1]
-    gen = basis[:, :b].T[:, np.arange(n_out) % n]  # (O, n_out)
-    cw = bits.to(torch.float32) @ torch.from_numpy(gen.astype(np.float32)).to(bits.device)
+    which = "rm20" if basis is RM20 else "rm32"
+    assert basis is (RM20 if which == "rm20" else RM32), "basis: RM20 or RM32"
+    cw = bits.to(torch.float32) @ _generator(bits.shape[-1], n_out, which, bits.device)
     return torch.remainder(cw, 2.0).to(torch.int8)
+
+
+@table_cache(32)
+def _generator(b: int, n_out: int, which: str, device: torch.device) -> torch.Tensor:
+    """(O, n_out) float32 generator of the RM20 or RM32 code on `device`."""
+    basis = RM32 if which == "rm32" else RM20
+    gen = basis[:, :b].T[:, np.arange(n_out) % basis.shape[0]]
+    return torch.from_numpy(gen.astype(np.float32)).to(device)
 
 
 def encode_rm20(bits: torch.Tensor, basis: np.ndarray = RM20) -> torch.Tensor:
@@ -48,7 +57,7 @@ def _codebook(n_bits: int, n_out: int, which: str):
     return msgs.astype(np.int8), (1.0 - 2.0 * cw).astype(np.float32)
 
 
-@functools.lru_cache(maxsize=32)
+@table_cache(32)
 def _device_codebook(n_bits: int, n_out: int, which: str, device: torch.device):
     msgs, book = _codebook(n_bits, n_out, which)
     return torch.from_numpy(msgs).to(device), torch.from_numpy(book.T.copy()).to(device)

@@ -11,17 +11,27 @@ A replay runs the captured kernels, but the Python that enqueued them ran
 once, at capture, and a capture launches nothing: the launch counts that the
 kernels' wrappers keep (`COUNTERS`) would count the capture and no replay.
 A capture puts each count back to its value before it, and each replay adds
-what the capture counted.  A graph reads its tables by address: every
-cache of device tables that a captured step reads is a bounded
-`utils.devices.table_cache`, and the graph holds each table one handed out
-while it captured, so none is freed under it.  A failure raises: nothing
-falls back to the eager step.
+what the capture counted.  A failure raises: nothing falls back to the
+eager step.
+
+How long a table lives, the one rule: a graph reads its tables by address,
+so every device table that a captured step reads comes from a bounded
+`utils.devices.table_cache`, and the graph holds each table that one
+handed out while it captured (`devices.holding`), so none is freed under it
+while the graph lives.  No other cache keeps a table that a graph reads:
+the waveform network's `_CellKernels` keeps its factories (and so their
+graphs) per instance, and its device tables in module-level table_caches
+like every other step's.
+
+`STATS` counts the graphs built (`StepGraph` and `RoundGraph`) and the
+seconds their builds took, warm-up and capture together.
 """
 
 from __future__ import annotations
 
 import importlib
 import numbers
+import time
 
 import numpy as np
 import torch
@@ -34,6 +44,15 @@ COUNTERS = (("srslte_emane_tpu_torch.ops.fec.turbodecoder_cuda", "launches"),
             ("srslte_emane_tpu_torch.ops.fec.turbo_iter_cuda", "launches"),
             ("srslte_emane_tpu_torch.ops.fec.turbo_iter_cuda", "arm_launches"),
             ("srslte_emane_tpu_torch.ops.fec.viterbi_cuda", "launches"))
+
+
+# graphs built and the seconds their builds took (warm-up and capture)
+STATS = dict(graphs=0, build_s=0.0)
+
+
+def _built(t0: float) -> None:
+    STATS["graphs"] += 1
+    STATS["build_s"] += time.perf_counter() - t0
 
 
 def _warm_up(fn, dev: torch.device) -> None:
@@ -86,6 +105,7 @@ class RoundGraph:
     `reset`, in the same memory pool."""
 
     def __init__(self, body, reset, n_gens: int, dev: torch.device):
+        t0 = time.perf_counter()
         self.gens = [torch.Generator(device=dev) for _ in range(n_gens)]
 
         def warm_up():
@@ -97,6 +117,7 @@ class RoundGraph:
         _, self.counted, self.tables = _capture(self.graph, lambda: body(self.gens), self.gens)
         self.reset = torch.cuda.CUDAGraph()
         _capture(self.reset, reset, pool=self.graph.pool())
+        _built(t0)
 
     def run(self, n: int, gens) -> None:
         """Reset, then n replays drawing from the states of `gens` (one
@@ -167,6 +188,7 @@ class StepGraph:
     on the static inputs, its results kept as the static outputs."""
 
     def __init__(self, fn, args, dev: torch.device):
+        t0 = time.perf_counter()
         self.inputs = []
         for a in args:
             t = _as_tensor(a)
@@ -186,6 +208,7 @@ class StepGraph:
         self.graph = torch.cuda.CUDAGraph()
         self.outputs, self.counted, self.tables = _capture(
             self.graph, lambda: fn(*self.inputs), self.gens)
+        _built(t0)
 
     def _load(self, args) -> None:
         """The arguments into the static inputs: a copy per tensor, a fill

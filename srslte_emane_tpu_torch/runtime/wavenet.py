@@ -18,9 +18,14 @@ shared, only the PHY transport differs, exactly the reference's layering.
 What crosses between the PHY and the stacks is host data (Python ints,
 bytes, numpy arrays), never a tensor.
 
-Device design: the PHY calls are plain tensor code on the network's device;
-what `_CellKernels` caches is host tables (base grids, RE index tables,
-PUCCH matched-filter references), built once per shape.  The UE's blind
+Device design: the reference's 25 jitted stages are `_CellKernels`
+factories, keyed as the reference keys them; on the card each key is one
+CUDA graph (`runtime/graphs.jit`), captured at its first call and replayed
+at every later one, with rnti, cce_start, rb_start, sf and the RE index
+table as device inputs where the reference traces them.  `jit=False` runs
+the same stages eagerly (the graphed network's plain version).  The stacks,
+the EPC, the host reads between stages and `WaveMedium` stay eager, as in
+the reference.  The UE's blind
 search decodes the FULL aligned CCE space once per subframe for every UE
 in one call, with per-RNTI adjudication as a host integer compare
 (pdcch.blind_search_all), and PUCCH detection batches all resources of the
@@ -52,6 +57,7 @@ medium's impairments (`fading_profile=`, `doppler_hz=`, `dyn_delay=`,
 from __future__ import annotations
 
 import functools
+import numbers
 
 import numpy as np
 import torch
@@ -63,7 +69,8 @@ from ..phch import pdsch as pdsch_mod, phich as phich_mod, prach as prach_mod
 from ..phch import pucch as pucch_mod, pusch as pusch_mod, ra
 from ..phch import refsignal_ul, sch, sync as sync_mod, tdd as tdd_mod
 from ..phch import uci as uci_mod
-from ..utils.devices import resolve
+from ..utils.devices import resolve, row, table_cache
+from . import graphs
 from .waveblock import _randn
 
 
@@ -145,8 +152,8 @@ def _host(x: torch.Tensor) -> np.ndarray:
 
 
 def _per_instance(fn):
-    """Cache a method's result by its arguments in its instance's `_memo`,
-    so the device tables live as long as their _CellKernels."""
+    """Cache a factory's result by its static arguments in its instance's
+    `_memo`: one stage (and so one set of graphs) per key and instance."""
 
     @functools.wraps(fn)
     def cached(self, *args):
@@ -158,9 +165,116 @@ def _per_instance(fn):
     return cached
 
 
+# ---- the stages' device tables (graphs.py: a table a graph reads comes
+# from a table_cache, which the graph holds) ----
+
+@table_cache(32)
+def _base_table(cell: grid_mod.CellConfig, sf_idx: int, device: torch.device) -> torch.Tensor:
+    """(1, 14, NRE, 2) PSS/SSS + CRS + PCFICH of subframe sf_idx."""
+    g = cplx.zeros((1, grid_mod.N_SYM, cell.nre), device=device)
+    g = sync_mod.put_pss_sss(g, cell, sf_idx)
+    # CRS on every subframe (put_base role) — pdsch.encode would
+    # re-place them, but control-only subframes (and the PBCH
+    # subframe itself) must still carry pilots for UE chest
+    g = pdsch_mod.put_crs(g, cell, sf_idx)
+    return pcfich_mod.encode(torch.full((1,), cell.cfi, device=device), cell, sf_idx, g)
+
+
+@table_cache(32)
+def _base_p1_table(cell: grid_mod.CellConfig, sf_idx: int, device: torch.device) -> torch.Tensor:
+    """(1, 14, NRE, 2) CRS of antenna port 1 alone."""
+    g = cplx.zeros((1, grid_mod.N_SYM, cell.nre), device=device)
+    return pdsch_mod.put_crs(g, cell, sf_idx, port=1)
+
+
+@table_cache(8)
+def _sb_layout(cell: grid_mod.CellConfig, device: torch.device):
+    """(n_sb, k_sb, pad, per-subband RE counts (n_sb,) on `device`)."""
+    n_sb = max(1, uci_mod.cqi_hl_subband_size(cell.n_prb))
+    k_sb = -(-cell.n_prb // n_sb) * 12
+    pad = n_sb * k_sb - cell.nre
+    cnt = np.maximum(np.minimum(k_sb, cell.nre - k_sb * np.arange(n_sb)), 1)
+    return n_sb, k_sb, pad, torch.from_numpy(cnt.astype(np.float32)).to(device)
+
+
+@table_cache(20)
+def _pucch_wf(cell: grid_mod.CellConfig, n_res: int, sf_idx: int, device: torch.device):
+    """(N_RES, sf_len, 2) x2 on `device`: time-domain DMRS part and data
+    part per format-1 resource; a UE's transmission is W_dmrs[r] +
+    d0*W_data[r] (format 1 is affine in d(0); OFDM is linear)."""
+    g0 = cplx.zeros((1, grid_mod.N_SYM, cell.nre), device=device)
+    d0s = (torch.tensor([[0.0, 0.0]], device=device), torch.tensor([[1.0, 0.0]], device=device))
+    grids = torch.cat([pucch_mod.encode_f1(d0, cell, sf_idx, r, g0)
+                       for d0 in d0s for r in range(n_res)], dim=0)
+    wf = ofdm.modulate(grids, cell.n_prb)
+    return wf[:n_res], wf[n_res:] - wf[:n_res]
+
+
+@table_cache(32)
+def _f2_tables(cell: grid_mod.CellConfig, n: int, f2_base: int, sf_idx: int,
+               device: torch.device):
+    """(pos (n*2*7*12,) int64, conj(ref) (n, 2, 7, 12, 2)) on `device` for
+    the whole format-2 region [f2_base, f2_base + n)."""
+    pos = np.zeros((n, 2, 7, 12), np.int32)
+    ref = np.zeros((n, 2, 7, 12), np.complex64)
+    ncs = pucch_mod.n_cs_cell(cell.cell_id)
+    u_tab = refsignal_ul.f_gh_table(cell.cell_id, False)
+    for i in range(n):
+        res = f2_base + i
+        for s in range(2):
+            ns = 2 * sf_idx + s
+            u = (int(u_tab[ns]) + cell.cell_id % 30) % 30
+            base = refsignal_ul.base_sequence(u, 0, 12)
+            prb = pucch_mod.pucch_prb(res, ns, cell.n_prb)
+            ks = 12 * prb + np.arange(12)
+            for l in range(7):
+                alpha = 2 * np.pi * ((res % 12 + int(ncs[ns, l]))
+                                     % 12) / 12
+                ref[i, s, l] = base * np.exp(1j * alpha
+                                             * np.arange(12))
+                pos[i, s, l] = (7 * s + l) * cell.nre + ks
+    return (torch.from_numpy(pos.reshape(-1).astype(np.int64)).to(device),
+            cplx.from_numpy(np.conj(ref), device))
+
+
+@table_cache(32)
+def _pucch_rx_tables(cell: grid_mod.CellConfig, n_res: int, sf_idx: int,
+                     device: torch.device):
+    """(RE indices (n_res*n_mf*12,) int64, conj(ref) (n_res, n_mf, 12, 2))
+    of every format-1 resource's data symbols, on `device`."""
+    n_mf = 2 * len(pucch_mod.F1_DATA_SYMS)
+    # per-resource RE indices: resources above 36 live in inner PRB
+    # regions (pucch_prb m = n_pucch//36), so each row gathers its own
+    idx = np.zeros((n_res, n_mf, 12), np.int32)
+    ref = np.zeros((n_res, n_mf, 12), np.complex64)
+    for r in range(n_res):
+        wf = pucch_mod._f1_waveform(cell.cell_id, sf_idx, r)
+        k = 0
+        for s in range(2):
+            prb = pucch_mod.pucch_prb(r, 2 * sf_idx + s, cell.n_prb)
+            ks = 12 * prb + np.arange(12)
+            for l in pucch_mod.F1_DATA_SYMS:
+                idx[r, k] = (7 * s + l) * cell.nre + ks
+                ref[r, k] = wf[s, l]
+                k += 1
+    return (torch.from_numpy(idx.reshape(-1).astype(np.int64)).to(device),
+            cplx.from_numpy(np.conj(ref), device))
+
+
 class _CellKernels:
-    """Per-cell PHY calls on `device`, shared by the eNB and every UE; the
-    host tables they use are built once per shape.
+    """Per-cell stage cache, shared by the eNB and every UE: the twin of the
+    reference's 25 jitted stages.  Each stage is a factory, cached per
+    instance and keyed by the reference's static arguments; it returns the
+    stage's function (with the reference's extras: a TBS, the blind
+    search's positions).  With `jit` on the card that function is a
+    `graphs.jit` step: each key (and argument signature) is captured once as
+    a CUDA graph and replayed at every call, the numbers filled into its
+    0-d inputs.  Otherwise it runs eagerly, with its numbers as 0-d tensors
+    and its arrays as tensors on the device, so that the tensor path the
+    graph captures is the one that runs.  rnti, cce_start, the RE index
+    table and sf are device inputs of add_dl_grant and pdsch_rx, and rnti,
+    rb_start and sf of the four PUSCH stages: one graph per (width, MCS,
+    ...), never per (sf, rb_start).
 
     n_pucch_res sizes the format-1 region scanned by the eNB's one-shot
     matched filter: [0, n_cce) dynamic HARQ-ACK (36.213 §10.1 with N1=0)
@@ -168,7 +282,7 @@ class _CellKernels:
 
     def __init__(self, cell: grid_mod.CellConfig, n_pucch_res: int = 32,
                  n_f2_res: int = 0, f2_base: int = 0, n_cce: int = 0,
-                 device="cuda"):
+                 device="cuda", jit: bool = True):
         self.cell = cell
         self.dci_len = dci_mod.format0_1a_len(cell.n_prb)
         self.n_pucch_res = n_pucch_res
@@ -180,48 +294,65 @@ class _CellKernels:
         self.f2_base = f2_base
         self.n_cce = n_cce
         self.device = torch.device(device)
+        self.jit = jit
         self._memo = {}
+        self.steps = {}  # (stage, key...) -> its graphs.jit step (graphed only)
 
-    def _t(self, a) -> torch.Tensor:
-        """numpy (or list) -> tensor on the device."""
-        return torch.as_tensor(np.asarray(a), device=self.device)
+    def _arg(self, a):
+        """A stage argument as the graph's input holds it: a number as a 0-d
+        tensor, an array as a tensor, on the device."""
+        if isinstance(a, (np.ndarray, numbers.Number)):
+            return torch.as_tensor(a, device=self.device)
+        return a
 
-    def cell_search(self, samples):
+    def _stage(self, run, *key):
+        """`run` as the stage `key`: graphed on the card with jit, else
+        eager on tensor arguments."""
+        if self.jit and graphs.on_card(self.device):
+            step = graphs.jit(run, self.device)
+            self.steps[key] = step
+            return step
+        return lambda *args: run(*(self._arg(a) for a in args))
+
+    def graph_counts(self) -> dict:
+        """{(stage, key...): graphs captured} over the graphed stages."""
+        return {k: len(s.graphs) for k, s in self.steps.items()}
+
+    @_per_instance
+    def cell_search(self):
         """PSS/SSS+CP search on (B, sf_len, 2) cell-rate samples — ONE call
-        covers every still-searching UE in the network."""
+        covers every still-searching UE in the network.  -> (quality,
+        cell_id, sf_idx)."""
         fft = ofdm.params(self.cell.n_prb)["n"]
-        res = sync_mod.cell_search(samples, fft_size=fft, detect_cp=True)
-        return res["quality"], res["cell_id"], res["sf_idx"]
+
+        def run(samples):
+            res = sync_mod.cell_search(samples, fft_size=fft, detect_cp=True)
+            return res["quality"], res["cell_id"], res["sf_idx"]
+
+        return self._stage(run, "cell_search")
 
     # ---- eNB side ----
 
     @_per_instance
-    def _base(self, sf_idx: int) -> torch.Tensor:
-        """(1, 14, NRE, 2) PSS/SSS + CRS + PCFICH of subframe sf_idx."""
-        cell = self.cell
-        g = cplx.zeros((1, grid_mod.N_SYM, cell.nre), device=self.device)
-        g = sync_mod.put_pss_sss(g, cell, sf_idx)
-        # CRS on every subframe (put_base role) — pdsch.encode would
-        # re-place them, but control-only subframes (and the PBCH
-        # subframe itself) must still carry pilots for UE chest
-        g = pdsch_mod.put_crs(g, cell, sf_idx)
-        return pcfich_mod.encode(torch.full((1,), cell.cfi, device=self.device),
-                                 cell, sf_idx, g)
-
-    def base_grid(self, sf_idx: int, with_pbch: int, mib_bits: np.ndarray):
+    def base_grid(self, sf_idx: int, with_pbch: int):
         """Base subframe: PSS/SSS + PCFICH (+ PBCH for sfn%4 phase
-        with_pbch >= 0 on sf 0).  Returns the (1, 14, NRE, 2) grid."""
-        g = self._base(sf_idx)
-        if with_pbch >= 0 and sf_idx == 0:
-            g = pbch_mod.encode(self._t(mib_bits), self.cell, with_pbch, g)
-        return g
+        with_pbch >= 0 on sf 0).  Takes the (1, 24) MIB bits; returns the
+        (1, 14, NRE, 2) grid."""
+        cell, dev = self.cell, self.device
 
-    @_per_instance
+        def run(mib_bits):
+            g = _base_table(cell, sf_idx, dev)
+            if with_pbch >= 0 and sf_idx == 0:
+                return pbch_mod.encode(mib_bits, cell, with_pbch, g)
+            return g.clone()
+
+        return self._stage(run, "base_grid", sf_idx, with_pbch)
+
     def base_grid_p1(self, sf_idx: int) -> torch.Tensor:
         """Port-1 base grid: CRS on antenna port 1 only (the MIMO mode's
-        second transmit waveform; control stays on port 0)."""
-        g = cplx.zeros((1, grid_mod.N_SYM, self.cell.nre), device=self.device)
-        return pdsch_mod.put_crs(g, self.cell, sf_idx, port=1)
+        second transmit waveform; control stays on port 0).  A constant
+        table: no stage."""
+        return _base_p1_table(self.cell, sf_idx, self.device)
 
     def _dl_cfg(self, sf: int, rb_start: int, l_crbs: int, mcs: int,
                 max_sym: int = 0):
@@ -232,131 +363,214 @@ class _CellKernels:
         g = grid_mod.nof_re(self.cell, sf, mask, max_sym) * qm
         return mask, sch.SchConfig(tbs=ra.dl_tbs(mcs, l_crbs), G=g, Qm=qm, Nl=1)
 
-    def add_dl_grant(self, grid, sf: int, rb_start: int, l_crbs: int, mcs: int,
-                     l_aggr: int, dci_bits, payload_bits, rnti: int,
-                     cce_start: int, max_sym: int = 0):
-        """Place one DCI-1A + its PDSCH into the grid."""
-        cell = self.cell
-        mask, cfg = self._dl_cfg(sf, rb_start, l_crbs, mcs, max_sym)
-        g = pdcch_mod.encode(self._t(dci_bits), rnti, l_aggr, cce_start, cell,
-                             sf, grid)
-        return pdsch_mod.encode(self._t(payload_bits), cfg, cell, sf, rnti,
-                                mask, grid=g, max_sym=max_sym)
-
     def _tm3_cfgs(self, sf: int, rb_start: int, l_crbs: int, mcs1: int, mcs2: int):
         """(PRB mask, [SchConfig of each codeword]) of a rank-2 grant."""
         cfgs = [self._dl_cfg(sf, rb_start, l_crbs, m)[1] for m in (mcs1, mcs2)]
         return ra.type2_to_prb_mask(rb_start, l_crbs, self.cell.n_prb), cfgs
 
-    def add_dl_grant_tm3(self, grid, grid_p1, sf: int, rb_start: int, l_crbs: int,
-                         mcs1: int, mcs2: int, l_aggr: int, dci_bits, tb1, tb2,
-                         rnti: int, cce_start: int):
+    @_per_instance
+    def add_dl_grant_tm3(self, sf_idx: int, rb_start: int, l_crbs: int,
+                         mcs1: int, mcs2: int, l_aggr: int):
         """Rank-2 TM3 grant: DCI format 2A on the port-0 PDCCH + both
         codewords large-delay-CDD precoded onto the two port grids
-        (lib/src/phy/mimo/precoding.c tm3; pdsch.encode_tm)."""
+        (lib/src/phy/mimo/precoding.c tm3; pdsch.encode_tm).  -> (fn, (tbs1,
+        tbs2)); fn(grid, grid_p1, dci_bits, tb1, tb2, rnti, cce_start) ->
+        (grid, grid_p1)."""
         cell = self.cell
-        mask, cfgs = self._tm3_cfgs(sf, rb_start, l_crbs, mcs1, mcs2)
-        g0 = pdcch_mod.encode(self._t(dci_bits), rnti, l_aggr, cce_start, cell,
-                              sf, grid)
-        grids = pdsch_mod.encode_tm([self._t(tb1), self._t(tb2)], cfgs, cell, sf,
-                                    rnti, mask, "tm3",
-                                    grids=torch.stack([g0, grid_p1], dim=1))
-        return grids[:, 0], grids[:, 1]
+        mask, cfgs = self._tm3_cfgs(sf_idx, rb_start, l_crbs, mcs1, mcs2)
 
-    def add_ul_dci(self, grid, sf_idx: int, l_aggr: int, dci_bits, rnti: int,
-                   cce_start: int):
-        return pdcch_mod.encode(self._t(dci_bits), rnti, l_aggr, cce_start,
-                                self.cell, sf_idx, grid)
+        def run(g0, g1, dci_bits, tb1, tb2, rnti, cce_start):
+            g0 = pdcch_mod.encode_dyn(dci_bits, rnti, l_aggr, cce_start, cell, sf_idx, g0)
+            grids = pdsch_mod.encode_tm([tb1, tb2], cfgs, cell, sf_idx, rnti, mask, "tm3",
+                                        grids=torch.stack([g0, g1], dim=1))
+            return grids[:, 0], grids[:, 1]
 
-    def add_phich(self, grid, sf_idx: int, acks: np.ndarray):
-        return phich_mod.encode(self._t(acks), self.cell, sf_idx, grid)
+        return (self._stage(run, "add_dl_grant_tm3", sf_idx, rb_start, l_crbs, mcs1, mcs2,
+                            l_aggr),
+                tuple(c.tbs for c in cfgs))
 
-    def modulate(self, grid):
-        return ofdm.modulate(grid, self.cell.n_prb)
+    @_per_instance
+    def pdsch_rx_tm3(self, sf_idx: int, rb_start: int, l_crbs: int,
+                     mcs1: int, mcs2: int):
+        """UE-side TM3 decode: fn(the (1, 2_rx, 14, NRE, 2) grids, rnti) ->
+        (payload 1, payload 2, ok 1, ok 2)."""
+        cell = self.cell
+        mask, cfgs = self._tm3_cfgs(sf_idx, rb_start, l_crbs, mcs1, mcs2)
 
-    @staticmethod
-    def mask_dwpts(grid, dw_sym: int):
+        def run(rx_grids, rnti):
+            pls, oks, _ = pdsch_mod.decode_tm(rx_grids, cfgs, cell, sf_idx, rnti, mask, "tm3")
+            return pls[0], pls[1], oks[0], oks[1]
+
+        return self._stage(run, "pdsch_rx_tm3", sf_idx, rb_start, l_crbs, mcs1, mcs2)
+
+    @_per_instance
+    def blind_all2(self, sf_idx: int):
+        """blind_all for the DCI format-2A length (rank-2 grants)."""
+        return self._blind(sf_idx, dci_mod.format2_len(self.cell.n_prb, "2A"), "blind_all2")
+
+    @_per_instance
+    def ri_probe(self, sf_idx: int):
+        """Wideband rank probe from the per-(rx, tx) channel estimates of
+        the (1, 2, 14, NRE, 2) grids: the 2x2 singular-value ratio decides
+        RI (cqi.c RI report role).  fn(grids) -> (s2 / s1, s1)."""
+        cell = self.cell
+
+        def run(rx_grids):
+            ce, _ = pdsch_mod.estimate_mimo(rx_grids, cell, sf_idx, 2)
+            h = ce[0].mean(dim=(2, 3))  # (2rx, 2tx, 2) wideband
+            hc = torch.complex(h[..., 0], h[..., 1])
+            g = hc.conj().T @ hc  # 2x2 Gram
+            tr = (g[0, 0] + g[1, 1]).real
+            det = (g[0, 0] * g[1, 1] - g[0, 1] * g[1, 0]).real
+            disc = torch.sqrt(torch.clamp(tr * tr - 4.0 * det, min=0.0))
+            s1 = torch.sqrt(torch.clamp((tr + disc) / 2.0, min=1e-12))
+            s2 = torch.sqrt(torch.clamp((tr - disc) / 2.0, min=0.0))
+            return s2 / s1, s1
+
+        return self._stage(run, "ri_probe", sf_idx)
+
+    def dl_re_idx(self, sf_idx: int, rb_start: int, l_crbs: int,
+                  max_sym: int = 0) -> torch.Tensor:
+        """(n_re,) int64 RE index table of a type-2 DL alloc, built on the
+        host and kept on the device (pdsch's table cache); max_sym > 0
+        truncates it to the TDD DwPTS symbol range.  add_dl_grant and
+        pdsch_rx take it as an input."""
+        mask = ra.type2_to_prb_mask(rb_start, l_crbs, self.cell.n_prb)
+        return pdsch_mod._re_table(self.cell, sf_idx, mask, self.device, max_sym)
+
+    @_per_instance
+    def add_dl_grant(self, l_crbs: int, mcs: int, l_aggr: int, n_re: int):
+        """Place one DCI-1A + its PDSCH into the grid.  rnti, cce_start, the
+        RE index table AND sf are inputs — one graph per (width, mcs, L,
+        n_re), NOT per (sf, rb_start): the graph population stays O(shapes),
+        not O(shapes x positions x 10) (per-sf CRS and scrambling ride
+        (10, ...) table gathers).  -> (fn, tbs); fn(grid, dci_bits,
+        payload_bits, rnti, cce_start, re_idx, sf) -> grid."""
+        cell = self.cell
+        tbs = ra.dl_tbs(mcs, l_crbs)
+        qm = ra.dl_mcs_to_qm(mcs)
+        cfg = sch.SchConfig(tbs=tbs, G=n_re * qm, Qm=qm, Nl=1)
+
+        def run(grid, dci_bits, payload_bits, rnti, cce_start, re_idx, sf):
+            g = pdcch_mod.encode_dyn(dci_bits, rnti, l_aggr, cce_start, cell, sf, grid)
+            return pdsch_mod.encode(payload_bits, cfg, cell, sf, rnti, None, grid=g,
+                                    re_idx=re_idx)
+
+        return self._stage(run, "add_dl_grant", l_crbs, mcs, l_aggr, n_re), tbs
+
+    @_per_instance
+    def add_ul_dci(self, sf_idx: int, l_aggr: int):
+        """fn(grid, dci_bits, rnti, cce_start) -> grid with the DCI-0."""
+        cell = self.cell
+
+        def run(grid, dci_bits, rnti, cce_start):
+            return pdcch_mod.encode_dyn(dci_bits, rnti, l_aggr, cce_start, cell, sf_idx, grid)
+
+        return self._stage(run, "add_ul_dci", sf_idx, l_aggr)
+
+    @_per_instance
+    def add_phich(self, sf_idx: int):
+        """fn(grid, acks (1, n_groups, 8)) -> grid with the PHICH."""
+        cell = self.cell
+        return self._stage(lambda grid, acks: phich_mod.encode(acks, cell, sf_idx, grid),
+                           "add_phich", sf_idx)
+
+    @_per_instance
+    def modulate(self):
+        """fn(grids (B, 14, NRE, 2)) -> (B, sf_len, 2)."""
+        n_prb = self.cell.n_prb
+        return self._stage(lambda g: ofdm.modulate(g, n_prb), "modulate")
+
+    @_per_instance
+    def demodulate(self):
+        """fn(samples (B, sf_len, 2)) -> (B, 14, NRE, 2): the eNB's UL grid,
+        demodulated once per TTI for every decoder, and the UE's PBCH grid."""
+        n_prb = self.cell.n_prb
+        return self._stage(lambda s: ofdm.demodulate(s, n_prb), "demodulate")
+
+    @_per_instance
+    def mask_dwpts(self, dw_sym: int):
         """Zero GP/UpPTS symbols of a TDD special subframe's grid."""
-        g = grid.clone()
-        g[:, dw_sym:] = 0.0
-        return g
+
+        def run(grid):
+            g = grid.clone()
+            g[:, dw_sym:] = 0.0
+            return g
+
+        return self._stage(run, "mask_dwpts", dw_sym)
 
     # ---- UE side ----
 
     @_per_instance
-    def _sb_layout(self):
-        """(n_sb, k_sb, pad, per-subband RE counts on the device)."""
-        cell = self.cell
-        n_sb = max(1, uci_mod.cqi_hl_subband_size(cell.n_prb))
-        k_sb = -(-cell.n_prb // n_sb) * 12
-        pad = n_sb * k_sb - cell.nre
-        cnt = np.maximum(np.minimum(k_sb, cell.nre - k_sb * np.arange(n_sb)), 1)
-        return n_sb, k_sb, pad, self._t(cnt.astype(np.float32))
-
-    def rx_front(self, samples, sf_idx: int):
+    def rx_front(self, sf_idx: int):
         """OFDM demod + channel estimate + per-subband SNR (the cqi.c
-        subband measurement input).  Returns (rg, ce, snr_db, sb_snr)."""
-        cell = self.cell
-        n_sb, k_sb, pad, cnt = self._sb_layout()
-        rg = ofdm.demodulate(samples, cell.n_prb)
-        ch = chest.estimate(rg, cell, sf_idx)
-        p = cplx.abs2(ch.ce).mean(-2)  # (B, NRE): mean over symbols
-        p = torch.nn.functional.pad(p, (0, pad))
-        p_sb = p.reshape(p.shape[0], n_sb, k_sb).sum(-1) / cnt
-        sb_snr = 10.0 * torch.log10(torch.clamp(
-            p_sb / torch.clamp(ch.noise_est, min=1e-12)[:, None], min=1e-12))
-        return rg, ch.ce, ch.snr_db, sb_snr
+        subband measurement input).  fn(samples) -> (rg, ce, snr_db,
+        sb_snr)."""
+        cell, dev = self.cell, self.device
 
-    def blind_all(self, rg, ce, sf_idx: int):
+        def run(samples):
+            n_sb, k_sb, pad, cnt = _sb_layout(cell, dev)
+            rg = ofdm.demodulate(samples, cell.n_prb)
+            ch = chest.estimate(rg, cell, sf_idx)
+            p = cplx.abs2(ch.ce).mean(-2)  # (B, NRE): mean over symbols
+            p = torch.nn.functional.pad(p, (0, pad))
+            p_sb = p.reshape(p.shape[0], n_sb, k_sb).sum(-1) / cnt
+            sb_snr = 10.0 * torch.log10(torch.clamp(
+                p_sb / torch.clamp(ch.noise_est, min=1e-12)[:, None], min=1e-12))
+            return rg, ch.ce, ch.snr_db, sb_snr
+
+        return self._stage(run, "rx_front", sf_idx)
+
+    def _blind(self, sf_idx: int, dci_len: int, name: str):
+        cell = self.cell
+
+        def run(rg, ce):
+            bits, resid, _ = pdcch_mod.blind_search_all(rg, ce, cell, sf_idx, dci_len)
+            return bits, resid
+
+        return self._stage(run, name, sf_idx), list(pdcch_mod.full_space(cell))
+
+    @_per_instance
+    def blind_all(self, sf_idx: int):
         """Decode the FULL aligned CCE space once; per-RNTI adjudication
-        happens on the host (resid == rnti).  Returns (bits, resid,
-        positions), whatever the number of RNTIs watched."""
-        return pdcch_mod.blind_search_all(rg, ce, self.cell, sf_idx, self.dci_len)
+        happens on the host (resid == rnti).  -> (fn, positions); fn(rg,
+        ce) -> (bits, resid), whatever the number of RNTIs watched."""
+        return self._blind(sf_idx, self.dci_len, "blind_all")
 
-    def blind_all2(self, rg, ce, sf_idx: int):
-        """blind_all for the DCI format-2A length (rank-2 grants)."""
-        return pdcch_mod.blind_search_all(rg, ce, self.cell, sf_idx,
-                                          dci_mod.format2_len(self.cell.n_prb, "2A"))
-
-    def pdsch_rx(self, rg, sf: int, rb_start: int, l_crbs: int, mcs: int,
-                 rnti: int, max_sym: int = 0):
-        mask, cfg = self._dl_cfg(sf, rb_start, l_crbs, mcs, max_sym)
-        payload, ok, _, _ = pdsch_mod.decode(rg, cfg, self.cell, sf, rnti, mask,
-                                             max_sym=max_sym)
-        return payload, ok
-
-    def pdsch_rx_tm3(self, rx_grids, sf: int, rb_start: int, l_crbs: int,
-                     mcs1: int, mcs2: int, rnti: int):
-        """UE-side TM3 decode from the (1, 2_rx, 14, NRE, 2) grids.  Returns
-        (payload 1, payload 2, ok 1, ok 2)."""
-        mask, cfgs = self._tm3_cfgs(sf, rb_start, l_crbs, mcs1, mcs2)
-        pls, oks, _ = pdsch_mod.decode_tm(rx_grids, cfgs, self.cell, sf, rnti,
-                                          mask, "tm3")
-        return pls[0], pls[1], oks[0], oks[1]
-
-    def ri_probe(self, rx_grids, sf_idx: int):
-        """Wideband rank probe from the per-(rx, tx) channel estimates of
-        the (1, 2, 14, NRE, 2) grids: the 2x2 singular-value ratio decides
-        RI (cqi.c RI report role).  Returns (s2 / s1, s1)."""
-        ce, _ = pdsch_mod.estimate_mimo(rx_grids, self.cell, sf_idx, 2)
-        h = ce[0].mean(dim=(2, 3))  # (2rx, 2tx, 2) wideband
-        hc = torch.complex(h[..., 0], h[..., 1])
-        g = hc.conj().T @ hc  # 2x2 Gram
-        tr = (g[0, 0] + g[1, 1]).real
-        det = (g[0, 0] * g[1, 1] - g[0, 1] * g[1, 0]).real
-        disc = torch.sqrt(torch.clamp(tr * tr - 4.0 * det, min=0.0))
-        s1 = torch.sqrt(torch.clamp((tr + disc) / 2.0, min=1e-12))
-        s2 = torch.sqrt(torch.clamp((tr - disc) / 2.0, min=0.0))
-        return s2 / s1, s1
-
-    def phich_rx(self, rg, ce, sf_idx: int):
-        return phich_mod.decode(rg, ce, self.cell, sf_idx)
-
-    def pbch_rx(self, rg):
+    @_per_instance
+    def pdsch_rx(self, l_crbs: int, mcs: int, n_re: int):
+        """One graph per (width, mcs, n_re) — rb_start rides the RE index
+        table, sf the per-sf table gathers.  fn(rg, rnti, re_idx, sf) ->
+        (payload, ok)."""
         cell = self.cell
-        ch0 = chest.estimate(rg, cell, 0, port=0)
-        ch1 = chest.estimate(rg, cell, 0, port=1)
-        return pbch_mod.decode(rg, ch0.ce, cell, ce_port1=ch1.ce)
+        tbs = ra.dl_tbs(mcs, l_crbs)
+        qm = ra.dl_mcs_to_qm(mcs)
+        cfg = sch.SchConfig(tbs=tbs, G=n_re * qm, Qm=qm, Nl=1)
+
+        def run(rg, rnti, re_idx, sf):
+            payload, ok, _, _ = pdsch_mod.decode(rg, cfg, cell, sf, rnti, None, re_idx=re_idx)
+            return payload, ok
+
+        return self._stage(run, "pdsch_rx", l_crbs, mcs, n_re)
+
+    @_per_instance
+    def phich_rx(self, sf_idx: int):
+        """fn(rg, ce) -> (B, n_groups, 8) PHICH soft metrics."""
+        cell = self.cell
+        return self._stage(lambda rg, ce: phich_mod.decode(rg, ce, cell, sf_idx),
+                           "phich_rx", sf_idx)
+
+    @_per_instance
+    def pbch_rx(self):
+        """fn(rg of subframe 0) -> (mib, n_ports, sfn offset, ok)."""
+        cell = self.cell
+
+        def run(rg):
+            ch0 = chest.estimate(rg, cell, 0, port=0)
+            ch1 = chest.estimate(rg, cell, 0, port=1)
+            return pbch_mod.decode(rg, ch0.ce, cell, ce_port1=ch1.ce)
+
+        return self._stage(run, "pbch_rx")
 
     # ---- uplink ----
 
@@ -367,154 +581,144 @@ class _CellKernels:
         _, _, q_cqi, g_data = pusch_mod.uci_dims(l_prb, qm, 0, 0, n_cqi)
         return sch.SchConfig(tbs=tbs, G=g_data, Qm=qm, Nl=1), q_cqi
 
-    def pusch_tx(self, bits, rnti: int, rb_start: int, sf: int, l_prb: int,
-                 mcs: int, cqi_bits=None):
-        """PUSCH waveform; with cqi_bits, an aperiodic CQI report as REAL
-        multiplexed UCI (36.212 §5.2.2.6 coding + §5.2.2.8 interleaver
-        placement)."""
-        cfg, _ = self._ul_cfg(l_prb, mcs, 0 if cqi_bits is None else cqi_bits.shape[-1])
-        uci = None if cqi_bits is None else dict(cqi=self._t(cqi_bits))
-        g = pusch_mod.encode(self._t(bits), cfg, self.cell, sf, rnti, rb_start,
-                             l_prb, uci=uci)
-        return ofdm.modulate(g, self.cell.n_prb)
+    @_per_instance
+    def pusch_tx(self, l_prb: int, mcs: int):
+        """rb_start and sf are inputs (the RE indices by arithmetic, the
+        DMRS by table gather): one graph per (width, mcs).  -> (fn, tbs);
+        fn(bits, rnti, rb_start, sf) -> (1, sf_len, 2)."""
+        cell = self.cell
+        cfg, _ = self._ul_cfg(l_prb, mcs)
 
-    def pusch_rx(self, rg, rnti: int, rb_start: int, sf: int, l_prb: int,
-                 mcs: int, n_cqi: int = 0):
-        """(payload, ok, cqi bits or None) from the eNB's UL grid."""
+        def run(bits, rnti, rb_start, sf):
+            g = pusch_mod.encode(bits, cfg, cell, sf, rnti, rb_start, l_prb)
+            return ofdm.modulate(g, cell.n_prb)
+
+        return self._stage(run, "pusch_tx", l_prb, mcs), cfg.tbs
+
+    @_per_instance
+    def pusch_tx_cqi(self, l_prb: int, mcs: int, n_cqi: int):
+        """PUSCH with an aperiodic CQI report as REAL multiplexed UCI
+        (36.212 §5.2.2.6 coding + §5.2.2.8 interleaver placement).  -> (fn,
+        tbs); fn(bits, cqi_bits, rnti, rb_start, sf) -> (1, sf_len, 2)."""
+        cell = self.cell
+        cfg, _ = self._ul_cfg(l_prb, mcs, n_cqi)
+
+        def run(bits, cqi_bits, rnti, rb_start, sf):
+            g = pusch_mod.encode(bits, cfg, cell, sf, rnti, rb_start, l_prb,
+                                 uci=dict(cqi=cqi_bits))
+            return ofdm.modulate(g, cell.n_prb)
+
+        return self._stage(run, "pusch_tx_cqi", l_prb, mcs, n_cqi), cfg.tbs
+
+    @_per_instance
+    def pusch_rx_cqi(self, l_prb: int, mcs: int, n_cqi: int):
+        """fn(the eNB's UL grid, rnti, rb_start, sf) -> (payload, ok, cqi
+        bits)."""
+        cell = self.cell
         cfg, q_cqi = self._ul_cfg(l_prb, mcs, n_cqi)
-        if n_cqi:
-            out = pusch_mod.decode(rg, cfg, self.cell, sf, rnti, rb_start, l_prb,
-                                   uci_dims_in=(0, 0, q_cqi, 0, 0, n_cqi))
+        dims = (0, 0, q_cqi, 0, 0, n_cqi)
+
+        def run(rg, rnti, rb_start, sf):
+            out = pusch_mod.decode(rg, cfg, cell, sf, rnti, rb_start, l_prb, uci_dims_in=dims)
             return out["payload"], out["ok"], out["cqi"]
-        payload, ok, _, _ = pusch_mod.decode(rg, cfg, self.cell, sf, rnti,
-                                             rb_start, l_prb)
-        return payload, ok, None
+
+        return self._stage(run, "pusch_rx_cqi", l_prb, mcs, n_cqi)
+
+    @_per_instance
+    def pusch_rx(self, l_prb: int, mcs: int):
+        """fn(the eNB's UL grid, rnti, rb_start, sf) -> (payload, ok)."""
+        cell = self.cell
+        cfg, _ = self._ul_cfg(l_prb, mcs)
+
+        def run(rg, rnti, rb_start, sf):
+            payload, ok, _, _ = pusch_mod.decode(rg, cfg, cell, sf, rnti, rb_start, l_prb)
+            return payload, ok
+
+        return self._stage(run, "pusch_rx", l_prb, mcs)
 
     # ---- PUCCH: every format-1 resource of the region as ONE tensor ----
 
     @_per_instance
-    def _pucch_wf(self, sf_idx: int):
-        """(N_RES, sf_len, 2) x2 on the device: time-domain DMRS part and
-        data part per resource; a UE's transmission is W_dmrs[r] +
-        d0*W_data[r] (format 1 is affine in d(0); OFDM is linear)."""
-        cell = self.cell
-        n_res = self.n_pucch_res
-        g0 = cplx.zeros((1, grid_mod.N_SYM, cell.nre), device=self.device)
-        d0s = (self._t(np.array([[0.0, 0.0]], np.float32)),
-               self._t(np.array([[1.0, 0.0]], np.float32)))
-        grids = torch.cat([pucch_mod.encode_f1(d0, cell, sf_idx, r, g0)
-                           for d0 in d0s for r in range(n_res)], dim=0)
-        wf = ofdm.modulate(grids, cell.n_prb)
-        return wf[:n_res], wf[n_res:] - wf[:n_res]
+    def pucch_tx(self, sf_idx: int):
+        """fn(resource, d0 (1, 2)) -> (1, sf_len, 2) format-1 waveform; the
+        resource is an input."""
+        cell, dev, n_res = self.cell, self.device, self.n_pucch_res
 
-    def pucch_tx(self, sf_idx: int, res: int, d0: np.ndarray):
-        """(1, sf_len, 2) format-1 waveform of resource `res` carrying d0."""
-        wd, wx = self._pucch_wf(sf_idx)
-        return wd[res][None] + cplx.mul(self._t(d0)[:, None, :], wx[res][None])
+        def run(r, d0):
+            wd, wx = _pucch_wf(cell, n_res, sf_idx, dev)
+            return row(wd, r)[None] + cplx.mul(d0[:, None, :], row(wx, r)[None])
+
+        return self._stage(run, "pucch_tx", sf_idx)
 
     # ---- PUCCH format 2/2a: periodic wideband CQI (+1 ACK bit) ----
 
-    def pucch2_tx(self, sf_idx: int, res_rel: int, cqi_bits: np.ndarray,
-                  ack_bits: np.ndarray = None):
-        """UE-side format-2 (ack_bits None) or 2a transmit on CQI resource
-        f2_base + res_rel: cqi_bits (1, 4)[, ack (1, 1)] -> (1, sf_len, 2)."""
+    @_per_instance
+    def pucch2_tx(self, sf_idx: int, res_rel: int, n_ack: int = 0):
+        """UE-side format-2 (n_ack=0) or 2a (n_ack=1) transmit on CQI
+        resource f2_base + res_rel: fn(cqi_bits (1, 4)[, ack (1, 1)]) ->
+        (1, sf_len, 2)."""
         cell = self.cell
         res = self.f2_base + res_rel
-        g = cplx.zeros((1, grid_mod.N_SYM, cell.nre), device=self.device)
-        if ack_bits is None:
-            g = pucch_mod.encode_f2(self._t(cqi_bits), cell, sf_idx, res, g)
+        g0 = lambda: cplx.zeros((1, grid_mod.N_SYM, cell.nre), device=self.device)
+
+        if n_ack == 0:
+            def run(cqi_bits):
+                g = pucch_mod.encode_f2(cqi_bits, cell, sf_idx, res, g0())
+                return ofdm.modulate(g, cell.n_prb)
         else:
-            g = pucch_mod.encode_f2ab(self._t(cqi_bits), self._t(ack_bits), cell,
-                                      sf_idx, res, g)
-        return ofdm.modulate(g, cell.n_prb)
+            def run(cqi_bits, ack_bits):
+                g = pucch_mod.encode_f2ab(cqi_bits, ack_bits, cell, sf_idx, res, g0())
+                return ofdm.modulate(g, cell.n_prb)
+
+        return self._stage(run, "pucch2_tx", sf_idx, res_rel, n_ack)
 
     @_per_instance
-    def _f2_tables(self, sf_idx: int):
-        """(pos (n*2*7*12,) int64, conj(ref) (n, 2, 7, 12, 2)) on the device
-        for the whole format-2 region."""
-        cell = self.cell
-        n = self.n_f2_res
-        pos = np.zeros((n, 2, 7, 12), np.int32)
-        ref = np.zeros((n, 2, 7, 12), np.complex64)
-        ncs = pucch_mod.n_cs_cell(cell.cell_id)
-        u_tab = refsignal_ul.f_gh_table(cell.cell_id, False)
-        for i in range(n):
-            res = self.f2_base + i
-            for s in range(2):
-                ns = 2 * sf_idx + s
-                u = (int(u_tab[ns]) + cell.cell_id % 30) % 30
-                base = refsignal_ul.base_sequence(u, 0, 12)
-                prb = pucch_mod.pucch_prb(res, ns, cell.n_prb)
-                ks = 12 * prb + np.arange(12)
-                for l in range(7):
-                    alpha = 2 * np.pi * ((res % 12 + int(ncs[ns, l]))
-                                         % 12) / 12
-                    ref[i, s, l] = base * np.exp(1j * alpha
-                                                 * np.arange(12))
-                    pos[i, s, l] = (7 * s + l) * cell.nre + ks
-        return (self._t(pos.reshape(-1).astype(np.int64)),
-                cplx.from_numpy(np.conj(ref), self.device))
-
-    def pucch2_rx_all(self, rg, sf_idx: int):
-        """eNB: decode EVERY format-2 resource in one call.  Returns
+    def pucch2_rx_all(self, sf_idx: int):
+        """eNB: decode EVERY format-2 resource in one stage.  fn(rg) ->
         (cqi_bits (n,4), metric (n,), dmrs_energy (n,), ack_corr (n,2)).
         The channel comes from the FIRST DMRS symbol pair only, so the
         same decode serves plain f2 and f2a (whose second DMRS carries
         d(10)); ack_corr is <dmrs2, h> — its real-part sign is the 2a
         ACK bit, and for plain f2 it sits at +|h|^2 (reads as ACK, used
         only when one was expected)."""
-        pos, refc = self._f2_tables(sf_idx)
-        n = self.n_f2_res
+        cell, dev, n, base = self.cell, self.device, self.n_f2_res, self.f2_base
         d_syms = pucch_mod.F2_DATA_SYMS
         l_dm1, l_dm2 = pucch_mod.F2_DMRS_SYMS
-        y = rg.reshape(1, -1, 2)[:, pos].reshape(n, 2, 7, 12, 2)
-        z = cplx.mul(y, refc)  # ref removed
-        h = z[:, :, l_dm1]  # (n, 2, 12, 2) per-slot channel
-        energy = cplx.abs2(h).mean(dim=(-2, -1))  # (n,)
-        # slot-major data symbol order matches encode_f2's di index
-        parts = [cplx.mul_conj(z[:, s, l], h[:, s]).sum(dim=-2)
-                 for s in range(2) for l in d_syms]
-        d = torch.stack(parts, dim=1)  # (n, 10, 2)
-        llr = modem.demod_soft(d / (torch.sqrt(cplx.abs2(d))[..., None] + 1e-9),
-                               modem.QPSK)
-        bits, metric = uci_mod.decode_rm(llr, 4, "rm20")
-        ack = sum(cplx.mul_conj(z[:, s, l_dm2], h[:, s]).sum(dim=-2)
-                  for s in range(2))  # (n, 2)
-        return bits, metric, energy, ack
+
+        def run(rg):
+            pos, refc = _f2_tables(cell, n, base, sf_idx, dev)
+            y = rg.reshape(1, -1, 2)[:, pos].reshape(n, 2, 7, 12, 2)
+            z = cplx.mul(y, refc)  # ref removed
+            h = z[:, :, l_dm1]  # (n, 2, 12, 2) per-slot channel
+            energy = cplx.abs2(h).mean(dim=(-2, -1))  # (n,)
+            # slot-major data symbol order matches encode_f2's di index
+            parts = [cplx.mul_conj(z[:, s, l], h[:, s]).sum(dim=-2)
+                     for s in range(2) for l in d_syms]
+            d = torch.stack(parts, dim=1)  # (n, 10, 2)
+            llr = modem.demod_soft(d / (torch.sqrt(cplx.abs2(d))[..., None] + 1e-9),
+                                   modem.QPSK)
+            bits, metric = uci_mod.decode_rm(llr, 4, "rm20")
+            ack = sum(cplx.mul_conj(z[:, s, l_dm2], h[:, s]).sum(dim=-2)
+                      for s in range(2))  # (n, 2)
+            return bits, metric, energy, ack
+
+        return self._stage(run, "pucch2_rx_all", sf_idx)
 
     @_per_instance
-    def _pucch_rx_tables(self, sf_idx: int):
-        """(RE indices (n_res*n_mf*12,) int64, conj(ref) (n_res, n_mf, 12,
-        2)) of every format-1 resource's data symbols, on the device."""
-        cell = self.cell
-        n_res = self.n_pucch_res
-        n_mf = 2 * len(pucch_mod.F1_DATA_SYMS)
-        # per-resource RE indices: resources above 36 live in inner PRB
-        # regions (pucch_prb m = n_pucch//36), so each row gathers its own
-        idx = np.zeros((n_res, n_mf, 12), np.int32)
-        ref = np.zeros((n_res, n_mf, 12), np.complex64)
-        for r in range(n_res):
-            wf = pucch_mod._f1_waveform(cell.cell_id, sf_idx, r)
-            k = 0
-            for s in range(2):
-                prb = pucch_mod.pucch_prb(r, 2 * sf_idx + s, cell.n_prb)
-                ks = 12 * prb + np.arange(12)
-                for l in pucch_mod.F1_DATA_SYMS:
-                    idx[r, k] = (7 * s + l) * cell.nre + ks
-                    ref[r, k] = wf[s, l]
-                    k += 1
-        return (self._t(idx.reshape(-1).astype(np.int64)),
-                cplx.from_numpy(np.conj(ref), self.device))
+    def pucch_rx_all(self, sf_idx: int):
+        """eNB: matched-filter ALL format-1 resources in one stage.
+        fn(rg (B, 14, NRE, 2)) -> (corr (B, N_RES, 2), energy (B, N_RES))."""
+        cell, dev, n_res = self.cell, self.device, self.n_pucch_res
 
-    def pucch_rx_all(self, rg, sf_idx: int):
-        """eNB: matched-filter ALL resources in one call.
-        (B, 14, NRE, 2) -> (corr (B, N_RES, 2), energy (B, N_RES))."""
-        idx, refc = self._pucch_rx_tables(sf_idx)
-        n_res, n_mf = refc.shape[:2]
-        B = rg.shape[0]
-        y = rg.reshape(B, -1, 2)[:, idx].reshape(B, n_res, n_mf, 12, 2)
-        corr = cplx.mul(y, refc[None]).sum(dim=(-3, -2)) / (12 * n_mf)
-        return corr, cplx.abs2(corr)
+        def run(rg):
+            idx, refc = _pucch_rx_tables(cell, n_res, sf_idx, dev)
+            n_mf = refc.shape[1]
+            B = rg.shape[0]
+            y = rg.reshape(B, -1, 2)[:, idx].reshape(B, n_res, n_mf, 12, 2)
+            corr = cplx.mul(y, refc[None]).sum(dim=(-3, -2)) / (12 * n_mf)
+            return corr, cplx.abs2(corr)
+
+        return self._stage(run, "pucch_rx_all", sf_idx)
 
 
 class WaveEnbPhy:
@@ -569,16 +773,18 @@ class WaveEnbPhy:
             for idx in np.nonzero(_host(det)[0])[0]:
                 self.metrics["prach_det"] += 1
                 self.mac.rach_detected(prev_tti, int(idx))
-        rg = ofdm.demodulate(samples, n_prb)  # one UL grid for every decoder
+        rg = self.k.demodulate()(samples)  # one UL grid for every decoder
         for g, tbs in self._pending_ul.pop(prev_tti, ()):
             cqi_rep = None
             n_cqi = 0
             if getattr(g, "cqi_request", 0):
                 n_cqi = 4 + 2 * uci_mod.cqi_hl_subband_size(n_prb)
-            bits, ok, cqi_bits = self.k.pusch_rx(rg, g.rnti, g.rb_start, sf,
-                                                 g.l_prb, g.mcs, n_cqi)
             if n_cqi:
+                bits, ok, cqi_bits = self.k.pusch_rx_cqi(g.l_prb, g.mcs, n_cqi)(
+                    rg, g.rnti, g.rb_start, sf)
                 cqi_rep = uci_mod.unpack_cqi_hl_subband(_host(cqi_bits)[0], n_prb)
+            else:
+                bits, ok = self.k.pusch_rx(g.l_prb, g.mcs)(rg, g.rnti, g.rb_start, sf)
             ok = bool(_host(ok)[0])
             if ok and cqi_rep is not None and hasattr(self.mac, "cqi_info"):
                 # aperiodic HL-subband report -> frequency-selective
@@ -612,7 +818,7 @@ class WaveEnbPhy:
             # format-2 region: periodic CQI (+f2a HARQ bit) for every
             # resource in ONE call; per-UE adjudication by DMRS energy
             f2_bits, _, f2_energy, f2_ack = (
-                _host(v) for v in self.k.pucch2_rx_all(rg, sf))
+                _host(v) for v in self.k.pucch2_rx_all(sf)(rg))
             expect_rntis = {r for r, _ in expect}
             for rnti in list(self.mac.ues):
                 sr_r = getattr(self.mac.ues[rnti], "sr_pucch_res", None)
@@ -641,7 +847,7 @@ class WaveEnbPhy:
                     except TypeError:
                         self.mac.ack_info(tti, rnti, ack)
         if getattr(self.mac, "ues", None):
-            corr, energy = self.k.pucch_rx_all(rg, sf)
+            corr, energy = self.k.pucch_rx_all(sf)(rg)
             corr = _host(corr)[0]
             energy = _host(energy)[0]
             sr_hit = set()
@@ -700,7 +906,7 @@ class WaveEnbPhy:
         with_pbch = sfn % 4 if sf == 0 else -1
         if sf == 0:
             mib = np.asarray(pbch_mod.pack_mib(n_prb, sfn))[None].astype(np.int8)
-        grid = self.k.base_grid(sf, with_pbch, mib)
+        grid = self.k.base_grid(sf, with_pbch)(mib)
         grid_p1 = self.k.base_grid_p1(sf) if self.mimo else None
         for g in dl_grants:
             prbs = [i for i, on in enumerate(g.prb_mask) if on]
@@ -714,9 +920,7 @@ class WaveEnbPhy:
             # its MCS rounded to even, floored at whatever fits the payload
             # + padding headers and capped at a legal code rate over the
             # grant's TRUE RE count
-            n_re = grid_mod.nof_re(self.cell, sf,
-                                   ra.type2_to_prb_mask(rb_start, l_crbs, n_prb),
-                                   dw_sym)
+            re_idx = self.k.dl_re_idx(sf, rb_start, l_crbs, dw_sym)
             pref = min(g.mcs, 27) + 1
             sb = getattr(self.mac.ues.get(g.rnti),
                          "sb_cqi", None) if getattr(
@@ -732,16 +936,14 @@ class WaveEnbPhy:
                         for p in range(rb_start, rb_start + l_crbs)]
                 pref = max(0, min(28, pref + 2 * min(offs)))
             mcs = _dl_mcs_clamp(pref, len(g.payload),
-                                l_crbs, n_re)
-            tbs = ra.dl_tbs(mcs, l_crbs)
+                                l_crbs, len(re_idx))
+            fn, tbs = self.k.add_dl_grant(l_crbs, mcs, g.l_aggr, len(re_idx))
             d = dci_mod.DciDl("1A", mcs=mcs, harq_pid=g.harq_pid & 7,
                               ndi=g.ndi & 1, rv=g.rv & 3,
                               rb_start=rb_start, l_crbs=l_crbs)
             bits = dci_mod.pack_dl(d, n_prb)[None]
             tb = _frame(g.payload, tbs)
-            grid = self.k.add_dl_grant(grid, sf, rb_start, l_crbs, mcs,
-                                       g.l_aggr, bits, tb, g.rnti, g.cce_start,
-                                       dw_sym)
+            grid = fn(grid, bits, tb, g.rnti, g.cce_start, re_idx, sf)
             self.metrics["dl_tx"] += 1
             if g.rnti in getattr(self.mac, "ues", {}):
                 # C-RNTI TB: its HARQ-ACK will arrive on n_CCE + N1, on
@@ -762,8 +964,7 @@ class WaveEnbPhy:
                               rb_start=g.rb_start, l_crbs=max(1, g.l_prb),
                               cqi_req=g.cqi_request & 1)
             bits = dci_mod.pack_ul(d, n_prb)[None]
-            grid = self.k.add_ul_dci(grid, sf, g.l_aggr, bits, g.rnti,
-                                     g.cce_start)
+            grid = self.k.add_ul_dci(sf, g.l_aggr)(grid, bits, g.rnti, g.cce_start)
             tbs = ra.ul_tbs(min(g.mcs, 28), max(1, g.l_prb))
             # TDD: the UE drains the grant queue on its next UPLINK
             # subframe, so that is where this PUSCH will arrive
@@ -777,7 +978,7 @@ class WaveEnbPhy:
                 # PRB (+ DMRS shift, 0 for DCI-0 without the field)
                 gi, si = phich_mod.alloc(ph.get("rb_start", 0), 0, ngrp)
                 acks[0, gi, si] = 1.0 if ph["ack"] else -1.0
-            grid = self.k.add_phich(grid, sf, acks)
+            grid = self.k.add_phich(sf)(grid, acks)
         # prune ACK expectations never collected (UL never arrived)
         if len(self._ack_expect) > 16:
             self._ack_expect = {t: v for t, v in self._ack_expect.items()
@@ -785,12 +986,12 @@ class WaveEnbPhy:
         if dw_sym:
             # special subframe: silence everything past DwPTS (GP/UpPTS
             # guard honored at IQ level, phy_common.c:90-163)
-            grid = self.k.mask_dwpts(grid, dw_sym)
+            grid = self.k.mask_dwpts(dw_sym)(grid)
             if self.mimo:
-                grid_p1 = self.k.mask_dwpts(grid_p1, dw_sym)
+                grid_p1 = self.k.mask_dwpts(dw_sym)(grid_p1)
         if self.mimo:
             grid = torch.cat([grid, grid_p1], dim=0)  # (2 ports, ...)
-        self.medium.dl_put(tti, self.k.modulate(grid))
+        self.medium.dl_put(tti, self.k.modulate()(grid))
 
     def _tx_tm3(self, tti, g, rb_start, l_crbs, grid, grid_p1):
         """Rank-2 TM3 grant: DCI 2A (RA type 0 must express the PRB mask
@@ -817,11 +1018,11 @@ class WaveEnbPhy:
                            harq_pid=g.harq_pid & 7, mcs1=mcs1,
                            ndi1=g.ndi & 1, rv1=g.rv & 3, mcs2=mcs2)
         bits = dci_mod.pack_dl_2(d, n_prb)[None]
-        tb1 = _frame(g.payload, ra.dl_tbs(mcs1, l_crbs))
-        tb2 = _frame(g.payload2, ra.dl_tbs(mcs2, l_crbs))
-        grid, grid_p1 = self.k.add_dl_grant_tm3(
-            grid, grid_p1, sf, rb_start, l_crbs, mcs1, mcs2, g.l_aggr, bits,
-            tb1, tb2, g.rnti, g.cce_start)
+        fn, (tbs1, tbs2) = self.k.add_dl_grant_tm3(sf, rb_start, l_crbs, mcs1, mcs2,
+                                                   g.l_aggr)
+        tb1 = _frame(g.payload, tbs1)
+        tb2 = _frame(g.payload2, tbs2)
+        grid, grid_p1 = fn(grid, grid_p1, bits, tb1, tb2, g.rnti, g.cce_start)
         self.metrics["dl_tx"] += 1
         self.metrics["tm3_tx"] = self.metrics.get("tm3_tx", 0) + 1
         if g.rnti in getattr(self.mac, "ues", {}):
@@ -910,7 +1111,7 @@ class WaveUePhy:
         The SSS hypothesis fixes the subframe phase (PSS rides sf 0 AND 5;
         only the SSS word differs), seeding the local subframe counter."""
         if search is None:
-            q, cid, sfi = (_host(v)[0] for v in self.k.cell_search(self._port0(samples)))
+            q, cid, sfi = (_host(v)[0] for v in self.k.cell_search()(self._port0(samples)))
         else:
             q, cid, sfi = search
         if float(q) > 10.0 and int(cid) == self.cell.cell_id:
@@ -921,8 +1122,8 @@ class WaveUePhy:
         """PBCH decode fixes the SFN: 8 MSBs ride the MIB payload, the
         2 LSBs are the blind-decoded 40 ms segment offset
         (srsue/src/phy/sync.cc:408 SFN_SYNC)."""
-        rg = ofdm.demodulate(self._port0(samples), self.cell.n_prb)
-        mib, ports, off, ok = (_host(v) for v in self.k.pbch_rx(rg))
+        rg = self.k.demodulate()(self._port0(samples))
+        mib, ports, off, ok = (_host(v) for v in self.k.pbch_rx()(rg))
         if bool(ok[0]):
             info = pbch_mod.unpack_mib(mib[0])
             sfn = ((info["sfn_msb"] << 2) | int(off[0])) % 1024
@@ -943,17 +1144,19 @@ class WaveUePhy:
         then `_camp_rx_row` on its one-row batch."""
         sf = self.tti % 10
         if self.mimo:
-            rg2, ce2, snr2, sb2 = self.k.rx_front(samples, sf)
+            rg2, ce2, snr2, sb2 = self.k.rx_front(sf)(samples)
             self._rg_mimo = rg2[None]  # (1, 2, 14, NRE, 2)
             rg, ce, snr, sb = rg2[0:1], ce2[0:1], snr2[0:1], sb2[0:1]
         else:
-            rg, ce, snr, sb = self.k.rx_front(samples, sf)
+            rg, ce, snr, sb = self.k.rx_front(sf)(samples)
         self.stack.last_sb_snr_db = _host(sb)[0]
-        bits_dev, resid, positions = self.k.blind_all(rg, ce, sf)
+        fn, positions = self.k.blind_all(sf)
+        bits_dev, resid = fn(rg, ce)
         batch = dict(rg=rg, ce=ce, snr=_host(snr), resid=_host(resid),
                      bits_dev=bits_dev, bits=None, positions=positions, row=0)
         if self.mimo and getattr(self.stack, "crnti", None):
-            bits2_dev, resid2, positions2 = self.k.blind_all2(rg, ce, sf)
+            fn2, positions2 = self.k.blind_all2(sf)
+            bits2_dev, resid2 = fn2(rg, ce)
             batch.update(bits2_dev=bits2_dev, bits2=None, resid2=_host(resid2),
                          positions2=positions2)
         self._camp_rx_row(batch)
@@ -1038,7 +1241,7 @@ class WaveUePhy:
                 getattr(self.stack, "_ul_harq_buf", None) is not None:
             gi, si = self._phich_wait
             ce = batch["ce"]
-            ph = _host(self.k.phich_rx(rg[row : row + 1], ce[row : row + 1], sf))
+            ph = _host(self.k.phich_rx(sf)(rg[row : row + 1], ce[row : row + 1]))
             m = float(ph[0, gi, si])
             if abs(m) > 0.3:
                 self.stack.harq_ack(tti, m > 0)
@@ -1068,8 +1271,10 @@ class WaveUePhy:
             # CRC alias: impossible allocation, or an MCS without a TBS (the
             # eNB never sends 29-31; the reference fails in ra.dl_tbs there)
             return
-        payload_bits, ok = self.k.pdsch_rx(rg, tti % 10, d.rb_start, d.l_crbs,
-                                           d.mcs, rnti, _dwpts(self.tdd, self.ss, tti % 10))
+        re_idx = self.k.dl_re_idx(tti % 10, d.rb_start, d.l_crbs,
+                                  _dwpts(self.tdd, self.ss, tti % 10))
+        payload_bits, ok = self.k.pdsch_rx(d.l_crbs, d.mcs, len(re_idx))(
+            rg, rnti, re_idx, tti % 10)
         ok = bool(_host(ok)[0])
         payload = _unframe(_host(payload_bits)[0]) if ok else None
         self.metrics["tb_ok" if ok else "tb_err"] += 1
@@ -1094,8 +1299,8 @@ class WaveUePhy:
             return  # CRC alias: an MCS without a TBS, as in _handle_dci
         if self._rg_mimo is None:
             return
-        p1, p2, ok1, ok2 = self.k.pdsch_rx_tm3(self._rg_mimo, tti % 10, prbs[0],
-                                               len(prbs), d.mcs1, d.mcs2, rnti)
+        p1, p2, ok1, ok2 = self.k.pdsch_rx_tm3(tti % 10, prbs[0], len(prbs), d.mcs1,
+                                               d.mcs2)(self._rg_mimo, rnti)
         ok1 = bool(_host(ok1)[0])
         ok2 = bool(_host(ok2)[0])
         self._ack_cce = cce_start
@@ -1137,11 +1342,15 @@ class WaveUePhy:
                 rep = self.stack.aperiodic_cqi(n_prb)
                 cqi_bits = np.asarray(uci_mod.pack_cqi_hl_subband(
                     rep["wideband_cqi"], rep["subband_diff_cqi"], n_prb))[None]
-            tbs = ra.ul_tbs(min(g.mcs, 28), g.l_prb)
+            if cqi_bits is None:
+                fn, tbs = self.k.pusch_tx(g.l_prb, g.mcs)
+            else:
+                fn, tbs = self.k.pusch_tx_cqi(g.l_prb, g.mcs, cqi_bits.shape[-1])
             assert (len(payload) + 3) * 8 <= tbs, \
                 f"MAC PDU {len(payload)}B cannot pad into TBS {tbs}"
-            s = self.k.pusch_tx(_frame(payload, tbs), g.rnti, g.rb_start, sf,
-                                g.l_prb, g.mcs, cqi_bits)
+            bits = _frame(payload, tbs)
+            s = (fn(bits, g.rnti, g.rb_start, sf) if cqi_bits is None
+                 else fn(bits, cqi_bits, g.rnti, g.rb_start, sf))
             out = s if out is None else out + s
             self.metrics["pusch_tx"] += 1
             # where the eNB will answer: 36.213 §9.1.2 from our lowest PRB
@@ -1152,7 +1361,7 @@ class WaveUePhy:
         ri_window = self.mimo and (tti % self.RI_PERIOD) < self.RI_WIN
         if (self.mimo and self._rg_mimo is not None
                 and tti % self.RI_PERIOD == 0):
-            ratio, _ = self.k.ri_probe(self._rg_mimo, sf)
+            ratio, _ = self.k.ri_probe(sf)(self._rg_mimo)
             self._ri = 2 if float(ratio) > 0.3 else 1
         pucch = self.stack.get_pucch(tti)
         if pucch:
@@ -1187,7 +1396,8 @@ class WaveUePhy:
                 if acks:
                     ab = np.asarray([[0 if acks[0] else 1]], np.int8)
                     acks = []  # the ACK rides the f2a DMRS
-                s = self.k.pucch2_tx(sf, cqi_rel, cqi_bits, ab)
+                s = (self.k.pucch2_tx(sf, cqi_rel)(cqi_bits) if ab is None
+                     else self.k.pucch2_tx(sf, cqi_rel, 1)(cqi_bits, ab))
                 out = s if out is None else out + s
                 self.metrics["pucch_tx"] += 1
             if acks:
@@ -1203,12 +1413,12 @@ class WaveUePhy:
                 if res is not None and res < self.k.n_pucch_res:
                     d0 = np.array([[1.0 if acks[0] else -1.0, 0.0]],
                                   np.float32)
-                    s = self.k.pucch_tx(sf, res, d0)
+                    s = self.k.pucch_tx(sf)(res, d0)
                     out = s if out is None else out + s
                     self.metrics["pucch_tx"] += 1
             elif sr and sr_res is not None and sr_res < self.k.n_pucch_res:
                 d0 = np.array([[1.0, 0.0]], np.float32)
-                s = self.k.pucch_tx(sf, sr_res, d0)
+                s = self.k.pucch_tx(sf)(sr_res, d0)
                 out = s if out is None else out + s
                 self.metrics["pucch_tx"] += 1
         self._ack_cce = None
@@ -1376,7 +1586,10 @@ class WaveformNetwork:
     leaks through the loop's tick.  pcap (a utils.pcap.MacPcap) captures
     every decoded TB's wire image at the eNB, both directions.
 
-    Runs on `device`, the card by default; pass device="cpu" for the CPU."""
+    Runs on `device`, the card by default; pass device="cpu" for the CPU.
+    On the card every `_CellKernels` stage is a replayed CUDA graph;
+    jit=False runs them eagerly instead (their plain version, bit for bit
+    the same), as `waveblock_dyn.make_dyn_block_step(jit=)` does."""
 
     def __init__(self, enb_mac, ue_stacks, pathloss_db, n_prb: int = 6,
                  cell_id: int = 1, seed: int = 0, cfi: int = 2,
@@ -1384,7 +1597,8 @@ class WaveformNetwork:
                  start_tti: int = 0, pcap=None, dyn_delay: tuple = None,
                  hst_fd_hz: float = None, rlf: tuple = None,
                  mimo: bool = False, mimo_cond=None,
-                 tdd_config: int = None, ss_config: int = 4, device="cuda"):
+                 tdd_config: int = None, ss_config: int = 4, device="cuda",
+                 jit: bool = True):
         """mimo=True: 2x2 downlink spatial multiplexing (TM3) — the eNB
         transmits two port waveforms (control stays on port 0), each UE
         receives through its own 2x2 matrix on 2 antennas, reports RI,
@@ -1434,7 +1648,7 @@ class WaveformNetwork:
             n_edge = -(-(f2_base + n_f2) // 36)
         self.kern = _CellKernels(self.cell, n_pucch_res=n_cce + sr_pool,
                                  n_f2_res=n_f2, f2_base=f2_base,
-                                 n_cce=n_cce, device=self.device)
+                                 n_cce=n_cce, device=self.device, jit=jit)
         if hasattr(enb_mac, "sr_res_base"):
             enb_mac.sr_res_base = n_cce
             enb_mac.sr_res_pool = sr_pool
@@ -1492,24 +1706,26 @@ class WaveformNetwork:
                     # (n, 2, T, 2): both antennas ride the front-end batch;
                     # control decodes use the antenna-0 rows, TM3 uses both
                     flat = samples.reshape((2 * n,) + tuple(samples.shape[2:]))
-                    rg2, ce2, snr2, sb2 = self.kern.rx_front(flat, sf)
+                    rg2, ce2, snr2, sb2 = self.kern.rx_front(sf)(flat)
                     rg_mimo = rg2.reshape((n, 2) + tuple(rg2.shape[1:]))
                     rg, ce, snr, sb = rg2[0::2], ce2[0::2], snr2[0::2], sb2[0::2]
                 else:
-                    rg, ce, snr, sb = self.kern.rx_front(samples, sf)
-                bits_dev, resid, positions = self.kern.blind_all(rg, ce, sf)
+                    rg, ce, snr, sb = self.kern.rx_front(sf)(samples)
+                fn, positions = self.kern.blind_all(sf)
+                bits_dev, resid = fn(rg, ce)
                 batch = dict(rg=rg, ce=ce, snr=_host(snr), resid=_host(resid),
                              bits_dev=bits_dev, bits=None, positions=positions,
                              sb=_host(sb))
                 if self.mimo and any(getattr(u.stack, "crnti", None)
                                      for u in self.ues):
-                    bits2_dev, resid2, positions2 = self.kern.blind_all2(rg, ce, sf)
+                    fn2, positions2 = self.kern.blind_all2(sf)
+                    bits2_dev, resid2 = fn2(rg, ce)
                     batch.update(bits2_dev=bits2_dev, bits2=None,
                                  resid2=_host(resid2), positions2=positions2)
             if any(ue.state == "CELL_SEARCH" for ue in self.ues):
                 # one batched PSS/SSS search for every still-searching UE
                 ss = samples[:, 0] if self.mimo else samples
-                search = tuple(_host(v) for v in self.kern.cell_search(ss))
+                search = tuple(_host(v) for v in self.kern.cell_search()(ss))
             for i, ue in enumerate(self.ues):
                 if batch is not None:
                     ue.stack.last_sb_snr_db = batch["sb"][i]

@@ -33,7 +33,22 @@ CACHES = (("phch.pdsch", "_re_table"), ("phch.pdsch", "_tx_gather"), ("phch.pdsc
           ("ops.fec.viterbi", "_signs"), ("ops.fec.turbo", "_device_tables"),
           ("ops.fec.turbo", "_device_perm"), ("ops.fec.rm_turbo", "_on_device"),
           ("ops.fec.turbodecoder", "_tail_signs"), ("ops.fec.turbodecoder", "_device_perms"),
-          ("ops.fec.convcoder", "_on_device"), ("runtime.waveblock", "_time_weights"))
+          ("ops.fec.convcoder", "_on_device"), ("runtime.waveblock", "_time_weights"),
+          # the waveform network's stages (runtime/wavenet._CellKernels)
+          ("phch.chest", "_crs10"), ("phch.pdsch", "_crs_table10"),
+          ("phch.pdsch", "_layer_weights"), ("phch.pdcch", "_device_tables"),
+          ("phch.pdcch", "_sequence10"), ("phch.pdcch", "_level_tables"),
+          ("phch.pdcch", "_crc_weights"), ("phch.pusch", "_dmrs10_device"),
+          ("phch.pusch", "_sym_offsets"), ("phch.pusch", "_device_tables"),
+          ("phch.pusch", "_time_weights"), ("phch.uci", "_generator"),
+          ("phch.uci", "_device_codebook"), ("phch.pusch_uci", "_device_tables"),
+          ("phch.pucch", "_device_tables"), ("phch.pucch", "_sym_index"),
+          ("phch.phich", "_device_tables"), ("phch.pbch", "_device_tables"),
+          ("phch.pbch", "_port_mask"), ("phch.sync", "_pss_replicas"),
+          ("phch.sync", "_sss_banks"), ("phch.sync", "_sss_bins"),
+          ("runtime.wavenet", "_base_table"), ("runtime.wavenet", "_base_p1_table"),
+          ("runtime.wavenet", "_sb_layout"), ("runtime.wavenet", "_pucch_wf"),
+          ("runtime.wavenet", "_f2_tables"), ("runtime.wavenet", "_pucch_rx_tables"))
 PKG = __package__.rsplit(".", 1)[0]
 
 

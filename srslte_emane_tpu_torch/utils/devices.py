@@ -9,6 +9,15 @@ import functools
 import torch
 
 
+def row(table: torch.Tensor, i) -> torch.Tensor:
+    """table[i] for an int i, or for a 0-d integer tensor i on the table's
+    device, gathered there: indexing with a 0-d tensor reads it on the host
+    (a sync, which a CUDA graph's capture rejects)."""
+    if isinstance(i, torch.Tensor):
+        return table.index_select(0, i.reshape(1).to(torch.int64))[0]
+    return table[i]
+
+
 def resolve(device, who: str) -> torch.device:
     """torch.device(device); raises for a CUDA device where there is none."""
     device = torch.device(device)

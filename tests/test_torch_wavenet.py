@@ -386,13 +386,13 @@ def _snr_reading(links_db, n_draws=16, sf=1):
     AWGN at each link SNR, the medium's DL (WaveMedium.dl_take_all)."""
     cfg = dict(n_prb=NET["n_prb"], cell_id=1, cfi=2)  # WaveformNetwork's cell
     pk = p_wn._CellKernels(p_grid.CellConfig(**cfg), device="cpu")
-    g = pk.base_grid(sf, -1, None).numpy()
+    g = pk.base_grid(sf, -1)(np.zeros((1, 24), np.int8)).numpy()
     rng = np.random.default_rng(11)
     amp = np.repeat(10.0 ** (-np.asarray(links_db) / 20.0), n_draws)[:, None, None]
     sf_len = p_ofdm.params(NET["n_prb"])["sf_len"]
     noise = (rng.standard_normal((len(amp), sf_len, 2)) / np.sqrt(2.0) * amp).astype(np.float32)
     tx_p = p_ofdm.modulate(torch.from_numpy(g), NET["n_prb"]).numpy()
-    snr = [pk.rx_front(torch.from_numpy(tx_p + noise), sf)[2].numpy()]
+    snr = [pk.rx_front(sf)(torch.from_numpy(tx_p + noise))[2].numpy()]
     for f32 in (False, True):
         with pytest.MonkeyPatch.context() as m:
             if f32:
@@ -443,9 +443,12 @@ def _ue_phy_at_100_prb():
     kern = p_wn._CellKernels(cell, device="cpu")
     decodes = []
 
-    def pdsch_rx(rg, sf, rb_start, l_crbs, mcs, rnti, max_sym=0):
-        decodes.append((rb_start, l_crbs, mcs))
-        return torch.zeros(1, 8, dtype=torch.uint8), torch.zeros(1, dtype=torch.bool)
+    def pdsch_rx(l_crbs, mcs, n_re):
+        def decode(rg, rnti, re_idx, sf):
+            rb_start = int(re_idx[0]) % cell.nre // 12  # the allocation's first RE
+            decodes.append((rb_start, l_crbs, mcs))
+            return torch.zeros(1, 8, dtype=torch.uint8), torch.zeros(1, dtype=torch.bool)
+        return decode
 
     kern.pdsch_rx = pdsch_rx
     key = bytes(range(16))

@@ -50,9 +50,9 @@ def tm3(tmp_path_factory):
         rec["grants"] = []  # the port's rank-2 grants: (sf, rb, l, mcs1, mcs2, l_aggr)
         add = p.net.kern.add_dl_grant_tm3
 
-        def add_dl_grant_tm3(grid, grid_p1, sf, rb, l, mcs1, mcs2, l_aggr, *a):
+        def add_dl_grant_tm3(sf, rb, l, mcs1, mcs2, l_aggr):
             rec["grants"].append((sf, rb, l, mcs1, mcs2, l_aggr))
-            return add(grid, grid_p1, sf, rb, l, mcs1, mcs2, l_aggr, *a)
+            return add(sf, rb, l, mcs1, mcs2, l_aggr)
 
         m.setattr(p.net.kern, "add_dl_grant_tm3", add_dl_grant_tm3)
         ls.attach()
@@ -128,13 +128,14 @@ def test_one_rank2_subframe(tm3):
     assert j_ra.type0_to_prb_mask(bitmap, n_prb) == tuple(mask)
     d = j_dci.DciDl2("2A", rbg_bitmap=bitmap, harq_pid=3, mcs1=mcs1, ndi1=1, rv1=0, mcs2=mcs2)
     bits = j_dci.pack_dl_2(d, n_prb)[None]
-    g0 = pk.base_grid(sf, -1, None).numpy()  # PSS/SSS, port-0 CRS, PCFICH
+    # PSS/SSS, port-0 CRS, PCFICH
+    g0 = pk.base_grid(sf, -1)(np.zeros((1, 24), np.int8)).numpy()
     g1 = pk.base_grid_p1(sf).numpy()  # port-1 CRS
     fn, _ = jk.add_dl_grant_tm3(sf, rb, l, mcs1, mcs2, l_aggr)
     jg = fn(jnp.asarray(g0), jnp.asarray(g1), jnp.asarray(bits), jnp.asarray(tb1),
             jnp.asarray(tb2), jnp.asarray(rnti, jnp.int32), jnp.asarray(cce, jnp.int32))
-    pg = pk.add_dl_grant_tm3(torch.from_numpy(g0), torch.from_numpy(g1), sf, rb, l, mcs1, mcs2,
-                             l_aggr, bits, tb1, tb2, rnti, cce)
+    pg = pk.add_dl_grant_tm3(sf, rb, l, mcs1, mcs2, l_aggr)[0](
+        torch.from_numpy(g0), torch.from_numpy(g1), bits, tb1, tb2, rnti, cce)
     for a, b in zip(jg, pg):
         assert _rel_rms(b.numpy(), np.asarray(a)) < REL
     # both port waveforms through the medium's channel (the lockstep's
@@ -151,12 +152,13 @@ def test_one_rank2_subframe(tm3):
     y = ys[0]  # (2 UEs, 2 rx, T, 2): the same samples into both receivers
     flat = y.reshape((4,) + y.shape[2:])
     jrg, jce, jsnr, _, _ = jk.rx_front(sf)(jnp.asarray(flat))
-    prg, pce, psnr, _ = pk.rx_front(torch.from_numpy(flat), sf)
+    prg, pce, psnr, _ = pk.rx_front(sf)(torch.from_numpy(flat))
     assert _rel_rms(prg.numpy(), np.asarray(jrg)) < REL
     np.testing.assert_allclose(psnr.numpy(), np.asarray(jsnr), atol=SNR_TOL_DB)
     jfn, jpos = jk.blind_all2(sf)
     jb, jr = (np.asarray(v) for v in jfn(jrg[0::2], jce[0::2]))
-    pb, pr, ppos = pk.blind_all2(prg[0::2], pce[0::2], sf)
+    pfn, ppos = pk.blind_all2(sf)
+    pb, pr = pfn(prg[0::2], pce[0::2])
     assert list(ppos) == list(jpos)
     np.testing.assert_array_equal(pb.numpy(), jb)
     np.testing.assert_array_equal(pr.numpy(), jr)
@@ -165,14 +167,14 @@ def test_one_rank2_subframe(tm3):
     for u in range(2):
         jout = jk.pdsch_rx_tm3(sf, rb, l, mcs1, mcs2)(jrg[2 * u : 2 * u + 2][None],
                                                       jnp.asarray(rnti, jnp.int32))
-        pout = pk.pdsch_rx_tm3(prg[2 * u : 2 * u + 2][None], sf, rb, l, mcs1, mcs2, rnti)
+        pout = pk.pdsch_rx_tm3(sf, rb, l, mcs1, mcs2)(prg[2 * u : 2 * u + 2][None], rnti)
         for a, b in zip(jout, pout):
             np.testing.assert_array_equal(b.numpy(), np.asarray(a))
         assert bool(pout[2][0]) and bool(pout[3][0]), u  # 64 dB: both decode
         np.testing.assert_array_equal(pout[0].numpy(), tb1)
         np.testing.assert_array_equal(pout[1].numpy(), tb2)
         jratio, js1 = jk.ri_probe(sf)(jrg[2 * u : 2 * u + 2][None])
-        pratio, ps1 = pk.ri_probe(prg[2 * u : 2 * u + 2][None], sf)
+        pratio, ps1 = pk.ri_probe(sf)(prg[2 * u : 2 * u + 2][None])
         # near equal singular values the ratio rests on sqrt(tr^2 - 4 det),
         # whose f32 rounding is of order sqrt(2^-23) ~ 3.5e-4 of tr
         np.testing.assert_allclose([float(pratio), float(ps1)], [float(jratio), float(js1)],
@@ -192,12 +194,12 @@ def test_pbch_of_the_2_port_cell_rides_port_0_alone(tm3):
     j, p = tm3["sides"]
     jk, pk = j.net.kern, p.net.kern
     mib = j_pbch.pack_mib(15, 8)[None].astype(np.int8)
-    g = [pk.base_grid(0, 0, mib), pk.base_grid_p1(0)]
+    g = [pk.base_grid(0, 0)(mib), pk.base_grid_p1(0)]
     tx = p_wn.ofdm.modulate(torch.cat(g), 15).numpy()
     got = []
     for row in ([0.70, 0.71], [0.26, 0.97]):
         y = np.einsum("p,ptc->tc", np.asarray(row, np.float32), tx)[None]
         jok = np.asarray(jk.pbch_rx()(j_ofdm.demodulate(jnp.asarray(y), 15))[3])
-        pok = pk.pbch_rx(p_wn.ofdm.demodulate(torch.from_numpy(y), 15))[3].numpy()
+        pok = pk.pbch_rx()(p_wn.ofdm.demodulate(torch.from_numpy(y), 15))[3].numpy()
         got.append((bool(jok[0]), bool(pok[0])))
     assert got == [(True, True), (False, False)], got
