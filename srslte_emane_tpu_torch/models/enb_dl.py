@@ -11,7 +11,6 @@ from __future__ import annotations
 import dataclasses
 import typing
 
-import numpy as np
 import torch
 
 from ..ops import cplx, ofdm
@@ -23,6 +22,7 @@ from ..phch import pdcch as pdcch_mod
 from ..phch import pdsch as pdsch_mod
 from ..phch import phich as phich_mod
 from ..phch import sch, sync as sync_mod
+from ..utils.devices import table_cache
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,12 +69,19 @@ def build_subframe(cfg: DlSubframeConfig, tb_payloads: typing.Sequence,
     for gi, (rnti, prb_mask, qm, tbs, l_aggr, cce_start) in enumerate(cfg.grants):
         # DCI 1A on PDCCH
         s, l = _mask_to_riv(prb_mask)
-        d = dci_mod.DciDl("1A", mcs=0, rb_start=s, l_crbs=l)
-        bits = torch.from_numpy(np.tile(dci_mod.pack_dl(d, cell.n_prb), (B, 1))).to(device)
+        bits = _dci_1a_bits(cell.n_prb, s, l, torch.device(device)).expand(B, -1)
         grid = pdcch_mod.encode(bits, rnti, l_aggr, cce_start, cell, sf, grid)
         grid = pdsch_mod.encode(tb_payloads[gi], cfg.sch_cfg(gi), cell, sf,
                                 rnti, prb_mask, grid=grid)
     return ofdm.modulate(grid, cell.n_prb)
+
+
+# one row per (bandwidth, allocation): the grants of a plane's slots
+@table_cache(64)
+def _dci_1a_bits(n_prb: int, rb_start: int, l_crbs: int, device: torch.device) -> torch.Tensor:
+    """(1, n) int8 DCI 1A bits of a localized grant (MCS 0) on `device`."""
+    d = dci_mod.DciDl("1A", mcs=0, rb_start=rb_start, l_crbs=l_crbs)
+    return torch.from_numpy(dci_mod.pack_dl(d, n_prb)[None]).to(device)
 
 
 def _mask_to_riv(prb_mask):

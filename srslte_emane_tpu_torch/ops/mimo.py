@@ -9,11 +9,10 @@ elementwise or 2x2 closed-form math over the RE axis.  Tensors: symbols
 
 from __future__ import annotations
 
-import functools
-
 import numpy as np
 import torch
 
+from ..utils.devices import table_cache
 from . import cplx
 
 SQRT2 = float(np.float32(np.sqrt(2.0)))
@@ -113,7 +112,7 @@ PMI_2TX_2L = [
 ]
 
 
-@functools.lru_cache(maxsize=None)
+@table_cache(8)
 def _codebook_2l(pmi: int, device: torch.device):
     """(re, im) float32 (2, 2) of PMI_2TX_2L[pmi] on `device`."""
     w = PMI_2TX_2L[pmi]

@@ -144,7 +144,7 @@ def _mbsfn_cp_tables(n_prb: int, n_fft: int = None):
     return np.concatenate(add), np.concatenate(remove)
 
 
-@functools.lru_cache(maxsize=16)
+@table_cache(16)
 def _mbsfn_device_tables(n_prb: int, device: torch.device, n_fft: int = None):
     add, remove = _mbsfn_cp_tables(n_prb, n_fft)
     f = lambda a: torch.from_numpy(a).to(device)

@@ -10,11 +10,13 @@ batched (soft ML detection, as pcfich.c does).
 from __future__ import annotations
 
 import functools
+import numbers
 
 import numpy as np
 import torch
 
 from ..ops import mimo, modem, scrambling
+from ..utils.devices import table_cache
 from . import chest, grid as grid_mod, regs as regs_mod
 
 # 36.212 Table 5.3.4-1: repeating patterns (0,1,1) / (1,0,1) / (1,1,0), 32 bits
@@ -32,7 +34,7 @@ def re_indices(cell: grid_mod.CellConfig) -> np.ndarray:
     ).reshape(-1)
 
 
-@functools.lru_cache(maxsize=32)
+@table_cache(32)
 def _device_tables(cell: grid_mod.CellConfig, device: torch.device):
     """(RE indices (16,), codewords (3, 32) int8, bipolar codewords (32, 3))."""
     bip = 1.0 - 2.0 * CFI_CODEWORDS.astype(np.float32)
@@ -45,7 +47,11 @@ def encode(cfi, cell: grid_mod.CellConfig, sf_idx: int, grid: torch.Tensor) -> t
     """Place PCFICH for CFI (int, or (B,) tensor, values 1..3) into a copy
     of grid (B, 14, NRE, 2)."""
     idx, codewords, _ = _device_tables(cell, grid.device)
-    bits = codewords[torch.as_tensor(cfi, device=grid.device) - 1]
+    # an int CFI picks its row on the host: nothing is copied to the device
+    if isinstance(cfi, numbers.Integral):
+        bits = codewords[int(cfi) - 1]
+    else:
+        bits = codewords[torch.as_tensor(cfi, device=grid.device) - 1]
     if bits.ndim == 1:
         bits = bits.expand(grid.shape[0], 32)
     scr = scrambling.scramble_bits(bits, scrambling.pcfich_cinit(sf_idx, cell.cell_id))

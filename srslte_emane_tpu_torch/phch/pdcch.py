@@ -15,6 +15,7 @@ adjudicate.  The search spaces, hashes and CCE tables are host numpy.
 from __future__ import annotations
 
 import functools
+import numbers
 
 import numpy as np
 import torch
@@ -66,8 +67,16 @@ def _sequence10(cell: grid_mod.CellConfig, device: torch.device) -> torch.Tensor
     return torch.from_numpy(np.stack([_region_sequence(cell, s) for s in range(10)])).to(device)
 
 
+@table_cache(256)
+def _rnti_mask(rnti: int, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(((rnti >> np.arange(15, -1, -1)) & 1).astype(np.int8)).to(device)
+
+
 def rnti_mask_bits(rnti, device=None) -> torch.Tensor:
-    """(16,) int8 MSB-first CRC16 mask from an rnti (int or 0-dim tensor)."""
+    """(16,) int8 MSB-first CRC16 mask from an rnti (int or 0-dim tensor);
+    an int's mask comes from a table, so a graph captures no copy."""
+    if isinstance(rnti, numbers.Integral):
+        return _rnti_mask(int(rnti), torch.device(device if device is not None else "cpu"))
     r = torch.as_tensor(rnti, dtype=torch.int64, device=device)
     sh = torch.arange(15, -1, -1, device=r.device)
     return ((r[..., None] >> sh) & 1).to(torch.int8)

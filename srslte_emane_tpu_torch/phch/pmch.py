@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from ..ops import cplx, modem, ofdm, scrambling, sequence
+from ..utils.devices import table_cache
 from . import chest as chest_mod, grid as grid_mod, sch
 
 # pilot layout inside the 10-symbol MBSFN region: 3 pilot symbols with
@@ -65,7 +66,7 @@ def nof_re(n_prb: int) -> int:
     return len(data_indices(n_prb))
 
 
-@functools.lru_cache(maxsize=32)
+@table_cache(32)
 def _device_tables(n_prb: int, area_id: int, sf_idx: int, device: torch.device):
     """(data positions (n_re,), pilot positions (3, 6*n_prb), pilot values
     (3, 6*n_prb, 2), region gather table (10*NRE,), frequency matrix
@@ -112,5 +113,5 @@ def decode(mbsfn_grid: torch.Tensor, cfg: sch.SchConfig, n_prb: int, area_id: in
     llr = modem.demod_soft(x_eq, modem.MOD_FROM_QM[cfg.Qm])
     llr = llr * torch.repeat_interleave(csi, cfg.Qm, dim=-1)
     llr = scrambling.scramble_llrs(llr, (sf_idx << 9) + area_id)
-    payload, ok, _, _ = sch.decode_tb(llr, cfg, max_iter=max_iter)
+    payload, ok, _, _ = sch.decode_tb(llr, cfg, max_iter=max_iter, read=False)
     return payload, ok

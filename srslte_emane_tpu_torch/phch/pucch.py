@@ -132,6 +132,15 @@ def _device_tables(kind: str, cell: grid_mod.CellConfig, sf_idx: int, n: int,
     return idx, cplx.from_numpy(wf, device)
 
 
+@table_cache(8)
+def _f1_data_mask(device: torch.device) -> torch.Tensor:
+    """(7,) bool: the data symbols of a format-1 slot, on `device` (a list
+    index would be copied from the host at every call)."""
+    mask = torch.zeros(7, dtype=torch.bool)
+    mask[list(F1_DATA_SYMS)] = True
+    return mask.to(device)
+
+
 def _put(grid: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
     """Scatter (B, *idx.shape, 2) values into a copy of grid."""
     B = grid.shape[0]
@@ -156,8 +165,7 @@ def encode_f1(d0: torch.Tensor, cell: grid_mod.CellConfig, sf_idx: int, n_pucch:
     Places PUCCH into the UL grid (B, 14, NRE, 2)."""
     idx, wf = _device_tables("f1", cell, sf_idx, n_pucch, grid.device)
     # DMRS symbols carry the bare waveform; data symbols carry d0 * waveform
-    data = torch.zeros(7, dtype=torch.bool, device=grid.device)
-    data[list(F1_DATA_SYMS)] = True
+    data = _f1_data_mask(grid.device)
     sig = torch.where(data[None, None, :, None, None],
                       cplx.mul(d0[:, None, None, None, :], wf[None]), wf[None])
     return _put(grid, idx, sig)
@@ -169,7 +177,7 @@ def detect_f1(rx_grid: torch.Tensor, cell: grid_mod.CellConfig, sf_idx: int, n_p
 
     Caller thresholds |corr| for SR and takes sign for 1a/1b bits."""
     idx, wf = _device_tables("f1", cell, sf_idx, n_pucch, rx_grid.device)
-    syms = list(F1_DATA_SYMS)
+    syms = _sym_index(F1_DATA_SYMS, rx_grid.device)
     y = _take(rx_grid, idx[:, syms])  # (B, 2, 4, 12, 2)
     corr = cplx.mul_conj(y, wf[:, syms]).sum(dim=-2).sum(dim=(1, 2)) / (12 * 2 * len(syms))
     return corr, cplx.abs2(corr)

@@ -101,7 +101,7 @@ def sss_sequence(n_id_1: int, n_id_2: int, sf_idx: int) -> np.ndarray:
     return d
 
 
-@functools.lru_cache(maxsize=32)
+@table_cache(32)
 def _device_tables(cell, sf_idx: int, device: torch.device):
     """(flat PSS REs, flat SSS REs, PSS values, SSS values) on `device`."""
     nre = cell.nre

@@ -19,9 +19,9 @@ so every device table that a captured step reads comes from a bounded
 `utils.devices.table_cache`, and the graph holds each table that one
 handed out while it captured (`devices.holding`), so none is freed under it
 while the graph lives.  No other cache keeps a table that a graph reads:
-the waveform network's `_CellKernels` keeps its factories (and so their
-graphs) per instance, and its device tables in module-level table_caches
-like every other step's.
+the waveform network's `_CellKernels` and the waveform planes keep their
+factories (and so their graphs) per instance (`per_instance`), and their
+device tables in module-level table_caches like every other step's.
 
 `STATS` counts the graphs built (`StepGraph` and `RoundGraph`) and the
 seconds their builds took, warm-up and capture together.
@@ -29,6 +29,8 @@ seconds their builds took, warm-up and capture together.
 
 from __future__ import annotations
 
+import functools
+import gc
 import importlib
 import numbers
 import time
@@ -69,13 +71,22 @@ def _capture(graph, fn, gens=(), pool=None):
     """fn() captured into `graph`, with `gens` registered as its graph-safe
     generators.  Returns (fn's result, [(module, attribute, launches the
     capture counted)], the tables it read); each count is put back to its
-    value before the capture."""
+    value before the capture.  Python's cyclic garbage collector is off
+    while the stream captures: it would otherwise free, at any allocation,
+    an unreachable object that holds another graph, and the frees of that
+    graph's memory invalidate the capture."""
     for g in gens:
         graph.register_generator_state(g)
     counters = [(importlib.import_module(m), name) for m, name in COUNTERS]
     before = [getattr(m, name) for m, name in counters]
-    with devices.holding() as tables, torch.cuda.graph(graph, pool=pool):
-        out = fn()
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        with devices.holding() as tables, torch.cuda.graph(graph, pool=pool):
+            out = fn()
+    finally:
+        if collecting:
+            gc.enable()
     counted = []
     for (m, name), b in zip(counters, before):
         counted.append((m, name, getattr(m, name) - b))
@@ -274,3 +285,33 @@ def jit(fn, device=None):
 
     step.graphs = graphs
     return step
+
+
+def step(run, device: torch.device, enabled: bool = True):
+    """`run` as a jitted step of the reference: `jit(run, device)` on the
+    card when `enabled`, else run eagerly on the arguments a graph would
+    get (a number as a 0-d tensor, a numpy array as a tensor, on `device`),
+    so that the tensor path the graph captures is the one that runs."""
+    if enabled and on_card(device):
+        return jit(run, device)
+
+    def eager(*args):
+        return run(*(torch.as_tensor(a, device=device)
+                     if isinstance(a, (np.ndarray, numbers.Number)) else a for a in args))
+
+    return eager
+
+
+def per_instance(factory):
+    """A method that makes steps, cached in its instance's `_memo` by its
+    arguments, as the reference caches its jitting factories per key: one
+    step (and so one set of graphs) per key and instance."""
+
+    @functools.wraps(factory)
+    def cached(self, *args):
+        key = (factory.__name__,) + args
+        if key not in self._memo:
+            self._memo[key] = factory(self, *args)
+        return self._memo[key]
+
+    return cached

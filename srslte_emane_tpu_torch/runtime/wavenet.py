@@ -56,9 +56,6 @@ medium's impairments (`fading_profile=`, `doppler_hz=`, `dyn_delay=`,
 
 from __future__ import annotations
 
-import functools
-import numbers
-
 import numpy as np
 import torch
 
@@ -149,20 +146,6 @@ def _unframe(bits: np.ndarray) -> bytes:
 
 def _host(x: torch.Tensor) -> np.ndarray:
     return x.cpu().numpy()
-
-
-def _per_instance(fn):
-    """Cache a factory's result by its static arguments in its instance's
-    `_memo`: one stage (and so one set of graphs) per key and instance."""
-
-    @functools.wraps(fn)
-    def cached(self, *args):
-        key = (fn.__name__,) + args
-        if key not in self._memo:
-            self._memo[key] = fn(self, *args)
-        return self._memo[key]
-
-    return cached
 
 
 # ---- the stages' device tables (graphs.py: a table a graph reads comes
@@ -298,27 +281,19 @@ class _CellKernels:
         self._memo = {}
         self.steps = {}  # (stage, key...) -> its graphs.jit step (graphed only)
 
-    def _arg(self, a):
-        """A stage argument as the graph's input holds it: a number as a 0-d
-        tensor, an array as a tensor, on the device."""
-        if isinstance(a, (np.ndarray, numbers.Number)):
-            return torch.as_tensor(a, device=self.device)
-        return a
-
     def _stage(self, run, *key):
-        """`run` as the stage `key`: graphed on the card with jit, else
-        eager on tensor arguments."""
-        if self.jit and graphs.on_card(self.device):
-            step = graphs.jit(run, self.device)
+        """`run` as the stage `key` (`graphs.step`): graphed on the card with
+        jit, else eager on tensor arguments."""
+        step = graphs.step(run, self.device, self.jit)
+        if hasattr(step, "graphs"):
             self.steps[key] = step
-            return step
-        return lambda *args: run(*(self._arg(a) for a in args))
+        return step
 
     def graph_counts(self) -> dict:
         """{(stage, key...): graphs captured} over the graphed stages."""
         return {k: len(s.graphs) for k, s in self.steps.items()}
 
-    @_per_instance
+    @graphs.per_instance
     def cell_search(self):
         """PSS/SSS+CP search on (B, sf_len, 2) cell-rate samples — ONE call
         covers every still-searching UE in the network.  -> (quality,
@@ -333,7 +308,7 @@ class _CellKernels:
 
     # ---- eNB side ----
 
-    @_per_instance
+    @graphs.per_instance
     def base_grid(self, sf_idx: int, with_pbch: int):
         """Base subframe: PSS/SSS + PCFICH (+ PBCH for sfn%4 phase
         with_pbch >= 0 on sf 0).  Takes the (1, 24) MIB bits; returns the
@@ -368,7 +343,7 @@ class _CellKernels:
         cfgs = [self._dl_cfg(sf, rb_start, l_crbs, m)[1] for m in (mcs1, mcs2)]
         return ra.type2_to_prb_mask(rb_start, l_crbs, self.cell.n_prb), cfgs
 
-    @_per_instance
+    @graphs.per_instance
     def add_dl_grant_tm3(self, sf_idx: int, rb_start: int, l_crbs: int,
                          mcs1: int, mcs2: int, l_aggr: int):
         """Rank-2 TM3 grant: DCI format 2A on the port-0 PDCCH + both
@@ -389,7 +364,7 @@ class _CellKernels:
                             l_aggr),
                 tuple(c.tbs for c in cfgs))
 
-    @_per_instance
+    @graphs.per_instance
     def pdsch_rx_tm3(self, sf_idx: int, rb_start: int, l_crbs: int,
                      mcs1: int, mcs2: int):
         """UE-side TM3 decode: fn(the (1, 2_rx, 14, NRE, 2) grids, rnti) ->
@@ -403,12 +378,12 @@ class _CellKernels:
 
         return self._stage(run, "pdsch_rx_tm3", sf_idx, rb_start, l_crbs, mcs1, mcs2)
 
-    @_per_instance
+    @graphs.per_instance
     def blind_all2(self, sf_idx: int):
         """blind_all for the DCI format-2A length (rank-2 grants)."""
         return self._blind(sf_idx, dci_mod.format2_len(self.cell.n_prb, "2A"), "blind_all2")
 
-    @_per_instance
+    @graphs.per_instance
     def ri_probe(self, sf_idx: int):
         """Wideband rank probe from the per-(rx, tx) channel estimates of
         the (1, 2, 14, NRE, 2) grids: the 2x2 singular-value ratio decides
@@ -438,7 +413,7 @@ class _CellKernels:
         mask = ra.type2_to_prb_mask(rb_start, l_crbs, self.cell.n_prb)
         return pdsch_mod._re_table(self.cell, sf_idx, mask, self.device, max_sym)
 
-    @_per_instance
+    @graphs.per_instance
     def add_dl_grant(self, l_crbs: int, mcs: int, l_aggr: int, n_re: int):
         """Place one DCI-1A + its PDSCH into the grid.  rnti, cce_start, the
         RE index table AND sf are inputs — one graph per (width, mcs, L,
@@ -458,7 +433,7 @@ class _CellKernels:
 
         return self._stage(run, "add_dl_grant", l_crbs, mcs, l_aggr, n_re), tbs
 
-    @_per_instance
+    @graphs.per_instance
     def add_ul_dci(self, sf_idx: int, l_aggr: int):
         """fn(grid, dci_bits, rnti, cce_start) -> grid with the DCI-0."""
         cell = self.cell
@@ -468,27 +443,27 @@ class _CellKernels:
 
         return self._stage(run, "add_ul_dci", sf_idx, l_aggr)
 
-    @_per_instance
+    @graphs.per_instance
     def add_phich(self, sf_idx: int):
         """fn(grid, acks (1, n_groups, 8)) -> grid with the PHICH."""
         cell = self.cell
         return self._stage(lambda grid, acks: phich_mod.encode(acks, cell, sf_idx, grid),
                            "add_phich", sf_idx)
 
-    @_per_instance
+    @graphs.per_instance
     def modulate(self):
         """fn(grids (B, 14, NRE, 2)) -> (B, sf_len, 2)."""
         n_prb = self.cell.n_prb
         return self._stage(lambda g: ofdm.modulate(g, n_prb), "modulate")
 
-    @_per_instance
+    @graphs.per_instance
     def demodulate(self):
         """fn(samples (B, sf_len, 2)) -> (B, 14, NRE, 2): the eNB's UL grid,
         demodulated once per TTI for every decoder, and the UE's PBCH grid."""
         n_prb = self.cell.n_prb
         return self._stage(lambda s: ofdm.demodulate(s, n_prb), "demodulate")
 
-    @_per_instance
+    @graphs.per_instance
     def mask_dwpts(self, dw_sym: int):
         """Zero GP/UpPTS symbols of a TDD special subframe's grid."""
 
@@ -501,7 +476,7 @@ class _CellKernels:
 
     # ---- UE side ----
 
-    @_per_instance
+    @graphs.per_instance
     def rx_front(self, sf_idx: int):
         """OFDM demod + channel estimate + per-subband SNR (the cqi.c
         subband measurement input).  fn(samples) -> (rg, ce, snr_db,
@@ -530,14 +505,14 @@ class _CellKernels:
 
         return self._stage(run, name, sf_idx), list(pdcch_mod.full_space(cell))
 
-    @_per_instance
+    @graphs.per_instance
     def blind_all(self, sf_idx: int):
         """Decode the FULL aligned CCE space once; per-RNTI adjudication
         happens on the host (resid == rnti).  -> (fn, positions); fn(rg,
         ce) -> (bits, resid), whatever the number of RNTIs watched."""
         return self._blind(sf_idx, self.dci_len, "blind_all")
 
-    @_per_instance
+    @graphs.per_instance
     def pdsch_rx(self, l_crbs: int, mcs: int, n_re: int):
         """One graph per (width, mcs, n_re) — rb_start rides the RE index
         table, sf the per-sf table gathers.  fn(rg, rnti, re_idx, sf) ->
@@ -553,14 +528,14 @@ class _CellKernels:
 
         return self._stage(run, "pdsch_rx", l_crbs, mcs, n_re)
 
-    @_per_instance
+    @graphs.per_instance
     def phich_rx(self, sf_idx: int):
         """fn(rg, ce) -> (B, n_groups, 8) PHICH soft metrics."""
         cell = self.cell
         return self._stage(lambda rg, ce: phich_mod.decode(rg, ce, cell, sf_idx),
                            "phich_rx", sf_idx)
 
-    @_per_instance
+    @graphs.per_instance
     def pbch_rx(self):
         """fn(rg of subframe 0) -> (mib, n_ports, sfn offset, ok)."""
         cell = self.cell
@@ -581,7 +556,7 @@ class _CellKernels:
         _, _, q_cqi, g_data = pusch_mod.uci_dims(l_prb, qm, 0, 0, n_cqi)
         return sch.SchConfig(tbs=tbs, G=g_data, Qm=qm, Nl=1), q_cqi
 
-    @_per_instance
+    @graphs.per_instance
     def pusch_tx(self, l_prb: int, mcs: int):
         """rb_start and sf are inputs (the RE indices by arithmetic, the
         DMRS by table gather): one graph per (width, mcs).  -> (fn, tbs);
@@ -595,7 +570,7 @@ class _CellKernels:
 
         return self._stage(run, "pusch_tx", l_prb, mcs), cfg.tbs
 
-    @_per_instance
+    @graphs.per_instance
     def pusch_tx_cqi(self, l_prb: int, mcs: int, n_cqi: int):
         """PUSCH with an aperiodic CQI report as REAL multiplexed UCI
         (36.212 §5.2.2.6 coding + §5.2.2.8 interleaver placement).  -> (fn,
@@ -610,7 +585,7 @@ class _CellKernels:
 
         return self._stage(run, "pusch_tx_cqi", l_prb, mcs, n_cqi), cfg.tbs
 
-    @_per_instance
+    @graphs.per_instance
     def pusch_rx_cqi(self, l_prb: int, mcs: int, n_cqi: int):
         """fn(the eNB's UL grid, rnti, rb_start, sf) -> (payload, ok, cqi
         bits)."""
@@ -624,7 +599,7 @@ class _CellKernels:
 
         return self._stage(run, "pusch_rx_cqi", l_prb, mcs, n_cqi)
 
-    @_per_instance
+    @graphs.per_instance
     def pusch_rx(self, l_prb: int, mcs: int):
         """fn(the eNB's UL grid, rnti, rb_start, sf) -> (payload, ok)."""
         cell = self.cell
@@ -638,7 +613,7 @@ class _CellKernels:
 
     # ---- PUCCH: every format-1 resource of the region as ONE tensor ----
 
-    @_per_instance
+    @graphs.per_instance
     def pucch_tx(self, sf_idx: int):
         """fn(resource, d0 (1, 2)) -> (1, sf_len, 2) format-1 waveform; the
         resource is an input."""
@@ -652,7 +627,7 @@ class _CellKernels:
 
     # ---- PUCCH format 2/2a: periodic wideband CQI (+1 ACK bit) ----
 
-    @_per_instance
+    @graphs.per_instance
     def pucch2_tx(self, sf_idx: int, res_rel: int, n_ack: int = 0):
         """UE-side format-2 (n_ack=0) or 2a (n_ack=1) transmit on CQI
         resource f2_base + res_rel: fn(cqi_bits (1, 4)[, ack (1, 1)]) ->
@@ -672,7 +647,7 @@ class _CellKernels:
 
         return self._stage(run, "pucch2_tx", sf_idx, res_rel, n_ack)
 
-    @_per_instance
+    @graphs.per_instance
     def pucch2_rx_all(self, sf_idx: int):
         """eNB: decode EVERY format-2 resource in one stage.  fn(rg) ->
         (cqi_bits (n,4), metric (n,), dmrs_energy (n,), ack_corr (n,2)).
@@ -704,7 +679,7 @@ class _CellKernels:
 
         return self._stage(run, "pucch2_rx_all", sf_idx)
 
-    @_per_instance
+    @graphs.per_instance
     def pucch_rx_all(self, sf_idx: int):
         """eNB: matched-filter ALL format-1 resources in one stage.
         fn(rg (B, 14, NRE, 2)) -> (corr (B, N_RES, 2), energy (B, N_RES))."""

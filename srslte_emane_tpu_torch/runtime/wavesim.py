@@ -16,6 +16,16 @@ the device pipeline, batched over the PDUs of a burst:
 Each plane runs on `device` ("cuda" by default: it raises where there is no
 card rather than run on the CPU) and draws its channel from its own
 `torch.Generator` on that device, seeded with its JAX twin's PRNG seed.
+
+The reference jits each plane's device chain in a factory cached per key
+(`functools.lru_cache`): the port keeps the same factories, keyed alike
+and cached per instance.  With `jit` on the card each returns a
+`runtime/graphs.jit` step (one CUDA graph per key and argument signature,
+replayed at every call, the generator's state going in and coming back);
+otherwise the same function runs eagerly on the same tensor arguments.
+Packing the PDUs and reading the results stay on the host, outside the
+step.  Reconfiguring a UE drops the factories the reference's `add_ue`
+drops, and their graphs with them.
 """
 
 from __future__ import annotations
@@ -29,6 +39,7 @@ from ..models import enb_dl, ue_dl
 from ..ops import bits as bits_mod, channel, cplx, ofdm
 from ..phch import grid as grid_mod, pdsch, pmch, pucch, pusch, sch, uci as uci_codes
 from ..utils.devices import resolve as _device
+from . import graphs
 
 
 def _generator(device: torch.device, seed: int) -> torch.Generator:
@@ -55,6 +66,41 @@ def _pdu(row: np.ndarray) -> bytes:
     return bytes(row[2 : 2 + ((int(row[0]) << 8) | int(row[1]))])
 
 
+def _ue_rx(gen, tx, snr_db, cfg) -> tuple:
+    """One UE's channel and receiver: (DCI found, payload bits, CRC ok, SNR
+    estimate) of its grant, per row."""
+    res, _ = ue_dl.decode_subframe(channel.awgn(gen, tx, snr_db), cfg)
+    return res.dci_found[:, 0], res.payloads[0], res.crc_ok[0], res.snr_db
+
+
+class _Plane:
+    """What the planes share: the device, the generator and the steps (whose
+    functions hold no reference to their plane: a plane let go frees its
+    graphs at once, not at a later garbage collection)."""
+
+    def __init__(self, device, who: str, seed: int, jit: bool):
+        self.device = _device(device, who)
+        self.gen = _generator(self.device, seed)
+        self.jit = jit
+        self._memo = {}  # (factory, key...) -> what the factory returned
+
+    def _drop(self, name: str) -> None:
+        """Forget every step of factory `name` (the reference's
+        cache_clear), and with them their graphs and memory pools."""
+        for key in [k for k in self._memo if k[0] == name]:
+            del self._memo[key]
+
+    def step_graphs(self) -> dict:
+        """{(factory, key...): the step's graphs by argument signature} over
+        the graphed steps."""
+        steps = {k: v[0] if isinstance(v, tuple) else v for k, v in self._memo.items()}
+        return {k: s.graphs for k, s in steps.items() if hasattr(s, "graphs")}
+
+    def graph_counts(self) -> dict:
+        """{(factory, key...): graphs captured} over the graphed steps."""
+        return {k: len(g) for k, g in self.step_graphs().items()}
+
+
 @dataclasses.dataclass
 class UeSlot:
     rnti: int
@@ -68,22 +114,27 @@ class UeSlot:
         return max(16, (n_re * self.qm // 3) // 8 * 8)
 
 
-class WaveformDataPlane:
+class WaveformDataPlane(_Plane):
     """Carries DL PDCP PDUs of attached UEs over the waveform pipeline."""
 
     def __init__(self, cell: grid_mod.CellConfig, noise_floor_dbm: float = -104.0,
-                 tx_power_dbm: float = 30.0, device="cuda"):
-        self.device = _device(device, "WaveformDataPlane")
+                 tx_power_dbm: float = 30.0, device="cuda", jit: bool = True):
+        super().__init__(device, "WaveformDataPlane", 0, jit)
         self.cell = cell
         self.noise_floor_dbm = noise_floor_dbm
         self.tx_power_dbm = tx_power_dbm
         self.slots: dict = {}  # rnti -> UeSlot
-        self.gen = _generator(self.device, 0)
         self.metrics = {"sf_tx": 0, "crc_ok": 0, "crc_fail": 0}
 
     def add_ue(self, rnti: int, prb_mask: tuple, qm: int = 4,
                cce_start: int = 0, l_aggr: int = 1):
-        self.slots[rnti] = UeSlot(rnti, prb_mask, qm, l_aggr=l_aggr, cce_start=cce_start)
+        slot = UeSlot(rnti, prb_mask, qm, l_aggr=l_aggr, cce_start=cce_start)
+        # reconfiguring an rnti drops the (sf_idx, rnti)-keyed steps, as the
+        # reference drops its compiled ones: a stale graph would serve the
+        # old allocation
+        if self.slots.get(rnti) not in (None, slot):
+            self._drop("_link_fn")
+        self.slots[rnti] = slot
 
     def _grant(self, rnti: int, sf_idx: int) -> tuple:
         s = self.slots[rnti]
@@ -92,13 +143,43 @@ class WaveformDataPlane:
     def _snr_db(self, pathloss_db: float) -> float:
         return self.tx_power_dbm - pathloss_db - self.noise_floor_dbm
 
-    def _deliver(self, n: int, res: ue_dl.UeDlResult) -> list:
-        """[(bytes | None, snr_db), ...] of the first n rows of a one-grant
-        decode; counts them in the metrics."""
-        found = res.dci_found[:, 0].cpu().numpy()
-        ok = res.crc_ok[0].cpu().numpy()
-        out_bytes = bits_mod.pack_bits(res.payloads[0]).cpu().numpy()
-        snrs = res.snr_db.cpu().numpy()
+    def _cfg(self, sf_idx: int, grants: tuple) -> enb_dl.DlSubframeConfig:
+        return enb_dl.DlSubframeConfig(cell=self.cell, sf_idx=sf_idx, grants=grants)
+
+    @graphs.per_instance
+    def _link_fn(self, sf_idx: int, rnti: int):
+        """fn(payload bits, gen, gain, snr_db) -> `_ue_rx` of the UE's grant
+        alone in its subframes."""
+        cfg = self._cfg(sf_idx, (self._grant(rnti, sf_idx),))
+
+        def run(payload_bits, gen, gain, snr_db):
+            return _ue_rx(gen, enb_dl.build_subframe(cfg, [payload_bits]) * gain, snr_db, cfg)
+
+        return graphs.step(run, self.device, self.jit)
+
+    @graphs.per_instance
+    def _tti_fn(self, sf_idx: int, plan: tuple):
+        """One step per (sf_idx, attached set): the eNB builds a single
+        multi-grant subframe (all UEs' PDCCH DCIs + PDSCH), then each UE's
+        receiver decodes its grant through its own channel (sf_worker.cc
+        serving N grants per TTI).  fn(gen, snrs_db (U,), payload of each
+        grant...) -> [`_ue_rx` of each UE]."""
+        cfg_all = self._cfg(sf_idx, plan)
+        cfg_one = [self._cfg(sf_idx, (g,)) for g in plan]
+
+        def run(gen, snrs_db, *payloads):
+            tx = enb_dl.build_subframe(cfg_all, list(payloads))
+            return [_ue_rx(gen, tx, snrs_db[u], cu) for u, cu in enumerate(cfg_one)]
+
+        return graphs.step(run, self.device, self.jit)
+
+    def _deliver(self, n: int, out) -> list:
+        """[(bytes | None, snr_db), ...] of the first n rows of one UE's
+        `_ue_rx`; counts them in the metrics."""
+        found, payload, ok, snr = out
+        found, ok = found.cpu().numpy(), ok.cpu().numpy()
+        out_bytes = bits_mod.pack_bits(payload).cpu().numpy()
+        snrs = snr.cpu().numpy()
         results = []
         for i in range(n):
             self.metrics["sf_tx"] += 1
@@ -113,10 +194,7 @@ class WaveformDataPlane:
     def send_tti(self, pdus: dict, pathloss_db: dict, sf_idx: int = 1) -> dict:
         """Carry one DL burst for EVERY attached UE in shared subframes.
 
-        The eNB builds one multi-grant subframe per row (all UEs' PDCCH
-        DCIs + PDSCH); each UE's receiver decodes its own grant through its
-        own channel (sf_worker.cc serving N grants per TTI).  pdus:
-        {rnti: [pdu bytes, ...]}; UEs with shorter (or no) bursts ride
+        pdus: {rnti: [pdu bytes, ...]}; UEs with shorter (or no) bursts ride
         zero-length padding PDUs.  Returns {rnti: [(bytes|None, snr_db),
         ...]} aligned with each UE's input list."""
         plan = tuple(self._grant(r, sf_idx) for r in sorted(self.slots))
@@ -124,16 +202,9 @@ class WaveformDataPlane:
         if B == 0:
             return {}
         payloads = [_pdu_bits(pdus.get(g[0], ()), B, g[3], self.device) for g in plan]
-        tx = enb_dl.build_subframe(
-            enb_dl.DlSubframeConfig(cell=self.cell, sf_idx=sf_idx, grants=plan), payloads)
-        results = {}
-        for g in plan:
-            rnti = g[0]
-            rx = channel.awgn(self.gen, tx, self._snr_db(pathloss_db[rnti]))
-            res, _ = ue_dl.decode_subframe(
-                rx, enb_dl.DlSubframeConfig(cell=self.cell, sf_idx=sf_idx, grants=(g,)))
-            results[rnti] = self._deliver(len(pdus.get(rnti, ())), res)
-        return results
+        snrs = np.asarray([self._snr_db(pathloss_db[g[0]]) for g in plan], np.float32)
+        outs = self._tti_fn(sf_idx, plan)(self.gen, snrs, *payloads)
+        return {g[0]: self._deliver(len(pdus.get(g[0], ())), o) for g, o in zip(plan, outs)}
 
     def send(self, rnti: int, pdus: list, pathloss_db: float, sf_idx: int = 1) -> list:
         """Transmit a burst of DL byte-PDUs to one UE through the PHY, in
@@ -141,15 +212,12 @@ class WaveformDataPlane:
 
         Returns list of (delivered_bytes | None, snr_db) per PDU — None when
         the PDSCH CRC failed at this pathloss."""
-        grant = self._grant(rnti, sf_idx)
-        cfg = enb_dl.DlSubframeConfig(cell=self.cell, sf_idx=sf_idx, grants=(grant,))
-        tx = enb_dl.build_subframe(cfg, [_pdu_bits(pdus, len(pdus), grant[3], self.device)])
-        rx = channel.awgn(self.gen, tx, self._snr_db(pathloss_db))
-        res, _ = ue_dl.decode_subframe(rx, cfg)
-        return self._deliver(len(pdus), res)
+        bits = _pdu_bits(pdus, len(pdus), self._grant(rnti, sf_idx)[3], self.device)
+        out = self._link_fn(sf_idx, rnti)(bits, self.gen, 1.0, self._snr_db(pathloss_db))
+        return self._deliver(len(pdus), out)
 
 
-class MbsfnPlane:
+class MbsfnPlane(_Plane):
     """Waveform-mode eMBMS: MTCH payloads through the real PMCH pipeline.
 
     One broadcast waveform per burst (pmch.encode: area scrambling +
@@ -159,16 +227,36 @@ class MbsfnPlane:
 
     def __init__(self, cell: grid_mod.CellConfig, area_id: int = 1, qm: int = 2,
                  code_rate: float = 0.4, tx_power_dbm: float = 30.0,
-                 noise_floor_dbm: float = -104.0, seed: int = 5, device="cuda"):
-        self.device = _device(device, "MbsfnPlane")
+                 noise_floor_dbm: float = -104.0, seed: int = 5, device="cuda",
+                 jit: bool = True):
+        super().__init__(device, "MbsfnPlane", seed, jit)
         self.cell = cell
         self.area_id = area_id
         g = pmch.nof_re(cell.n_prb) * qm
         self.cfg = sch.SchConfig(tbs=max(8, (int(g * code_rate) - 24) // 8 * 8), G=g, Qm=qm, Nl=1)
         self.tx_power_dbm = tx_power_dbm
         self.noise_floor_dbm = noise_floor_dbm
-        self.gen = _generator(self.device, seed)
         self.metrics = {"sf_tx": 0, "crc_ok": 0, "crc_fail": 0}
+
+    @graphs.per_instance
+    def _fn(self, sf_idx: int, n_rx: int):
+        """fn(payload bits, gen, snrs_db (n_rx,)) -> (bits (n_rx, B, tbs),
+        CRC ok (n_rx, B)) of every receiver."""
+        cfg, area, n_prb, nre = self.cfg, self.area_id, self.cell.n_prb, self.cell.nre
+
+        def run(payload_bits, gen, snrs_db):
+            mb = pmch.encode(payload_bits, cfg, n_prb, area, sf_idx)
+            ctrl = cplx.zeros((payload_bits.shape[0], 2, nre), device=mb.device)
+            t = ofdm.modulate_mbsfn(ctrl, mb, n_prb)
+            outs, oks = [], []
+            for r in range(n_rx):
+                _, mb_rx = ofdm.demodulate_mbsfn(channel.awgn(gen, t, snrs_db[r]), n_prb)
+                out, ok = pmch.decode(mb_rx, cfg, n_prb, area, sf_idx)
+                outs.append(out)
+                oks.append(ok)
+            return torch.stack(outs), torch.stack(oks)
+
+        return graphs.step(run, self.device, self.jit)
 
     def send(self, pdus: list, pathloss_db: dict, sf_idx: int = 3) -> dict:
         """Broadcast a burst of MTCH byte-PDUs to every listed receiver.
@@ -176,25 +264,23 @@ class MbsfnPlane:
         pathloss_db: {receiver_id: pathloss}.  Returns {receiver_id:
         [delivered bytes | None per PDU]} — None where that receiver's
         channel failed the PMCH CRC."""
-        n_prb, b = self.cell.n_prb, len(pdus)
+        rx_ids, b = sorted(pathloss_db), len(pdus)
         bits = _pdu_bits(pdus, b, self.cfg.tbs, self.device)
-        mb = pmch.encode(bits, self.cfg, n_prb, self.area_id, sf_idx)
-        t = ofdm.modulate_mbsfn(cplx.zeros((b, 2, self.cell.nre), device=self.device), mb, n_prb)
+        snrs = np.asarray([self.tx_power_dbm - pathloss_db[r] - self.noise_floor_dbm
+                           for r in rx_ids], np.float32)
+        outs, oks = self._fn(sf_idx, len(rx_ids))(bits, self.gen, snrs)
+        out_bytes = bits_mod.pack_bits(outs).cpu().numpy()
+        oks = oks.cpu().numpy()
         self.metrics["sf_tx"] += b
         results = {}
-        for rid in sorted(pathloss_db):
-            snr_db = self.tx_power_dbm - pathloss_db[rid] - self.noise_floor_dbm
-            _, mb_rx = ofdm.demodulate_mbsfn(channel.awgn(self.gen, t, snr_db), n_prb)
-            out, ok = pmch.decode(mb_rx, self.cfg, n_prb, self.area_id, sf_idx)
-            out_bytes = bits_mod.pack_bits(out).cpu().numpy()
-            ok = ok.cpu().numpy()
-            results[rid] = [_pdu(out_bytes[i]) if ok[i] else None for i in range(b)]
-            self.metrics["crc_ok"] += int(ok.sum())
-            self.metrics["crc_fail"] += b - int(ok.sum())
+        for u, rid in enumerate(rx_ids):
+            results[rid] = [_pdu(out_bytes[u, i]) if oks[u, i] else None for i in range(b)]
+            self.metrics["crc_ok"] += int(oks[u].sum())
+            self.metrics["crc_fail"] += b - int(oks[u].sum())
         return results
 
 
-class UlControlPlane:
+class UlControlPlane(_Plane):
     """Waveform-mode PUCCH: each attached UE transmits HARQ-ACK/SR on its
     own format-1/1a resource; the eNB receives the SUPERPOSITION of every
     UE's uplink waveform plus noise and matched-filters each resource
@@ -208,26 +294,43 @@ class UlControlPlane:
     DETECT_SNR = 4.0
 
     def __init__(self, cell: grid_mod.CellConfig, noise_floor_dbm: float = -104.0,
-                 tx_power_dbm: float = 23.0, device="cuda"):
-        self.device = _device(device, "UlControlPlane")
+                 tx_power_dbm: float = 23.0, device="cuda", jit: bool = True):
+        super().__init__(device, "UlControlPlane", 1, jit)
         self.cell = cell
         self.noise_floor_dbm = noise_floor_dbm
         self.tx_power_dbm = tx_power_dbm
         self.resources: dict = {}  # rnti -> n_pucch
-        self.gen = _generator(self.device, 1)
         self.metrics = {"pucch_tx": 0, "pucch_det": 0, "pucch_dtx": 0}
 
     def add_ue(self, rnti: int, n_pucch: int):
         self.resources[rnti] = n_pucch
 
+    @graphs.per_instance
+    def _fn(self, sf_idx: int, resources: tuple):
+        """One step per (sf_idx, resource tuple), UEs along the leading
+        axis: fn(d0 (U, 2) BPSK ack symbol per UE (0 = DTX), amp (U,)
+        received amplitude, gen, noise_amp) -> (corr (U, 2), energy (U,))."""
+        cell = self.cell
+
+        def run(d0, amp, gen, noise_amp):
+            grids = torch.cat([
+                pucch.encode_f1(d0[u : u + 1], cell, sf_idx, n,
+                                cplx.zeros((1, 14, cell.nre), device=d0.device))
+                for u, n in enumerate(resources)])
+            rx = (ofdm.modulate(grids, cell.n_prb) * amp[:, None, None]).sum(dim=0, keepdim=True)
+            noise = torch.randn(rx.shape, generator=gen, device=rx.device) * noise_amp
+            rg = ofdm.demodulate(rx + noise / np.sqrt(2.0), cell.n_prb)
+            det = [pucch.detect_f1(rg, cell, sf_idx, n) for n in resources]
+            return torch.stack([c[0] for c, _ in det]), torch.stack([e[0] for _, e in det])
+
+        return graphs.step(run, self.device, self.jit)
+
     def step(self, tx: dict, pathloss_db: dict, sf_idx: int = 2) -> dict:
         """tx: {rnti: ack_bit | None}  (None = SR-only presence; absent
         rnti = DTX).  Returns {rnti: (detected, ack_bit, metric_db)}."""
-        cell, dev = self.cell, self.device
         rntis = sorted(self.resources)
         U = len(rntis)
-        # the BPSK ack symbol per UE (0 amplitude = DTX) and its received
-        # amplitude: unit noise at the demodulated grid
+        # unit noise at the demodulated grid <-> per-UE amplitude from SNR
         d0 = np.zeros((U, 2), np.float32)
         amp = np.zeros(U, np.float32)
         for u, r in enumerate(rntis):
@@ -235,18 +338,9 @@ class UlControlPlane:
                 d0[u, 0] = 1.0 if tx[r] in (None, 1) else -1.0
                 amp[u] = 10.0 ** ((self.tx_power_dbm - pathloss_db[r]
                                    - self.noise_floor_dbm) / 20.0)
-        d0 = torch.from_numpy(d0).to(dev)
-        grids = torch.cat([
-            pucch.encode_f1(d0[u : u + 1], cell, sf_idx, self.resources[r],
-                            cplx.zeros((1, 14, cell.nre), device=dev))
-            for u, r in enumerate(rntis)])
-        s = ofdm.modulate(grids, cell.n_prb) * torch.from_numpy(amp).to(dev)[:, None, None]
-        rx = s.sum(dim=0, keepdim=True)
-        rx = rx + torch.randn(rx.shape, generator=self.gen, device=dev) / np.sqrt(2.0)
-        rg = ofdm.demodulate(rx, cell.n_prb)
-        det = [pucch.detect_f1(rg, cell, sf_idx, self.resources[r]) for r in rntis]
-        corr = torch.stack([c[0] for c, _ in det]).cpu().numpy()
-        energy = torch.stack([e[0] for _, e in det]).cpu().numpy()
+        resources = tuple(self.resources[r] for r in rntis)
+        corr, energy = self._fn(sf_idx, resources)(d0, amp, self.gen, 1.0)
+        corr, energy = corr.cpu().numpy(), energy.cpu().numpy()
         out = {}
         for u, r in enumerate(rntis):
             found = bool(energy[u] > self.DETECT_SNR)
@@ -257,7 +351,7 @@ class UlControlPlane:
         return out
 
 
-class UlSchPlane:
+class UlSchPlane(_Plane):
     """Waveform-mode PUSCH with an aperiodic CQI report multiplexed on
     UL-SCH: the DCI-0 csi_request path carried through the real PHY
     (`lib/src/phy/phch/pusch.c` UCI multiplexing + `cqi.c` aperiodic
@@ -266,16 +360,17 @@ class UlSchPlane:
     SNR, then the eNB's MMSE equalise + decode of payload and report."""
 
     def __init__(self, cell: grid_mod.CellConfig, noise_floor_dbm: float = -104.0,
-                 tx_power_dbm: float = 23.0, device="cuda"):
-        self.device = _device(device, "UlSchPlane")
+                 tx_power_dbm: float = 23.0, device="cuda", jit: bool = True):
+        super().__init__(device, "UlSchPlane", 5, jit)
         self.cell = cell
         self.noise_floor_dbm = noise_floor_dbm
         self.tx_power_dbm = tx_power_dbm
         self.slots: dict = {}  # rnti -> (rb_start, l_prb, qm)
-        self.gen = _generator(self.device, 5)
         self.metrics = {"pusch_tx": 0, "pusch_crc_ok": 0, "cqi_rx": 0}
 
     def add_ue(self, rnti: int, rb_start: int, l_prb: int, qm: int = 2):
+        if self.slots.get(rnti) not in (None, (rb_start, l_prb, qm)):
+            self._drop("_fn")  # reconfigured: drop the steps and their graphs
         self.slots[rnti] = (rb_start, l_prb, qm)
 
     def _dims(self, rnti: int):
@@ -287,6 +382,23 @@ class UlSchPlane:
         cfg = sch.SchConfig(tbs=tbs, G=g_data, Qm=qm, Nl=1)
         return cfg, n_cqi, (q_ack, q_ri, q_cqi, 0, 0, n_cqi)
 
+    @graphs.per_instance
+    def _fn(self, rnti: int, sf_idx: int):
+        """(fn, SchConfig, CQI report bits): fn(payload (1, tbs), CQI bits
+        (1, n_cqi), gen, snr_db) -> pusch.decode's dict."""
+        cell = self.cell
+        rb_start, l_prb, _ = self.slots[rnti]
+        cfg, n_cqi, dims = self._dims(rnti)
+
+        def run(payload, cqi_bits, gen, snr_db):
+            g = pusch.encode(payload, cfg, cell, sf_idx, rnti, rb_start, l_prb,
+                             uci=dict(cqi=cqi_bits))
+            rx = channel.awgn(gen, ofdm.modulate(g, cell.n_prb), snr_db)
+            return pusch.decode(ofdm.demodulate(rx, cell.n_prb), cfg, cell, sf_idx, rnti,
+                                rb_start, l_prb, uci_dims_in=dims)
+
+        return graphs.step(run, self.device, self.jit), cfg, n_cqi
+
     def step(self, tx: dict, pathloss_db: dict, sf_idx: int = 4) -> dict:
         """tx: {rnti: (payload_bytes, wb_cqi_int)}.  Returns
         {rnti: (payload_bytes|None, crc_ok, decoded_wb_cqi|None)}."""
@@ -294,18 +406,14 @@ class UlSchPlane:
         n_sb = uci_codes.cqi_hl_subband_size(cell.n_prb)
         out = {}
         for rnti, (pkt, wb_cqi) in tx.items():
-            rb_start, l_prb, _ = self.slots[rnti]
-            cfg, n_cqi, dims = self._dims(rnti)
+            fn, cfg, n_cqi = self._fn(rnti, sf_idx)
             payload = np.zeros((1, cfg.tbs), np.int8)
             raw = bits_mod.bytes_to_bits(pkt[: cfg.tbs // 8])
             payload[0, : raw.size] = raw
-            cqi = uci_codes.pack_cqi_hl_subband(wb_cqi, [0] * n_sb, cell.n_prb)[None, :n_cqi]
-            g = pusch.encode(torch.from_numpy(payload).to(self.device), cfg, cell, sf_idx, rnti,
-                             rb_start, l_prb, uci=dict(cqi=torch.from_numpy(cqi).to(self.device)))
+            cqi = np.asarray(uci_codes.pack_cqi_hl_subband(wb_cqi, [0] * n_sb, cell.n_prb),
+                             np.int8)[None, :n_cqi]
             snr_db = self.tx_power_dbm - pathloss_db[rnti] - self.noise_floor_dbm
-            rx = channel.awgn(self.gen, ofdm.modulate(g, cell.n_prb), snr_db)
-            res = pusch.decode(ofdm.demodulate(rx, cell.n_prb), cfg, cell, sf_idx, rnti,
-                               rb_start, l_prb, uci_dims_in=dims)
+            res = fn(payload, cqi, self.gen, float(snr_db))
             self.metrics["pusch_tx"] += 1
             if not bool(res["ok"][0]):
                 out[rnti] = (None, False, None)
@@ -318,28 +426,32 @@ class UlSchPlane:
         return out
 
 
-class MimoDataPlane:
+class MimoDataPlane(_Plane):
     """TM3 2x2 open-loop spatial-multiplexing DL data plane: two transport
     blocks per subframe per UE through the full device pipeline —
     encode_tm -> per-port OFDM -> 2x2 flat channel -> ZF predecode ->
     per-codeword turbo decode (the reference's 150 Mb/s headline config,
     `debian/man/srsenb.txt:17`).  The channel is drawn per burst with a
-    conditioning boost on the diagonal (EPA-class rank-2 behaviour)."""
+    conditioning boost on the diagonal (EPA-class rank-2 behaviour),
+    outside the step, as the reference draws it outside its jit."""
 
     def __init__(self, cell: grid_mod.CellConfig, noise_floor_dbm: float = -104.0,
-                 tx_power_dbm: float = 30.0, cond_boost: float = 3.5, device="cuda"):
+                 tx_power_dbm: float = 30.0, cond_boost: float = 3.5, device="cuda",
+                 jit: bool = True):
         assert cell.n_ports == 2, "TM3 plane needs a 2-port cell"
-        self.device = _device(device, "MimoDataPlane")
+        super().__init__(device, "MimoDataPlane", 2, jit)
         self.cell = cell
         self.noise_floor_dbm = noise_floor_dbm
         self.tx_power_dbm = tx_power_dbm
         self.cond_boost = cond_boost
         self.slots = {}
-        self.gen = _generator(self.device, 2)
         self.metrics = {"sf_tx": 0, "crc_ok": 0, "crc_fail": 0}
 
     def add_ue(self, rnti: int, prb_mask: tuple, qm: int = 4):
-        self.slots[rnti] = UeSlot(rnti, prb_mask, qm)
+        slot = UeSlot(rnti, prb_mask, qm)
+        if self.slots.get(rnti) not in (None, slot):
+            self._drop("_link_fn")  # reconfigured: drop the steps and their graphs
+        self.slots[rnti] = slot
 
     def _sch_cfgs(self, sf_idx: int, rnti: int) -> list:
         s = self.slots[rnti]
@@ -347,23 +459,35 @@ class MimoDataPlane:
         cfg = sch.SchConfig(tbs=s.tbs(self.cell, sf_idx), G=n_re * s.qm, Qm=s.qm, Nl=1)
         return [cfg, cfg]
 
+    @graphs.per_instance
+    def _link_fn(self, sf_idx: int, rnti: int):
+        """fn(tb0, tb1, gen, h (B, 2, 2, 2), snr_db) -> (bits 0, bits 1,
+        CRC ok 0, CRC ok 1)."""
+        cell, mask = self.cell, self.slots[rnti].prb_mask
+        cfgs = self._sch_cfgs(sf_idx, rnti)
+
+        def run(tb0, tb1, gen, h, snr_db):
+            grids = pdsch.encode_tm([tb0, tb1], cfgs, cell, sf_idx, rnti, mask, "tm3")
+            rx = channel.mimo_flat(gen, ofdm.modulate(grids, cell.n_prb), h, snr_db)
+            outs, oks, _ = pdsch.decode_tm(ofdm.demodulate(rx, cell.n_prb), cfgs, cell, sf_idx,
+                                           rnti, mask, "tm3")
+            return outs[0], outs[1], oks[0], oks[1]
+
+        return graphs.step(run, self.device, self.jit)
+
     def send(self, rnti: int, pdus: list, pathloss_db: float, sf_idx: int = 1) -> list:
         """Burst of DL PDUs, two per subframe (cw0, cw1).  Returns a list of
         (delivered_bytes | None) aligned with `pdus`."""
-        cell, dev = self.cell, self.device
-        prb_mask = self.slots[rnti].prb_mask
+        dev = self.device
         cfgs = self._sch_cfgs(sf_idx, rnti)
         B = (len(pdus) + 1) // 2  # an odd burst's last cw1 carries an empty PDU
         tbs = [_pdu_bits(pdus[q::2], B, cfgs[q].tbs, dev) for q in range(2)]
         snr_db = self.tx_power_dbm - pathloss_db - self.noise_floor_dbm
         h = torch.randn((B, 2, 2, 2), generator=self.gen, device=dev) / np.sqrt(2.0)
         h = h + self.cond_boost * torch.eye(2, device=dev)[None, :, :, None]
-        grids = pdsch.encode_tm(tbs, cfgs, cell, sf_idx, rnti, prb_mask, "tm3")
-        rx = channel.mimo_flat(self.gen, ofdm.modulate(grids, cell.n_prb), h, snr_db)
-        outs, oks, _ = pdsch.decode_tm(ofdm.demodulate(rx, cell.n_prb), cfgs, cell, sf_idx,
-                                       rnti, prb_mask, "tm3")
-        outs = [bits_mod.pack_bits(o).cpu().numpy() for o in outs]
-        oks = [o.cpu().numpy() for o in oks]
+        o0, o1, ok0, ok1 = self._link_fn(sf_idx, rnti)(*tbs, self.gen, h, snr_db)
+        outs = [bits_mod.pack_bits(o).cpu().numpy() for o in (o0, o1)]
+        oks = [o.cpu().numpy() for o in (ok0, ok1)]
         self.metrics["sf_tx"] += B
         results = []
         for i in range(2 * B):  # the padding PDU counts in the metrics, as in the reference

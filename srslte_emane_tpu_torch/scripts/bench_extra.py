@@ -24,7 +24,12 @@ Usage: python -m srslte_emane_tpu_torch.scripts.bench_extra [batch] [iters] [--c
 Prints one JSON line: {cell_search, mimo_tm3_decode, pusch_decode,
 ca_2cc_link} in rows (captures, subframes or carrier-subframes) per second,
 plus "backend" and "device"; each rate is `iters` calls on the host clock,
-bracketed by synchronises, after one untimed call.
+bracketed by synchronises, after one untimed call.  The source jits each
+timed function; here each is a `runtime/graphs.jit` step (on the card one
+CUDA graph, captured at its first call and replayed at every call), the CA
+step through make_ca_link_step's own.  The TM3 decode's first call and its
+comparison with the plain MAP run eagerly, and every graphed call must equal
+that first call.
 """
 
 from __future__ import annotations
@@ -39,6 +44,7 @@ import torch
 from ..models import pdsch_link
 from ..ops import channel, cplx, ofdm
 from ..phch import grid as grid_mod, pdsch, pusch, sch, sync
+from ..runtime import graphs
 from . import _timing
 
 TM3_RNTI = 0x46
@@ -101,8 +107,8 @@ def main(argv=None) -> int:
     gg = sync.put_pss_sss(cplx.zeros((batch, 14, 72), device=dev), c6, 0)
     gg = pdsch.put_crs(gg, c6, 0)
     tt = channel.awgn(gen(1), ofdm.modulate(gg, 6), 5.0)
-    dt = timed("cell_search", lambda: sync.cell_search(tt),
-               lambda o: bool((o["cell_id"] == 301).all()))
+    cs = graphs.jit(sync.cell_search, dev)
+    dt = timed("cell_search", lambda: cs(tt), lambda o: bool((o["cell_id"] == 301).all()))
     print(f"# cell search: {batch / dt:.0f} captures/s", file=sys.stderr)
 
     # --- 2x2 MIMO TM3 20 MHz ---
@@ -119,8 +125,9 @@ def main(argv=None) -> int:
     h = h + 3.5 * np.eye(2)[None]
     rx2 = channel.mimo_flat(gen(2), tx2, cplx.from_numpy(h, dev), 30.0)
     rg2 = ofdm.demodulate(rx2, 100)
-    dec2 = lambda: pdsch.decode_tm(rg2, cfgs, cell2, 1, TM3_RNTI, prb_mask, "tm3",
-                                   llr_bits=16)[:2]
+    tm3 = lambda r: pdsch.decode_tm(r, cfgs, cell2, 1, TM3_RNTI, prb_mask, "tm3",
+                                    llr_bits=16)[:2]
+    dec2 = lambda: tm3(rg2)
     first = dec2()
     outs, oks = first
     _timing.require(all(torch.equal(o[ok], t[ok]) for o, ok, t in zip(outs, oks, tbs_list)),
@@ -132,7 +139,8 @@ def main(argv=None) -> int:
         _timing.require(all(torch.equal(a, b) for a, b in zip(outs + oks, p_outs + p_oks)),
                         f"TM3: rows {failed} fail, and the decode differs from the plain MAP's")
     same = lambda o: all(torch.equal(a, b) for a, b in zip(o[0] + o[1], outs + oks))
-    dt = timed("mimo_tm3_decode", dec2, same)
+    tm3_step = graphs.jit(tm3, dev)
+    dt = timed("mimo_tm3_decode", lambda: tm3_step(rg2), same)
     cond = np.linalg.cond(h)
     print(f"# MIMO 2x2 TM3 64QAM: {batch / dt:.0f} sf/s "
           f"({batch / dt * sum(c.tbs for c in cfgs) / 1e6:.0f} Mb/s); rows failing {failed} "
@@ -148,8 +156,9 @@ def main(argv=None) -> int:
     payload = torch.from_numpy(rng.integers(0, 2, (batch, tbs), dtype=np.int8)).to(dev)
     t = ofdm.modulate(pusch.encode(payload, cfg, cell, 2, 0x5A, 0, l_prb), 100)
     rg = ofdm.demodulate(channel.awgn(gen(0), t, 14.0), 100)
-    dec = lambda: pusch.decode(rg, cfg, cell, 2, 0x5A, 0, l_prb, llr_bits=16)[:2]
-    dt = timed("pusch_decode", dec,
+    ul_step = graphs.jit(lambda r: pusch.decode(r, cfg, cell, 2, 0x5A, 0, l_prb, llr_bits=16)[:2],
+                         dev)
+    dt = timed("pusch_decode", lambda: ul_step(rg),
                lambda o: bool(o[1].all()) and torch.equal(o[0], payload))
     print(f"# UL 20MHz 16QAM: {batch / dt:.0f} sf/s ({batch / dt * tbs / 1e6:.0f} Mb/s)",
           file=sys.stderr)
@@ -166,6 +175,9 @@ def main(argv=None) -> int:
     agg = 2 * batch / dt
     print(f"# CA 2CC 20MHz e2e encode+decode: {agg:.0f} carrier-sf/s "
           f"({agg * ca_cfg.tbs / 1e6:.0f} Mb/s aggregate)", file=sys.stderr)
+    n_graphs = sum(len(s.graphs) for s in (cs, tm3_step, ul_step, ca_step))
+    print(f"# graphs captured: {n_graphs} ({graphs.STATS['build_s']:.2f} s to build)",
+          file=sys.stderr)
 
     print(json.dumps({**{k: round(batch / v, 1) for k, v in results.items()},
                       **_timing.stamp(dev)}), flush=True)

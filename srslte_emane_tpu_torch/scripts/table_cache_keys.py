@@ -48,7 +48,12 @@ CACHES = (("phch.pdsch", "_re_table"), ("phch.pdsch", "_tx_gather"), ("phch.pdsc
           ("phch.sync", "_sss_banks"), ("phch.sync", "_sss_bins"),
           ("runtime.wavenet", "_base_table"), ("runtime.wavenet", "_base_p1_table"),
           ("runtime.wavenet", "_sb_layout"), ("runtime.wavenet", "_pucch_wf"),
-          ("runtime.wavenet", "_f2_tables"), ("runtime.wavenet", "_pucch_rx_tables"))
+          ("runtime.wavenet", "_f2_tables"), ("runtime.wavenet", "_pucch_rx_tables"),
+          # the waveform planes' steps (runtime/wavesim)
+          ("models.enb_dl", "_dci_1a_bits"), ("phch.pcfich", "_device_tables"),
+          ("phch.sync", "_device_tables"), ("phch.pdcch", "_rnti_mask"),
+          ("phch.pmch", "_device_tables"), ("ops.ofdm", "_mbsfn_device_tables"),
+          ("ops.mimo", "_codebook_2l"), ("phch.pucch", "_f1_data_mask"))
 PKG = __package__.rsplit(".", 1)[0]
 
 

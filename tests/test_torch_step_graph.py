@@ -21,11 +21,12 @@ import numpy as np
 import pytest
 import torch
 
-from srslte_emane_tpu_torch.models import pdsch_link as p_link
-from srslte_emane_tpu_torch.ops import channel, ofdm, scrambling, sequence
+from srslte_emane_tpu_torch.models import enb_dl, pdsch_link as p_link
+from srslte_emane_tpu_torch.ops import channel, mimo, ofdm, scrambling, sequence
 from srslte_emane_tpu_torch.ops.fec import convcoder, crc, rm_turbo, turbo, turbodecoder
 from srslte_emane_tpu_torch.ops.fec import turbodecoder_cuda, viterbi, viterbi_cuda
-from srslte_emane_tpu_torch.phch import chest, grid as p_grid, pdsch, pusch, sch
+from srslte_emane_tpu_torch.phch import chest, grid as p_grid, pcfich, pdcch, pdsch, pmch, pucch
+from srslte_emane_tpu_torch.phch import pusch, sch, sync
 from srslte_emane_tpu_torch.runtime import graphs, waveblock as p_wb
 from srslte_emane_tpu_torch.scripts import bench_extra
 from srslte_emane_tpu_torch.utils import devices
@@ -450,6 +451,15 @@ TABLE_CACHES = {
     "turbodecoder._device_perms": (turbodecoder._device_perms, (40, CPU)),
     "convcoder._on_device": (convcoder._on_device, (_host_table, 1, 2, CPU)),
     "waveblock._time_weights": (p_wb._time_weights, (CPU,)),
+    # the waveform planes' steps (runtime/wavesim)
+    "enb_dl._dci_1a_bits": (enb_dl._dci_1a_bits, (6, 0, 3, CPU)),
+    "pcfich._device_tables": (pcfich._device_tables, (_CELL6, CPU)),
+    "sync._device_tables": (sync._device_tables, (_CELL6, 0, CPU)),
+    "pdcch._rnti_mask": (pdcch._rnti_mask, (0x46, CPU)),
+    "pmch._device_tables": (pmch._device_tables, (6, 1, 3, CPU)),
+    "ofdm._mbsfn_device_tables": (ofdm._mbsfn_device_tables, (6, CPU)),
+    "mimo._codebook_2l": (mimo._codebook_2l, (1, CPU)),
+    "pucch._f1_data_mask": (pucch._f1_data_mask, (CPU,)),
 }
 
 
