@@ -88,6 +88,10 @@ Phases (any failure raises; the exit code is then non-zero):
      and UlSchPlane.step on netsim --waveform's UL plan at 100 PRB with four
      UEs (n_pucch 0-3; 24 PRB each), every ACK and wideband CQI right, in
      ACKs/s and TBs/s; each plane graphed beside jit=False as in phase 8;
+     then both planes past the per-UE table caches' bound of 64 at 100
+     PRB, cfi 3 (send_tti with 80 one-PRB grants, UlControlPlane.step with
+     65 UEs), graphed beside jit=False (graphs built, host launches per
+     call), and turbo_map at their shapes;
  10. sync, channel models, TDD, PRACH, NB-IoT and the scan, batch 128: the
      cell search sweep of scripts/bench_extra.py (cell 301, 6 PRB, sf 0 with
      PBCH, 5 dB, +1 kHz offset) under 5 CFO hypotheses in one
@@ -247,10 +251,13 @@ Phases (any failure raises; the exit code is then non-zero):
      all-zero row (every decision a tie), with the kernel's time warm and
      L2-flushed, the wrapper's, the plain loop's, the bound and share;
      then one row at each caller's K (28, 38, 40, 44, 50, 55, 64: the
-     dependent-step latency) and tb_iter 1 and 5; then K beyond a block's
-     shared memory (4 x 1,211, NPDSCH's 128 x 2,552, 2 x 4,000), which the
-     kernel's variant with its decisions in device memory decodes, bit for
-     bit against the plain loop;
+     dependent-step latency) and tb_iter 1 and 5; then the row sweep at
+     K=44 (1, 3, 5, 64, 512, 2,816, 2,817 and 8,448 rows: partial last
+     warps, ns per step, blocks per SM, share); then K on both sides of a
+     block's shared memory (4 x 1,210 in it; 4 x 1,211, NPDSCH's 128 x
+     2,552, 2 x 4,000 beyond it), which the kernel's variant with its
+     decisions in device memory decodes, bit for bit against the plain
+     loop;
  18. the turbo decoder's loop on the card: every turbo_decode call of
      phases 4 (the bench cell), 8 (the DL subframe), 9 (the TM3 cell and
      the MIMO paths) and 12-13 (the graphed networks' decodes, from the
@@ -578,7 +585,7 @@ def graph_turns(label, steps, call, per_call, unit, card, iters=ITERS, control=F
 PLANE_ITERS = 2  # calls per timed run of a plane (graph_turns)
 
 
-def plane_pair(label, make, calls, per_call, unit, card, control=False):
+def plane_pair(label, make, calls, per_call, unit, card, control=False, turns=True):
     """Phases 8 and 9: a waveform plane graphed (the card's default:
     runtime/wavesim's steps as graphs.jit steps, one CUDA graph per key)
     beside its jit=False twin, both made by make(jit) and so seeded alike.
@@ -587,8 +594,10 @@ def plane_pair(label, make, calls, per_call, unit, card, control=False):
     and the kernels' launch counts equal (a call that captures counts its
     warm-up too: twice the eager call's); then the graphs built (one per
     key), their build seconds and the pools' MiB; then the last call in
-    turns (graph_turns: units/s, CUDA-event ms, one profiled call each).
-    Returns the turbo_map launches of the graphed plane's calls."""
+    turns (graph_turns: units/s, CUDA-event ms, one profiled call each), or
+    with turns=False one profiled call each alone (host launches, device
+    ms, busy share).  Returns the turbo_map launches of the graphed plane's
+    calls."""
     import torch
 
     from srslte_emane_tpu_torch.runtime import graphs
@@ -630,6 +639,14 @@ def plane_pair(label, make, calls, per_call, unit, card, control=False):
         f"({json.dumps(collections.Counter(k[0] for k in per_key))} by factory), built in "
         f"{graphs.STATS['build_s'] - build_s:.2f} s, their pools {pool_mib:.1f} MiB; "
         f"first graphed call {first_s:.2f} s")
+    if not turns:
+        s = {name: profile_counted(lambda: calls[-1](plane), f"{label}: the {name} plane",
+                                   control=control) for name, plane in planes.items()}
+        log(f"{label}: one profiled call each, host launches {s['graph']['host_launches']} vs "
+            f"{s['eager']['host_launches']}, device ms {s['graph']['device_ms']} vs "
+            f"{s['eager']['device_ms']}, busy share {s['graph']['busy_share']} vs "
+            f"{s['eager']['busy_share']}; {card}")
+        return launches["turbo_map"]
     s = graph_turns(label, planes, calls[-1], per_call, unit, card, iters=PLANE_ITERS,
                     control=control)
     log(f"{label}: {unit} x {s['graph']['rate'] / s['eager']['rate']:.2f}, host launches "
@@ -637,6 +654,96 @@ def plane_pair(label, make, calls, per_call, unit, card, control=False):
         f"{s['graph']['device_ms']} vs {s['eager']['device_ms']}, busy share "
         f"{s['graph']['busy_share']} vs {s['eager']['busy_share']}; {card}")
     return launches["turbo_map"]
+
+
+# netsim --waveform's planes past the per-UE table caches' bound of 64:
+# WaveformDataPlane.send_tti's one-PRB grants and UlControlPlane's UEs, at
+# 100 PRB with cfi 3 (netsim's cfi for more than four UEs)
+CROWDED_GRANTS, CROWDED_PUCCH_UES = 80, 65
+CROWDED_RNTIS = tuple(range(0x46, 0x46 + 120))
+CROWDED_PATHLOSS = {r: 96.0 + r % 7 for r in CROWDED_RNTIS}  # 25 to 31 dB
+
+
+def crowded_cell():
+    from srslte_emane_tpu_torch.phch import grid
+
+    return grid.CellConfig(n_prb=100, cell_id=1, cfi=3)
+
+
+def crowded_data_plane(jit, device="cuda", n=CROWDED_GRANTS):
+    """WaveformDataPlane with n one-PRB 16QAM grants (PRB i for UE i, CCEs
+    from allocate_cces as netsim places them), and its call: send_tti of 2
+    PDUs per UE, each delivered.  Returns (plane, call)."""
+    from srslte_emane_tpu_torch.phch import pdcch
+    from srslte_emane_tpu_torch.runtime import wavesim
+
+    cell = crowded_cell()
+    alloc = pdcch.allocate_cces(cell, list(CROWDED_RNTIS), 1)
+    placed = [r for r in CROWDED_RNTIS if r in alloc][:n]
+    assert len(placed) == n, len(placed)
+    dp = wavesim.WaveformDataPlane(cell, device=device, jit=jit)
+    for i, r in enumerate(placed):
+        dp.add_ue(r, tuple(int(p == i) for p in range(cell.n_prb)), qm=4, l_aggr=alloc[r][0],
+                  cce_start=alloc[r][1])
+    nb = min(s.tbs(cell, 1) for s in dp.slots.values()) // 8 - 2
+    rng = np.random.default_rng(24)
+    pdus = {r: [bytes(rng.integers(0, 256, nb, dtype=np.uint8)) for _ in range(2)]
+            for r in placed}
+
+    def send_tti(plane):
+        out = plane.send_tti(pdus, CROWDED_PATHLOSS)
+        assert all([got for got, _ in out[r]] == pdus[r] for r in placed), "send_tti lost a PDU"
+        return out
+
+    return dp, send_tti
+
+
+def crowded_control_plane(jit, device="cuda", n=CROWDED_PUCCH_UES):
+    """UlControlPlane with n UEs (resource i for UE i), and its call: a
+    step with an ACK or a NACK from each, every one detected.  Returns
+    (plane, call)."""
+    from srslte_emane_tpu_torch.runtime import wavesim
+
+    ues = CROWDED_RNTIS[:n]
+    acks = {r: i % 2 for i, r in enumerate(ues)}
+    cp = wavesim.UlControlPlane(crowded_cell(), device=device, jit=jit)
+    for i, r in enumerate(ues):
+        cp.add_ue(r, i)
+
+    def step(plane):
+        out = plane.step(acks, CROWDED_PATHLOSS)
+        assert all(out[r][:2] == (True, acks[r]) for r in ues), "an ACK missed"
+        return out
+
+    return cp, step
+
+
+def crowded_pairs(dev, card):
+    """Phase 9: netsim --waveform's two planes with more UEs than a per-UE
+    table cache holds (bound 64): send_tti with 80 one-PRB grants and
+    UlControlPlane with 65 UEs, each graphed beside its jit=False twin
+    (plane_pair without turns: graphs built, one profiled call each for
+    the host launches per call).  Each capture reads
+    the tables its warm-up made past the bound (utils/devices.table_cache).
+    Then turbo_map against its plain version at every shape the pair
+    launched.  Returns those cases and the turbo_map launches of the
+    graphed calls."""
+    t0 = time.perf_counter()
+    with launch_log() as seen:
+        _, send_tti = crowded_data_plane(False)
+        launches = plane_pair(
+            f"WaveformDataPlane.send_tti ({CROWDED_GRANTS} UEs x 2 PDUs, one PRB each, cfi 3: "
+            f"past the per-UE caches' bound of 64; every PDU delivered)",
+            lambda jit: crowded_data_plane(jit)[0], [send_tti], 2 * CROWDED_GRANTS, "PDUs/s",
+            card, turns=False)
+    _, step = crowded_control_plane(False)
+    plane_pair(f"UlControlPlane.step ({CROWDED_PUCCH_UES} UEs' PUCCH 1a, n_pucch 0-"
+               f"{CROWDED_PUCCH_UES - 1}: past the bound of 64; every ACK/NACK detected)",
+               lambda jit: crowded_control_plane(jit)[0], [step], CROWDED_PUCCH_UES, "ACKs/s",
+               card, turns=False)
+    cases = map_cases_logged(seen, (), dev, 9, card, select=every_map_shape)
+    log(f"past the table caches' bound: {time.perf_counter() - t0:.1f} s")
+    return cases, launches
 
 
 def link_graph(dev, cfg, payload, card):
@@ -1715,7 +1822,8 @@ def phase_mimo(dev, card):
             f"{1e3 * c['ms']:.1f} us (L2-flushed {1e3 * c['flushed_ms']:.1f} us), bound "
             f"{1e3 * c['bound_ms']:.2f} us ({c['bound_by']}), share {c['share']:.3f}; launches "
             f"per {where} at K={c['K']} by rows: {sorted(per, reverse=True)}; {card}")
-    return cases, launches
+    crowded_cases, crowded_launches = crowded_pairs(dev, card)
+    return cases + crowded_cases, launches + crowded_launches
 
 
 # phase 10: sync and cell search, extended CP, fading, TDD, multi-cell,
@@ -2386,7 +2494,8 @@ def profile_block(fn, control=False):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages()
+    averages = prof.key_averages()  # aggregated once, for every count below
+    kernels = [e for e in averages
                if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
     assert kernels, "torch.profiler recorded no device kernel"
     vit = [e for e in kernels if "viterbi_kernel" in e.key]
@@ -2395,9 +2504,9 @@ def profile_block(fn, control=False):
     map_ms = sum(e.self_device_time_total for e in kernels if "map_kernel" in e.key) / 1e3
     vit_ms = sum(e.self_device_time_total for e in vit) / 1e3
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
-    host = sum(e.count for e in prof.key_averages() if e.key in HOST_LAUNCH_CALLS)
+    host = sum(e.count for e in averages if e.key in HOST_LAUNCH_CALLS)
     ran = collections.Counter()
-    for e in prof.key_averages():
+    for e in averages:
         if e.device_type == torch.autograd.DeviceType.CUDA:
             for name, kernel in PORT_KERNELS.items():
                 ran[name] += e.count if re.search(rf"\b{kernel}\b", e.key) else 0
@@ -4177,9 +4286,14 @@ VIT_KS = (28, 38, 40, 44, 50, 55, 64)
 VIT_PROCESSES = ("waveform-full", "waveform-block", "waveform-dyn", "wavenet_smoke",
                  "bench_waveblock_dyn", "profile_dynblock")
 VIT_TB_ITERS = (1, 5)
-# (rows, K) beyond a block's shared memory: K = 1,211 (the first at
-# tb_iter 3), NPDSCH's largest (TBS 2,536 + CRC16) and 4,000
-VIT_GLOBAL_SHAPES = ((4, 1211), (128, 2552), (2, 4000))
+# (rows, K) on both sides of a block's shared memory: K = 1,210 (the last
+# whose 4 rows fit at tb_iter 3) in shared memory; K = 1,211, NPDSCH's
+# largest (TBS 2,536 + CRC16) and 4,000 with their decisions in device memory
+VIT_GLOBAL_SHAPES = ((4, 1210), (4, 1211), (128, 2552), (2, 4000))
+# the row sweep at the blind search's K = 44: one row (the chain's
+# latency), partial last warps (3, 5, 2,817 rows), the DL subframe's 2,816
+# rows and three times that
+VIT_SWEEP_K, VIT_SWEEP_ROWS = 44, (1, 3, 5, 64, 512, 2816, 2817, 8448)
 
 
 def viterbi_bound(rows, k, tb_iter):
@@ -4237,7 +4351,8 @@ def viterbi_case(inputs, tb_iter, flush, plain_n=3):
                 plain_ms=cuda_ms(lambda: viterbi.viterbi_decode_ref(x, tb_iter), plain_n),
                 bound_ms=bound_ms, bound_by=bound_by, share=bound_ms / ms,
                 ns_per_step=1e6 * ms / (tb_iter * k),
-                blocks_per_sm=viterbi_cuda.occupancy(k, tb_iter))
+                blocks_per_sm=viterbi_cuda.occupancy(k, tb_iter),
+                rows_per_block=viterbi_cuda.rows_per_block())
 
 
 def phase_viterbi(dev, card, vlog):
@@ -4276,11 +4391,20 @@ def phase_viterbi(dev, card, vlog):
         extra.append(viterbi_case([viterbi_inputs(128, 44, dev, tb)], tb, flush))
     for c in extra:
         log(f"viterbi kernel vs plain {json.dumps(c)}; {card}")
-    # a K whose row does not fit a block's shared memory takes the variant
+    for rows in VIT_SWEEP_ROWS:
+        c = viterbi_case([viterbi_inputs(rows, VIT_SWEEP_K, dev, rows)], viterbi.TB_ITER, flush,
+                         plain_n=1)
+        log(f"viterbi row sweep: {rows} x K={VIT_SWEEP_K}: {c['ns_per_step']:.1f} ns per step, "
+            f"{1e3 * c['ms']:.2f} us (L2-flushed {1e3 * c['flushed_ms']:.2f}), "
+            f"{c['blocks_per_sm']} blocks of {c['rows_per_block']} rows per SM, bound "
+            f"{1e3 * c['bound_ms']:.3f} us, share {c['share']:.3f}, bit for bit; {card}")
+        extra.append(c)
+    # a K whose rows do not fit a block's shared memory takes the variant
     # with its decisions in device memory: bit for bit all the same
     for rows, k in VIT_GLOBAL_SHAPES:
         c = viterbi_case([viterbi_inputs(rows, k, dev, k)], viterbi.TB_ITER, flush, plain_n=1)
-        log(f"viterbi kernel vs plain, decisions in device memory {json.dumps(c)}; {card}")
+        where = "shared" if viterbi_cuda._lib().viterbi_fits(k, viterbi.TB_ITER) else "device"
+        log(f"viterbi kernel vs plain, decisions in {where} memory {json.dumps(c)}; {card}")
         extra.append(c)
     log(f"phase 17: {time.perf_counter() - t0:.1f} s; {len(cases)} shapes of the run, "
         f"{len(extra)} more, every bit equal")

@@ -80,6 +80,7 @@ _ENTRY_POINTS = {
         "viterbi_fits": [ctypes.c_int] * 2,
         "viterbi_global_fits": [ctypes.c_int] * 2,
         "viterbi_blocks_per_sm": [ctypes.c_int] * 2,
+        "viterbi_rows_per_block": [],
     },
     "turbo_iter": {  # ops/fec/turbo_iter_cuda.py's kernels
         "turbo_iter_launch": [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 + [ctypes.c_void_p],

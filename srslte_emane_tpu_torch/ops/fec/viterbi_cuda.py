@@ -6,10 +6,24 @@ compiled program of two `lax.scan`s): the branch metrics in torch, by the
 plain version's own call (`viterbi.branch_metrics`), so that the kernel
 reads the same bits on the card; then one launch of `csrc/viterbi.cu`,
 which runs the add-compare-select over every trellis step and the
-traceback for every row.  The launch takes one of the kernel's two
+traceback for every row.
+
+What bounds the kernel is each row's chain of 3K dependent steps, each of
+which needs the maximum over the 64 states of the step before: at few rows
+one warp's step (its chain of shuffles and maxima, and the issue of its
+instructions), at thousands the SMs' issue rate.  So a row has 8 lanes of
+8 states each and a warp 4 rows: a step fetches its predecessors in 8
+independent shuffles (slot t of lane j holds state 8j + (t ^ j), so every
+lane sends its slot r in round r), takes the row's maximum from a tree in
+the lane and 7 more independent shuffles (2 shuffle latencies deep,
+against 6 when a row had a warp), and, on the steps the traceback visits,
+each lane adds its 8 decisions onto 2^23 in floating point and stores the
+low byte: one byte of the step's 64-bit word (bit s: state s), which one
+lane per row reads back in the traceback.  The launch takes one of two
 variants by shape: the rows' branch metrics and decisions in shared memory
-where a block holds them (`viterbi_fits`: K up to 1,210 at tb_iter 3),
-else in device memory, the decisions in a scratch tensor allocated here.
+where a block (one warp, `rows_per_block()` rows) holds them
+(`viterbi_fits`: K up to 1,210 at tb_iter 3), else in device memory, the
+decisions in a scratch tensor allocated here.
 
 The kernel library is built by `turbodecoder_cuda.build` with nvcc at first
 use, into build/viterbi-<hash of sources and flags>/, and reused after.
@@ -75,9 +89,14 @@ def viterbi_decode_cuda(llrs: torch.Tensor, tb_iter: int = TB_ITER) -> torch.Ten
     return launch(branch_metrics(llrs).contiguous(), tb_iter)
 
 
+def rows_per_block() -> int:
+    """Rows one block of the kernel decodes (a warp: 8 lanes to a row)."""
+    return _lib().viterbi_rows_per_block()
+
+
 def occupancy(K: int, tb_iter: int = TB_ITER) -> int:
-    """Blocks (of 4 rows) per SM of the kernel, in the variant this shape
-    takes, on the current card."""
+    """Blocks (of `rows_per_block()` rows each) per SM of the kernel, in the
+    variant this shape takes, on the current card."""
     n = _lib().viterbi_blocks_per_sm(K, tb_iter)
     if n < 0:
         raise RuntimeError(f"occupancy query failed for K={K}, tb_iter={tb_iter}")

@@ -18,7 +18,13 @@ How long a table lives, the one rule: a graph reads its tables by address,
 so every device table that a captured step reads comes from a bounded
 `utils.devices.table_cache`, and the graph holds each table that one
 handed out while it captured (`devices.holding`), so none is freed under it
-while the graph lives.  No other cache keeps a table that a graph reads:
+while the graph lives.  A capture may read any table that the warm-up just
+before it handed out: the warm-up records them (`devices.recording`), and a
+capture whose lookup misses a cache's LRU (one step asked for more keys
+than its bound) takes the table from that record; a key the warm-up never
+asked for raises.  This holds for `StepGraph`, for both captures of
+`RoundGraph` and so for every step of `jit` and `step`.  No other cache
+keeps a table that a graph reads:
 the waveform network's `_CellKernels` and the waveform planes keep their
 factories (and so their graphs) per instance (`per_instance`), and their
 device tables in module-level table_caches like every other step's.
@@ -57,21 +63,25 @@ def _built(t0: float) -> None:
     STATS["build_s"] += time.perf_counter() - t0
 
 
-def _warm_up(fn, dev: torch.device) -> None:
+def _warm_up(fn, dev: torch.device) -> dict:
     """fn() once on a side stream: it copies the tables to the card, plans
-    the FFTs and builds the kernels, none of which a capture may do."""
+    the FFTs and builds the kernels, none of which a capture may do.
+    Returns the record of the tables it was handed (`devices.recording`),
+    for the capture after it."""
     side = torch.cuda.Stream(dev)
     side.wait_stream(torch.cuda.current_stream(dev))
-    with torch.cuda.stream(side):
+    with devices.recording() as made, torch.cuda.stream(side):
         fn()
     torch.cuda.current_stream(dev).wait_stream(side)
+    return made
 
 
-def _capture(graph, fn, gens=(), pool=None):
+def _capture(graph, fn, made, gens=(), pool=None):
     """fn() captured into `graph`, with `gens` registered as its graph-safe
-    generators.  Returns (fn's result, [(module, attribute, launches the
-    capture counted)], the tables it read); each count is put back to its
-    value before the capture.  Python's cyclic garbage collector is off
+    generators and `made` the warm-up's record of tables (`_warm_up`).
+    Returns (fn's result, [(module, attribute, launches the capture
+    counted)], the tables it read); each count is put back to its value
+    before the capture.  Python's cyclic garbage collector is off
     while the stream captures: it would otherwise free, at any allocation,
     an unreachable object that holds another graph, and the frees of that
     graph's memory invalidate the capture."""
@@ -82,7 +92,7 @@ def _capture(graph, fn, gens=(), pool=None):
     collecting = gc.isenabled()
     gc.disable()
     try:
-        with devices.holding() as tables, torch.cuda.graph(graph, pool=pool):
+        with devices.holding(made) as tables, torch.cuda.graph(graph, pool=pool):
             out = fn()
     finally:
         if collecting:
@@ -123,11 +133,13 @@ class RoundGraph:
             reset()
             body([torch.Generator(device=dev) for _ in range(n_gens)])
 
-        _warm_up(warm_up, dev)
+        made = _warm_up(warm_up, dev)
         self.graph = torch.cuda.CUDAGraph()
-        _, self.counted, self.tables = _capture(self.graph, lambda: body(self.gens), self.gens)
+        _, self.counted, self.tables = _capture(self.graph, lambda: body(self.gens), made,
+                                                self.gens)
         self.reset = torch.cuda.CUDAGraph()
-        _capture(self.reset, reset, pool=self.graph.pool())
+        _, _, reset_tables = _capture(self.reset, reset, made, pool=self.graph.pool())
+        self.tables.update(reset_tables)
         _built(t0)
 
     def run(self, n: int, gens) -> None:
@@ -215,10 +227,10 @@ class StepGraph:
         self._load(args)
         scratch = lambda: [torch.Generator(device=dev) if isinstance(x, torch.Generator) else x
                            for x in self.inputs]
-        _warm_up(lambda: fn(*scratch()), dev)
+        made = _warm_up(lambda: fn(*scratch()), dev)
         self.graph = torch.cuda.CUDAGraph()
         self.outputs, self.counted, self.tables = _capture(
-            self.graph, lambda: fn(*self.inputs), self.gens)
+            self.graph, lambda: fn(*self.inputs), made, self.gens)
         _built(t0)
 
     def _load(self, args) -> None:

@@ -529,6 +529,31 @@ def test_new_planes_default_to_the_card(dev, plane):
     assert p.device.type == "cuda" and p.gen.device.type == "cuda"
 
 
+@pytest.mark.parametrize("kind", ["data", "control"])
+def test_a_step_past_the_table_caches_bound_is_graphed(dev, kind):
+    """netsim --waveform's planes with more UEs than a per-UE table cache
+    holds (bound 64; chip_smoke.py's crowded planes at 100 PRB, cfi 3:
+    send_tti with 80 one-PRB grants, UlControlPlane with 65 UEs), graphed
+    (the card's default) against jit=False on generators seeded alike over
+    two calls: every PDU delivered or ACK detected, results, metrics and
+    generator states equal, one graph, holding more tables than the bound."""
+    from srslte_emane_tpu_torch.runtime import graphs
+
+    make = getattr(_chip_smoke(), f"crowded_{kind}_plane")
+    (graphed, call), (eager, _) = make(True), make(False)
+    assert graphed.jit and graphed.device.type == "cuda"
+    built = graphs.STATS["graphs"]
+    for _ in range(2):
+        got, want = call(graphed), call(eager)
+        torch.cuda.synchronize()
+        assert got == want
+        assert graphed.metrics == eager.metrics
+        assert torch.equal(graphed.gen.get_state(), eager.gen.get_state())
+    assert graphs.STATS["graphs"] - built == 1 and not eager.graph_counts()
+    ((graph,),) = (g.values() for g in graphed.step_graphs().values())
+    assert len(graph.tables) > 64
+
+
 # ---------------- sync, TDD, PRACH (chip_smoke.py phase 10) ----------------
 
 def test_cell_search_sweep_on_the_card_equals_the_cpu(dev):
@@ -1027,13 +1052,14 @@ VIT_PATH_SHAPES = ((2688, 44), (2816, 44), (304, 44), (320, 44), (336, 44), (352
 @pytest.mark.parametrize("tb_iter", (1, 3, 5))
 @pytest.mark.parametrize("k", VIT_KS)
 def test_viterbi_kernel_equals_plain(dev, k, tb_iter):
-    """Bit for bit at 1, 5 and 131 rows (a partial last block of 4 rows):
-    threshold LLRs (equal metrics) with an all-zero row (every decision a
-    tie), and clean codewords decoded right."""
+    """Bit for bit at 1, 3, 5 and 131 rows, and 2,817 at K=44 (each a
+    partial last block: a warp of 4 rows): threshold LLRs (equal metrics)
+    with an all-zero row (every decision a tie), and clean codewords
+    decoded right."""
     from srslte_emane_tpu_torch.ops.fec import convcoder, viterbi, viterbi_cuda
 
     smoke = _chip_smoke()
-    for rows in (1, 5, 131):
+    for rows in (1, 3, 5, 131) + ((2817,) if k == 44 else ()):
         x = smoke.viterbi_inputs(rows, k, dev, 10 * rows + k)
         before = viterbi_cuda.launches
         got = viterbi.viterbi_decode(x, tb_iter)
@@ -1144,18 +1170,21 @@ def test_control_decoders_reach_the_viterbi_kernel(dev):
 def test_viterbi_beyond_shared_memory_equals_plain(dev, k):
     """A K whose decisions do not fit a block's shared memory takes the
     global-memory variant: one launch, bit for bit against the plain loop,
-    on threshold LLRs with an all-zero row, at 1, 5 and 9 rows."""
+    on threshold LLRs with an all-zero row, at 1, 3, 5 and 9 rows (K = 1,210,
+    the last K in shared memory, beside it)."""
     from srslte_emane_tpu_torch.ops.fec import viterbi, viterbi_cuda
 
     smoke = _chip_smoke()
-    for rows in (1, 5, 9):
-        x = smoke.viterbi_inputs(rows, k, dev, rows + k)
+    lib = viterbi_cuda._lib()
+    assert not lib.viterbi_fits(k, 3) and lib.viterbi_fits(1210, 3)
+    for rows, kk in [(r, k) for r in (1, 3, 5, 9)] + [(5, 1210)]:
+        x = smoke.viterbi_inputs(rows, kk, dev, rows + kk)
         before = viterbi_cuda.launches
         got = viterbi.viterbi_decode(x)
         torch.cuda.synchronize()
         assert viterbi_cuda.launches == before + 1
-        assert torch.equal(got, viterbi.viterbi_decode_ref(x)), rows
-    assert viterbi_cuda.occupancy(k) > 0
+        assert torch.equal(got, viterbi.viterbi_decode_ref(x)), (rows, kk)
+    assert viterbi_cuda.occupancy(k) > 0 and viterbi_cuda.rows_per_block() == 4
 
 
 def test_npdsch_at_the_largest_tbs_on_the_card(dev, monkeypatch):

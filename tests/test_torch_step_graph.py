@@ -2,7 +2,9 @@
 link step, the CA step and the SPS block and bench steps, the TTI as a
 device input of the block, `sch.decode_tb(read=False)` at the decode call
 sites and the MAP-row counts on the device, and the table caches that hand
-a captured graph its tables.
+a captured graph its tables: a capture reads every table its warm-up was
+handed, past the cache's bound, and raises on a key the warm-up never
+asked for.
 
 On the CPU there is no graph: every graphed step must equal its eager
 step (`link_step`, `waveblock._step_body`) exactly.  The block with tti0
@@ -485,20 +487,57 @@ def test_a_graph_holds_the_tables_it_read(name, monkeypatch):
     assert len(g.tables) == 1
 
 
-def test_a_table_made_while_a_graph_captures_raises(monkeypatch):
-    """A step that asks a table cache for more keys than its bound misses
-    at capture (the warm-up's first keys were evicted by its last): the
-    capture raises and names the cache, as a host copy cannot be captured."""
-    _fake_card(monkeypatch)
-
+def _three_keys():
+    """A table cache bounded at 2 keys."""
     @devices.table_cache(2)
     def _three(k, device):
         return torch.full((2,), float(k), device=device)
+    return _three
 
-    step = graphs.jit(lambda x: sum(_three(k, CPU).sum() for k in range(3)) + x, CPU)
-    with pytest.raises(RuntimeError, match="_three.*more than 2 keys"):
+
+@pytest.mark.parametrize("kind", ["step", "round"])
+def test_a_capture_reads_every_table_its_warm_up_made(kind, monkeypatch):
+    """A step that asks a table_cache(2) for 3 keys: its warm-up evicts its
+    own first table, and the capture takes it from the warm-up's record.
+    The graph captures, equals the eager call and holds all 3 tables; the
+    cache keeps its bound.  The same for a RoundGraph, whose reset reads
+    key 0 again after the round's capture."""
+    _fake_card(monkeypatch)
+    cache = _three_keys()
+    fn = lambda x: sum(cache(k, CPU) for k in range(3)) + x
+    x = torch.tensor([1.0, 2.0])
+    if kind == "step":
+        step = graphs.jit(fn, CPU)
+        got = step(x)
+        (g,) = step.graphs.values()
+        assert torch.equal(got, fn(x)) and torch.equal(step(x), got)
+    else:
+        out = {}
+        g = graphs.RoundGraph(lambda gens: out.update(y=fn(x)), lambda: out.update(z=cache(0, CPU)),
+                              1, CPU)
+        assert torch.equal(out["y"], fn(x)) and torch.equal(out["z"], cache(0, CPU))
+    held = sorted(float(t[0]) for t in g.tables.values())
+    assert held == [0.0, 1.0, 2.0], held
+    assert cache.cache_info().currsize == 2
+
+
+def test_a_table_made_while_a_graph_captures_raises(monkeypatch):
+    """A key that the warm-up never asked for, and the cache does not
+    hold, misses at capture: its table would be made while the graph
+    captures, as a host copy cannot be.  The capture raises and names the
+    cache, and the step keeps no graph."""
+    _fake_card(monkeypatch)
+    cache = _three_keys()
+    runs = []
+
+    def fn(x):  # the warm-up asks for key 1, the capture for key 2
+        runs.append(x)
+        return cache(len(runs), CPU) + x
+
+    step = graphs.jit(fn, CPU)
+    with pytest.raises(RuntimeError, match="_three.*a key its warm-up did not ask for"):
         step(torch.zeros(()))
-    assert step.graphs == {}
+    assert step.graphs == {} and len(runs) == 2
 
 
 def test_round_graphs_hold_their_tables_too(monkeypatch):

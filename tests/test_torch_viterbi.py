@@ -12,7 +12,9 @@ formats 1A, 1 and 2A at 100 PRB (44, 55, 64), NPBCH's 50 and NPDSCH's 224
 coarsely quantised LLRs at the decision threshold (equal metrics and
 decoding errors).  The wrapper's argument checks run against a stub
 library object; the kernel itself runs only on the card
-(tests/test_torch_cuda.py).
+(tests/test_torch_cuda.py), but its lane map (which lane and slot hold
+each state, which rounds bring each predecessor, which bit each decision
+takes) is transcribed from csrc/viterbi.cu and run here in numpy.
 """
 
 import pathlib
@@ -104,13 +106,126 @@ def test_kernel_table_is_the_trellis():
     j_preds, j_combo, j_signs = j_vit._tables()
     np.testing.assert_array_equal(pred_combo, j_combo)
     np.testing.assert_array_equal(preds, j_preds)
-    # lane l holds states 2l, 2l+1; both have predecessors l and l + 32,
-    # held by lanes l >> 1 and 16 + (l >> 1) in slot l & 1
-    lanes = np.arange(32)
-    for slot in (0, 1):
-        np.testing.assert_array_equal(preds[2 * lanes + slot], np.stack([lanes, lanes + 32], -1))
-    np.testing.assert_array_equal(preds[2 * lanes, 0] >> 1, lanes >> 1)
-    np.testing.assert_array_equal(preds[2 * lanes, 1] >> 1, 16 + (lanes >> 1))
+    # lane j of a row holds states S j .. S j + S - 1 (S = 64 / kLanes); their
+    # predecessors are the S / 2 states from S / 2 j in each half, held by
+    # lanes j >> 1 and kLanes / 2 + (j >> 1) from offset S / 2 (j & 1)
+    lanes, low, _, _ = _kernel_constants()
+    S = 64 // lanes
+    for j in range(lanes):
+        for t in range(S):
+            a, b = preds[S * j + t]
+            assert (a // S, a % S) == (j >> 1, S // 2 * (j & 1) + (t >> 1))
+            assert (b // S, b % S) == (lanes // 2 + (j >> 1), S // 2 * (j & 1) + (t >> 1))
+    # the code is linear: kLowCombos and lane j's first combo give every
+    # branch's combo, and combo 1 is combo 0 ^ 7
+    assert [(low >> 4 * t) & 15 for t in range(16)] == pred_combo[:16, 0].tolist()
+    s_ = np.arange(64)
+    np.testing.assert_array_equal(pred_combo[:, 1], pred_combo[:, 0] ^ 7)
+    np.testing.assert_array_equal(pred_combo[:, 0], pred_combo[s_ - s_ % S, 0] ^ pred_combo[s_ % S, 0])
+
+
+def _kernel_constants():
+    """csrc/viterbi.cu's kLanes (lanes per row), kLowCombos, and kSpread and
+    kDelta (their values at kLanes = 8)."""
+    src = (REPO / "srslte_emane_tpu_torch" / "csrc" / "viterbi.cu").read_text()
+    lanes = int(re.search(r"constexpr int kLanes = (\d+);", src).group(1))
+    low = int(re.search(r"kLowCombos = (0x[0-9a-f]+)ull;", src).group(1), 16)
+    spread, delta = re.search(r"constexpr int kSpread = kLanes == 8 \? (\d+) : (\d+), "
+                              r"kDelta = kLanes == 8 \? (\d+) : (\d+);", src).group(1, 3)
+    assert lanes == 8
+    return lanes, low, int(spread), int(delta)
+
+
+def _kernel_lane_map():
+    """The kernel's step, index by index, as numpy arrays over the 64
+    (lane j, slot t) positions of a row (position S j + t): the state each
+    holds (S j + (t ^ kSpread j)); the states whose metrics its candidates
+    u and v add (those in the shuffle rounds t >> 1 and (t >> 1) ^ kDelta,
+    in which lane src sends its slot r; the source lanes transcribed from
+    csrc/viterbi.cu); the combos of their branch metrics (at the lane's
+    base, xored with 7 on an odd lane); the sign sg (-1 on an odd lane,
+    where u is predecessor 1) whose product with v - u is positive for a
+    decision; and the bit of the step's decision word it writes."""
+    lanes, low, spread, delta = _kernel_constants()
+    S, H = 64 // lanes, 32 // lanes
+    _, pred_combo, _ = p_vit._tables()
+    pos = dict(state=[], u=[], v=[], cu=[], cv=[], sg=[], bit=[])
+    for j in range(lanes):
+        odd, a = j & 1, spread * j
+        src_lo = (j >> 1) + (lanes // 2 if odd else 0)
+        src_hi = (j >> 1) + (0 if odd else lanes // 2)
+        rcv = []
+        for r in range(S):  # round r: lane src sends slot r, state S src + (r ^ spread src)
+            src = src_lo if r < H else src_hi
+            rcv.append(S * src + (r ^ (spread * src)))
+        base = int(pred_combo[S * j, 0]) ^ ((low >> 4 * a) & 15) ^ (7 if odd else 0)
+        for t in range(S):
+            c = (low >> 4 * t) & 15
+            for k, v in (("state", S * j + (t ^ a)), ("u", rcv[t >> 1]),
+                         ("v", rcv[(t >> 1) ^ delta]), ("cu", base ^ c), ("cv", base ^ c ^ 7),
+                         ("sg", -1.0 if odd else 1.0), ("bit", 8 * (j * S // 8) + (t ^ a))):
+                pos[k].append(v)
+    return {k: np.array(v) for k, v in pos.items()}
+
+
+def test_kernel_lane_map_is_the_trellis():
+    """The lane map against `_tables()`: the positions hold every state
+    once; u and v add the state's two
+    predecessors' metrics (predecessor 0 in u on an even lane, in v on an
+    odd one, where sg is -1) to the branch metrics of their combos; and the
+    state's decision is bit s of the step's word (S / 8 bytes a lane, in
+    lane order), the bit the traceback reads."""
+    preds, pred_combo, _ = p_vit._tables()
+    m = _kernel_lane_map()
+    s = m["state"]
+    np.testing.assert_array_equal(np.sort(s), np.arange(64))
+    odd = m["sg"] < 0
+    np.testing.assert_array_equal(np.where(odd, m["v"], m["u"]), preds[s, 0])
+    np.testing.assert_array_equal(np.where(odd, m["u"], m["v"]), preds[s, 1])
+    np.testing.assert_array_equal(np.where(odd, m["cv"], m["cu"]), pred_combo[s, 0])
+    np.testing.assert_array_equal(np.where(odd, m["cu"], m["cv"]), pred_combo[s, 1])
+    np.testing.assert_array_equal(m["bit"], s)
+
+
+@pytest.mark.parametrize("tb_iter", (1, 3))
+def test_kernel_lane_map_decodes_as_the_plain_loop(tb_iter):
+    """The kernel's step run through its lane map in numpy (float32, each
+    add and subtract rounded once; a decision where sg (v - u) > 0, its bit
+    added to 2^23 in float32 and read back from the low mantissa bits; the
+    maximum as fmaxf takes it; the final state the first maximum; the
+    traceback on bit s of each step's word) decodes the tie, clean and
+    threshold rows of `_llrs` as viterbi_decode_ref."""
+    m = _kernel_lane_map()
+    sg = m["sg"].astype(np.float32)
+    lanes = _kernel_constants()[0]
+    S = 64 // lanes
+    for K in (20, 44):
+        x, _ = _llrs(K, 7 * K + tb_iter)
+        bm = p_vit.branch_metrics(torch.from_numpy(x)).numpy()  # (R, K, 8) f32
+        R, T, mid = x.shape[0], tb_iter * K, (tb_iter // 2) * K
+        metric = np.zeros((R, 64), np.float32)
+        words = []
+        for t in range(T):
+            b = bm[:, t % K]
+            u = metric[:, m["u"]] + b[:, m["cu"]]
+            v = metric[:, m["v"]] + b[:, m["cv"]]
+            n = np.maximum(u, v)
+            metric = np.empty_like(metric)
+            metric[:, m["state"]] = n - n.max(axis=1, keepdims=True)
+            d = ((v - u) * sg > 0).astype(np.float32)
+            lane_bits = np.full((R, lanes), 2.0 ** 23, np.float32)
+            for p_ in range(64):  # each lane's bits summed onto 2^23, one add at a time
+                lane_bits[:, p_ // S] += d[:, p_] * np.float32(2 ** (m["bit"][p_] % S))
+            low = (lane_bits.view(np.uint32) & (2 ** S - 1)).astype(np.uint64)
+            words.append((low << (S * np.arange(lanes, dtype=np.uint64))).sum(1))
+        state = metric.argmax(1)
+        out = np.zeros((R, K), np.int8)
+        for t in range(T - 1, mid - 1, -1):
+            if t < mid + K:
+                out[:, t - mid] = state & 1
+            state = (state >> 1) | (((words[t] >> state.astype(np.uint64)) & 1).astype(int) << 5)
+        ref = p_vit.viterbi_decode_ref(torch.from_numpy(x), tb_iter).numpy()
+        np.testing.assert_array_equal(out, ref)
 
 
 def test_branch_metrics_equal_jax():

@@ -14,7 +14,12 @@ On the CPU:
   bytes, SNR estimates, ACKs, CQIs, metrics and the generator's state.
   While a step captures, a read of a tensor on the host or a tensor made
   from host data raises (the card rejects both in a capture), and a
-  `table_cache` that misses raises (graphs.py);
+  `table_cache` lookup that misses both its LRU and the warm-up's record
+  raises (graphs.py);
+- more UEs than a table cache holds: UlControlPlane.step with 65 UEs and
+  WaveformDataPlane.send_tti with 64 and 80 one-PRB grants at 100 PRB
+  (chip_smoke.py's crowded planes) overflow per-UE caches of bound 64, and
+  each capture reads the tables its warm-up made: equal to jit=False;
 - reconfiguration: `add_ue` with a new slot drops the rnti's steps and
   graphs; the next send captures anew with the new allocation and delivers
   the JAX plane's bytes;
@@ -31,6 +36,8 @@ The JAX package is imported only by the CPU tests' fixture, so the card
 import contextlib
 import dataclasses
 import gc
+import importlib.util
+import pathlib
 import weakref
 
 import numpy as np
@@ -38,10 +45,11 @@ import pytest
 import torch
 
 from srslte_emane_tpu_torch.models import enb_dl
-from srslte_emane_tpu_torch.ops import cplx
+from srslte_emane_tpu_torch.ops import cplx, scrambling
 from srslte_emane_tpu_torch.ops.fec import turbodecoder, viterbi
 from srslte_emane_tpu_torch.phch import dci, grid as p_grid, pcfich, pdcch, pmch, pucch, sch
 from srslte_emane_tpu_torch.runtime import graphs, wavesim
+from srslte_emane_tpu_torch.utils import devices
 
 torch.set_num_threads(1)  # one intra-op thread per pytest-xdist worker
 
@@ -268,8 +276,8 @@ def _fake_card(monkeypatch):
     """graphs.jit captures on the CPU with the stand-ins above."""
     capture = graphs._capture
 
-    def keeping(graph, fn, gens=(), pool=None):
-        out, counted, tables = capture(graph, fn, gens, pool)
+    def keeping(graph, fn, *args, **kw):
+        out, counted, tables = capture(graph, fn, *args, **kw)
         graph.fn, graph.out = fn, out
         return out, counted, tables
 
@@ -579,3 +587,67 @@ def test_graphed_planes_equal_eager_planes_on_the_card(name):
         assert torch.equal(graphed.gen.get_state(), eager.gen.get_state())
         assert all(n == 1 for n in graphed.graph_counts().values())
     assert graphed.graph_counts() and not eager.graph_counts()
+
+
+# ---------------- more UEs than a table cache holds ----------------
+
+# netsim --waveform's planes at 100 PRB once more than four UEs attach (cfi
+# 3; chip_smoke.py's crowded_data_plane and crowded_control_plane), at UE
+# counts that overflow the per-UE table caches (bound 64): every UE's PUCCH
+# resource, every grant's scrambling sequence, DCI and PDCCH levels
+CROWDED_UES = {"ul_control_65": ("control", 65), "send_tti_64": ("data", 64),
+               "send_tti_80": ("data", 80)}
+# the caches whose bound each case's step overflows
+OVERFLOWED = {"ul_control_65": (pucch._device_tables,),
+              "send_tti_64": (scrambling._cached_sequence,),
+              "send_tti_80": (scrambling._cached_sequence, enb_dl._dci_1a_bits,
+                              pdcch._level_tables)}
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _crowded_plane(case, **kw):
+    """The case's plane on the CPU and its call (a function of a plane)."""
+    kind, n = CROWDED_UES[case]
+    return getattr(_chip_smoke(), f"crowded_{kind}_plane")(device="cpu", n=n, **kw)
+
+
+@pytest.mark.parametrize("case", list(CROWDED_UES))
+def test_a_step_with_more_ues_than_a_cache_holds_captures(case, monkeypatch):
+    """UlControlPlane.step with 65 UEs and WaveformDataPlane.send_tti with
+    64 and 80 one-PRB grants at 100 PRB, cfi 3: each step asks a per-UE
+    table cache (bound 64) for more keys than it holds, and its capture
+    reads what its warm-up made.  Graphed on the stand-in card against
+    jit=False (over two calls for the cheap UlControlPlane): the same bytes
+    or ACKs, metrics and generator states, one graph holding more tables
+    than the bound, and the caches still at their bounds."""
+    _fake_card(monkeypatch)
+    records, recording = [], devices.recording
+
+    @contextlib.contextmanager
+    def kept():
+        with recording() as made:
+            records.append(made)
+            yield made
+
+    monkeypatch.setattr(devices, "recording", kept)
+    kind, n = CROWDED_UES[case]
+    (graphed, call), (eager, _) = _crowded_plane(case, jit=True), _crowded_plane(case, jit=False)
+    for _ in range(2 if kind == "control" else 1):
+        got, want = call(graphed), call(eager)  # each delivers every PDU, detects every ACK
+        assert got == want and len(got) == n
+        assert graphed.metrics == eager.metrics
+        assert torch.equal(_state(graphed), _state(eager))
+    assert list(graphed.graph_counts().values()) == [1] and eager.graph_counts() == {}
+    ((graph,),) = (g.values() for g in graphed.step_graphs().values())
+    assert len(graph.tables) > 64
+    (made,) = records  # the one warm-up's tables, by cache and key
+    for cache in OVERFLOWED[case]:
+        bound = cache.cache_parameters()["maxsize"]
+        assert sum(key[0] is cache for key in made) > bound >= cache.cache_info().currsize
