@@ -180,16 +180,23 @@ Phases (any failure raises; the exit code is then non-zero):
      shape of the phase not checked before;
  14. the multi-device layer on one card (a 1-device mesh, no scaling claim):
      (a) pdsch_link.make_link_step_sharded at the bench cell (100 PRB, 64QAM,
-     rate 0.55, llr_bits=16, batch 128) through turbo_map: every CRC, the
-     payload bit-exact, equal bit for bit to link_step on the same
-     noise, 0 cross-device transfers, sf/s; then parallel/dryrun.py on 1
-     device (its JSON lines); (b) ota_mix_sharded and total_rx_power_psum
+     rate 0.55, llr_bits=16, batch 128) through turbo_map: the eager step
+     (jit=False) with every CRC, the payload bit-exact, equal bit for bit
+     to link_step on the same noise; the graphed step (the default: one
+     CUDA graph for the mesh's position) against the eager one on two
+     payloads as phase 4b, then both in turns (sf/s, CUDA-event ms, host
+     launches per step, at most 24 for the graph; device ms), 0
+     cross-device transfers; then parallel/dryrun.py on 1 device (its
+     JSON lines); (b) ota_mix_sharded and total_rx_power_psum
      of 8 nodes on the card against the dense mix (atol 1e-4), also with
      noise against one dense draw from an equally seeded generator, and
      network_scan over 64 cells with the mesh and without: the same PCIs,
      cells/s; (c) waveblock.make_block_step_sharded for 1 cell at phase 11's
-     SPS block against make_block_step on the same draws: every CRC, ACK
-     and output equal, TTIs/s; (d) the module
+     SPS block: the eager step (jit=False) against make_block_step on the
+     same draws (every CRC, ACK and output equal), the graphed step (one
+     graph for the cell) against the eager one at tti0 0 and 37 as phase
+     4b, then both in turns (TTIs/s, CUDA-event ms, host launches per
+     block, device ms); (d) the module
      srslte_emane_tpu_torch.apps.netsim run as `-m` runs it, in four
      subprocesses started together, each with a time limit: the
      message-level run (--ues 20 --ttis 800 --prb 50), --waveform-full with
@@ -205,24 +212,33 @@ Phases (any failure raises; the exit code is then non-zero):
      number of record, alone: every CRC and bit, decode sf/s, CUDA-event ms
      per call, a warm kernel library, its encode and decode two captured
      graphs), then together the scripts' snr_sweep
-     (BLER and sf/s at 8-20 dB, no failure at 20 dB), bench_extra (cell
-     search, TM3, PUSCH, 2-carrier CA, each a captured graph),
-     bench_waveform_tpu (T=20),
-     bench_waveblock_dyn (R=20), profile_stages and wavenet_smoke (both UEs
-     registered), then bench_waveform_paced alone (T=40, 100 blocks: the
+     (BLER, sf/s and CUDA-event ms at 8-20 dB, no failure at 20 dB, its
+     encode and decode one captured graph each per SNR: 14), bench_extra
+     (cell search, TM3, PUSCH, 2-carrier CA, each a captured graph),
+     bench_waveform_tpu (T=20), bench_waveblock_dyn (R=20), wavenet_smoke
+     (both UEs registered) and snr_sweep --eager (no graph; the same BLER
+     and launches per decode as the graphed sweep, its rates logged beside
+     them), then bench_waveform_paced alone (T=40, 100 blocks: the
      deadline misses); each process's own gates must pass and its JSON line
-     name the card; then turbo_map against its plain version at every shape
-     of the phase not checked before, at every row count (the sweep's
-     straggler stages).  Any cut of the scripts' defaults is logged as the
-     phase's `reduced` list;
+     name the card; then in this process the sweep's decode at 8 and 20 dB
+     graphed against --eager's as phase 4b (bit for bit on two batches,
+     then in turns: sf/s, CUDA-event ms, host launches per decode, at most
+     16 for the graph, device ms); then turbo_map against its plain version
+     at every shape of the phase not checked before, at every row count
+     (the sweep's straggler stages).  Any cut of the scripts' defaults is
+     logged as the phase's `reduced` list;
  16. slice 17: (a) the profiling twins at their JAX scripts' defaults, each
-     as `python -m` through MODULE_LOGGED (now logging turbo_map_v1 too):
-     profile_turbo alone (1024 x K=5568 f32, W=32, L=174: turbo_map_v1
-     and turbo_map one launch per half-iteration call, the plain MAP none,
-     turbo_decode 2 / 4 / 16 launches at 1 / 2 / early-stop iterations),
-     then profile_mimo (the TM3 cell at batch 32, every CRC) and
-     profile_dynblock (R=2, full and the four ablations) together, each
-     JSON line naming the card; meanwhile feasible_rntis for the dynamic
+     as `python -m` through MODULE_LOGGED (now logging turbo_map_v1 too),
+     each alone: profile_turbo (1024 x K=5568 f32, W=32, L=174:
+     turbo_map_v1 and turbo_map one launch per half-iteration call, the
+     plain MAP none, turbo_decode 2 / 4 / 16 launches at 1 / 2 /
+     early-stop iterations), profile_stages (the bench cell at batch 128,
+     every CRC) and profile_mimo (the TM3 cell at batch 32, every CRC),
+     each with its stage jits as replayed graphs (one per jit of its JAX
+     twin: 6, 12 and 8) and then with --eager (none), each stage's
+     CUDA-event and host ms logged graphed beside eager with the same MAP
+     launches per call; then profile_dynblock (R=2, full and the four
+     ablations); each JSON line naming the card; meanwhile feasible_rntis for the dynamic
      cell at PDCCH aggregation 2, 4 and 8; (b) phase 11's SPS TM3 block
      (T=20) at mimo_cond_db 0 (every codeword and ACK) and 60 (every
      codeword fails, each PUCCH carries a NACK with energy above 0.25); (c)
@@ -3630,8 +3646,11 @@ NETSIM_MODULE = "srslte_emane_tpu_torch.apps.netsim"
 
 def step_link_sharded(dev, card, logs):
     """Phase 14a: make_link_step_sharded on a 1-device mesh at the bench
-    cell, batch 128, against link_step on the same noise; then the dry
-    run.  Returns its turbo_map launches."""
+    cell, batch 128: the eager step (jit=False) against link_step on the
+    same noise; then the graphed step (the default: one CUDA graph for the
+    mesh's position) against the eager one (graph_against_eager), both in
+    turns (graph_turns: host launches per step); then the dry run.  Returns
+    its turbo_map launches."""
     import torch
 
     from srslte_emane_tpu_torch.models import pdsch_link
@@ -3643,13 +3662,15 @@ def step_link_sharded(dev, card, logs):
     cfg = dryrun.bench_config()
     rng = np.random.default_rng(14)
     payload = torch.from_numpy(rng.integers(0, 2, (BATCH, cfg.tbs), dtype=np.int8)).to(dev)
-    step = pdsch_link.make_link_step_sharded(cfg, mesh)
+    other = torch.from_numpy(rng.integers(0, 2, (BATCH, cfg.tbs), dtype=np.int8)).to(dev)
+    steps = dict(graph=pdsch_link.make_link_step_sharded(cfg, mesh),
+                 eager=pdsch_link.make_link_step_sharded(cfg, mesh, jit=False))
     gen = torch.Generator(device=dev)
     gen.manual_seed(14)
     record = []
     with launch_log() as seen, replaying_awgn(record=record, rows=slice(None)):
         tdc.launches = 0
-        out, ok, snr = step(payload, gen)
+        out, ok, snr = steps["eager"](payload, gen)
         torch.cuda.synchronize()
         launches = tdc.launches
     logs.extend(seen)
@@ -3660,14 +3681,31 @@ def step_link_sharded(dev, card, logs):
         ref = pdsch_link.link_step(payload, gen, cfg)
     assert torch.equal(ref[0], out) and torch.equal(ref[1], ok) and torch.equal(ref[2], snr), \
         "sharded link differs from link_step on the same noise"
-    right = lambda o: bool(o[1].all()) and torch.equal(o[0], payload)
-    r = rate(lambda: step(payload, gen), check=right)
+    right = lambda o, a: bool(o[1].all()) and torch.equal(o[0], a[0])
+    with launch_log() as seen:
+        first_s, graph_launches = graph_against_eager(
+            "sharded link", steps, [(payload,), (other,)], lambda step, a, g: step(a[0], g),
+            right)
+    logs.extend(seen)
+    (run,) = steps["graph"].positions
+    assert len(run.graphs) == 1, run.graphs
+    s = graph_turns("sharded link (phase 14a)", steps, lambda step: step(payload, seeded(7)),
+                    BATCH, "sf/s", card)
+    assert s["graph"]["host_launches"] <= 24, s["graph"]
     assert mesh.transfers == 0, f"sharded link moved {mesh.transfers} tensors between devices"
     log(f"sharded link: make_link_step_sharded on a 1-device mesh {mesh.shape}, bench cell "
         f"(100 PRB, 64QAM, rate 0.55, llr_bits=16, TBS {cfg.tbs}), batch {BATCH}: every CRC "
-        f"passes, payload bit-exact, equal to link_step on the same noise bit for bit "
-        f"(bits, CRCs, SNR estimates); {launches} turbo_map launches {sorted(set(seen))}; "
-        f"cross-device transfers {mesh.transfers}; {fmt_rate('sharded link', *r)}; {card}")
+        f"passes, payload bit-exact, the eager step (jit=False) equal to link_step on the same "
+        f"noise bit for bit (bits, CRCs, SNR estimates); {launches} turbo_map launches "
+        f"{sorted(set(seen))}; the graphed step (one graph for the position) equal to the "
+        f"eager one bit for bit on two payloads (generators, launches "
+        f"{json.dumps(dict(graph_launches))}, MAP rows), first call {first_s:.2f} s; sf/s x "
+        f"{s['graph']['rate'] / s['eager']['rate']:.2f}, host launches per step "
+        f"{s['graph']['host_launches']} vs {s['eager']['host_launches']}, device ms "
+        f"{s['graph']['device_ms']} vs {s['eager']['device_ms']}, CUDA-event ms "
+        f"{s['graph']['event_ms']} vs {s['eager']['event_ms']}; cross-device transfers "
+        f"{mesh.transfers}; {card}")
+    launches += graph_launches["turbo_map"]
     with launch_log() as seen:
         tdc.launches = 0
         dryrun.dryrun(1)  # prints its JSON lines
@@ -3737,8 +3775,11 @@ def step_ota_scan(dev, card):
 
 def step_block_sharded(dev, card, logs):
     """Phase 14c: make_block_step_sharded for 1 cell at phase 11's SPS
-    configuration against make_block_step on the same draws.  Returns its
-    turbo_map launches."""
+    configuration: the eager step (jit=False) against make_block_step on
+    the same draws; then the graphed step (the default: one CUDA graph for
+    the cell's position) against the eager one at tti0 0 and 37
+    (graph_against_eager), both in turns (graph_turns: host launches per
+    block).  Returns its turbo_map launches."""
     import torch
 
     from srslte_emane_tpu_torch.ops.fec import turbodecoder_cuda as tdc
@@ -3748,23 +3789,27 @@ def step_block_sharded(dev, card, logs):
     cfg = sps_config(SPS_T)
     n, T = cfg.n_ues, cfg.T
     mesh = mesh_mod.make_mesh(1)
-    step, consts = waveblock.make_block_step_sharded(cfg, mesh, (cfg.cell.cell_id,), sfn0=4)
+    make = lambda jit: waveblock.make_block_step_sharded(cfg, mesh, (cfg.cell.cell_id,), sfn0=4,
+                                                         jit=jit)
+    (step, consts), (eager, _) = make(True), make(False)
+    steps = dict(graph=step, eager=eager)
     assert all(v.device == dev for v in consts[0].values())
     rng = np.random.default_rng(16)
-    dl = torch.from_numpy(rng.integers(0, 2, (1, T, n, cfg.dl_tbs), dtype=np.int8)).to(dev)
-    ul = torch.from_numpy(rng.integers(0, 2, (1, T, n, cfg.ul_tbs), dtype=np.int8)).to(dev)
+    payloads = [tuple(torch.from_numpy(rng.integers(0, 2, (1, T, n, tbs), dtype=np.int8)).to(dev)
+                      for tbs in (cfg.dl_tbs, cfg.ul_tbs)) for _ in range(2)]
+    dl, ul = payloads[0]
     gen = torch.Generator(device=dev)
     gen.manual_seed(16)
 
-    def right(out):
+    def right(out, args=(dl, ul)):
         return (bool(out["dl_ok"].all()) and bool(out["ul_ok"].all())
                 and int((out["ack_energy"] > 1e-2).sum()) == T * n
-                and torch.equal(out["dl_out"], dl) and torch.equal(out["ul_out"], ul))
+                and torch.equal(out["dl_out"], args[0]) and torch.equal(out["ul_out"], args[1]))
 
     record = []
     with launch_log() as seen, recorded_noise(record=record):
         tdc.launches = 0
-        out = step(dl, ul, [gen], 0)
+        out = eager(dl, ul, [gen], 0)
         torch.cuda.synchronize()
         launches = tdc.launches
     logs.extend(seen)
@@ -3775,15 +3820,29 @@ def step_block_sharded(dev, card, logs):
         ref = waveblock.make_block_step(cfg, sfn0=4, jit=False)(dl[0], ul[0], gen, 0)
     for k, v in ref.items():
         assert torch.equal(out[k][0], v), f"sharded block differs from make_block_step at {k}"
-    (med, spread, rates), event_ms = block_timing(lambda: step(dl, ul, [gen], 0), T)
+    with launch_log() as seen:
+        first_s, graph_launches = graph_against_eager(
+            "sharded block", steps, [(*payloads[0], 0), (*payloads[1], 37)],
+            lambda s, a, g: s(a[0], a[1], [g], a[2]), right)
+    logs.extend(seen)
+    (run,) = step.positions
+    assert len(run.graphs) == 1, run.graphs
+    s = graph_turns("sharded block (phase 14c)", steps, lambda s: s(dl, ul, [seeded(7)], 0), T,
+                    "TTIs/s", card, iters=2)
+    assert s["graph"]["host_launches"] <= 64, s["graph"]
     assert mesh.transfers == 0
     log(f"sharded block: make_block_step_sharded, 1 cell on a 1-device mesh, phase 11's SPS "
         f"block (100 PRB, 8 UEs, T={T}): every DL and UL CRC passes, {T * n} ACKs, payloads "
-        f"bit-exact, every output equal to make_block_step on the same draws; {launches} "
-        f"turbo_map launches {sorted(set(seen))}; cross-device transfers {mesh.transfers}; "
-        f"{fmt_rate('block', med, spread, rates, unit='TTIs/s')}; CUDA-event time per block "
-        f"{event_ms:.2f} ms; {card}")
-    return launches
+        f"bit-exact, the eager step (jit=False) equal to make_block_step on the same draws in "
+        f"every output; {launches} turbo_map launches {sorted(set(seen))}; the graphed step (one "
+        f"graph for the cell) equal to the eager one bit for bit at tti0 0 and 37 (generators, "
+        f"launches {json.dumps(dict(graph_launches))}, MAP rows), first call {first_s:.2f} s; "
+        f"TTIs/s x {s['graph']['rate'] / s['eager']['rate']:.2f}, host launches per block "
+        f"{s['graph']['host_launches']} vs {s['eager']['host_launches']}, device ms "
+        f"{s['graph']['device_ms']} vs {s['eager']['device_ms']}, CUDA-event ms "
+        f"{s['graph']['event_ms']} vs {s['eager']['event_ms']}; cross-device transfers "
+        f"{mesh.transfers}; {card}")
+    return launches + graph_launches["turbo_map"]
 
 
 def netsim_checks(label, ues, out):
@@ -3896,8 +3955,9 @@ ENTRY_TIMEOUT_S = 600
 ENTRY_GROUPS = (
     (("bench", "srslte_emane_tpu_torch.bench", ()),),
     tuple((name, f"srslte_emane_tpu_torch.scripts.{name}", ()) for name in (
-        "snr_sweep", "bench_extra", "bench_waveform_tpu", "bench_waveblock_dyn", "profile_stages",
-        "wavenet_smoke")),
+        "snr_sweep", "bench_extra", "bench_waveform_tpu", "bench_waveblock_dyn",
+        "wavenet_smoke")) + (("snr_sweep_eager", "srslte_emane_tpu_torch.scripts.snr_sweep",
+                              ("--eager",)),),
     (("bench_waveform_paced", "srslte_emane_tpu_torch.scripts.bench_waveform_paced", ()),),
 )
 # what phase 15 cuts from the JAX scripts' defaults (nothing yet)
@@ -3914,20 +3974,68 @@ def entry_checks(label, lines, card_name):
         assert out["metric"] == "pdsch_20mhz_decode_subframes_per_sec_per_chip", out
         assert out["value"] > 0 and out["device_ms"] > 0 and out["cache_state"] == "warm", out
         assert out["captured_graphs"] == 2, out  # the encode and the decode ran as graphs
-    elif label == "snr_sweep":
+    elif label.startswith("snr_sweep"):
         rows = out["snr_sweep"]
         assert rows == lines[:-1] and [r["snr_db"] for r in rows] == list(SWEEP_SNRS_DB), rows
-        assert all(0.0 <= r["bler"] <= 1.0 and r["sf_per_s"] > 0 for r in rows), rows
+        assert all(0.0 <= r["bler"] <= 1.0 and r["sf_per_s"] > 0 and r["device_ms"] > 0
+                   for r in rows), rows
         assert rows[-1]["bler"] == 0.0, f"the sweep lost CRCs at 20 dB: {rows[-1]}"
+        # the encode and the decode of each SNR one graph each; none with --eager
+        assert out["captured_graphs"] == (0 if label.endswith("eager") else
+                                          2 * len(SWEEP_SNRS_DB)), out
     elif label == "bench_extra":
         assert all(out[k] > 0 for k in ("cell_search", "mimo_tm3_decode", "pusch_decode",
                                         "ca_2cc_link")), out
-    elif label == "profile_stages":
-        assert all(v["ms"] > 0 for v in out["stages"].values()), out
     elif label == "wavenet_smoke":
         assert out["registered"] == out["n_ues"], out
     else:  # the block benches
         assert out["value"] > 0 and out["compile_s"] >= 0, out
+
+
+SWEEP_GRAPH_SNRS_DB = (8.0, 20.0)  # the waterfall's bottom (every row fails) and the bench cell
+
+
+def step_sweep_graphs(dev, card, logs):
+    """Phase 15, in this process: the sweep's decode (scripts/snr_sweep.
+    snr_case, batch 128) at SWEEP_GRAPH_SNRS_DB, graphed against --eager's
+    (graph_against_eager, on two received batches), then both in turns
+    (graph_turns: sf/s, CUDA-event ms, host launches and device ms per
+    decode).  Returns its turbo_map launches."""
+    import torch
+
+    from srslte_emane_tpu_torch.scripts import snr_sweep
+
+    tbs = snr_sweep.bench.bench_config(16).tbs
+    rng = np.random.default_rng(15)
+    launches = 0
+    for snr in SWEEP_GRAPH_SNRS_DB:
+        payloads = [torch.from_numpy(rng.integers(0, 2, (BATCH, tbs), dtype=np.int8)).to(dev)
+                    for _ in range(2)]
+        tx_fn, rx_fn, rx = snr_sweep.snr_case(snr, payloads[0])
+        _, rx_eager, rx_ref = snr_sweep.snr_case(snr, payloads[0], eager=True)
+        assert torch.equal(rx, rx_ref), f"sweep at {snr} dB: the encode's graph differs"
+        other = snr_sweep.snr_case(snr, payloads[1], eager=True)[2]
+        right = ((lambda o, a: bool(o[1].all())) if snr >= 20.0 else
+                 (lambda o, a: not bool(o[1].any())))
+        steps = dict(graph=rx_fn, eager=rx_eager)
+        with launch_log() as seen:
+            first_s, n = graph_against_eager(f"sweep decode at {snr} dB", steps,
+                                             [(rx,), (other,)], lambda f, a, g: f(*a), right)
+        logs.extend(seen)
+        assert len(rx_fn.graphs) == len(tx_fn.graphs) == 1
+        launches += n["turbo_map"]
+        t = graph_turns(f"sweep decode at {snr} dB (phase 15)", steps, lambda f: f(rx), BATCH,
+                        "sf/s", card)
+        assert t["graph"]["host_launches"] <= 16, t["graph"]
+        log(f"sweep decode at {snr} dB (bench cell, batch {BATCH}; BLER "
+            f"{1.0 if snr < 20.0 else 0.0}): graph equal to --eager bit for bit on two batches "
+            f"(launches {json.dumps(dict(n))}, MAP rows), first call {first_s:.2f} s; sf/s "
+            f"{t['graph']['rate']} vs {t['eager']['rate']} (x "
+            f"{t['graph']['rate'] / t['eager']['rate']:.2f}), CUDA-event ms per decode "
+            f"{t['graph']['event_ms']} vs {t['eager']['event_ms']}, host launches "
+            f"{t['graph']['host_launches']} vs {t['eager']['host_launches']}, device ms "
+            f"{t['graph']['device_ms']} vs {t['eager']['device_ms']}; {card}")
+    return launches
 
 
 def phase_entry_points(dev, card, known):
@@ -3957,12 +4065,22 @@ def phase_entry_points(dev, card, known):
     log(f"number of record: {rec['value']} sf/s decode (median of {rec['median_of']}, spread "
         f"{rec['spread_pct']} %), device {rec['device_ms']} ms per call (CUDA events), "
         f"compile {rec['compile_s']} s ({rec['cache_state']}); {card}")
-    log("SNR sweep (batch 128, 10 calls each; beside five other processes): " + json.dumps(
-        results["snr_sweep"][-1]["snr_sweep"]))
+    rows, eager_rows = (results[k][-1]["snr_sweep"] for k in ("snr_sweep", "snr_sweep_eager"))
+    assert [(r["bler"], r["turbo_map_launches"]) for r in rows] == [
+        (r["bler"], r["turbo_map_launches"]) for r in eager_rows], (rows, eager_rows)
+    log("SNR sweep (batch 128, 10 calls each; beside five other processes), graphed (14 graphs) "
+        "then --eager, the same BLER and launches per decode at every SNR: " + json.dumps(
+            [{"snr_db": r["snr_db"], "bler": r["bler"], "sf_per_s": [r["sf_per_s"],
+                                                                     e["sf_per_s"]],
+              "device_ms": [r["device_ms"], e["device_ms"]],
+              "turbo_map_launches": r["turbo_map_launches"]} for r, e in zip(rows, eager_rows)]))
     paced = results["bench_waveform_paced"][-1]
     log(f"paced: headroom {paced['value']}x, {paced['deadline_misses']} deadline misses in "
         f"{paced['blocks']} blocks of T={paced['block_ttis']}, compute {paced['compute_ms']} ms "
         f"per block; {card}")
+    t0 = time.perf_counter()
+    launches["sweep graphs"] = step_sweep_graphs(dev, card, logs)
+    log(f"phase 15: the sweep's decode graphed against eager in {time.perf_counter() - t0:.1f} s")
     log(f"phase 15 turbo_map launches by entry point {json.dumps(launches)}")
     t0 = time.perf_counter()
     cases = map_cases_logged(logs, known, dev, 15, card, select=every_map_shape)
@@ -3972,16 +4090,20 @@ def phase_entry_points(dev, card, known):
 
 
 # phase 16 (slice 17): the three profiling entry points at their JAX twins'
-# defaults, each as `python -m` through MODULE_LOGGED (profile_turbo alone,
-# since it times both kernels; then profile_mimo and profile_dynblock
-# together), the options the port had folded into constants, and
-# WaveUePhy's per-UE fallback
+# defaults, each as `python -m` through MODULE_LOGGED, each alone (the
+# profilers time the card): profile_turbo (it times both kernels),
+# profile_stages and profile_mimo, each with its stages as replayed graphs
+# (the default) and then with --eager, then profile_dynblock; the options
+# the port had folded into constants, and WaveUePhy's per-UE fallback
 PROFILE_TIMEOUT_S = 300
-PROFILE_GROUPS = (
-    (("profile_turbo", "srslte_emane_tpu_torch.scripts.profile_turbo", ()),),
-    tuple((name, f"srslte_emane_tpu_torch.scripts.{name}", ())
-          for name in ("profile_mimo", "profile_dynblock")),
-)
+PROFILERS = ("profile_turbo", "profile_stages", "profile_mimo")
+PROFILE_GROUPS = tuple(
+    ((f"{name}{tag}", f"srslte_emane_tpu_torch.scripts.{name}", args),)
+    for name in PROFILERS for tag, args in (("", ()), ("_eager", ("--eager",)))) + (
+    (("profile_dynblock", "srslte_emane_tpu_torch.scripts.profile_dynblock", ()),),)
+# the graphs each profiler captures: one per jit of its JAX twin (the
+# fixed-iteration jits once per count; profile_mimo's two set-up jits too)
+PROFILE_GRAPHS = dict(profile_turbo=6, profile_stages=12, profile_mimo=8)
 # the UEs of phase 11's dynamic cell (100 PRB, cfi 2: 50 CCEs) that
 # feasible_rntis places at each PDCCH aggregation level: the most of 8, 6,
 # 4, 2 for which the greedy search found a set (8 at L=2 takes ~36 s of
@@ -3997,7 +4119,12 @@ def profile_checks(label, out, card_name):
     from srslte_emane_tpu_torch.scripts import profile_turbo
 
     assert out["backend"] == "cuda" and out["device"] == card_name, out
-    if label == "profile_turbo":
+    name = label.removesuffix("_eager")
+    if name in PROFILE_GRAPHS:  # one graph per jit, none with --eager
+        assert out["captured_graphs"] == (0 if label.endswith("_eager") else
+                                          PROFILE_GRAPHS[name]), out
+        assert all(v["ms"] > 0 for v in out["stages"].values()), out
+    if name == "profile_turbo":
         st = out["stages"]
         assert (out["n_cb"], out["k"], out["n_windows"]) == (1024, 5568, 32), out
         per_call = {k: (v["turbo_map_launches"], v["turbo_map_v1_launches"]) for k, v in st.items()}
@@ -4007,10 +4134,11 @@ def profile_checks(label, out, card_name):
         assert per_call[profile_turbo.fixed(2)] == (4, 0), per_call
         # random LLRs, no CRC passes: the loop's 16 slots, all run
         assert per_call[profile_turbo.EARLY] == (16, 0), per_call
-        assert all(v["ms"] > 0 for v in st.values()), st
-    elif label == "profile_mimo":
-        assert len(out["stages"]) == 6 and all(v["ms"] > 0 for v in out["stages"].values()), out
+    elif name == "profile_mimo":
+        assert len(out["stages"]) == 6, out
         assert out["sf_per_s"] > 0 and out["batch"] == 32, out
+    elif name == "profile_stages":
+        assert len(out["stages"]) == 12 and out["batch"] == 128, out
     else:
         var = out["variants"]
         assert list(out["ms_per_round"]) == ["full", "-viterbi", "-turbodec", "-turboenc",
@@ -4018,6 +4146,25 @@ def profile_checks(label, out, card_name):
         assert all(v > 0 for v in out["ms_per_round"].values()), out
         assert var["full"]["turbo_map_launches"] > 0, var
         assert var["-turbodec"]["turbo_map_launches"] == var["-all-fec"]["turbo_map_launches"] == 0
+
+
+def graphed_beside_eager(name, outs, card):
+    """Logs each stage of profiler `name` replayed beside its --eager run
+    (CUDA-event ms per call, the host's ms per call, the first call's s:
+    the capture's, or the eager call's), and holds their MAP launches per
+    call equal."""
+    graphed, eager = outs[name]["stages"], outs[f"{name}_eager"]["stages"]
+    assert list(graphed) == list(eager), (list(graphed), list(eager))
+    rows = {}
+    for label, g in graphed.items():
+        e = eager[label]
+        for key in ("turbo_map_launches", "turbo_map_v1_launches"):
+            assert g.get(key) == e.get(key), (name, label, key, g, e)
+        rows[label] = dict(ms=[g["ms"], e["ms"]], host_ms=[g["host_ms"], e["host_ms"]],
+                           ms_ratio=round(e["ms"] / g["ms"], 2),
+                           first_s=[round(g["first_s"], 2), round(e["first_s"], 2)])
+    log(f"{name}: each stage replayed ({PROFILE_GRAPHS[name]} graphs) beside --eager, "
+        f"[graphed, eager] (ms_ratio = eager / graphed CUDA-event ms): {json.dumps(rows)}; {card}")
 
 
 def step_profiles(card, logs, v1_logs):
@@ -4028,24 +4175,26 @@ def step_profiles(card, logs, v1_logs):
     results = {}
     for group in PROFILE_GROUPS:
         results.update(run_logged(group, PROFILE_TIMEOUT_S))
-    launches = {}
+    launches, outs = {}, {}
     for label, (lines, notes, wall) in results.items():
         *lines, seen = lines
-        out = lines[-1]
+        out = outs[label] = lines[-1]
         profile_checks(label, out, torch.cuda.get_device_name(0))
         shapes = [(k, r, bool(nw)) for k, r, nw in seen["shapes"]]
         v1_shapes = [tuple(x) for x in seen["v1_shapes"]]
         assert shapes, f"{label}: no turbo_map launch"
-        assert bool(v1_shapes) == (label == "profile_turbo"), (label, len(v1_shapes))
+        assert bool(v1_shapes) == label.startswith("profile_turbo"), (label, len(v1_shapes))
         launches[label] = (len(shapes), len(v1_shapes))
         logs.extend(shapes)
         v1_logs.extend(v1_shapes)
-        if label == "profile_turbo":
+        if label.startswith("profile_turbo"):
             assert set(v1_shapes) == {(5568, 1024, 32)}, set(v1_shapes)
             assert {(k, r) for k, r, _ in shapes} == {(5568, 1024)}, set(shapes)
         log(f"{label} (python -m, its defaults): done after {wall:.1f} s wall: "
             f"{json.dumps(out)}; {' '.join(notes)[-800:]}; turbo_map launches {len(shapes)} at "
             f"{len(set(shapes))} shapes, turbo_map_v1 launches {len(v1_shapes)}; {card}")
+    for name in PROFILERS:
+        graphed_beside_eager(name, outs, card)
     return launches
 
 

@@ -124,7 +124,8 @@ def _device_seed(base: int, node: int, sf: int) -> int:
     return int(np.random.SeedSequence([base, node, sf]).generate_state(1, np.uint64)[0])
 
 
-def make_link_step_sharded(cfg: LinkConfig, mesh, use_kernel: bool | None = None):
+def make_link_step_sharded(cfg: LinkConfig, mesh, use_kernel: bool | None = None,
+                           jit: bool = True):
     """link_step over a device mesh (parallel/mesh.py): each device runs the
     whole pipeline on its slice of the batch (split over the flattened
     ('node', 'sf') axes), so a step moves nothing between devices: it is
@@ -134,19 +135,30 @@ def make_link_step_sharded(cfg: LinkConfig, mesh, use_kernel: bool | None = None
     batch order (mesh.gather: on the card for a 1-card mesh, on the host for
     several).  `gen` draws one seed per step; position
     (node, sf) draws its channel noise from a generator on its own device
-    seeded from that seed and its coordinates."""
+    seeded from that seed and its coordinates.  As the reference jits the
+    step, each position runs its slice as a `graphs.jit` step on its
+    device (on a card one CUDA graph per slice shape, the position's
+    generator its generator argument), bit for bit with jit=False, the
+    eager step; the seed's draw (a host read), the placement of the slices
+    and the gather stay outside the graphs.  use_kernel=False (the plain
+    decoder, whose loop reads on the host) runs eagerly, as
+    make_link_step's does."""
     from ..parallel import mesh as mesh_mod
 
     n_sf = mesh.shape["sf"]
+    body = functools.partial(link_step, cfg=cfg, use_kernel=use_kernel)
+    graphed = jit and use_kernel is not False
+    runs = [graphs.jit(body, dev) if graphed else body for dev in mesh.devices]
 
     def step(payload, gen: torch.Generator):
         shards = mesh_mod.batch_sharding(mesh, payload)
         base = int(torch.randint(0, 2 ** 62, (1,), generator=gen, device=gen.device))
         outs = []
-        for pos, (p, dev) in enumerate(zip(shards, mesh.devices)):
+        for pos, (p, dev, run) in enumerate(zip(shards, mesh.devices, runs)):
             g = torch.Generator(device=dev)
             g.manual_seed(_device_seed(base, *divmod(pos, n_sf)))
-            outs.append(link_step(p, g, cfg, use_kernel=use_kernel))
+            outs.append(run(p, g))
         return tuple(mesh_mod.gather([o[i] for o in outs]) for i in range(3))
 
+    step.positions = runs
     return step

@@ -188,6 +188,27 @@ def beta_tail(tail_x: torch.Tensor, tail_z: torch.Tensor) -> torch.Tensor:
     return 0.5 * acc
 
 
+@table_cache(188)
+def _map_tables(k: int, device: torch.device):
+    """`_map_decode`'s index tables for size k on `device` (copied there
+    once, so a CUDA graph can capture the pass): the trellis's combo and
+    state gathers, then the two halos' positions in the padded gammas."""
+    T = _trellis()
+    idx = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    ns, pz = T["next_state"], T["parity"]
+    ps, pu = T["prev_state"], T["prev_u"]
+    W = _pick_windows(k)
+    L = k // W
+    H = min(HALO, L)
+    pos = np.arange(W)[:, None] * L
+    return (idx(pu * 2 + pz[ps, pu]),  # (8,2) for the alpha gather
+            idx(np.arange(2)[None, :] * 2 + pz),  # (8,2) for beta
+            idx(np.arange(2)[:, None] * 2 + pz.T),  # (2,8)
+            idx(ns), idx(ps), idx(ns.T),
+            idx((pos + np.arange(-H, 0)[None, :] + H).reshape(-1)),
+            idx((pos + np.arange(L, L + H)[None, :] + H).reshape(-1)))
+
+
 def _map_decode(ls_eff: torch.Tensor, lp: torch.Tensor, tail_x: torch.Tensor,
                 tail_z: torch.Tensor) -> torch.Tensor:
     """One max-log-MAP pass (plain twin of the reference's `_map_decode`).
@@ -196,25 +217,15 @@ def _map_decode(ls_eff: torch.Tensor, lp: torch.Tensor, tail_x: torch.Tensor,
     tail_x/tail_z: (B, 3) tail systematic/parity LLRs for this encoder.
     Returns posterior LLRs (B, K).
     """
-    T = _trellis()
     B, K = ls_eff.shape
     W = _pick_windows(K)
     L = K // W
     H = min(HALO, L)
     dev = ls_eff.device
-    idx = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-    ns, pz = T["next_state"], T["parity"]
-    ps, pu = T["prev_state"], T["prev_u"]
-    combo_fwd = idx(pu * 2 + pz[ps, pu])  # (8,2) for the alpha gather
-    combo_bwd = idx(np.arange(2)[None, :] * 2 + pz)  # (8,2) for beta
-    combo_all = idx(np.arange(2)[:, None] * 2 + pz.T)  # (2,8)
-    ns_i, ps_i, ns_t = idx(ns), idx(ps), idx(ns.T)
+    combo_fwd, combo_bwd, combo_all, ns_i, ps_i, ns_t, a_halo, b_halo = _map_tables(K, dev)
 
     g = _gammas(ls_eff, lp)  # (B, K, 4)
     g_pad = torch.nn.functional.pad(g, (0, 0, H, H))  # zero gammas outside
-    pos = np.arange(W)[:, None] * L
-    a_halo = idx((pos + np.arange(-H, 0)[None, :] + H).reshape(-1))
-    b_halo = idx((pos + np.arange(L, L + H)[None, :] + H).reshape(-1))
     ga_halo = g_pad[:, a_halo].reshape(B, W, H, 4)
     gb_halo = g_pad[:, b_halo].reshape(B, W, H, 4)
     g_win = g.reshape(B, W, L, 4)
@@ -251,8 +262,7 @@ def _map_decode(ls_eff: torch.Tensor, lp: torch.Tensor, tail_x: torch.Tensor,
     alpha = ls_eff.new_zeros((B, W, 8))
     for i in range(H):
         alpha = alpha_step(alpha, ga_halo[:, :, i], norm_at(i))
-    exact0 = torch.full((8,), NEG, dtype=ls_eff.dtype, device=dev)
-    exact0[0] = 0.0
+    exact0 = torch.cat([ls_eff.new_zeros((1,)), ls_eff.new_full((7,), NEG)])
     alpha[:, 0] = exact0
     llr = []
     for t in range(L):
@@ -384,7 +394,7 @@ def turbo_decode_device(d0: torch.Tensor, d1: torch.Tensor, d2: torch.Tensor,
 def turbo_decode(d0: torch.Tensor, d1: torch.Tensor, d2: torch.Tensor,
                  valid: torch.Tensor, k: int, max_iter: int = 8,
                  crc: tuple = crc_mod.LTE_CRC24B, use_kernel: bool | None = None,
-                 llr_bits: int = 32):
+                 llr_bits: int = 32, read: bool = True):
     """Decode a batch of code blocks with CRC-gated early stop.
 
     d0/d1/d2: (B, K+4) LLRs (systematic/parity1/parity2 + tails), positive=bit 0.
@@ -398,11 +408,17 @@ def turbo_decode(d0: torch.Tensor, d1: torch.Tensor, d2: torch.Tensor,
     Returns (bits (B, K) int8 hard decisions, crc_pass (B,) bool, n_iter int).
 
     `turbo_decode_device` and one read at the end, of n_iter and of the
-    MAP rows, which join `map_rows`.
+    MAP rows, which join `map_rows`.  read=False skips that read, as
+    `sch.decode_tb(read=False)` does (a CUDA graph can capture the whole
+    decode): n_iter is then a 0-d int32 tensor on the decode's device and
+    the rows are counted there (`count_rows`, read by `read_map_rows`).
     """
     global map_rows
     bits, ok, n_iter, rows = turbo_decode_device(d0, d1, d2, valid, k, max_iter, crc,
                                                  use_kernel, llr_bits)
+    if not read:
+        count_rows(rows)
+        return bits, ok, n_iter
     n_iter, rows = torch.stack([n_iter, rows]).tolist()
     map_rows += rows
     return bits, ok, n_iter

@@ -495,7 +495,7 @@ def make_block_step(cfg: BlockConfig, sfn0: int = 0, device="cuda", jit: bool = 
     return graphs.jit(step, dev) if jit and cfg.use_kernel is not False else step
 
 
-def make_block_step_sharded(cfg: BlockConfig, mesh, cell_ids, sfn0: int = 0):
+def make_block_step_sharded(cfg: BlockConfig, mesh, cell_ids, sfn0: int = 0, jit: bool = True):
     """MULTI-CELL block step: one cell per mesh device (parallel/mesh.py),
     over the flattened ('node', 'sf') axes, the waveform network's scaling
     path (SURVEY §2.8: 'node' shards emulated cells).  Each device holds its
@@ -511,19 +511,29 @@ def make_block_step_sharded(cfg: BlockConfig, mesh, cell_ids, sfn0: int = 0):
              1-card mesh, on the host for several),
              consts: the C cells' tables, each on its device)
     where C = number of devices in the mesh.
+    As the reference jits the step, each cell runs as a `graphs.jit` step
+    on its device (jit, the default: on a card one CUDA graph per set of
+    input shapes, tti0 filled into a device tensor, the cell's generator
+    its generator argument), bit for bit with jit=False, the eager step;
+    the copies of dl and ul to each device and the gather stay outside the
+    graphs.  cfg.use_kernel=False runs eagerly, as make_block_step's does.
     """
     from ..parallel import mesh as mesh_mod
 
     assert len(cell_ids) == mesh.size, (len(cell_ids), mesh.size)
     cfgs = [cfg._replace(cell=dataclasses.replace(cfg.cell, cell_id=int(cid))) for cid in cell_ids]
     consts = [_on(_cell_consts(c, sfn0), dev) for c, dev in zip(cfgs, mesh.devices)]
+    graphed = jit and cfg.use_kernel is not False
+    runs = [functools.partial(_step_body, c, k) for c, k in zip(cfgs, consts)]
+    runs = [graphs.jit(r, dev) if graphed else r for r, dev in zip(runs, mesh.devices)]
 
     def step(dl, ul, gens, tti0):
-        outs = [_step_body(cfgs[k], consts[k], torch.as_tensor(dl[k]).to(dev),
-                           torch.as_tensor(ul[k]).to(dev), gens[k], tti0)
+        outs = [runs[k](torch.as_tensor(dl[k]).to(dev), torch.as_tensor(ul[k]).to(dev), gens[k],
+                        tti0)
                 for k, dev in enumerate(mesh.devices)]
         return {key: mesh_mod.gather([o[key][None] for o in outs]) for key in outs[0]}
 
+    step.positions = runs
     return step, consts
 
 

@@ -17,12 +17,33 @@ import typing
 import torch
 
 
-def parser(doc: str) -> argparse.ArgumentParser:
-    """An argument parser with the entry points' one flag, --cpu."""
+def parser(doc: str, eager: bool = False) -> argparse.ArgumentParser:
+    """An argument parser with the entry points' flag --cpu, and with
+    `eager` the flag --eager of the scripts whose JAX twins time jitted
+    steps (`jit`)."""
     ap = argparse.ArgumentParser(description=doc.strip().splitlines()[0])
     ap.add_argument("--cpu", action="store_true",
                     help="run on the CPU (device='cpu') instead of the card")
+    if eager:
+        ap.add_argument("--eager", action="store_true",
+                        help="run each jitted step eagerly, op by op from the host (the plain "
+                             "version its CUDA graph is held against)")
     return ap
+
+
+def jit(fn, eager: bool = False):
+    """fn as the JAX script's `jax.jit(fn)`: a `graphs.jit` step (on the
+    card one CUDA graph per argument signature, captured at its first call
+    and replayed at every call; off the card fn itself), or with `eager`
+    fn run op by op."""
+    from ..runtime import graphs
+
+    return fn if eager else graphs.jit(fn)
+
+
+def captured(steps) -> int:
+    """The CUDA graphs that the `jit` steps among `steps` captured."""
+    return sum(len(getattr(s, "graphs", ())) for s in steps)
 
 
 def device(cpu: bool, who: str) -> torch.device:
@@ -128,17 +149,22 @@ def kernel_time(fn, dev: torch.device):
 
 
 def profile_stage(fn, n: int, dev: torch.device):
-    """One untimed call of fn, then `per_call_ms` over n calls with the MAP
-    kernels' launches counted: (the untimed call's output, {"ms" (CUDA
-    events, None on the CPU), "host_ms", "turbo_map_launches",
-    "turbo_map_v1_launches"}, all per call)."""
+    """One untimed call of fn (a `jit` step's capture), then `per_call_ms`
+    over n calls with the MAP kernels' launches counted (a replay counts
+    its graph's): (the untimed call's output, {"ms" (CUDA events, None on
+    the CPU), "host_ms", "turbo_map_launches", "turbo_map_v1_launches"},
+    all per call, and "first_s", the untimed call's host seconds)."""
     from ..ops.fec import turbodecoder_cuda as tdc
 
+    sync(dev)
+    t0 = time.perf_counter()
     out = fn()
+    sync(dev)
+    first_s = time.perf_counter() - t0
     tdc.launches = tdc.launches_v1 = 0
     host_ms, event_ms = per_call_ms(fn, n, dev)
     return out, dict(ms=event_ms, host_ms=host_ms, turbo_map_launches=tdc.launches / n,
-                     turbo_map_v1_launches=tdc.launches_v1 / n)
+                     turbo_map_v1_launches=tdc.launches_v1 / n, first_s=first_s)
 
 
 def stage_ms(rec: dict) -> float:

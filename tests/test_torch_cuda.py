@@ -1573,12 +1573,14 @@ def _block_call(step, args, gen):  # args (dl, ul, tti0)
     return step(args[0], args[1], gen, args[2])
 
 
-def _graph_against_eager(dev, graph, eager, inputs, call=_link_call):
+def _graph_against_eager(dev, graph, eager, inputs, call=_link_call,
+                         graphs_of=lambda step: step.graphs):
     """Each input tuple through the graphed and the eager step (`call`) on
     generators seeded alike: every output bit for bit, the generators left
     in equal states, the launch counts and MAP rows of each call equal (the
-    first call, which captures, first: its warm-up's launches count on top).
-    Returns the graphed step's outputs."""
+    first call, which captures, first: its warm-up's launches count on top);
+    the graphed step's graphs (`graphs_of`) one.  Returns the graphed
+    step's outputs."""
     call(graph, inputs[0], _gens(dev, 0)[0])  # the capture
     outs = []
     for i, args in enumerate(inputs):
@@ -1596,7 +1598,7 @@ def _graph_against_eager(dev, graph, eager, inputs, call=_link_call):
         assert all(torch.equal(x, y) for x, y in zip(sa, sb))
         assert ca == cb and ca[0] > 0, (ca, cb)
         outs.append(a)
-    assert len(graph.graphs) == 1  # one capture for one signature
+    assert len(graphs_of(graph)) == 1  # one capture for one signature
     return outs
 
 
@@ -1688,6 +1690,143 @@ def test_sps_block_graph_equals_the_eager_block(dev, tm3):
                                        inputs, _block_call):
         n = cfg.T * cfg.n_ues
         assert [int(c) for c in counts] == [n * (2 if tm3 else 1), n, n]
+
+
+@pytest.mark.parametrize("snr_db", [8.0, 20.0], ids=["8dB", "20dB"])
+def test_sweep_decode_graph_equals_eager(dev, snr_db):
+    """scripts/snr_sweep's decode (snr_case: the bench cell, batch 16) as a
+    replayed graph against the eager decode on two received batches: bits,
+    CRC flags, launches and MAP rows bit for bit; the encode's graph gives
+    the eager encode's samples; at 8 dB every row fails (the whole budget,
+    the cascade), at 20 dB every row decodes."""
+    from srslte_emane_tpu_torch.scripts import snr_sweep
+
+    tbs = snr_sweep.bench.bench_config(16).tbs
+    rng = np.random.default_rng(9)
+    payloads = [torch.from_numpy(rng.integers(0, 2, (16, tbs), dtype=np.int8)).to(dev)
+                for _ in range(2)]
+    tx_fn, rx_fn, rx = snr_sweep.snr_case(snr_db, payloads[0])
+    _, rx_eager, rx_ref = snr_sweep.snr_case(snr_db, payloads[0], eager=True)
+    assert torch.equal(rx, rx_ref) and len(tx_fn.graphs) == 1
+    other = snr_sweep.snr_case(snr_db, payloads[1], eager=True)[2]
+    outs = _graph_against_eager(dev, rx_fn, rx_eager, [(rx,), (other,)],
+                                lambda step, a, gen: step(*a))
+    assert len(rx_fn.graphs) == 1
+    for (out, ok), p in zip(outs, payloads):
+        if snr_db == 20.0:
+            assert bool(ok.all()) and torch.equal(out, p)
+        else:
+            assert not bool(ok.any())
+
+
+def _flat(x):
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if isinstance(x, dict):
+        return [t for k in sorted(x) for t in _flat(x[k])]
+    if isinstance(x, (tuple, list)):
+        return [t for v in x for t in _flat(v)]
+    return []
+
+
+def _profiler_runs(name, dev, eager):
+    """Each stage of a profiling script (at a batch a test can afford) called
+    twice on the outputs of the earlier stages' first calls: {label: (the
+    second call's output, the launch counts of that call)}, and the steps."""
+    from srslte_emane_tpu_torch.ops.fec import turbo_iter_cuda
+    from srslte_emane_tpu_torch.scripts import profile_mimo, profile_stages, profile_turbo
+
+    outs, res = {}, {}
+    if name == "profile_stages":
+        ctx = profile_stages.setup(4, dev)
+        stages, steps = profile_stages.stages(ctx, outs, eager), ctx["steps"]
+    elif name == "profile_mimo":
+        ctx = profile_mimo.setup(4, dev, eager=eager)
+        stages, steps = profile_mimo.stages(ctx, outs, eager), ctx["steps"]
+    else:
+        inp = profile_turbo.inputs(64, 5568, dev)
+        stages, steps = profile_turbo.stages(inp, eager).items(), inp["steps"]
+    counts = lambda: (turbodecoder_cuda.launches, turbodecoder_cuda.launches_v1,
+                      turbo_iter_cuda.launches, turbo_iter_cuda.arm_launches)
+    for label, fn in stages:
+        outs[label] = fn()
+        torch.cuda.synchronize()
+        before = counts()
+        out = fn()
+        torch.cuda.synchronize()
+        res[label] = out, [a - b for a, b in zip(counts(), before)]
+    return res, steps
+
+
+@pytest.mark.parametrize("name", ["profile_stages", "profile_mimo", "profile_turbo"])
+def test_profiler_stage_graphs_equal_eager(dev, name):
+    """Each profiler's stage jits on the card (one graph each: 12, 8 with
+    the set-up jits, and 6) against the same stages run eagerly (--eager):
+    each replay's outputs bit for bit, its launches of turbo_map, turbo_map_v1,
+    the epilogue and the arm equal to the eager call's."""
+    graphed, steps = _profiler_runs(name, dev, False)
+    eager, eager_steps = _profiler_runs(name, dev, True)
+    assert list(graphed) == list(eager)
+    assert [len(s.graphs) for s in steps] == [1] * len(steps)
+    assert len(steps) == {"profile_stages": 12, "profile_mimo": 8, "profile_turbo": 6}[name]
+    assert not any(hasattr(s, "graphs") for s in eager_steps)
+    for label, (out, launches) in graphed.items():
+        ref, ref_launches = eager[label]
+        a, b = _flat(out), _flat(ref)
+        assert len(a) == len(b) > 0, label
+        assert all(x.device.type == "cuda" and torch.equal(x, y) for x, y in zip(a, b)), label
+        assert launches == ref_launches, (label, launches, ref_launches)
+    if name == "profile_turbo":
+        from srslte_emane_tpu_torch.scripts import profile_turbo
+
+        assert graphed[profile_turbo.MAP_V1][1][:2] == [0, 1]
+        assert graphed[profile_turbo.MAP][1][:2] == [1, 0]
+        assert graphed[profile_turbo.EARLY][1][0] == 16
+
+
+def test_sharded_link_graph_equals_the_eager_sharded_step(dev):
+    """make_link_step_sharded on a 1-card mesh (one graph for its position)
+    against jit=False, on generators seeded alike, on two payloads: bits,
+    CRC flags, snr_db, the generators, launches and MAP rows bit for bit."""
+    from srslte_emane_tpu_torch.models import pdsch_link
+    from srslte_emane_tpu_torch.parallel import mesh as mesh_mod
+
+    cfg = _link_cfg(20.0)
+    mesh = mesh_mod.make_mesh(1)
+    rng = np.random.default_rng(10)
+    payloads = [torch.from_numpy(rng.integers(0, 2, (16, cfg.tbs), dtype=np.int8)).to(dev)
+                for _ in range(2)]
+    step = pdsch_link.make_link_step_sharded(cfg, mesh)
+    outs = _graph_against_eager(dev, step, pdsch_link.make_link_step_sharded(cfg, mesh, jit=False),
+                                [(p,) for p in payloads],
+                                graphs_of=lambda s: s.positions[0].graphs)
+    assert len(step.positions) == 1 and mesh.transfers == 0
+    for (out, ok, _), p in zip(outs, payloads):
+        assert bool(ok.all()) and torch.equal(out, p)
+
+
+def test_sharded_block_graph_equals_the_eager_sharded_step(dev):
+    """make_block_step_sharded, 1 cell on a 1-card mesh (chip_smoke.py's SPS
+    cell, T=8), graphed against jit=False at tti0 0 and 37 on other
+    payloads: every output bit for bit, the generators, launches and MAP
+    rows equal."""
+    from srslte_emane_tpu_torch.parallel import mesh as mesh_mod
+    from srslte_emane_tpu_torch.runtime import waveblock
+
+    cfg = _chip_smoke().sps_config(8)
+    mesh = mesh_mod.make_mesh(1)
+    inputs = [(*(x[None] for x in _block_inputs(cfg, dev, seed)), tti0)
+              for seed, tti0 in ((0, 0), (1, 37))]
+    step, _ = waveblock.make_block_step_sharded(cfg, mesh, (cfg.cell.cell_id,), sfn0=4)
+    eager, _ = waveblock.make_block_step_sharded(cfg, mesh, (cfg.cell.cell_id,), sfn0=4,
+                                                 jit=False)
+    outs = _graph_against_eager(dev, step, eager, inputs,
+                                lambda s, a, gen: s(a[0], a[1], [gen], a[2]),
+                                graphs_of=lambda s: s.positions[0].graphs)
+    assert len(step.positions) == 1 and mesh.transfers == 0
+    for out, (dl, ul, _) in zip(outs, inputs):
+        assert bool(out["dl_ok"].all()) and bool(out["ul_ok"].all())
+        assert torch.equal(out["dl_out"], dl) and torch.equal(out["ul_out"], ul)
 
 
 def test_graphed_steps_make_no_host_sync(dev):
