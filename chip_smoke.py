@@ -4770,9 +4770,10 @@ def device_profile(fn, what):
 def loop_case(label, args, flush):
     """One path's turbo_decode call, by both loops: the device loop under
     set_sync_debug_mode("error") and the host loop (turbo_decode_host, the
-    pre-device-loop driver) give the same bits, CRC flags, n_iter and MAP
-    rows; per decode each loop's host syncs, kernel launches and device ms
-    (torch.profiler) and host-clock ms (synchronised, in turns)."""
+    pre-device-loop driver) give the same bits, CRC flags, n_iter, MAP
+    passes and MAP rows; per decode each loop's host syncs, kernel
+    launches and device ms (torch.profiler) and host-clock ms
+    (synchronised, in turns)."""
     import torch
 
     from srslte_emane_tpu_torch.ops.fec import turbodecoder
@@ -4784,16 +4785,17 @@ def loop_case(label, args, flush):
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        bits, ok, n_iter, rows = turbodecoder.turbo_decode_device(**kw)
+        bits, ok, n_iter, (passes, rows) = turbodecoder.turbo_decode_device(**kw)
     finally:
         torch.cuda.set_sync_debug_mode(0)
-    turbodecoder.map_rows = 0
+    turbodecoder.map_rows = turbodecoder.map_passes = 0
     (h_bits, h_ok, h_iter), h_syncs = count_syncs(host)
-    h_rows = turbodecoder.map_rows
+    h_rows, h_passes = turbodecoder.map_rows, turbodecoder.map_passes
     (_, _, d_iter), d_syncs = count_syncs(new)
     assert torch.equal(bits, h_bits) and torch.equal(ok, h_ok), f"{label}: the loops disagree"
-    assert int(n_iter) == h_iter == d_iter and int(rows) == h_rows, \
-        f"{label}: n_iter {int(n_iter)} / {h_iter}, MAP rows {int(rows)} / {h_rows}"
+    assert int(n_iter) == h_iter == d_iter and int(rows) == h_rows and int(passes) == h_passes, \
+        (f"{label}: n_iter {int(n_iter)} / {h_iter}, MAP rows {int(rows)} / {h_rows}, "
+         f"MAP passes {int(passes)} / {h_passes}")
     assert d_syncs == 1, f"{label}: turbo_decode made {d_syncs} synchronising reads"
     what = f"{label} {kw['d0'].shape[0]} x K={kw['k']}"
     h_kernels, h_dev, h_names = device_profile(host, what + ", host loop")

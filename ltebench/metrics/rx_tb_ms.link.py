@@ -1,0 +1,9 @@
+"""The decode's code-block reassembly and TB CRC: the mean ms a call of the
+program's stage span `rx.tb` (utils/trace.py) in the traced pass of
+`ltebench/spans.py`."""
+
+from ltebench import spans
+
+
+def read(ctx):
+    return spans.mean_ms(ctx, "rx.tb")

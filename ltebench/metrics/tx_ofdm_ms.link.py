@@ -1,0 +1,9 @@
+"""The encode's OFDM modulation: the mean ms a call of the program's stage
+span `tx.ofdm` (utils/trace.py) in the traced pass of
+`ltebench/spans.py`."""
+
+from ltebench import spans
+
+
+def read(ctx):
+    return spans.mean_ms(ctx, "tx.ofdm")

@@ -20,6 +20,7 @@ from ..ops import channel, ofdm
 from ..phch import grid as grid_mod
 from ..phch import pdsch, sch
 from ..runtime import graphs
+from ..utils import trace
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,20 +60,29 @@ class LinkConfig:
 
 
 def tx_subframe(payload: torch.Tensor, cfg: LinkConfig) -> torch.Tensor:
-    """(B, tbs) bits -> (B, SF_LEN, 2) time-domain eNB subframe."""
-    g = pdsch.encode(payload, cfg.sch_cfg, cfg.cell, cfg.sf_idx, cfg.rnti, cfg.prb_mask)
-    return ofdm.modulate(g, cfg.cell.n_prb)
+    """(B, tbs) bits -> (B, SF_LEN, 2) time-domain eNB subframe.  Traced
+    (utils/trace.py), the stage `link.tx_subframe` with the phases
+    `tx.fec` and `tx.map` (`pdsch.encode`), then `tx.ofdm`."""
+    with trace.stage("link.tx_subframe", payload.device):
+        g = pdsch.encode(payload, cfg.sch_cfg, cfg.cell, cfg.sf_idx, cfg.rnti, cfg.prb_mask)
+        trace.phase("tx.ofdm")
+        return ofdm.modulate(g, cfg.cell.n_prb)
 
 
 def rx_subframe(samples: torch.Tensor, cfg: LinkConfig, softbuf=None,
                 use_kernel: bool | None = None):
-    """(B, SF_LEN, 2) -> (payload (B, tbs), ok (B,), softbuf, chest)."""
-    g = ofdm.demodulate(samples, cfg.cell.n_prb)
-    return pdsch.decode(
-        g, cfg.sch_cfg, cfg.cell, cfg.sf_idx, cfg.rnti, cfg.prb_mask,
-        softbuf=softbuf, max_iter=cfg.max_iter, use_kernel=use_kernel,
-        llr_bits=cfg.llr_bits,
-    )
+    """(B, SF_LEN, 2) -> (payload (B, tbs), ok (B,), softbuf, chest).
+    Traced (utils/trace.py), the stage `link.rx_subframe` with the phase
+    `rx.ofdm`, then `pdsch.decode`'s `rx.chest`, `rx.llr`, `rx.turbo` and
+    `rx.tb`."""
+    with trace.stage("link.rx_subframe", samples.device):
+        trace.phase("rx.ofdm")
+        g = ofdm.demodulate(samples, cfg.cell.n_prb)
+        return pdsch.decode(
+            g, cfg.sch_cfg, cfg.cell, cfg.sf_idx, cfg.rnti, cfg.prb_mask,
+            softbuf=softbuf, max_iter=cfg.max_iter, use_kernel=use_kernel,
+            llr_bits=cfg.llr_bits,
+        )
 
 
 def link_step(payload: torch.Tensor, gen: torch.Generator, cfg: LinkConfig,

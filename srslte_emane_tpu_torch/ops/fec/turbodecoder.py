@@ -55,37 +55,58 @@ EXT_SCALE = 0.75  # extrinsic damping (kept in both modes)
 # batch rows of every pass that ran, added after turbo_decode's read;
 # callers reset it): what the cascade saves.
 map_rows = 0
-# The rows of `sch.decode_tb`'s decodes, which read nothing: a 0-d count on
-# each decode's device, added to there (a captured decode adds at every
-# replay).  `read_map_rows` folds them into map_rows; `reset_map_rows`
-# zeroes both.
-_device_rows = {}
+# MAP passes that ran (half-iterations), counted as map_rows is, and the
+# MAP slots that decodes launched (2 * max_iter each, on the host when the
+# decode is enqueued; a graph's replays add what its capture counted,
+# runtime/graphs.COUNTERS).  Slots less passes are the idle slots, whose
+# run flag was clear.
+map_passes = 0
+map_slots = 0
+# The passes and rows of `sch.decode_tb`'s decodes, which read nothing: a
+# (2,) count on each decode's device, added to there (a captured decode
+# adds at every replay).  `read_map_rows` folds them into map_passes and
+# map_rows; `reset_map_rows` zeroes all of them and map_slots.
+_device_counts = {}
 
 
-def count_rows(rows: torch.Tensor) -> None:
-    """Adds a decode's MAP rows (`turbo_decode_device`'s 0-d tensor) to the
-    count on its device, on the device."""
-    acc = _device_rows.get(rows.device)
+def count_map(counts: torch.Tensor) -> None:
+    """Adds a decode's MAP passes and rows (`turbo_decode_device`'s (2,)
+    tensor) to the count on its device, on the device: one kernel."""
+    acc = _device_counts.get(counts.device)
     if acc is None:  # a decode's first call on a device is eager (a graph's warm-up)
-        acc = _device_rows[rows.device] = torch.zeros((), dtype=torch.int64, device=rows.device)
-    acc.add_(rows)
+        acc = _device_counts[counts.device] = torch.zeros(2, dtype=torch.int64,
+                                                          device=counts.device)
+    acc.add_(counts)
 
 
 def read_map_rows() -> int:
-    """map_rows, with the rows counted on each device folded in (one read
-    per device, which zeroes its count)."""
-    global map_rows
-    for acc in _device_rows.values():
-        map_rows += int(acc)
+    """map_rows, with the passes and rows counted on each device folded in
+    (one read per device, which zeroes its count)."""
+    global map_rows, map_passes
+    for acc in _device_counts.values():
+        passes, rows = acc.tolist()
+        map_passes += passes
+        map_rows += rows
         acc.zero_()
     return map_rows
 
 
+def read_map_passes() -> int:
+    """map_passes, with the device counts folded in (`read_map_rows`)."""
+    read_map_rows()
+    return map_passes
+
+
+def read_map_slots() -> int:
+    """map_slots: the MAP slots that the decodes launched (a host count)."""
+    return map_slots
+
+
 def reset_map_rows() -> None:
-    """map_rows and every device's count to 0."""
-    global map_rows
-    map_rows = 0
-    for acc in _device_rows.values():
+    """map_rows, map_passes, map_slots and every device's count to 0."""
+    global map_rows, map_passes, map_slots
+    map_rows = map_passes = map_slots = 0
+    for acc in _device_counts.values():
         acc.zero_()
 
 
@@ -343,9 +364,11 @@ def turbo_decode_device(d0: torch.Tensor, d1: torch.Tensor, d2: torch.Tensor,
     CPU, over the listed rows, and the epilogue `turbo_iter_ref`.
 
     Returns (bits (B, K) int8, crc_pass (B,) bool, n_iter 0-d int32,
-    map_rows 0-d int32: the MAP rows of the passes that ran), all on the
-    decode's device.
+    (passes, rows) (2,) int32: the MAP passes that ran and their rows, a
+    view of the loop's control words), all on the decode's device.  Adds
+    the loop's 2 * max_iter slots to `map_slots`.
     """
+    global map_slots
     from . import turbo_iter_cuda as ti
 
     B = d0.shape[0]
@@ -388,7 +411,8 @@ def turbo_decode_device(d0: torch.Tensor, d1: torch.Tensor, d2: torch.Tensor,
             post[idx] = plain_map(ls_in[idx], (lp1, lp2)[par][idx], t[:, :3], t[:, 3:])
             ti.turbo_iter_ref(post, ls_in, ls, ls2, perm32, inv32, masks, bits_out, done,
                               pass_out, ctl, rows, par, max_iter, n_stages)
-    return bits_out, pass_out & valid, (ctl[ti.H] + 1) // 2, ctl[ti.ROWS]
+    map_slots += 2 * max_iter
+    return bits_out, pass_out & valid, (ctl[ti.H] + 1) // 2, ctl[ti.H:ti.ROWS + 1:ti.ROWS - ti.H]
 
 
 def turbo_decode(d0: torch.Tensor, d1: torch.Tensor, d2: torch.Tensor,
@@ -408,18 +432,20 @@ def turbo_decode(d0: torch.Tensor, d1: torch.Tensor, d2: torch.Tensor,
     Returns (bits (B, K) int8 hard decisions, crc_pass (B,) bool, n_iter int).
 
     `turbo_decode_device` and one read at the end, of n_iter and of the
-    MAP rows, which join `map_rows`.  read=False skips that read, as
-    `sch.decode_tb(read=False)` does (a CUDA graph can capture the whole
-    decode): n_iter is then a 0-d int32 tensor on the decode's device and
-    the rows are counted there (`count_rows`, read by `read_map_rows`).
+    MAP passes and rows, which join `map_passes` and `map_rows`.
+    read=False skips that read, as `sch.decode_tb(read=False)` does (a
+    CUDA graph can capture the whole decode): n_iter is then a 0-d int32
+    tensor on the decode's device and the passes and rows are counted there
+    (`count_map`, read by `read_map_rows`).
     """
-    global map_rows
-    bits, ok, n_iter, rows = turbo_decode_device(d0, d1, d2, valid, k, max_iter, crc,
-                                                 use_kernel, llr_bits)
+    global map_rows, map_passes
+    bits, ok, n_iter, counts = turbo_decode_device(d0, d1, d2, valid, k, max_iter, crc,
+                                                   use_kernel, llr_bits)
     if not read:
-        count_rows(rows)
+        count_map(counts)
         return bits, ok, n_iter
-    n_iter, rows = torch.stack([n_iter, rows]).tolist()
+    n_iter, passes, rows = torch.cat([n_iter.reshape(1), counts]).tolist()
+    map_passes += passes
     map_rows += rows
     return bits, ok, n_iter
 
@@ -432,7 +458,10 @@ def turbo_decode_host(d0: torch.Tensor, d1: torch.Tensor, d2: torch.Tensor,
     (one read of the unfinished rows before every half-iteration, two more
     in the cascade), kept as the plain version of `turbo_decode`'s control
     flow: the card's tests and chip_smoke.py hold the device loop to it.
-    Same arguments and results as `turbo_decode`."""
+    Same arguments and results as `turbo_decode`, and the same counts
+    (map_rows, map_passes, map_slots), on the host."""
+    global map_slots
+    map_slots += 2 * max_iter
     B = d0.shape[0]
     ls, lp1, lp2, (tail_x1, tail_z1, tail_x2, tail_z2) = _split(d0, d1, d2, k, llr_bits)
     perm, inv_perm, _, _ = _device_perms(k, d0.device)
@@ -451,7 +480,7 @@ def turbo_decode_host(d0: torch.Tensor, d1: torch.Tensor, d2: torch.Tensor,
     def run(arrs, state, stop_count):
         """Half-iterations over one (possibly compacted) batch until at most
         stop_count of its rows are unfinished or the budget is spent."""
-        global map_rows
+        global map_rows, map_passes
         ls, lp1, lp2, tx1, tz1, tx2, tz2 = arrs
         h, ext, done, bits_out, pass_out = state
         ls2 = ls[:, perm]
@@ -468,6 +497,7 @@ def turbo_decode_host(d0: torch.Tensor, d1: torch.Tensor, d2: torch.Tensor,
                 ext = ((post - ls_in) * EXT_SCALE)[:, inv_perm]
                 bits = (post[:, inv_perm] < 0).to(torch.int8)
             map_rows += ls.shape[0]
+            map_passes += 1
             ok = torch.zeros_like(done) if crc is None else crc_mod.crc_ok(bits, crc)
             # latest hard decisions for unfinished CBs; freeze once passed
             bits_out = torch.where(done[:, None], bits_out, bits)

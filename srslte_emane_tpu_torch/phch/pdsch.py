@@ -19,6 +19,7 @@ import torch
 
 from ..ops import cplx, mimo, modem, scrambling
 from ..ops.fec import turbodecoder as _td
+from ..utils import trace
 from ..utils.devices import row, table_cache
 from . import chest, grid as grid_mod, sch
 
@@ -99,7 +100,11 @@ def encode(tb_bits: torch.Tensor, cfg: sch.SchConfig, cell: grid_mod.CellConfig,
     (TDD DwPTS); codeword_q picks the scrambling c_init of codeword q;
     re_idx, an optional (n_re,) RE index tensor, overrides prb_mask's
     table.  With re_idx, sf_idx and rnti may be 0-d integer tensors on the
-    device (a CUDA graph's inputs): nothing reads them on the host."""
+    device (a CUDA graph's inputs): nothing reads them on the host.
+
+    Inside an open stage (utils/trace.py), the DL-SCH encode is its phase
+    `tx.fec`, and the scrambling, modulation and grid assembly with the
+    CRS its phase `tx.map` (`_codeword_syms` begins both)."""
     static_idx = re_idx is None
     if static_idx:
         re_idx = _re_table(cell, sf_idx, prb_mask, tb_bits.device, max_sym)
@@ -129,7 +134,13 @@ def decode(rx_grid: torch.Tensor, cfg: sch.SchConfig, cell: grid_mod.CellConfig,
     LLRs by the equalizer's CSI; re_idx: as in `encode`, and with it
     sf_idx and rnti may be 0-d tensors, as there.
 
-    Returns (payload bits (B, tbs), crc ok (B,), softbuf', ChestResult)."""
+    Returns (payload bits (B, tbs), crc ok (B,), softbuf', ChestResult).
+
+    Inside an open stage (utils/trace.py), the estimate, the RE gathers
+    and the equaliser are its phase `rx.chest`; the soft demodulation, CSI
+    weights, descrambling and `sch.decode_tb`'s soft combining its phase
+    `rx.llr`, and decode_tb begins `rx.turbo` and `rx.tb`."""
+    trace.phase("rx.chest")
     if re_idx is None:
         re_idx = _re_table(cell, sf_idx, prb_mask, rx_grid.device, max_sym)
     else:
@@ -143,6 +154,7 @@ def decode(rx_grid: torch.Tensor, cfg: sch.SchConfig, cell: grid_mod.CellConfig,
         x_eq, csi = chest.equalize_mmse(y, h, ch.noise_est)
     else:
         x_eq, csi = chest.equalize_zf(y, h)
+    trace.phase("rx.llr")
     llr = modem.demod_soft(x_eq, modem.MOD_FROM_QM[cfg.Qm])  # (B, G)
     if use_csi:
         llr = llr * torch.repeat_interleave(csi, cfg.Qm, dim=-1)
@@ -162,7 +174,9 @@ def decode(rx_grid: torch.Tensor, cfg: sch.SchConfig, cell: grid_mod.CellConfig,
 def _codeword_syms(tb: torch.Tensor, cfg: sch.SchConfig, q: int, cell: grid_mod.CellConfig,
                    sf_idx: int, rnti: int) -> torch.Tensor:
     """Codeword q: encode, scramble with c_init(q), modulate -> (B, M_q, 2)."""
+    trace.phase("tx.fec")
     cw = sch.encode_tb(tb, cfg)
+    trace.phase("tx.map")
     scr = scrambling.scramble_bits(cw, scrambling.pdsch_cinit(rnti, q, sf_idx, cell.cell_id))
     return modem.modulate(scr, modem.MOD_FROM_QM[cfg.Qm])
 

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from ..ops.fec import cbsegm, crc, rm_turbo, turbo, turbodecoder
+from ..utils import trace
 
 
 @dataclasses.dataclass(frozen=True)
@@ -129,6 +130,9 @@ def decode_tb(llrs: torch.Tensor, cfg: SchConfig, softbuf=None, max_iter: int = 
     the host only enqueues, and one read at the end makes n_iter an int.
     read=False skips that read (a CUDA graph can capture the whole decode):
     n_iter is then a 0-d int32 tensor on the LLRs' device.
+
+    Inside an open stage (utils/trace.py), the turbo decodes are its phase
+    `rx.turbo` and the code blocks' reassembly and TB CRC its phase `rx.tb`.
     """
     s = cfg.segm
     B = llrs.shape[0]
@@ -160,20 +164,22 @@ def decode_tb(llrs: torch.Tensor, cfg: SchConfig, softbuf=None, max_iter: int = 
         for i, r in enumerate(rs):
             new_soft[r] = wbuf[i * B : (i + 1) * B]
         by_k.setdefault(kr, []).append((rs, d3))
+    trace.phase("rx.turbo")
     for kr, parts in by_k.items():
         rs_all = [r for rs, _ in parts for r in rs]
         l0, l1, l2 = (torch.cat([d3[j] for _, d3 in parts], dim=0)
                       for j in range(3))
         nB = len(rs_all) * B
-        bits, ok, it, rows = turbodecoder.turbo_decode_device(
+        bits, ok, it, counts = turbodecoder.turbo_decode_device(
             l0, l1, l2, torch.ones((nB,), dtype=torch.bool, device=llrs.device),
             kr, max_iter, check, use_kernel=use_kernel, llr_bits=llr_bits)
-        turbodecoder.count_rows(rows)
+        turbodecoder.count_map(counts)
         total_iters = total_iters + it
         for i, r in enumerate(rs_all):
             cb_bits[r] = bits[i * B : (i + 1) * B]
             cb_ok[r] = ok[i * B : (i + 1) * B]
     # reassemble payload: strip fillers + CB CRCs, then strip/verify TB CRC
+    trace.phase("rx.tb")
     if s.C == 1:
         tb_with_crc = cb_bits[0][:, s.F :]
     else:

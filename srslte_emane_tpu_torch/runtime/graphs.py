@@ -31,6 +31,21 @@ device tables in module-level table_caches like every other step's.
 
 `STATS` counts the graphs built (`StepGraph` and `RoundGraph`) and the
 seconds their builds took, warm-up and capture together.
+
+Spans (utils/trace.py): with tracing on, or under an active profiler, a
+replay is a host span `graphs.replay` with the children `graphs.load`
+(the input copies and fills), `graphs.launch` (the graph's replay) and
+`graphs.clone` (the output clones); a `RoundGraph` run has a
+`graphs.launch` per round.  With tracing on, a `StepGraph` also times its
+load and clone on the device, each from an event recorded before the host
+enqueues its copies: where no work is queued ahead of the load (a call's
+first replay), the load's span runs at the host's pace, and its idle part
+lies under the host span `graphs.load` too.  `jit` keeps a graph
+captured with tracing on apart from one captured with it off: only the
+first holds the device stage events of the step (`trace.stage`), and it
+resolves them into spans of its replay before it replays again.  With
+both off, each span, stage and group of a replay tests its flags and
+does nothing.
 """
 
 from __future__ import annotations
@@ -44,14 +59,15 @@ import time
 import numpy as np
 import torch
 
-from ..utils import devices
+from ..utils import devices, trace
 
 # the launch counts kept by the kernels' wrappers: (module, attribute)
 COUNTERS = (("srslte_emane_tpu_torch.ops.fec.turbodecoder_cuda", "launches"),
             ("srslte_emane_tpu_torch.ops.fec.turbodecoder_cuda", "launches_v1"),
             ("srslte_emane_tpu_torch.ops.fec.turbo_iter_cuda", "launches"),
             ("srslte_emane_tpu_torch.ops.fec.turbo_iter_cuda", "arm_launches"),
-            ("srslte_emane_tpu_torch.ops.fec.viterbi_cuda", "launches"))
+            ("srslte_emane_tpu_torch.ops.fec.viterbi_cuda", "launches"),
+            ("srslte_emane_tpu_torch.ops.fec.turbodecoder", "map_slots"))
 
 
 # graphs built and the seconds their builds took (warm-up and capture)
@@ -70,15 +86,17 @@ def _warm_up(fn, dev: torch.device) -> dict:
     for the capture after it."""
     side = torch.cuda.Stream(dev)
     side.wait_stream(torch.cuda.current_stream(dev))
-    with devices.recording() as made, torch.cuda.stream(side):
+    with devices.recording() as made, torch.cuda.stream(side), trace.muted():
         fn()
     torch.cuda.current_stream(dev).wait_stream(side)
     return made
 
 
-def _capture(graph, fn, made, gens=(), pool=None):
+def _capture(graph, fn, made, gens=(), pool=None, stages=None):
     """fn() captured into `graph`, with `gens` registered as its graph-safe
-    generators and `made` the warm-up's record of tables (`_warm_up`).
+    generators and `made` the warm-up's record of tables (`_warm_up`);
+    the device stages of fn go into `stages` (a `trace.Capture`) as event
+    nodes of the graph, or, with None, are left out.
     Returns (fn's result, [(module, attribute, launches the capture
     counted)], the tables it read); each count is put back to its value
     before the capture.  Python's cyclic garbage collector is off
@@ -92,7 +110,8 @@ def _capture(graph, fn, made, gens=(), pool=None):
     collecting = gc.isenabled()
     gc.disable()
     try:
-        with devices.holding(made) as tables, torch.cuda.graph(graph, pool=pool):
+        with devices.holding(made) as tables, torch.cuda.graph(graph, pool=pool), \
+                trace.capturing(stages):
             out = fn()
     finally:
         if collecting:
@@ -146,12 +165,14 @@ class RoundGraph:
         """Reset, then n replays drawing from the states of `gens` (one
         generator per cell, on the card), which are advanced as n eager
         rounds would advance them.  Enqueues only: no host sync."""
-        _copy_states(self.gens, gens)
-        self.reset.replay()
-        for _ in range(n):
-            self.graph.replay()
-        _copy_states(gens, self.gens)
-        _add_counts(self.counted, n)
+        with trace.span("graphs.replay"):
+            _copy_states(self.gens, gens)
+            self.reset.replay()
+            for _ in range(n):
+                with trace.span("graphs.launch"):
+                    self.graph.replay()
+            _copy_states(gens, self.gens)
+            _add_counts(self.counted, n)
 
 
 def _is_number(a) -> bool:
@@ -208,10 +229,12 @@ class StepGraph:
     argument itself for a static one), loaded with `args`; one warm-up of
     fn on them with scratch generators; one graph-safe generator per
     torch.Generator argument, registered with the graph; then fn captured
-    on the static inputs, its results kept as the static outputs."""
+    on the static inputs, its results kept as the static outputs.  With
+    tracing on, the capture keeps the step's device stages (`stages`)."""
 
     def __init__(self, fn, args, dev: torch.device):
         t0 = time.perf_counter()
+        self.dev = dev
         self.inputs = []
         for a in args:
             t = _as_tensor(a)
@@ -229,8 +252,10 @@ class StepGraph:
                            for x in self.inputs]
         made = _warm_up(lambda: fn(*scratch()), dev)
         self.graph = torch.cuda.CUDAGraph()
+        self.stages = trace.Capture() if trace.enabled else None
         self.outputs, self.counted, self.tables = _capture(
-            self.graph, lambda: fn(*self.inputs), made, self.gens)
+            self.graph, lambda: fn(*self.inputs), made, self.gens, stages=self.stages)
+        self.group = None  # the last replay's device spans, until resolved
         _built(t0)
 
     def _load(self, args) -> None:
@@ -247,14 +272,25 @@ class StepGraph:
         """One replay on `args`: the generators' states go in and come back
         advanced as the eager step would advance them; returns new tensors
         (the next replay overwrites the static outputs).  With the tensor
-        arguments on `dev`, enqueues only: no host sync."""
-        self._load(args)
-        gens = [a for a in args if isinstance(a, torch.Generator)]
-        _copy_states(self.gens, gens)
-        self.graph.replay()
-        _copy_states(gens, self.gens)
-        _add_counts(self.counted, 1)
-        return _tree_map(torch.Tensor.clone, self.outputs)
+        arguments on `dev`, enqueues only: no host sync.  With tracing on,
+        the last replay's device spans are resolved first, the load and
+        the clone are timed on the device as well, and the captured stages
+        are handed over as spans of this replay."""
+        with trace.span("graphs.replay"):
+            if self.group is not None:  # the last replay's spans: its events are recorded again
+                self.group.resolve()
+            with trace.group(self.dev) as self.group:
+                with trace.span("graphs.load"), trace.stage("graphs.load", self.dev):
+                    self._load(args)
+                    gens = [a for a in args if isinstance(a, torch.Generator)]
+                    _copy_states(self.gens, gens)
+                with trace.span("graphs.launch") as launch:
+                    self.graph.replay()
+                    trace.replayed(self.stages, launch)
+                _copy_states(gens, self.gens)
+                _add_counts(self.counted, 1)
+                with trace.span("graphs.clone"), trace.stage("graphs.clone", self.dev):
+                    return _tree_map(torch.Tensor.clone, self.outputs)
 
 
 def on_card(dev: torch.device) -> bool:
@@ -274,6 +310,9 @@ def _device_of(args) -> torch.device:
     return torch.device("cpu")
 
 
+TRACED = (("traced",),)
+
+
 def jit(fn, device=None):
     """fn as the reference's `jax.jit(fn)` runs it: on the card (`device`,
     or the device of the first tensor argument), the first call of each
@@ -281,7 +320,8 @@ def jit(fn, device=None):
     new tensors, with no host sync from the replay to the return when the
     tensor arguments lie on the card.  Off the card fn runs eagerly.  The
     outputs equal the eager fn's bit for bit; a capture or replay that
-    fails raises.  The returned step keeps its graphs in `.graphs`."""
+    fails raises.  The returned step keeps its graphs in `.graphs`; one
+    captured with tracing on is keyed apart (`TRACED` ends its key)."""
     graphs = {}
     fixed = None if device is None else torch.device(device)
 
@@ -290,6 +330,8 @@ def jit(fn, device=None):
         if not on_card(dev):
             return fn(*args)
         key = _signature(args)
+        if trace.enabled:
+            key += TRACED
         graph = graphs.get(key)
         if graph is None:
             graph = graphs[key] = StepGraph(fn, args, dev)

@@ -52,14 +52,15 @@ TM3_RNTI = 0x46
 
 def host_loop_decode(*args, **kw):
     """`turbodecoder.turbo_decode_host`, the host-driven loop, with
-    `turbo_decode_device`'s arguments and results (n_iter and the MAP rows
-    as 0-d tensors; the rows are 0, since the host loop adds its own to
-    `turbodecoder.map_rows`): it can stand in for the device loop."""
+    `turbo_decode_device`'s arguments and results (n_iter a 0-d tensor,
+    the MAP passes and rows a (2,) one; they are 0, since the host loop adds
+    its own to `turbodecoder.map_passes` and `map_rows`): it can stand in
+    for the device loop."""
     from ..ops.fec import turbodecoder
 
     bits, ok, n_iter = turbodecoder.turbo_decode_host(*args, **kw)
-    zero = torch.zeros((), dtype=torch.int32, device=bits.device)
-    return bits, ok, zero + n_iter, zero
+    zero = torch.zeros(2, dtype=torch.int32, device=bits.device)
+    return bits, ok, zero[0] + n_iter, zero
 
 
 @contextlib.contextmanager

@@ -1602,6 +1602,79 @@ def _graph_against_eager(dev, graph, eager, inputs, call=_link_call,
     return outs
 
 
+def test_traced_link_graphs_equal_untraced_and_span_each_stage(dev):
+    """The bench cell's encode and decode (batch 16, 20 dB of noise added
+    eagerly) as `graphs.jit` steps: the graphs captured with tracing on
+    replay bit for bit as those captured with it off, and every replay
+    yields its stages on the device's clock: `link.tx_subframe` with
+    tx.fec, tx.map, tx.ofdm and `link.rx_subframe` with rx.ofdm, rx.chest,
+    rx.llr, rx.turbo, rx.tb, once each, in order, under their parent, and
+    the replays' load and clone; the captures' spans are not kept."""
+    from srslte_emane_tpu_torch.models import pdsch_link
+    from srslte_emane_tpu_torch.runtime import graphs
+    from srslte_emane_tpu_torch.utils import trace
+
+    cfg = _link_cfg(20.0)
+    rng = np.random.default_rng(4)
+    payload = torch.from_numpy(rng.integers(0, 2, (16, cfg.tbs), dtype=np.int8)).to(dev)
+    encode = graphs.jit(lambda p: pdsch_link.tx_subframe(p, cfg))
+
+    def rx(samples):
+        out, ok, softbuf, ch = pdsch_link.rx_subframe(samples, cfg)
+        return out, ok, softbuf, ch.ce
+
+    decode = graphs.jit(rx)
+
+    def call():
+        tx = encode(payload)
+        noisy = tx + 0.01 * torch.randn(tx.shape, device=dev, generator=_gens(dev, 5)[0])
+        return [tx, *decode(noisy)]
+
+    off = call()
+    trace.reset()
+    try:
+        trace.enable(True)
+        runs = []
+        for r in range(3):
+            with trace.request(r):
+                runs.append(call())
+                torch.cuda.synchronize()
+        with trace.request(9):  # eagerly: plain events, timed from the stage's own start
+            eager = pdsch_link.tx_subframe(payload, cfg)
+    finally:
+        trace.enable(False)
+    spans = trace.spans()
+    trace.reset()
+    assert torch.equal(eager, off[0])
+    top, *kids = [s for s in spans if s.request == 9]
+    assert (top.name, top.clock, top.start_ns) == ("link.tx_subframe", "device", 0)
+    assert [s.name for s in kids] == ["tx.fec", "tx.map", "tx.ofdm"]
+    assert all(s.parent == top.id and 0 <= s.start_ns <= s.end_ns <= top.end_ns for s in kids)
+    assert len(encode.graphs) == len(decode.graphs) == 2
+    for on in runs:
+        assert all(torch.equal(a, b) for a, b in zip(_flat_tensors(off), _flat_tensors(on)))
+    stages = {"link.tx_subframe": ["tx.fec", "tx.map", "tx.ofdm"],
+              "link.rx_subframe": ["rx.ofdm", "rx.chest", "rx.llr", "rx.turbo", "rx.tb"]}
+    for r in range(3):
+        dev_spans = [s for s in spans if s.request == r and s.clock == "device"]
+        assert [s.name for s in dev_spans if not s.name.startswith("graphs.")] == \
+            [n for parent, kids in stages.items() for n in [parent, *kids]]
+        assert [s.name for s in dev_spans if s.name.startswith("graphs.")] == \
+            ["graphs.load", "graphs.clone"] * 2
+        for parent, kids in stages.items():
+            (top,) = [s for s in dev_spans if s.name == parent]
+            got = [s for s in dev_spans if s.name in kids]
+            assert all(s.parent == top.id and s.end_ns >= s.start_ns >= 0 for s in got)
+            assert all(a.end_ns <= b.start_ns for a, b in zip(got, got[1:]))
+            assert top.start_ns <= got[0].start_ns and got[-1].end_ns <= top.end_ns
+
+
+def _flat_tensors(x):
+    if isinstance(x, torch.Tensor):
+        return [x]
+    return [t for v in x for t in _flat_tensors(v)]
+
+
 @pytest.mark.parametrize("snr_db", [20.0, 8.0], ids=["bench", "low-snr"])
 def test_link_step_graph_equals_the_eager_step(dev, snr_db):
     """make_link_step on the card (a replayed graph) against link_step at

@@ -297,10 +297,11 @@ def _reads_raise_while_capturing(mp):
 
 def _device_decode(d0, d1, d2, valid, k, max_iter=8, crc=None, use_kernel=None, llr_bits=32):
     """A stand-in for turbo_decode_device that reads nothing on the host
-    (as the card's loop): hard decisions, the flags, n_iter and the rows."""
+    (as the card's loop): hard decisions, the flags, n_iter and the passes
+    and rows."""
     return ((d0[:, :k] < 0).to(torch.int8), valid.clone(),
-            torch.full((), max_iter, dtype=torch.int32), torch.full((), 2 * max_iter * d0.shape[0],
-                                                                    dtype=torch.int32))
+            torch.full((), max_iter, dtype=torch.int32),
+            torch.tensor([2 * max_iter, 2 * max_iter * d0.shape[0]], dtype=torch.int32))
 
 
 @pytest.mark.parametrize("read", [True, False], ids=["read", "read_free"])

@@ -12,8 +12,9 @@ tolerance (rtol 2e-3, atol 1e-2), with no wall-clock assert.
 `utils/wire.py` differs from its twin on its module check alone: it admits
 the port's classes and refuses the JAX package's.  `utils/radio.py` runs
 its CFO shift, AGC and resampling on tensors (here on the CPU) and is held
-to the JAX Radio within atol 1e-5; `utils/trace.py` keeps the ring buffer
-and times with CUDA events or the host clock.
+to the JAX Radio within atol 1e-5; `utils/trace.py` keeps its span records
+in a ring buffer with a binary dump (tests/test_torch_trace_spans.py holds
+the rest of the tracing).
 """
 
 import pickle
@@ -367,30 +368,18 @@ def test_radio_needs_a_card_by_default():
 # ---------------- trace and crash handler: tests/test_misc_aux.py ----------------
 
 def test_trace_ring_buffer(tmp_path):
+    """The span store keeps its newest `capacity` records after it wraps,
+    and its dump reads back record for record."""
     tr = p_trace.Trace(capacity=8)
     for tti in range(12):  # wraps
-        tr.push_cur_time_us(tti)
+        rid = tr.open(f"tti.{tti % 3}", parent=tti - 1, request=tti, start_ns=10 * tti)
+        tr.close(rid, 10 * tti + 5)
     p = tmp_path / "trace.bin"
     tr.dump(str(p))
     recs = p_trace.Trace.load(str(p))
-    assert len(recs) == 8
-    assert 11 in [r[0] for r in recs]  # newest retained after wrap
-
-
-def test_device_timer_and_profile_on_the_cpu(tmp_path):
-    x = torch.ones(64, 64)
-    calls = []
-
-    def fn(a):
-        calls.append(1)
-        return {"y": a @ a, "n": 1}
-
-    s = p_trace.device_timer(fn, x, iters=3)
-    assert s > 0 and len(calls) == 4  # a warm-up call, then the timed ones
-    with p_trace.torch_profile(str(tmp_path / "prof")) as prof:
-        fn(x)
-    assert (tmp_path / "prof" / "trace.json").stat().st_size > 0
-    assert any("mm" in e.key for e in prof.key_averages())
+    assert recs == tr.records() and len(recs) == 8
+    assert [r.id for r in recs] == list(range(4, 12))  # newest retained after wrap
+    assert recs[-1] == p_trace.Span(11, "tti.2", 10, 11, "host", 110, 115)
 
 
 def test_crash_handler_writes_backtrace(tmp_path):

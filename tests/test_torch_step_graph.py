@@ -247,16 +247,20 @@ def test_read_free_call_sites_equal_and_count_rows(site, monkeypatch):
 
 
 def test_map_rows_counts_fold_and_reset():
-    """count_rows adds on the rows' device; read_map_rows folds the counts
-    into map_rows once and zeroes them; reset_map_rows zeroes both."""
+    """count_map adds passes and rows on their device; read_map_rows folds
+    the counts into map_passes and map_rows once and zeroes them;
+    reset_map_rows zeroes them all and map_slots."""
     turbodecoder.reset_map_rows()
     turbodecoder.map_rows = 5
-    turbodecoder.count_rows(torch.tensor(7, dtype=torch.int32))
-    turbodecoder.count_rows(torch.tensor(3, dtype=torch.int32))
+    turbodecoder.map_slots = 32
+    turbodecoder.count_map(torch.tensor([2, 7], dtype=torch.int32))
+    turbodecoder.count_map(torch.tensor([1, 3], dtype=torch.int32))
     assert turbodecoder.read_map_rows() == 15 and turbodecoder.read_map_rows() == 15
-    turbodecoder.count_rows(torch.tensor(2, dtype=torch.int32))
+    assert turbodecoder.read_map_passes() == 3 and turbodecoder.read_map_slots() == 32
+    turbodecoder.count_map(torch.tensor([1, 2], dtype=torch.int32))
     turbodecoder.reset_map_rows()
     assert turbodecoder.read_map_rows() == 0
+    assert turbodecoder.read_map_passes() == turbodecoder.read_map_slots() == 0
 
 
 # ---------------- StepGraph's bookkeeping, torch.cuda stood in for ----------------

@@ -252,10 +252,12 @@ def test_device_loop_equals_jax(stragglers, monkeypatch, cascade):
         entered.setdefault(int(ctl[ti.STAGE]), int(ctl[ti.H]))
 
     monkeypatch.setattr(ti, "_advance_ref", logged)
-    bits, ok, n_iter, rows = p_td.turbo_decode_device(*(torch.from_numpy(a) for a in inputs),
-                                                      k, 8, p_crc.LTE_CRC24B,
-                                                      use_kernel=False)
-    assert n_iter.dim() == rows.dim() == 0
+    bits, ok, n_iter, counts = p_td.turbo_decode_device(*(torch.from_numpy(a) for a in inputs),
+                                                        k, 8, p_crc.LTE_CRC24B,
+                                                        use_kernel=False)
+    assert n_iter.dim() == 0 and counts.shape == (2,)
+    passes, rows = counts
+    assert int(passes) == 16  # every slot ran: 8 iterations
     np.testing.assert_array_equal(bits.numpy(), j_bits)
     np.testing.assert_array_equal(ok.numpy(), j_ok)
     assert int(n_iter) == int(j_it) == 8
@@ -291,7 +293,8 @@ def test_no_crc_runs_every_pass():
     rng = np.random.default_rng(1)
     d = [torch.from_numpy(rng.normal(0, 1, (B, k + 4)).astype(np.float32)) for _ in range(3)]
     valid = torch.ones(B, dtype=torch.bool)
-    bits, ok, n_iter, rows = p_td.turbo_decode_device(*d, valid, k, 3, None, use_kernel=False)
-    assert int(n_iter) == 3 and int(rows) == 6 * B and not ok.any()
+    bits, ok, n_iter, (passes, rows) = p_td.turbo_decode_device(*d, valid, k, 3, None,
+                                                                use_kernel=False)
+    assert int(n_iter) == 3 and int(passes) == 6 and int(rows) == 6 * B and not ok.any()
     old = p_td.turbo_decode_host(*d, valid, k, 3, None, use_kernel=False)
     assert torch.equal(bits, old[0]) and old[2] == 3
