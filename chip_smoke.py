@@ -6,9 +6,10 @@ Run from the repository root:  python3 chip_smoke.py
 Phases (any failure raises; the exit code is then non-zero):
   1. device: needs torch.cuda; prints the card's name and power limit;
   2. build: compiles both MAP kernels (srslte_emane_tpu_torch/csrc/
-     turbo_map.cu and turbo_map_v1.cu), the Viterbi (csrc/viterbi.cu) and
-     the turbo decoder's epilogue (csrc/turbo_iter.cu), one nvcc each,
-     started together, into build/ unless these sources were built before;
+     turbo_map.cu and turbo_map_v1.cu), the Viterbi (csrc/viterbi.cu), the
+     turbo decoder's epilogue (csrc/turbo_iter.cu) and the DL-SCH encode
+     (csrc/sch_encode.cu), one nvcc each, started together, into build/
+     unless these sources were built before;
   3. kernel vs plain: the CUDA MAP kernel against map_decode_ref on the card,
      bit for bit, at the downlink cell's shapes (768 x K=5504, 384 x
      K=5568), f32 and bf16-storage modes, and the uplink cell's (128 x
@@ -305,7 +306,18 @@ Phases (any failure raises; the exit code is then non-zero):
      the graph), busy share and device ms from a profile, in which each of
      turbo_map, turbo_iter, its arm and the Viterbi ran on the card as many
      times as its launch count says (replays included), peak memory; and
-     the other two blocks' cell-TTIs/s both ways.
+     the other two blocks' cell-TTIs/s both ways;
+ 20. the DL-SCH encode kernel (csrc/sch_encode.cu, every sch.encode_tb on
+     the card since phase 4): against sch.encode_tb_ref on the card, bit for
+     bit, at the benchmark cell's 128 x TBS 51,024 (1,152 code blocks of
+     K=5,696, two launches), phase 4's TBS 49,472 (16 fillers), 8 rows at
+     each redundancy version with a soft-buffer limit, per-row rv_b, and one
+     row of phase 8's TBS 4,416 (one K=4,480 block, 40 fillers: one
+     launch); at the cell's shape and the one row the kernel's time warm and
+     L2-flushed, its bound (payload and codeword bytes) and share, the
+     plain version's time; then the benchmark cell's graphed
+     encode step (code rate 0.56724): 1,152 code blocks encoded a call by
+     the card's count (sch.read_encode_blocks), replays included.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -4928,12 +4940,13 @@ GRAPH_HARQ_SNR_DB = (30.0,) * 7 + (-6.0,)
 
 def kernel_counts():
     """The kernels' launch counts (the wrappers', replays included):
-    turbo_map, turbo_iter's epilogue, its arm, the Viterbi."""
-    from srslte_emane_tpu_torch.ops.fec import turbo_iter_cuda as ti, turbodecoder_cuda as tdc
-    from srslte_emane_tpu_torch.ops.fec import viterbi_cuda
+    turbo_map, turbo_iter's epilogue, its arm, the Viterbi, the DL-SCH
+    encode's two kernels."""
+    from srslte_emane_tpu_torch.ops.fec import sch_encode_cuda, turbo_iter_cuda as ti
+    from srslte_emane_tpu_torch.ops.fec import turbodecoder_cuda as tdc, viterbi_cuda
 
     return dict(turbo_map=tdc.launches, turbo_iter=ti.launches, arm=ti.arm_launches,
-                viterbi=viterbi_cuda.launches)
+                viterbi=viterbi_cuda.launches, sch_encode=sch_encode_cuda.launches)
 
 
 def profile_counted(fn, label, control=True):
@@ -4942,12 +4955,23 @@ def profile_counted(fn, label, control=True):
     times the replays) held equal to the runs of each kernel that the
     profiler recorded on the card.  The profiler has dropped a few events
     in a long process (PERF.md section 7), so a call whose counts differ is
-    profiled once more; a second difference fails."""
+    profiled once more; a second difference fails.  The DL-SCH encode's
+    kernels are held to the card's own count instead: the code blocks that
+    the card counted over the call equal those that the wrapper launched
+    (late in this process the profiler loses every run of them in phase
+    14a, and of sch_tb_crc_kernel in 14c)."""
+    from srslte_emane_tpu_torch.ops.fec import sch_encode_cuda as sec
+
     for attempt in range(2):
         before = kernel_counts()
+        blocks = sec.launched_blocks, sec.read_encode_blocks()
         prof = profile_block(fn, control=control)
         counted = {k: v - before[k] for k, v in kernel_counts().items()}
-        if counted == prof["port_kernels"]:
+        launched, ran = sec.launched_blocks - blocks[0], sec.read_encode_blocks() - blocks[1]
+        assert ran == launched and (launched > 0) == (counted["sch_encode"] > 0), \
+            f"{label}: {counted['sch_encode']} encode launches of {launched} code blocks, " \
+            f"{ran} run on the card"
+        if dict(counted, sch_encode=None) == dict(prof["port_kernels"], sch_encode=None):
             return prof
         log(f"{label}: launch counts {counted}, runs on the card {prof['port_kernels']}"
             f"{'; once more' if attempt == 0 else ''}")
@@ -5135,6 +5159,94 @@ def phase_graph(dev, card):
     return dict(launches)
 
 
+SCH_CELL = dict(tbs=51024, G=90000, Qm=6, Nl=1)  # the benchmark cell: 9 x K=5,696
+SCH_CASES = (  # (name, SchConfig arguments, rows, timed)
+    ("cell", SCH_CELL, BATCH, True),
+    ("phase 4", dict(tbs=49472, G=90000, Qm=6, Nl=1), BATCH, False),  # 16 fillers
+    ("one row", dict(tbs=4416, G=11520, Qm=4, Nl=1), 1, True),  # 1 x K=4,480, 40 fillers
+) + tuple((f"rv {rv}, ncb 3000", dict(tbs=6968, G=15000, Qm=6, Nl=1, rv=rv, ncb=3000), 8,
+           False) for rv in range(4))
+
+
+def sch_case(name, kw, rows, timed, dev, flush, rv_b=None):
+    """The encode kernel (through sch.encode_tb) against sch.encode_tb_ref
+    on the card, bit for bit, with its launches and the code blocks the card
+    counted; if timed, the kernel's time (sch_encode_cuda.launch) warm and
+    L2-flushed, the plain version's, the bound (the payload read and the
+    codeword written, one byte a bit) and the share."""
+    import torch
+
+    from srslte_emane_tpu_torch.ops.fec import sch_encode_cuda as sec
+    from srslte_emane_tpu_torch.phch import sch
+
+    cfg = sch.SchConfig(**kw)
+    C = cfg.segm.C
+    bits = torch.from_numpy(np.random.default_rng(rows + cfg.tbs).integers(
+        0, 2, (rows, cfg.tbs), dtype=np.int8)).to(dev)
+    sch.read_encode_blocks()
+    sch.reset_encode_blocks()
+    n0 = sec.launches
+    got = sch.encode_tb(bits, cfg, rv_b=rv_b)
+    ref = sch.encode_tb_ref(bits, cfg, rv_b=rv_b)
+    launches = sec.launches - n0
+    assert launches == (2 if C > 1 else 1), f"sch_encode {name}: {launches} launches"
+    assert sch.read_encode_blocks() == rows * C, f"sch_encode {name}: code blocks miscounted"
+    bad = int((got != ref).sum())
+    assert bad == 0, f"sch_encode {name}: {bad} bits differ from the plain version"
+    out = dict(case=name, rows=rows, tbs=cfg.tbs, G=cfg.G, code_blocks=rows * C,
+               K=sorted(set(cfg.segm.cb_sizes)), F=cfg.segm.F, launches=launches,
+               mismatched_bits=bad, max_abs_err=0.0 if bad == 0 else 1.0)
+    if timed:
+        e = tuple(cfg.e_sizes)
+        kernel = lambda: sec.launch(bits, e, cfg.rv, cfg.ncb)
+        bound_ms, bound_by = bound(rows * (cfg.tbs + cfg.G), 0)
+        ms = cuda_ms(kernel, 50)
+        out.update(ms=ms, flushed_ms=cuda_ms(kernel, 50, flush),
+                   plain_ms=cuda_ms(lambda: sch.encode_tb_ref(bits, cfg), 5),
+                   bound_ms=bound_ms, bound_by=bound_by, share=bound_ms / ms)
+    return out
+
+
+def phase_sch_encode(dev, card):
+    """Phase 20.  Returns the encode kernel's cases, the benchmark cell's
+    first."""
+    import torch
+
+    from srslte_emane_tpu_torch.models import pdsch_link
+    from srslte_emane_tpu_torch.phch import grid, sch
+    from srslte_emane_tpu_torch.runtime import graphs
+
+    t_phase = time.perf_counter()
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
+    cases = [sch_case(*c, dev, flush) for c in SCH_CASES]
+    rv_b = torch.tensor([0, 1, 2, 3, 3, 2, 1, 0], device=dev)
+    cases.append(sch_case("per-row rv_b", dict(tbs=6968, G=15000, Qm=6, Nl=1, ncb=3000), 8,
+                          False, dev, flush, rv_b))
+    for c in cases:
+        log(f"sch_encode vs plain {json.dumps(c)}")
+
+    # the benchmark cell's encode step, graphed: the card counts every code block
+    cfg = pdsch_link.LinkConfig(cell=grid.CellConfig(n_prb=100, cell_id=1, cfi=1), sf_idx=1,
+                                rnti=0x46, qm=6, code_rate=0.56724, llr_bits=16)
+    assert (cfg.tbs, cfg.sch_cfg.segm.C) == (51024, 9), (cfg.tbs, cfg.sch_cfg.segm)
+    step = graphs.jit(lambda p: pdsch_link.tx_subframe(p, cfg))
+    payload = torch.from_numpy(np.random.default_rng(20).integers(
+        0, 2, (BATCH, cfg.tbs), dtype=np.int8)).to(dev)
+    step(payload)  # warm-up, capture, one replay
+    torch.cuda.synchronize()
+    sch.read_encode_blocks()
+    sch.reset_encode_blocks()
+    for _ in range(3):
+        step(payload)
+    torch.cuda.synchronize()
+    per_call = sch.read_encode_blocks() / 3
+    assert per_call == BATCH * 9, f"the cell's encode step encoded {per_call} code blocks a call"
+    log(f"sch_encode: the cell's graphed encode step encodes {per_call:.0f} code blocks a call "
+        f"({card})")
+    log(f"phase 20: {time.perf_counter() - t_phase:.1f} s")
+    return cases
+
+
 def main():
     import torch
 
@@ -5149,15 +5261,15 @@ def main():
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
 
-    from srslte_emane_tpu_torch.ops.fec import (turbo_iter_cuda as ti, turbodecoder_cuda as tdc,
-                                                viterbi_cuda)
+    from srslte_emane_tpu_torch.ops.fec import (sch_encode_cuda as sec, turbo_iter_cuda as ti,
+                                                turbodecoder_cuda as tdc, viterbi_cuda)
 
     count_replays_in_logs()
     t0 = time.perf_counter()
-    sources = (tdc.SOURCE, tdc.SOURCE_V1, viterbi_cuda.SOURCE, ti.SOURCE)
+    sources = (tdc.SOURCE, tdc.SOURCE_V1, viterbi_cuda.SOURCE, ti.SOURCE, sec.SOURCE)
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source
         builds = list(pool.map(tdc.build, sources))
-    log(f"build: {time.perf_counter() - t0:.1f} s wall for all four")
+    log(f"build: {time.perf_counter() - t0:.1f} s wall for all five")
     for b in builds:
         log(f"build: {b.seconds:.1f} s -> {b.path}")
         for line in b.log.splitlines():
@@ -5169,7 +5281,8 @@ def main():
     # the main paths, every call of the Viterbi counted and its shape kept,
     # every launch of the decoder's epilogue counted, the first turbo_decode
     # call of each shape on phases 4, 8, 9, 12 and 13 kept for phase 18
-    viterbi_cuda.launches = ti.launches = ti.arm_launches = 0
+    viterbi_cuda.launches = ti.launches = ti.arm_launches = sec.launches = 0
+    sec.reset_encode_blocks()
     decodes = {}
     with ViterbiLog(dev) as vlog:
         vlog.phase = 4
@@ -5225,6 +5338,8 @@ def main():
     vit_cases = phase_viterbi(dev, card, vlog)
     iter_cases = phase_device_loop(dev, card, decodes)
     graph_launches = phase_graph(dev, card)
+    sch_launches = sec.launches  # every encode of phases 4-19 in this process, replays included
+    sch_cases = phase_sch_encode(dev, card)
     sf_vit = max((c for c in vit_cases if 8 in c.get("calls_by_phase", {})),
                  key=lambda c: c["rows"])  # phase 8's blind search
     log(f"chip_smoke: {time.perf_counter() - t_run:.1f} s after the build")
@@ -5306,6 +5421,23 @@ def main():
         "rows": bench_iter["B"],
         "K": bench_iter["K"],
         "library_ms": None,  # no single PyTorch call computes this epilogue
+    }, {
+        "name": "sch_encode",
+        "route": "cuda",
+        "source": "srslte_emane_tpu_torch/csrc/sch_encode.cu",
+        "replaces": None,  # the JAX package leaves this encode to XLA (phch/sch.py encode_tb)
+        "launches": sch_launches,  # phases 4-19, this process, replays included
+        "max_abs_err": max(c["max_abs_err"] for c in sch_cases),  # bits: 0 is bit for bit
+        "mismatched_bits": sum(c["mismatched_bits"] for c in sch_cases),
+        "ms": sch_cases[0]["ms"],
+        "flushed_ms": sch_cases[0]["flushed_ms"],
+        "plain_ms": sch_cases[0]["plain_ms"],
+        "bound_ms": sch_cases[0]["bound_ms"],
+        "bound_by": sch_cases[0]["bound_by"],
+        "share": sch_cases[0]["share"],
+        "rows": sch_cases[0]["rows"],
+        "code_blocks": sch_cases[0]["code_blocks"],
+        "library_ms": None,  # no PyTorch call computes a DL-SCH encode
     }]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -88,6 +88,11 @@ _ENTRY_POINTS = {
                               + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4
                               + [ctypes.c_void_p]),
     },
+    "sch_encode": {  # ops/fec/sch_encode_cuda.py's kernels
+        "sch_encode_launch": ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 4
+                              + [ctypes.c_int, ctypes.c_void_p, ctypes.c_int]
+                              + [ctypes.c_void_p] * 2),
+    },
 }
 
 

@@ -18,7 +18,8 @@ import functools
 import numpy as np
 import torch
 
-from ..ops.fec import cbsegm, crc, rm_turbo, turbo, turbodecoder
+from ..ops.fec import cbsegm, crc, rm_turbo, sch_encode_cuda, turbo, turbodecoder
+from ..ops.fec.sch_encode_cuda import read_encode_blocks, reset_encode_blocks  # noqa: F401
 from ..utils import trace
 
 
@@ -91,7 +92,25 @@ def encode_tb(tb_bits: torch.Tensor, cfg: SchConfig, rv_b=None) -> torch.Tensor:
     """(B, tbs) payload bits -> (B, G) rate-matched codeword bits (int8).
 
     rv_b: optional (B,) int tensor, one redundancy version per row in place
-    of cfg.rv (the in-block HARQ retransmission path)."""
+    of cfg.rv (the in-block HARQ retransmission path).
+
+    On a CUDA tensor the whole encode is one hand-written pass
+    (`sch_encode_cuda.launch`, csrc/sch_encode.cu: one launch, two
+    for more than one code block), which counts the code blocks it encodes
+    on the card (`read_encode_blocks`, `reset_encode_blocks`); on the CPU
+    it is `encode_tb_ref`, its plain version."""
+    if tb_bits.device.type == "cuda":
+        if rv_b is not None:  # the plain version reads rv_b.long(); the kernel int32 or int64
+            rv_b = (rv_b if rv_b.dtype == torch.int32 else rv_b.long()).contiguous()
+        return sch_encode_cuda.launch(tb_bits.to(torch.int8).contiguous(), tuple(cfg.e_sizes),
+                                      cfg.rv, cfg.ncb, rv_b)
+    return encode_tb_ref(tb_bits, cfg, rv_b)
+
+
+def encode_tb_ref(tb_bits: torch.Tensor, cfg: SchConfig, rv_b=None) -> torch.Tensor:
+    """The plain PyTorch version of `encode_tb`, on any device: TB CRC,
+    segmentation, CB CRCs, turbo encode and rate matching as batched GF(2)
+    products, gathers and cats."""
     cbs = _segment_bits(tb_bits, cfg)
     B = cbs[0].shape[0]
     pieces = [None] * cfg.segm.C

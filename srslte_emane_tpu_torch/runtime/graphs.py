@@ -67,6 +67,8 @@ COUNTERS = (("srslte_emane_tpu_torch.ops.fec.turbodecoder_cuda", "launches"),
             ("srslte_emane_tpu_torch.ops.fec.turbo_iter_cuda", "launches"),
             ("srslte_emane_tpu_torch.ops.fec.turbo_iter_cuda", "arm_launches"),
             ("srslte_emane_tpu_torch.ops.fec.viterbi_cuda", "launches"),
+            ("srslte_emane_tpu_torch.ops.fec.sch_encode_cuda", "launches"),
+            ("srslte_emane_tpu_torch.ops.fec.sch_encode_cuda", "launched_blocks"),
             ("srslte_emane_tpu_torch.ops.fec.turbodecoder", "map_slots"))
 
 
